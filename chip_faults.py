@@ -1,0 +1,100 @@
+#!/usr/bin/env python3
+"""Check that chip_smoke.py's comparisons of kernel against plain version
+catch a wrong kernel.
+
+    python3 chip_faults.py
+
+For each kernel, a copy of chip_smoke.py and src/repro_torch/ under
+build/planted_faults/<kernel>/ (git-ignored) gets one planted fault in the
+kernel's CUDA source: the attention kernels skip their last 64-key tile,
+the bf16 GEMM its last 32-wide K chunk.  chip_smoke's bf16 check of that
+kernel then runs on the copy, in a subprocess, once at the kernel test
+cases and once at the main path's shapes.  Each run must fail with that
+kernel's comparison message; the script exits non-zero if a planted fault
+goes unnoticed.  Needs one CUDA card.
+"""
+from __future__ import annotations
+
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+WORK = ROOT / "build" / "planted_faults"
+SKIP_LAST_KV_TILE = ("for (int j = 0; j < nkb; ++j)",
+                     "for (int j = 0; j < nkb - 1; ++j)")
+# kernel: (CUDA source, (text, planted replacement),
+#          chip_smoke's (test cases, main-path shapes, check function))
+FAULTS = {
+    "flash_attention": ("flash_attention.cu", SKIP_LAST_KV_TILE,
+                        ("FLASH_CASES", "MAIN_FLASH", "check_flash")),
+    "stream_attention": ("stream_attention.cu", SKIP_LAST_KV_TILE,
+                         ("STREAM_CASES", "MAIN_STREAM", "check_stream")),
+    "tile_gemm": ("tile_gemm.cu",
+                  ("for (int k0 = 0; k0 < K; k0 += TBK)",
+                   "for (int k0 = 0; k0 < K - TBK; k0 += TBK)"),
+                  ("GEMM_CASES", "MAIN_GEMM", "check_gemm")),
+}
+# Run inside the faulty copy: chip_smoke's bf16 check of one kernel, at
+# its test cases only ("cases") or at the main path's shapes only ("main").
+CHECK = """
+import torch
+import chip_smoke as c
+cases, main, check = {names!r}
+c.DTYPES = (torch.bfloat16,)
+if {part!r} == "cases":
+    setattr(c, main, {{}})
+else:
+    setattr(c, cases, [])
+c._build.build_all([{kernel!r}])
+getattr(c, check)(torch.Generator(device="cuda").manual_seed(0), {{}})
+"""
+
+
+def plant(kernel: str, source: str, text: str, fault: str) -> Path:
+    copy = WORK / kernel
+    shutil.rmtree(copy, ignore_errors=True)
+    shutil.copytree(ROOT / "src" / "repro_torch", copy / "src" / "repro_torch",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    shutil.copy2(ROOT / "chip_smoke.py", copy)
+    path = copy / "src" / "repro_torch" / "csrc" / source
+    code = path.read_text()
+    if code.count(text) != 1:
+        sys.exit(f"FAIL: {source}: the fault's site {text!r} is not unique")
+    path.write_text(code.replace(text, fault))
+    return copy
+
+
+def main() -> None:
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("FAIL: no CUDA device: this check needs one NVIDIA card")
+    missed = []
+    try:
+        for kernel, (source, (text, fault), names) in FAULTS.items():
+            copy = plant(kernel, source, text, fault)
+            for part in ("cases", "main"):
+                run = subprocess.run(
+                    [sys.executable, "-c",
+                     CHECK.format(names=names, part=part, kernel=kernel)],
+                    cwd=copy, capture_output=True, text=True, timeout=600)
+                lines = run.stderr.strip().splitlines()
+                caught = (run.returncode != 0
+                          and any(ln.startswith(f"FAIL: {kernel}")
+                                  for ln in lines))
+                print(f"{kernel}, {part}, {fault!r}: "
+                      f"{'caught' if caught else 'MISSED'}: "
+                      f"{lines[-1] if lines else '(no message)'}",
+                      flush=True)
+                if not caught:
+                    missed.append(f"{kernel} {part}")
+    finally:
+        shutil.rmtree(WORK, ignore_errors=True)
+    if missed:
+        sys.exit(f"FAIL: planted faults not caught: {missed}")
+    print("every planted fault was caught")
+
+
+if __name__ == "__main__":
+    main()

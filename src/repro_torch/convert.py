@@ -1,0 +1,64 @@
+"""Parameter conversion from the JAX package's trees (as numpy arrays).
+
+The port's modules name their parameters after the JAX tree's keys, so a
+tree flattens to the module's ``state_dict`` names.  The layer stacks that
+the JAX init builds with ``vmap`` (a leading layer axis) become
+``ModuleList`` entries.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Union
+
+import numpy as np
+import torch
+
+from repro_torch.core.types import ModelConfig
+from repro_torch.models.vilbert import ViLBERT
+
+_STACKED = ("text_pre", "co_x", "co_y")
+_DROPPED = ("text_embed.unembed",)   # the encoder never unembeds
+
+
+def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
+    flat = {}
+    for key, val in tree.items():
+        name = f"{prefix}{key}"
+        if isinstance(val, dict):
+            flat.update(_flatten(val, name + "."))
+        else:
+            flat[name] = np.asarray(val)
+    return flat
+
+
+def vilbert_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> ViLBERT:
+    """A ``ViLBERT`` holding the weights of a ``repro.models.vilbert.init``
+    tree whose leaves were turned into numpy arrays."""
+    model = ViLBERT(cfg, device=device)
+    state = {}
+    for name, arr in _flatten(params_np).items():
+        if name in _DROPPED:
+            continue
+        top, _, rest = name.partition(".")
+        if top in _STACKED:
+            n_layers = len(getattr(model, top))
+            for i in range(n_layers):   # an unused extra layer is dropped
+                state[f"{top}.{i}.{rest}"] = arr[i]
+        else:
+            state[name] = arr
+    own = model.state_dict()
+    missing = sorted(set(own) - set(state))
+    extra = sorted(set(state) - set(own))
+    if missing or extra:
+        raise KeyError(f"parameter trees differ: missing {missing}, "
+                       f"unexpected {extra}")
+    with torch.no_grad():
+        for name, arr in state.items():
+            dst = own[name]
+            src = torch.from_numpy(np.array(arr, dtype=np.float32))
+            if tuple(src.shape) != tuple(dst.shape):
+                raise ValueError(f"{name}: shape {tuple(src.shape)} != "
+                                 f"{tuple(dst.shape)}")
+            dst.copy_(src.to(dst.dtype))
+    return model

@@ -1,0 +1,104 @@
+"""Configuration types (counterpart of ``repro/core/types.py``).
+
+Only what the ported slice reads is copied: the enums, ``PruningConfig`` and
+the fields of ``ModelConfig`` that the dense/crossmodal paths use.  Values
+and defaults are the JAX package's.
+"""
+from __future__ import annotations
+
+import dataclasses
+import enum
+import math
+from typing import Tuple
+
+
+class Family(str, enum.Enum):
+    DENSE = "dense"
+    MOE = "moe"
+    SSM = "ssm"
+    HYBRID = "hybrid"
+    ENCDEC = "encdec"
+    VLM = "vlm"
+    CROSSMODAL = "crossmodal"  # two-stream co-attention (ViLBERT)
+
+
+class AttnKind(str, enum.Enum):
+    FULL = "full"
+    SLIDING = "sliding"
+    MLA = "mla"
+    NONE = "none"
+
+
+class ExecutionMode(str, enum.Enum):
+    """The paper's three comparison systems."""
+
+    NON_STREAM = "non_stream"      # unfused; every intermediate materialized
+    LAYER_STREAM = "layer_stream"  # K/V materialized, then flash attention
+    TILE_STREAM = "tile_stream"    # fused K/V generation + attention
+
+
+@dataclasses.dataclass(frozen=True)
+class PruningConfig:
+    """DTPU dynamic token pruning: static kept counts, dynamic token choice."""
+
+    enabled: bool = False
+    # (layer_fraction_threshold, keep_ratio), Evo-ViT-style progressive.
+    keep_schedule: Tuple[Tuple[float, float], ...] = (
+        (0.25, 1.0), (0.5, 0.7), (0.75, 0.5), (1.01, 0.35),
+    )
+    min_tokens: int = 16
+
+    def keep_ratio(self, layer_idx: int, num_layers: int) -> float:
+        frac = (layer_idx + 1) / max(num_layers, 1)
+        for threshold, ratio in self.keep_schedule:
+            if frac <= threshold:
+                return ratio
+        return self.keep_schedule[-1][1]
+
+    def kept_tokens(self, layer_idx: int, num_layers: int, seq_len: int) -> int:
+        n = int(seq_len * self.keep_ratio(layer_idx, num_layers))
+        # Multiple of 128 once at least 128, floor at min_tokens.
+        n = max(self.min_tokens, (n // 128) * 128 if n >= 128 else n)
+        return min(n, seq_len)
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: Family
+    num_layers: int
+    d_model: int
+    num_heads: int            # query heads
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0         # 0 -> d_model // num_heads
+    attn_kind: AttnKind = AttnKind.FULL
+    sliding_window: int = 4096
+    use_qk_norm: bool = False
+    rope_theta: float = 10_000.0
+    tie_embeddings: bool = False
+    # --- crossmodal (vilbert) ---
+    num_coattn_layers: int = 0
+    d_model_y: int = 0        # second-stream width (text stream)
+    num_heads_y: int = 0
+    d_ff_y: int = 0
+    seq_y: int = 0
+    # --- norm/act ---
+    norm_eps: float = 1e-6
+    act: str = "silu"         # silu | gelu
+    # --- paper technique knobs ---
+    execution_mode: ExecutionMode = ExecutionMode.TILE_STREAM
+    pruning: PruningConfig = dataclasses.field(default_factory=PruningConfig)
+    fuse_kv_generation: bool = True
+    # --- numerics ---
+    dtype: str = "bfloat16"
+    param_dtype: str = "bfloat16"
+
+    def __post_init__(self):
+        if self.head_dim == 0 and self.num_heads > 0:
+            object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+
+def pad_to(x: int, multiple: int) -> int:
+    return int(math.ceil(x / multiple) * multiple)

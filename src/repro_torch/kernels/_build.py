@@ -1,0 +1,134 @@
+"""Build and load the CUDA kernels in ``csrc/``.
+
+Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
+``nvcc`` for ``sm_90a`` into a shared library under the checkout's ``build/``
+directory (git-ignored) and loaded with ``ctypes``.  The library's file name
+carries a hash of its sources, so an edited source is rebuilt and a stale
+library is never loaded.  Nothing is built when this module is imported:
+the first launch of a kernel builds it, or ``build_all`` builds them all at
+once, one ``nvcc`` per source, in parallel.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable
+
+import torch
+
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("tile_gemm", "flash_attention", "stream_attention")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_LIBS: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
+    return str(path)
+
+
+def _lib_path(name: str) -> Path:
+    h = hashlib.sha1()
+    for src in sorted(CSRC.glob("*.cu*")):     # .cu and shared .cuh headers
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def _start(name: str):
+    """Start nvcc for one source unless its library exists; returns
+    (process, temporary output, library, log file) or None."""
+    lib = _lib_path(name)
+    if lib.exists():
+        return None
+    cmd = [_nvcc(), *NVCC_FLAGS]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    log = open(lib.with_suffix(".log"), "w")
+    proc = subprocess.Popen(cmd + ["-o", str(tmp), str(CSRC / f"{name}.cu")],
+                            stdout=log, stderr=subprocess.STDOUT)
+    return proc, tmp, lib, log
+
+
+def build_all(names: Iterable[str] = SOURCES) -> float:
+    """Build every named kernel, all compilers running at once; returns the
+    wall seconds taken."""
+    t0 = time.perf_counter()
+    jobs = [j for j in (_start(n) for n in names) if j is not None]
+    try:
+        for proc, tmp, lib, log in jobs:
+            rc = proc.wait()
+            log.close()
+            if rc != 0:
+                raise RuntimeError(f"nvcc failed for {lib.name} (rc {rc}):\n"
+                                   + lib.with_suffix(".log").read_text())
+            os.replace(tmp, lib)   # atomic: a concurrent builder sees all or none
+    finally:
+        for proc, _, _, log in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    return time.perf_counter() - t0
+
+
+def build_log(name: str) -> str:
+    """The compiler's report (registers, shared memory, spills) of the last
+    build of ``name``, or '' if it has not been built."""
+    log = _lib_path(name).with_suffix(".log")
+    return log.read_text() if log.exists() else ""
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library of kernel ``name``, built on first use."""
+    if name not in _LIBS:
+        build_all([name])
+        _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
+    return _LIBS[name]
+
+
+# ---- helpers of the Python wrappers ----
+
+DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def check_cuda(kernel: str, **tensors: torch.Tensor) -> int:
+    """Check that the tensors the kernel reads lie on one CUDA device, are
+    contiguous and share a dtype it takes; returns that dtype's code."""
+    first = next(iter(tensors.values()))
+    for name, t in tensors.items():
+        if t.device != first.device or t.device.type != "cuda":
+            raise ValueError(f"{kernel}: {name} on {t.device}, expected the "
+                             f"CUDA device of the other inputs")
+        if t.dtype != first.dtype or t.dtype not in DTYPE_CODES:
+            raise TypeError(f"{kernel}: {name} is {t.dtype}; the kernel takes "
+                            f"one dtype of {list(DTYPE_CODES)} for all inputs")
+        if not t.is_contiguous():
+            raise ValueError(f"{kernel}: {name} must be contiguous")
+    return DTYPE_CODES[first.dtype]
+
+
+def stream_ptr(device: torch.device) -> int:
+    """PyTorch's current CUDA stream on ``device``, as the kernels' launch
+    argument."""
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def raise_on(kernel: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{kernel}: launch failed with CUDA error {rc}")

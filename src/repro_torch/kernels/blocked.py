@@ -1,0 +1,142 @@
+"""Plain PyTorch versions of the kernels (counterpart of
+``repro/kernels/jnp_blocked.py`` and the forward passes of ``flash_vjp.py``).
+
+Each follows its JAX mirror: an online softmax over kv blocks, and for the
+stream version the K/V tile generated from ``x_kv`` inside the block loop.
+The kernel wrappers take these for CPU tensors; the CPU tests and the
+kernel-against-plain checks on the card use them too.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels.ref import NEG_INF, ref_tile_gemm
+
+
+def _pad_axis(x: torch.Tensor, axis: int, multiple: int
+              ) -> Tuple[torch.Tensor, int]:
+    """Zero-pad ``axis`` of x up to a multiple; returns (x, original size)."""
+    size = x.shape[axis]
+    target = -(-size // multiple) * multiple
+    if target == size:
+        return x, size
+    pad = [0, 0] * x.dim()
+    pad[2 * (x.dim() - 1 - axis) + 1] = target - size
+    return F.pad(x, pad), size
+
+
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, kv_len: int, causal: bool,
+          window: int) -> torch.Tensor:
+    mask = (kpos[None, :] < kv_len).expand(qpos.shape[0], -1)
+    if causal:
+        mask = mask & (kpos[None, :] <= qpos[:, None])
+    if window > 0:
+        mask = mask & (kpos[None, :] > qpos[:, None] - window)
+    return mask
+
+
+def _online_softmax(qf, kv_blocks, qpos, bk, kv_len, causal, window,
+                    out_shape, dtype):
+    """Shared block loop.  qf: (B,Hkv,G,Sq,hd) pre-scaled f32; kv_blocks
+    yields (j, k_j (B,Hkv,bk,hd), v_j (B,Hkv,bk,hdv)) in f32."""
+    B, Hkv, G, Sq, _ = qf.shape
+    m = l = acc = None
+    for j, k_j, v_j in kv_blocks:
+        if acc is None:
+            m = torch.full((B, Hkv, G, Sq), NEG_INF, device=qf.device)
+            l = torch.zeros((B, Hkv, G, Sq), device=qf.device)
+            acc = torch.zeros((B, Hkv, G, Sq, v_j.shape[-1]), device=qf.device)
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k_j)
+        kpos = j * bk + torch.arange(bk, device=qf.device)
+        s = torch.where(_mask(qpos, kpos, kv_len, causal, window), s,
+                        torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, v_j)
+        m = m_new
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l_safe[..., None]).reshape(out_shape).to(dtype)
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, causal: bool = False, window: int = 0,
+                          q_offset: int = 0, scale: Optional[float] = None,
+                          kv_len: Optional[int] = None,
+                          block_k: int = 512) -> torch.Tensor:
+    """GQA flash attention: q (B,Hq,Sq,hd), k (B,Hkv,Sk,hd), v (B,Hkv,Sk,hdv)
+    -> (B,Hq,Sq,hdv).  Keys at or past ``kv_len`` are masked."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    G = Hq // Hkv
+    kv_len = Sk if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    bk = min(block_k, Sk)
+    k, _ = _pad_axis(k, 2, bk)
+    v, _ = _pad_axis(v, 2, bk)
+    nkb = k.shape[2] // bk
+    qf = q.float().reshape(B, Hkv, G, Sq, hd) * scale
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    blocks = ((j, k[:, :, j * bk:(j + 1) * bk].float(),
+               v[:, :, j * bk:(j + 1) * bk].float()) for j in range(nkb))
+    return _online_softmax(qf, blocks, qpos, bk, kv_len, causal, window,
+                           (B, Hq, Sq, hdv), q.dtype)
+
+
+def stream_attention_plain(q: torch.Tensor, x_kv: torch.Tensor,
+                           wk: torch.Tensor, wv: torch.Tensor, *,
+                           sin: Optional[torch.Tensor] = None,
+                           cos: Optional[torch.Tensor] = None,
+                           k_gamma: Optional[torch.Tensor] = None,
+                           causal: bool = False, window: int = 0,
+                           q_offset: int = 0, scale: Optional[float] = None,
+                           norm_eps: float = 1e-6,
+                           kv_len: Optional[int] = None,
+                           block_k: int = 512) -> torch.Tensor:
+    """TILE_STREAM: K/V tiles generated from x_kv inside the block loop
+    (never at full length), fed straight into the online softmax.
+
+    q (B,Hq,Sq,hd), x_kv (B,Sk,D), wk/wv (D,Hkv,hd), sin/cos (Sk,hd//2),
+    k_gamma (hd,) -> (B,Hq,Sq,hd)."""
+    B, Hq, Sq, hd = q.shape
+    Sk, D = x_kv.shape[1], x_kv.shape[2]
+    Hkv = wk.shape[1]
+    G = Hq // Hkv
+    kv_len = Sk if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    bk = min(block_k, Sk)
+    x_kv, _ = _pad_axis(x_kv, 1, bk)
+    if sin is not None:
+        sin, _ = _pad_axis(sin, 0, bk)
+        cos, _ = _pad_axis(cos, 0, bk)
+    nkb = x_kv.shape[1] // bk
+    qf = q.float().reshape(B, Hkv, G, Sq, hd) * scale
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    wkf, wvf = wk.float(), wv.float()
+    half = hd // 2
+
+    def gen(j):
+        x_j = x_kv[:, j * bk:(j + 1) * bk].float()
+        k_j = torch.einsum("btd,dhe->bthe", x_j, wkf)
+        v_j = torch.einsum("btd,dhe->bthe", x_j, wvf)
+        if k_gamma is not None:
+            var = (k_j * k_j).mean(dim=-1, keepdim=True)
+            k_j = k_j * torch.rsqrt(var + norm_eps) * k_gamma.float()
+        if sin is not None:
+            s_ = sin[j * bk:(j + 1) * bk].float()[None, :, None]
+            c_ = cos[j * bk:(j + 1) * bk].float()[None, :, None]
+            k1, k2 = k_j[..., :half], k_j[..., half:]
+            k_j = torch.cat([k1 * c_ - k2 * s_, k2 * c_ + k1 * s_], dim=-1)
+        return j, k_j.transpose(1, 2), v_j.transpose(1, 2)
+
+    return _online_softmax(qf, (gen(j) for j in range(nkb)), qpos, bk,
+                           kv_len, causal, window, (B, Hq, Sq, hd), q.dtype)
+
+
+# The GEMM's plain version is its oracle: (M, K) @ (K, N) accumulated in
+# f32, cast to x's dtype.
+tile_gemm_plain = ref_tile_gemm

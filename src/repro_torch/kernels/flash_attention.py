@@ -1,0 +1,67 @@
+"""Flash attention over materialized K/V, the LAYER_STREAM path
+(counterpart of ``repro/kernels/flash_attention.py``).
+
+CUDA kernel: ``csrc/flash_attention.cu``.  Plain version:
+``blocked.flash_attention_plain``.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import _build
+from repro_torch.kernels.blocked import flash_attention_plain
+
+_P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+MAX_HEAD_DIM = 128
+
+
+def _lib():
+    fn = _build.load("flash_attention").flash_attention_launch
+    fn.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_F] + [_I] * 4 + [_P]
+    fn.restype = _I
+    return fn
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = False, window: int = 0, q_offset: int = 0,
+                    scale: Optional[float] = None,
+                    kv_len: Optional[int] = None,
+                    block_k: int = 256) -> torch.Tensor:
+    """q (B, Hq, Sq, hd), k (B, Hkv, Sk, hd), v (B, Hkv, Sk, hdv)
+    -> (B, Hq, Sq, hdv) in q's dtype.  Keys at or past ``kv_len`` (default
+    Sk) are masked.
+
+    CPU tensors take the plain version, blocked by ``block_k``; CUDA tensors
+    launch the kernel, whose kv tile is fixed at 64 keys."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset, scale=scale,
+                                     kv_len=kv_len, block_k=block_k)
+    code = _build.check_cuda("flash_attention", q=q, k=k, v=v)
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    if (k.shape != (B, Hkv, Sk, hd) or v.shape[:3] != (B, Hkv, Sk)
+            or Hq % Hkv):
+        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
+                         f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
+    if max(hd, hdv) > MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head widths {hd}/{hdv} over "
+                         f"{MAX_HEAD_DIM}")
+    kv_len = Sk if kv_len is None else kv_len
+    if not 0 <= kv_len <= Sk:
+        raise ValueError(f"flash_attention: kv_len {kv_len} outside [0, {Sk}]")
+    scale = hd ** -0.5 if scale is None else scale
+    out = torch.empty((B, Hq, Sq, hdv), dtype=q.dtype, device=q.device)
+    if out.numel():
+        _build.raise_on("flash_attention", _lib()(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
+            B, Hq, Hkv, Sq, Sk, hd, hdv, scale, int(causal), window,
+            q_offset, kv_len, _build.stream_ptr(q.device)))
+        flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

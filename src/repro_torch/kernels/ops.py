@@ -1,0 +1,134 @@
+"""Public attention/projection entry points and the paper's three execution
+modes (counterpart of ``repro/kernels/ops.py``):
+
+* ``NON_STREAM``   materializes Q, K, V, S and P (``ref.ref_attention``);
+* ``LAYER_STREAM`` materializes K/V once, then runs flash attention;
+* ``TILE_STREAM``  fuses K/V generation into attention: K/V never reach
+  device memory.
+
+The JAX package's ``use_pallas`` switch becomes the device of the tensors:
+CUDA tensors go through the CUDA kernels, CPU tensors through their plain
+versions.  Padding helpers are not needed here: the kernels mask ragged
+edges themselves, and the plain versions pad on their own
+(``blocked._pad_axis``).  Eager PyTorch materializes every NON_STREAM
+intermediate without an ``optimization_barrier``.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch.core import runtime
+from repro_torch.core.types import ExecutionMode
+from repro_torch.kernels import ref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.stream_attention import stream_attention
+from repro_torch.kernels.tile_gemm import tile_gemm
+
+
+def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = False, window: int = 0,
+                         q_offset: int = 0,
+                         block_k: int = 256) -> torch.Tensor:
+    """GQA attention: q (B,Hq,Sq,hd), k/v (B,Hkv,Sk,hd) -> (B,Hq,Sq,hd)."""
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
+                           causal=causal, window=window, q_offset=q_offset,
+                           block_k=runtime.get("block_k", block_k))
+
+
+def streaming_attention(q: torch.Tensor, x_kv: torch.Tensor,
+                        wk: torch.Tensor, wv: torch.Tensor, *,
+                        sin: Optional[torch.Tensor] = None,
+                        cos: Optional[torch.Tensor] = None,
+                        k_gamma: Optional[torch.Tensor] = None,
+                        causal: bool = False, window: int = 0,
+                        q_offset: int = 0, norm_eps: float = 1e-6,
+                        block_k: int = 256) -> torch.Tensor:
+    """TILE_STREAM fused K/V generation + attention (stream_attention.py)."""
+    return stream_attention(
+        q.contiguous(), x_kv.contiguous(), wk.to(q.dtype).contiguous(),
+        wv.to(q.dtype).contiguous(), sin=sin, cos=cos, k_gamma=k_gamma,
+        causal=causal, window=window, q_offset=q_offset, norm_eps=norm_eps,
+        block_k=runtime.get("block_k", block_k))
+
+
+def projection(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """(..., K) @ (K, N) with f32 accumulation, output in x's dtype."""
+    lead, K = x.shape[:-1], x.shape[-1]
+    out = tile_gemm(x.reshape(-1, K).contiguous(), w.to(x.dtype).contiguous())
+    return out.reshape(*lead, w.shape[1])
+
+
+def attention_by_plan(layer_plan, q: torch.Tensor, x_kv: torch.Tensor,
+                      wk: torch.Tensor, wv: torch.Tensor, *,
+                      sin: Optional[torch.Tensor] = None,
+                      cos: Optional[torch.Tensor] = None,
+                      k_gamma: Optional[torch.Tensor] = None,
+                      causal: bool = False, window: int = 0,
+                      q_offset: int = 0, norm_eps: float = 1e-6,
+                      kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                      ) -> torch.Tensor:
+    """Run one attention layer as a plan says: any object with ``.mode``,
+    ``.block_q`` and ``.block_kv`` (the JAX package's ``LayerPlan`` works).
+    ``mode`` picks the dispatch; ``block_kv`` blocks the plain versions (the
+    CUDA kernels fix their own tiles, so ``block_q`` is not read).
+
+    ``kv``: an already materialized (K, V) pair, which the NON/LAYER
+    branches consume instead of projecting ``x_kv``; TILE_STREAM ignores it.
+    """
+    mode = ExecutionMode(getattr(layer_plan.mode, "value", layer_plan.mode))
+    return _attention_dispatch(
+        mode, q, x_kv, wk, wv, sin=sin, cos=cos, k_gamma=k_gamma,
+        causal=causal, window=window, q_offset=q_offset, norm_eps=norm_eps,
+        block_k=layer_plan.block_kv, kv=kv)
+
+
+def attention_by_mode(mode: ExecutionMode, q: torch.Tensor,
+                      x_kv: torch.Tensor, wk: torch.Tensor, wv: torch.Tensor,
+                      *, sin: Optional[torch.Tensor] = None,
+                      cos: Optional[torch.Tensor] = None,
+                      k_gamma: Optional[torch.Tensor] = None,
+                      causal: bool = False, window: int = 0,
+                      q_offset: int = 0,
+                      norm_eps: float = 1e-6) -> torch.Tensor:
+    """Dispatch one attention layer by bare mode, default blocking."""
+    return _attention_dispatch(
+        mode, q, x_kv, wk, wv, sin=sin, cos=cos, k_gamma=k_gamma,
+        causal=causal, window=window, q_offset=q_offset, norm_eps=norm_eps)
+
+
+def _attention_dispatch(mode: ExecutionMode, q: torch.Tensor,
+                        x_kv: torch.Tensor, wk: torch.Tensor,
+                        wv: torch.Tensor, *,
+                        sin: Optional[torch.Tensor],
+                        cos: Optional[torch.Tensor],
+                        k_gamma: Optional[torch.Tensor], causal: bool,
+                        window: int, q_offset: int, norm_eps: float,
+                        block_k: int = 256,
+                        kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                        ) -> torch.Tensor:
+    if mode == ExecutionMode.TILE_STREAM:
+        return streaming_attention(
+            q, x_kv, wk, wv, sin=sin, cos=cos, k_gamma=k_gamma,
+            causal=causal, window=window, q_offset=q_offset,
+            norm_eps=norm_eps, block_k=block_k)
+
+    if kv is not None:
+        k, v = kv           # the caller materialized them (normed + roped)
+    else:
+        # Materialize K, V: the rewriting both baselines pay.
+        k = torch.einsum("bsd,dhe->bhse", x_kv, wk.to(x_kv.dtype))
+        v = torch.einsum("bsd,dhe->bhse", x_kv, wv.to(x_kv.dtype))
+        if k_gamma is not None:
+            k = ref.rms_norm(k, k_gamma, eps=norm_eps)
+        if sin is not None:
+            k = ref.apply_rope(k, sin, cos)
+
+    if mode == ExecutionMode.NON_STREAM:
+        return ref.ref_attention(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+
+    # LAYER_STREAM: flash attention over the materialized K/V.
+    return multi_head_attention(q, k, v, causal=causal, window=window,
+                                q_offset=q_offset, block_k=block_k)

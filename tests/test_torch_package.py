@@ -1,0 +1,80 @@
+"""The port stands alone: ``repro_torch`` and ``chip_smoke.py`` import
+neither JAX nor the JAX package, and nothing runs on the CPU unless the
+caller asks for it."""
+import os
+import re
+import shutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+from repro_torch.configs.registry import get_config
+from repro_torch.convert import vilbert_from_jax
+from repro_torch.core import runtime
+from repro_torch.models.vilbert import ViLBERT
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "src" / "repro_torch"
+
+
+def _python(*args, cwd=ROOT, pythonpath=str(ROOT / "src")):
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "JAX_PLATFORMS")}
+    if pythonpath:
+        env["PYTHONPATH"] = pythonpath
+    return subprocess.run([sys.executable, *args], cwd=cwd, env=env,
+                          capture_output=True, text=True, timeout=120)
+
+
+def test_import_leaves_no_jax_and_no_repro_module():
+    code = (
+        "import sys\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
+        "import repro_torch.convert, repro_torch.kernels.ops\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    res = _python("-c", code)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD []" in res.stdout
+
+
+def test_no_source_imports_jax_or_repro():
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
+                         r"from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
+    files = list(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) > 15
+    offenders = [str(f) for f in files if pattern.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_entry_points_raise_without_a_gpu_or_a_named_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    cfg = get_config("vilbert-base", smoke=True)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        runtime.resolve_device()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ViLBERT(cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        vilbert_from_jax({}, cfg)
+    assert runtime.resolve_device("cpu").type == "cpu"
+
+
+def test_chip_smoke_fails_without_a_gpu(tmp_path):
+    """No card: a non-zero exit and no result line.  A directory holding
+    chip_smoke.py and nothing else of the repo: the same."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    res = _python(str(ROOT / "chip_smoke.py"))
+    assert res.returncode != 0 and '"ok"' not in res.stdout
+    assert "no CUDA device" in res.stderr
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(ROOT / "chip_smoke.py", alone)
+    res = _python(str(alone), cwd=tmp_path, pythonpath=None)
+    assert res.returncode != 0 and '"ok"' not in res.stdout
