@@ -6,8 +6,9 @@ catch a wrong kernel.
 
 For each kernel, a copy of chip_smoke.py and src/repro_torch/ under
 build/planted_faults/<kernel>/ (git-ignored) gets one planted fault in the
-kernel's CUDA source: the attention kernels skip their last 64-key tile,
-the bf16 GEMM its last 32-wide K chunk.  chip_smoke's bf16 check of that
+kernel's CUDA source: the attention kernels skip their last 64-key tile
+(decode attention: the last of each W chunk), the bf16 GEMM its last
+32-wide K chunk.  chip_smoke's bf16 check of that
 kernel then runs on the copy, in a subprocess, once at the kernel test
 cases and once at the main path's shapes.  Each run must fail with that
 kernel's comparison message; the script exits non-zero if a planted fault
@@ -35,6 +36,10 @@ FAULTS = {
                   ("for (int k0 = 0; k0 < K; k0 += TBK)",
                    "for (int k0 = 0; k0 < K - TBK; k0 += TBK)"),
                   ("GEMM_CASES", "MAIN_GEMM", "check_gemm")),
+    "decode_attention": ("decode_attention.cu",
+                         ("for (int t0 = t_lo; t0 < t_hi; t0 += BK)",
+                          "for (int t0 = t_lo; t0 < t_hi - BK; t0 += BK)"),
+                         ("DECODE_CASES", "MAIN_DECODE", "check_decode")),
 }
 # Run inside the faulty copy: chip_smoke's bf16 check of one kernel, at
 # its test cases only ("cases") or at the main path's shapes only ("main").

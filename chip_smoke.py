@@ -9,15 +9,22 @@ caught:
   2. build of every kernel in src/repro_torch/csrc (one nvcc per source,
      in parallel), with the compiler's register/spill report;
   3. each kernel against its plain PyTorch version on the card, in f32 and
-     bf16, at the kernel test cases (ragged kv_len, K = 768 included) and at
-     the vilbert-base shapes of the main path; kernel, plain, library-call
-     times and the card's bound at the main path's largest shape;
-  4. the main path: vilbert-base VQA forward, bf16, B = 2, N_X = N_Y = 4096,
-     in NON_STREAM, LAYER_STREAM and TILE_STREAM, with the kept-token counts
-     and kernel launch counters checked; then the three modes against each
-     other in f32 at N = 1024, B = 1;
-  5. one JSON line of per-kernel numbers;
-  6. the last line: {"ok": true, "device": {...}}.
+     bf16, at the kernel test cases (ragged kv_len / cache_len, K = 768
+     included) and at the main paths' shapes, decode attention's batch
+     invariance (a row of a batched call equals the B = 1 call, bitwise);
+     kernel, plain, library-call times and the card's bound at each
+     kernel's timed main-path shape;
+  4. the first main path: vilbert-base VQA forward, bf16, B = 2,
+     N_X = N_Y = 4096, in NON_STREAM, LAYER_STREAM and TILE_STREAM, with
+     the kept-token counts and kernel launch counters checked; then the
+     three modes against each other in f32 at N = 1024, B = 1;
+  5. the second main path: qwen3-32b at full width and depth, bf16, served
+     by the paged-KV Engine (4 slots, prefill + batched decode) on five
+     requests, with the token, pool, batching and launch-counter gates;
+  6. serving checks in f32 at qwen3-32b's widths, 2 layers: batched against
+     per-slot decode, and NON/LAYER/TILE prefill against each other;
+  7. one JSON line of per-kernel numbers;
+  8. the last line: {"ok": true, "device": {...}}.
 
 Bound of a kernel call: the larger of its FLOPs over the H100 SXM peak of
 its input type (989 TFLOP/s bf16, 67 TFLOP/s f32) and the bytes it must
@@ -30,22 +37,28 @@ import json
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.types import ExecutionMode  # noqa: E402
 from repro_torch.kernels import _build, blocked, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.stream_attention import (  # noqa: E402
     query_rows, stream_attention)
 from repro_torch.kernels.tile_gemm import tile_gemm  # noqa: E402
+from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.vilbert import ViLBERT  # noqa: E402
+from repro_torch.plan import plan_model  # noqa: E402
+from repro_torch.serve.engine import Engine, Request  # noqa: E402
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -63,7 +76,10 @@ TOL = {"flash_attention": {torch.float32: (2e-4, 2e-4),
                            torch.bfloat16: BF16_TOL},
        "stream_attention": {torch.float32: (5e-4, 5e-4),
                             torch.bfloat16: BF16_TOL},
-       "tile_gemm": {torch.float32: (1e-3, 1e-3), torch.bfloat16: BF16_TOL}}
+       "tile_gemm": {torch.float32: (1e-3, 1e-3), torch.bfloat16: BF16_TOL},
+       # f32: the JAX package's decode tolerance (test_decode_attention.py)
+       "decode_attention": {torch.float32: (1e-5, 1e-5),
+                            torch.bfloat16: BF16_TOL}}
 # Three modes against each other, vilbert-base in f32 at N = 1024: the
 # final vision and language streams (the logits say little: with random
 # weights the pooler's tanh saturates), max |difference| over max |value|.
@@ -77,6 +93,8 @@ KERNELS = {
     "flash_attention": (flash_attention,
                         "src/repro/kernels/flash_attention.py:105"),
     "tile_gemm": (tile_gemm, "src/repro/kernels/tile_gemm.py:57"),
+    "decode_attention": (decode_attention,
+                         "src/repro/kernels/decode_attention.py:124"),
 }
 
 
@@ -148,6 +166,7 @@ FLASH_CASES = [
     (1, 4, 1, 77, 150, 96, 32, False, 0, None),      # hdv != hd, ragged
     (2, 8, 8, 300, 1408, 128, 128, False, 0, None),  # pruned vilbert kv
     (2, 4, 2, 96, 200, 32, 32, True, 64, 190),       # hd = 32, ragged
+    (1, 64, 8, 1024, 1024, 128, 128, True, 0, None),  # qwen3-32b prefill
 ]
 # B, Hq, Hkv, Sq, Sk, hd, D, causal, window, rope, knorm, kv_len
 STREAM_CASES = [
@@ -158,6 +177,7 @@ STREAM_CASES = [
     (2, 4, 2, 100, 200, 64, 96, True, 0, True, True, 170),   # ragged
     (2, 12, 12, 300, 1408, 64, 1024, False, 0, False, False, None),
     (2, 4, 2, 96, 200, 32, 150, True, 0, True, True, 190),  # hd = 32
+    (1, 64, 8, 256, 256, 128, 5120, True, 0, True, True, None),  # qwen3 TILE
 ]
 GEMM_CASES = [(256, 128, 192), (512, 384, 256), (128, 256, 128),
               (128, 768, 256),   # K = 768: the reference's ragged-K case
@@ -182,7 +202,15 @@ MAIN_GEMM = {  # name: (M, K, N)
     "text mlp down": (8192, 3072, 768),
     "vision mlp": (8192, 1024, 1024),
 }
-TIMED = {"flash_attention": "vision self 4096",
+# Phase 5's MLP projections: gate/up (M, 5120, 25600) and down (M, 25600,
+# 5120) at its prompt lengths and its decode bucket sizes.
+MAIN_GEMM.update({
+    f"qwen3 {what} M={m} mlp {proj}": (m, k, n)
+    for what, ms in (("prefill", (512, 1024, 1536)), ("decode", (1, 3)))
+    for m in ms
+    for proj, k, n in (("up", 5120, 25600), ("down", 25600, 5120))})
+TIMED = {"decode_attention": "qwen3-32b bucket of 4",
+         "flash_attention": "vision self 4096",
          "stream_attention": "vision self 4096",
          "tile_gemm": "text mlp up"}
 
@@ -315,6 +343,87 @@ def check_gemm(gen, report):
                     bytes=(M * K + K * N + M * N) * e, dtype=dt)
 
 
+# B, Hq, Hkv, W, hd, window, cache_len (an int: scalar for every row)
+DECODE_CASES = [
+    (3, 8, 2, 200, 32, 0, (0, 200, 77)),     # GQA, W % 64 != 0, 0 and W
+    (2, 4, 4, 130, 24, 0, (1, 130)),         # MHA, hd = 24
+    (4, 64, 8, 300, 128, 0, 257),            # scalar cache_len
+    (3, 8, 2, 500, 128, 100, (500, 99, 300)),  # window
+    (2, 16, 2, 1000, 64, 0, (1000, 513)),    # four W chunks, hd = 64
+    (1, 8, 8, 64, 128, 17, (5,)),            # window wider than the row
+]
+# qwen3-32b's decode step at W = max_len: name: (B, Hq, Hkv, W, hd,
+# cache_len).  Phase 5 calls the kernel on buckets of 3 and of 1 with a
+# scalar cache_len; the timed one holds all four slots with phase 5's
+# lengths, per row.
+MAIN_DECODE = {
+    "qwen3-32b bucket of 4": (4, 64, 8, 2048, 128, (1025, 1025, 1025, 1537)),
+    "qwen3-32b bucket of 3": (3, 64, 8, 2048, 128, 1025),
+    "qwen3-32b bucket of 1": (1, 64, 8, 2048, 128, 1537),
+}
+
+
+def _decode_inputs(gen, B, Hq, Hkv, W, hd, clen, dt):
+    q = randn(gen, B, Hq, 1, hd, dtype=dt)
+    k = randn(gen, B, Hkv, W, hd, dtype=dt)
+    v = randn(gen, B, Hkv, W, hd, dtype=dt)
+    lens = torch.tensor(clen, dtype=torch.int32, device="cuda") \
+        if isinstance(clen, tuple) else clen
+    return q, k, v, lens
+
+
+def check_batch_invariance(name, case, q, k, v, lens, window=0):
+    """Row i of the batched call equals the B = 1 call on row i, bitwise."""
+    got = decode_attention(q, k, v, lens, window=window)
+    for i in range(q.shape[0]):
+        li = lens[i:i + 1] if isinstance(lens, torch.Tensor) else lens
+        solo = decode_attention(q[i:i + 1], k[i:i + 1], v[i:i + 1], li,
+                                window=window)
+        if not torch.equal(got[i:i + 1], solo):
+            fail(f"{name} {case}: row {i} of the batched call differs from "
+                 f"the B = 1 call")
+
+
+def check_decode(gen, report):
+    name = "decode_attention"
+    for dt in DTYPES:
+        for B, Hq, Hkv, W, hd, window, clen in DECODE_CASES:
+            q, k, v, lens = _decode_inputs(gen, B, Hq, Hkv, W, hd, clen, dt)
+            case = f"{str(dt)[6:]} {(B, Hq, Hkv, W, hd)} window={window} " \
+                   f"cache_len={clen}"
+            err = compare(name, case,
+                          decode_attention(q, k, v, lens, window=window),
+                          blocked.decode_attention_plain(q, k, v, lens,
+                                                         window=window))
+            check_batch_invariance(name, case, q, k, v, lens, window)
+            say(f"  {name} {case}: max|err| {err:.2e}, batch-invariant")
+        for case, (B, Hq, Hkv, W, hd, clen) in MAIN_DECODE.items():
+            q, k, v, lens = _decode_inputs(gen, B, Hq, Hkv, W, hd, clen, dt)
+            err = compare(name, f"{dt} {case}", decode_attention(q, k, v, lens),
+                          blocked.decode_attention_plain(q, k, v, lens))
+            check_batch_invariance(name, case, q, k, v, lens)
+            say(f"  {name} {str(dt)[6:]} main path {case} cache_len={clen}: "
+                f"max|err| {err:.2e}, batch-invariant")
+            if dt != torch.bfloat16 or case != TIMED[name]:
+                continue
+            e = q.element_size()
+            mask = (torch.arange(W, device="cuda")[None, :] < lens[:, None]
+                    )[:, None, None, :]
+            report[name] = dict(
+                max_abs_err=err,
+                ms=time_ms(lambda: decode_attention(q, k, v, lens)),
+                plain_ms=time_ms(
+                    lambda: blocked.decode_attention_plain(q, k, v, lens)),
+                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=mask, enable_gqa=True)),
+                shape=f"q {(B, Hq, 1, hd)}, k/v {(B, Hkv, W, hd)}, "
+                      f"cache_len {clen} bf16",
+                # the valid K/V rows, read once; q read and out written
+                flops=4 * sum(clen) * Hq * hd,
+                bytes=(2 * sum(clen) * Hkv * hd + 2 * q.numel()) * e,
+                dtype=dt)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -427,6 +536,289 @@ def main_path(launches: dict) -> None:
             fail(f"f32 modes disagree: {mode.value} gaps {gaps}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 5 and 6: qwen3-32b served by the paged-KV Engine
+# ---------------------------------------------------------------------------
+
+# rid, prompt length, new tokens, arrival step: r0-r2 share a bucket, r3
+# is admitted while they decode, r4 waits for a free slot.
+SERVE_REQUESTS = [(0, 1024, 32, 0), (1, 1024, 32, 0), (2, 1024, 32, 0),
+                  (3, 1536, 16, 2), (4, 512, 16, 4)]
+# The f32 checks at 2 layers: shorter prompts, r1 and r2 share a bucket.
+CHECK_REQUESTS = [(0, 256, 8, 0), (1, 128, 8, 0), (2, 128, 8, 0),
+                  (3, 192, 6, 2), (4, 64, 6, 4)]
+# Serving checks in f32: max |difference| over max |value| of logits.
+# The same f32 function in other summation orders (batched vs per-slot
+# GEMM rows, three attention kernels), through 2 layers.
+SERVE_TOL = 1e-4
+
+
+def make_requests(cfg, spec, gen):
+    prompts = {rid: torch.randint(0, cfg.vocab_size, (plen,), generator=gen,
+                                  device="cuda").cpu().numpy().astype(np.int32)
+               for rid, plen, _, _ in spec}
+
+    def fresh():
+        return [Request(rid=rid, prompt=prompts[rid], max_new_tokens=n,
+                        arrival_step=a) for rid, _, n, a in spec]
+    return fresh
+
+
+class Probe:
+    """Wraps an Engine's prefill and decode calls: times each (host clock
+    around work that ends in torch.cuda.synchronize()), checks that every
+    logit is finite, keeps the logits on the host when asked, and keeps a
+    copy of the inputs of the decode call numbered ``profile_call`` for
+    ``profile_step`` after the run (profiling inside the run would inflate
+    the engine's step walls)."""
+
+    def __init__(self, eng, keep_logits=False, profile_call=None):
+        self.prefills, self.decodes, self.saved = [], [], None
+        prefill_one, decode = eng._prefill_one, eng._decode
+        self.decode_fn = decode
+
+        def timed_prefill(req):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = prefill_one(req)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            self._check(logits, f"prefill of r{req.rid}")
+            self.prefills.append((req.rid, len(req.prompt), ms,
+                                  logits.cpu() if keep_logits else None))
+            return logits, cache
+
+        def timed_decode(cache, toks, **kw):
+            if len(self.decodes) == profile_call:
+                self.saved = ({"layers": {k: t.clone() for k, t in
+                                          cache["layers"].items()},
+                               "len": cache["len"]}, toks.clone(), kw)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits, cache = decode(cache, toks, **kw)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            self._check(logits, f"decode call {len(self.decodes)}")
+            self.decodes.append((toks.shape[0], ms,
+                                 logits[:, 0].cpu() if keep_logits else None))
+            return logits, cache
+
+        eng._prefill_one, eng._decode = timed_prefill, timed_decode
+
+    @staticmethod
+    def _check(logits, what):
+        if not torch.isfinite(logits).all():
+            fail(f"{what}: non-finite logits")
+
+    def decode_logits(self, eng):
+        """{rid: [logits of decode 0, 1, ...]}, matched to the calls
+        through the engine's step log (bucket order, or one call per
+        decoded slot on the per-slot path)."""
+        calls = iter(self.decodes)
+        per_rid = defaultdict(list)
+        for rec in eng.step_log:
+            groups = ([rids for _, rids in rec.buckets] if rec.buckets
+                      else [(rid,) for rid in rec.decoded])
+            for rids in groups:
+                rows = next(calls)[2]
+                for i, rid in enumerate(rids):
+                    per_rid[rid].append(rows[i])
+        return per_rid
+
+
+def profile_step(decode, cache, toks, kw, top: int = 5) -> str:
+    """One decode call under torch.profiler, on a saved copy of an engine
+    step's inputs: the device-busy share of its wall time and the kernels
+    that took the most device time.  Its launches are not counted."""
+    from torch.profiler import ProfilerActivity, profile
+    counts0 = counts()
+    decode(cache, toks, **kw)              # warm-up, outside the trace
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        decode(cache, toks, **kw)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    for name, n in counts0.items():        # not a launch of the main path
+        KERNELS[name][0].launches = n
+    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(t for _, t in kernels)
+    if busy == 0:
+        return "profiler recorded no device time"
+    kernels.sort(key=lambda kt: -kt[1])
+    parts = ", ".join(f"{k[:40]} {t / 1e3:.2f} ms" for k, t in kernels[:top])
+    return (f"B = {toks.shape[0]}: device busy {busy / 1e3:.2f} ms of "
+            f"{wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.0f}%); "
+            f"top: {parts}")
+
+
+def serve(cfg, model, fresh, *, keep_logits=False, profile_call=None,
+          **engine_kw):
+    eng = Engine(cfg, model, **engine_kw)
+    probe = Probe(eng, keep_logits=keep_logits, profile_call=profile_call)
+    reqs = fresh()
+    for r in reqs:
+        eng.submit(r)
+    done = eng.run()
+    tokens = {r.rid: list(r.out_tokens) for r in done}
+    for r in reqs:
+        if len(tokens.get(r.rid, ())) != r.max_new_tokens:
+            fail(f"{cfg.name}: request r{r.rid} returned "
+                 f"{len(tokens.get(r.rid, ()))} of {r.max_new_tokens} tokens")
+    want_calls = sum(r.max_new_tokens - 1 for r in reqs)
+    if eng.decode_calls != want_calls:
+        fail(f"{cfg.name}: decode_calls {eng.decode_calls} != {want_calls}")
+    if eng._pool is not None and eng._pool.pages_in_use:
+        fail(f"{cfg.name}: {eng._pool.pages_in_use} pages still in use")
+    return eng, probe, tokens
+
+
+def qwen3_serving(smi: str, launches: dict) -> None:
+    cfg = get_config("qwen3-32b")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"  qwen3-32b bf16, {n_params / 1e9:.2f} B parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB [{smi}]")
+    fresh = make_requests(cfg, SERVE_REQUESTS, gen)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng, probe, _ = serve(cfg, model, fresh, slots=4, max_len=2048,
+                          page_size=64, profile_call=2)
+    wall = time.perf_counter() - t0
+    got = counts()
+    profile = profile_step(probe.decode_fn, *probe.saved)
+    probe.saved = None
+    for name, n in got.items():
+        launches[name] += n
+    st = eng.stats()
+    say(f"  served {st['requests']} requests in {wall:.1f} s wall, "
+        f"{st['steps']} steps; decode_calls {eng.decode_calls}, "
+        f"decode_batches {eng.decode_batches}; launches {got}")
+    if eng.decode_batches >= eng.decode_calls:
+        fail("qwen3-32b: batched decode did not batch")
+    if got["flash_attention"] == 0 or got["tile_gemm"] == 0 \
+            or got["stream_attention"] != 0 \
+            or got["decode_attention"] != cfg.num_layers * eng.decode_batches:
+        fail(f"qwen3-32b: launches {got} do not fit the path (decode "
+             f"attention {cfg.num_layers} x {eng.decode_batches} batches)")
+    say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
+        f" GiB [{smi}]")
+    for rid, plen, ms, _ in probe.prefills:
+        say(f"  prefill r{rid}, {plen} tokens: {ms:.1f} ms [{smi}]")
+    ttft = st["wall"]["ttft"]
+    say(f"  wall TTFT p50 {ttft['p50'] * 1e3:.1f} ms, max "
+        f"{ttft['max'] * 1e3:.1f} ms [{smi}]")
+    by_b = defaultdict(list)
+    for b, ms, _ in probe.decodes:
+        by_b[b].append(ms)
+    for b in sorted(by_b):
+        say(f"  decode step, bucket of {b}: mean {np.mean(by_b[b]):.1f} ms, "
+            f"min {min(by_b[b]):.1f} ms over {len(by_b[b])} calls [{smi}]")
+    tokens = sum(len(r.decoded) for r in eng.step_log
+                 if r.decoded and not r.admitted)
+    say(f"  decode: {tokens} tokens in {eng.decode_wall_s():.2f} s of "
+        f"pure-decode steps, {tokens / eng.decode_wall_s():.1f} tokens/s "
+        f"[{smi}]")
+    say(f"  profiled decode call: {profile} [{smi}]")
+
+
+def _rel(a, b) -> float:
+    return ((a - b).abs().max() / b.abs().max()).item()
+
+
+def _token_gaps(label, got, want, logits_of) -> int:
+    """Greedy tokens of two runs: fails on a mismatch whose reference
+    top-2 logit gap exceeds the tolerance, logs one within it; returns
+    the matching count."""
+    agree = 0
+    for rid, ref_toks in want.items():
+        for t, (a, b) in enumerate(zip(got[rid], ref_toks)):
+            if a == b:
+                agree += 1
+                continue
+            row = logits_of(rid, t)
+            top2 = torch.topk(row, 2).values
+            gap = (top2[0] - top2[1]).item()
+            limit = 2 * SERVE_TOL * row.abs().max().item()
+            msg = (f"{label}: r{rid} token {t}: {a} vs {b}, reference "
+                   f"top-2 gap {gap:.3e} (tolerance {limit:.3e})")
+            if gap > limit:
+                fail(msg)
+            say(f"  near tie, not gated: {msg}")
+            break                       # later tokens follow other inputs
+    return agree
+
+
+def serving_checks(smi: str) -> None:
+    cfg = dataclasses.replace(get_config("qwen3-32b"), num_layers=2,
+                              dtype="float32", param_dtype="float32")
+    torch.cuda.empty_cache()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    fresh = make_requests(cfg, CHECK_REQUESTS, gen)
+    kw = dict(slots=4, max_len=512, page_size=64, keep_logits=True)
+    V = cfg.vocab_size
+
+    runs = {}
+    for batched in (True, False):
+        eng, probe, tokens = serve(cfg, model, fresh, batch_decode=batched,
+                                   **kw)
+        runs[batched] = (eng, probe.decode_logits(eng), tokens,
+                         {rid: lg[0, :V] for rid, _, _, lg in probe.prefills})
+    eng_b, dec_b, tok_b, pre_b = runs[True]
+    _, dec_s, tok_s, pre_s = runs[False]
+    if eng_b.decode_batches >= eng_b.decode_calls:
+        fail("f32 checks: batched decode did not batch")
+    worst = 0.0
+    for rid in tok_s:
+        for t, (a, b) in enumerate(zip(dec_b[rid], dec_s[rid])):
+            if tok_b[rid][:t + 1] != tok_s[rid][:t + 1]:
+                break                   # inputs differ from here on
+            worst = max(worst, _rel(a[:V], b[:V]))
+    agree = _token_gaps(
+        "batched vs per-slot", tok_b, tok_s,
+        lambda rid, t: pre_s[rid] if t == 0 else dec_s[rid][t - 1][:V])
+    say(f"  f32 batched vs per-slot decode: max relative logit gap "
+        f"{worst:.2e} (tol {SERVE_TOL}); greedy tokens agree "
+        f"{agree}/{sum(map(len, tok_s.values()))}; decode_batches "
+        f"{eng_b.decode_batches} < decode_calls {eng_b.decode_calls}")
+    if worst > SERVE_TOL:
+        fail(f"f32 batched vs per-slot decode logits differ by {worst:.2e}")
+
+    modes = {}
+    for mode in ExecutionMode:
+        reset_counts()
+        eng, probe, tokens = serve(
+            cfg, model, fresh,
+            plan=plan_model(cfg, mode=mode, force_mode=True), **kw)
+        got = counts()
+        if (got["stream_attention"] > 0) != (mode == ExecutionMode.TILE_STREAM):
+            fail(f"f32 {mode.value}: launches {got} do not fit the mode")
+        modes[mode] = (tokens, {rid: lg[0, :V]
+                                for rid, _, _, lg in probe.prefills},
+                       probe.decode_logits(eng))
+    base_tok, base_pre, base_dec = modes[ExecutionMode.NON_STREAM]
+    for mode, (tokens, pre, _) in modes.items():
+        gap = max(_rel(pre[rid], base_pre[rid]) for rid in base_pre)
+        agree = _token_gaps(
+            f"{mode.value} vs non_stream", tokens, base_tok,
+            lambda rid, t: base_pre[rid] if t == 0
+            else base_dec[rid][t - 1][:V])
+        say(f"  f32 {mode.value}: prefill last-token logits vs non_stream, "
+            f"max relative gap {gap:.2e} (tol {SERVE_TOL}); greedy tokens "
+            f"agree {agree}/{sum(map(len, base_tok.values()))}")
+        if gap > SERVE_TOL:
+            fail(f"f32 {mode.value} prefill logits differ by {gap:.2e}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one NVIDIA card")
@@ -455,10 +847,19 @@ def main() -> None:
     check_flash(gen, report)
     check_stream(gen, report)
     check_gemm(gen, report)
+    check_decode(gen, report)
 
     say("== phase 4: main path, vilbert-base")
     launches = {name: 0 for name in KERNELS}
     main_path(launches)
+    torch.cuda.empty_cache()
+
+    say("== phase 5: main path, qwen3-32b served (paged KV, batched decode)")
+    qwen3_serving(smi, launches)
+    torch.cuda.empty_cache()
+
+    say("== phase 6: serving checks in f32, qwen3-32b widths, 2 layers")
+    serving_checks(smi)
 
     rows = []
     for name, (_, replaces) in KERNELS.items():

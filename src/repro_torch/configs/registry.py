@@ -1,10 +1,13 @@
-"""Model registry of the port: the architectures ported so far."""
+"""Model registry of the port: the architectures ported so far, and the
+model module that runs each family (counterpart of
+``repro/configs/registry.py``)."""
 from __future__ import annotations
 
-from repro_torch.configs import vilbert_base
-from repro_torch.core.types import ModelConfig
+from repro_torch.configs import qwen3_32b, starcoder2_7b, vilbert_base
+from repro_torch.core.types import Family, ModelConfig
 
-_MODULES = {"vilbert-base": vilbert_base}
+_MODULES = {"vilbert-base": vilbert_base, "qwen3-32b": qwen3_32b,
+            "starcoder2-7b": starcoder2_7b}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -13,4 +16,19 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
     mod = _MODULES[name]
+    if not smoke and not hasattr(mod, "CONFIG"):
+        raise NotImplementedError(f"{name}: only its smoke config is ported")
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+def model_module(cfg: ModelConfig):
+    """The module whose model runs ``cfg``'s family."""
+    if cfg.family == Family.CROSSMODAL:
+        from repro_torch.models import vilbert
+        return vilbert
+    if cfg.family == Family.DENSE:
+        from repro_torch.models import transformer
+        return transformer
+    raise NotImplementedError(
+        f"{cfg.name}: family {cfg.family.value} is not ported yet "
+        f"(ROADMAP Queue 1 items 6, 9, 10)")

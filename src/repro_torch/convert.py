@@ -3,20 +3,21 @@
 The port's modules name their parameters after the JAX tree's keys, so a
 tree flattens to the module's ``state_dict`` names.  The layer stacks that
 the JAX init builds with ``vmap`` (a leading layer axis) become
-``ModuleList`` entries.
+``ModuleList`` entries.  ``vilbert_from_jax`` and ``transformer_from_jax``
+load a ``repro.models.vilbert.init`` and a ``repro.models.transformer.init``
+tree.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional, Union
+from typing import Any, Dict, Optional, Sequence, Union
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.core.types import ModelConfig
+from repro_torch.models.transformer import Transformer
 from repro_torch.models.vilbert import ViLBERT
-
-_STACKED = ("text_pre", "co_x", "co_y")
-_DROPPED = ("text_embed.unembed",)   # the encoder never unembeds
 
 
 def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
@@ -30,20 +31,18 @@ def _flatten(tree: Dict[str, Any], prefix: str = "") -> Dict[str, np.ndarray]:
     return flat
 
 
-def vilbert_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
-                     device: Optional[Union[str, torch.device]] = None
-                     ) -> ViLBERT:
-    """A ``ViLBERT`` holding the weights of a ``repro.models.vilbert.init``
-    tree whose leaves were turned into numpy arrays."""
-    model = ViLBERT(cfg, device=device)
+def _load(model: nn.Module, params_np: Dict[str, Any],
+          stacked: Sequence[str], dropped: Sequence[str] = ()) -> None:
+    """Copy a flattened JAX tree into ``model``; the leading axis of each
+    ``stacked`` subtree indexes its ``ModuleList`` (an unused extra layer
+    is dropped); every parameter must be covered, with its shape."""
     state = {}
     for name, arr in _flatten(params_np).items():
-        if name in _DROPPED:
+        if name in dropped:
             continue
         top, _, rest = name.partition(".")
-        if top in _STACKED:
-            n_layers = len(getattr(model, top))
-            for i in range(n_layers):   # an unused extra layer is dropped
+        if top in stacked:
+            for i in range(len(getattr(model, top))):
                 state[f"{top}.{i}.{rest}"] = arr[i]
         else:
             state[name] = arr
@@ -61,4 +60,26 @@ def vilbert_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
                 raise ValueError(f"{name}: shape {tuple(src.shape)} != "
                                  f"{tuple(dst.shape)}")
             dst.copy_(src.to(dst.dtype))
+
+
+def vilbert_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
+                     device: Optional[Union[str, torch.device]] = None
+                     ) -> ViLBERT:
+    """A ``ViLBERT`` holding the weights of a ``repro.models.vilbert.init``
+    tree whose leaves were turned into numpy arrays."""
+    model = ViLBERT(cfg, device=device)
+    _load(model, params_np, ("text_pre", "co_x", "co_y"),
+          dropped=("text_embed.unembed",))   # the encoder never unembeds
+    return model
+
+
+def transformer_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
+                         device: Optional[Union[str, torch.device]] = None
+                         ) -> Transformer:
+    """A ``Transformer`` holding the weights of a
+    ``repro.models.transformer.init`` tree (dense family) whose leaves
+    were turned into numpy arrays; the stacked ``layers`` axis becomes
+    ``Transformer.layers``."""
+    model = Transformer(cfg, device=device)
+    _load(model, params_np, ("layers",))
     return model

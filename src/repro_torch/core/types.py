@@ -1,8 +1,9 @@
 """Configuration types (counterpart of ``repro/core/types.py``).
 
-Only what the ported slice reads is copied: the enums, ``PruningConfig`` and
-the fields of ``ModelConfig`` that the dense/crossmodal paths use.  Values
-and defaults are the JAX package's.
+Only what the ported slices read is copied: the enums, ``PruningConfig``,
+the fields of ``ModelConfig`` that the dense decoder and crossmodal paths
+and the planner use, and the shape cells (``ShapeConfig``/``SHAPES``).
+Values and defaults are the JAX package's.
 """
 from __future__ import annotations
 
@@ -77,6 +78,7 @@ class ModelConfig:
     sliding_window: int = 4096
     use_qk_norm: bool = False
     rope_theta: float = 10_000.0
+    mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w) splits
     tie_embeddings: bool = False
     # --- crossmodal (vilbert) ---
     num_coattn_layers: int = 0
@@ -87,6 +89,7 @@ class ModelConfig:
     # --- norm/act ---
     norm_eps: float = 1e-6
     act: str = "silu"         # silu | gelu
+    use_bias: bool = False
     # --- paper technique knobs ---
     execution_mode: ExecutionMode = ExecutionMode.TILE_STREAM
     pruning: PruningConfig = dataclasses.field(default_factory=PruningConfig)
@@ -98,6 +101,32 @@ class ModelConfig:
     def __post_init__(self):
         if self.head_dim == 0 and self.num_heads > 0:
             object.__setattr__(self, "head_dim", self.d_model // self.num_heads)
+
+    @property
+    def group_size(self) -> int:
+        return self.num_heads // max(self.num_kv_heads, 1) if self.num_kv_heads else 1
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                 # "train" | "prefill" | "decode"
+
+    @property
+    def is_decode(self) -> bool:
+        return self.kind == "decode"
+
+
+TRAIN_4K = ShapeConfig("train_4k", 4096, 256, "train")
+PREFILL_32K = ShapeConfig("prefill_32k", 32768, 32, "prefill")
+DECODE_32K = ShapeConfig("decode_32k", 32768, 128, "decode")
+LONG_500K = ShapeConfig("long_500k", 524288, 1, "decode")
+
+SHAPES = {s.name: s for s in (TRAIN_4K, PREFILL_32K, DECODE_32K, LONG_500K)}
 
 
 def pad_to(x: int, multiple: int) -> int:

@@ -137,6 +137,56 @@ def stream_attention_plain(q: torch.Tensor, x_kv: torch.Tensor,
                            kv_len, causal, window, (B, Hq, Sq, hd), q.dtype)
 
 
+def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           cache_len, *, window: int = 0,
+                           scale: Optional[float] = None,
+                           block_k: int = 512) -> torch.Tensor:
+    """Batched single-query decode attention over cached K/V, the blocked
+    mirror of ``jnp_blocked.decode_attention_jnp`` (jnp_blocked.py:97).
+
+    q (B, Hq, 1, hd); k/v (B, Hkv, W, hd); ``cache_len`` () or (B,): the
+    valid cache entries of each row (the new token's K/V already written).
+    Online softmax over kv blocks, each row masked by its own length (and
+    by ``window``: keys at or before cache_len - 1 - window drop out).
+    Masked keys carry no weight (p = 0), as in the CUDA kernel, which
+    skips the tiles that hold no valid key; a row with no valid key gives
+    0, where the reference averages V over the masked keys.  Rows with at
+    least one valid key agree with the reference.
+    """
+    B, Hq, Sq, hd = q.shape
+    Hkv, W = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = hd ** -0.5 if scale is None else scale
+    bk = min(block_k, W)
+    k, _ = _pad_axis(k, 2, bk)
+    v, _ = _pad_axis(v, 2, bk)
+    nkb = k.shape[2] // bk
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(B)
+    qf = q.float().reshape(B, Hkv, G, Sq, hd) * scale
+    m = torch.full((B, Hkv, G, Sq), NEG_INF, device=q.device)
+    l = torch.zeros((B, Hkv, G, Sq), device=q.device)
+    acc = torch.zeros((B, Hkv, G, Sq, hd), device=q.device)
+    for j in range(nkb):
+        k_j = k[:, :, j * bk:(j + 1) * bk].float()
+        v_j = v[:, :, j * bk:(j + 1) * bk].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k_j)
+        kpos = j * bk + torch.arange(bk, device=q.device)
+        mask = kpos[None, :] < clen[:, None]            # (B, bk)
+        if window > 0:
+            mask = mask & (kpos[None, :] > clen[:, None] - 1 - window)
+        mask = mask[:, None, None, None, :]
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.where(mask, torch.exp(s - m_new[..., None]),
+                        torch.zeros_like(s))
+        alpha = torch.exp(m - m_new)
+        l = l * alpha + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, v_j)
+        m = m_new
+    l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / l_safe[..., None]).reshape(B, Hq, Sq, hd).to(q.dtype)
+
+
 # The GEMM's plain version is its oracle: (M, K) @ (K, N) accumulated in
 # f32, cast to x's dtype.
 tile_gemm_plain = ref_tile_gemm

@@ -22,9 +22,11 @@ import torch
 from repro_torch.core import runtime
 from repro_torch.core.types import ExecutionMode
 from repro_torch.kernels import ref
+from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.stream_attention import stream_attention
 from repro_torch.kernels.tile_gemm import tile_gemm
+from repro_torch.plan.heuristics import DEFAULT_BLOCK
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,3 +134,24 @@ def _attention_dispatch(mode: ExecutionMode, q: torch.Tensor,
     # LAYER_STREAM: flash attention over the materialized K/V.
     return multi_head_attention(q, k, v, causal=causal, window=window,
                                 q_offset=q_offset, block_k=block_k)
+
+
+def batched_decode_attention_by_plan(decode_layer_plan, q: torch.Tensor,
+                                     k: torch.Tensor, v: torch.Tensor,
+                                     cache_len, *,
+                                     window: int = 0) -> torch.Tensor:
+    """One decode-step attention layer for a bucket of slots at once
+    (ops.py:311), the only decode attention entry of the port: q
+    (B, Hq, 1, hd), one query row per slot; k/v (B, Hkv, W, hd) the slots'
+    caches; ``cache_len`` () or (B,) valid entries per row.  CUDA tensors
+    launch the ``decode_attention`` kernel; CPU tensors take its plain
+    version, blocked by the plan's ``block_kv`` (``DEFAULT_BLOCK`` without
+    a plan; ``runtime.flags(block_k=...)`` overrides both).  The JAX
+    package's per-slot ``decode_attention_by_plan`` (ops.py:271, flash
+    attention over one slot's K/V) has no counterpart: a bucket of one is
+    the per-slot call."""
+    block = (DEFAULT_BLOCK if decode_layer_plan is None
+             else decode_layer_plan.block_kv)
+    return decode_attention(
+        q.contiguous(), k.contiguous(), v.contiguous(), cache_len,
+        window=window, block_k=runtime.get("block_k", block))

@@ -114,3 +114,29 @@ def ref_stream_attention(q: torch.Tensor, x_kv: torch.Tensor,
 def ref_tile_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x: (M, K) @ w: (K, N) with f32 accumulation, output in x's dtype."""
     return torch.matmul(x.float(), w.float()).to(x.dtype)
+
+
+def ref_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
+                         v_cache: torch.Tensor, cache_len, *,
+                         window: int = 0) -> torch.Tensor:
+    """Single-token decode attention oracle (ref.py:168).
+
+    q: (B, Hq, 1, hd); caches: (B, Hkv, Smax, hd); cache_len: () or (B,)
+    int, the number of valid cache entries (new token's K/V already
+    written).  A row with no valid entry softmaxes over all-masked scores
+    (a uniform average of V), as the JAX oracle does.
+    """
+    B, Hq, _, hd = q.shape
+    Hkv, Smax = k_cache.shape[1], k_cache.shape[2]
+    G = Hq // Hkv
+    qf = q.float().reshape(B, Hkv, G, hd)
+    s = torch.einsum("bhgd,bhkd->bhgk", qf, k_cache.float()) * hd ** -0.5
+    pos = torch.arange(Smax, device=q.device)[None, :]
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
+    valid = pos < clen
+    if window > 0:
+        valid = valid & (pos > clen - 1 - window)
+    s = torch.where(valid[:, None, None, :], s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
+    return o.reshape(B, Hq, 1, hd).to(q.dtype)

@@ -1,20 +1,21 @@
 """Shared model primitives (counterpart of ``repro/models/layers.py``).
 
 Parameters live in small ``nn.Module``s whose attribute names are the JAX
-parameter tree's keys (``gamma``/``beta``, ``embedding``, ``w_up``/...), so
-that ``convert.vilbert_from_jax`` maps one onto the other by name.  The
+parameter tree's keys (``gamma``/``beta``, ``embedding``/``unembed``,
+``wq``/``wk``/``wv``/``wo``, ``w_up``/...) and whose shapes are the JAX
+layouts, so that ``convert`` maps one tree onto the other by name.  The
 forward functions take the module and mirror the JAX functions.
 """
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from repro_torch.core.types import ModelConfig, pad_to
-from repro_torch.kernels import ops
+from repro_torch.core.types import AttnKind, ExecutionMode, ModelConfig, pad_to
+from repro_torch.kernels import ops, ref
 
 
 def torch_dtype(name: str) -> torch.dtype:
@@ -59,21 +60,191 @@ def layer_norm(p: LayerNorm, x: torch.Tensor, eps: float = 1e-6
 
 
 # ---------------------------------------------------------------------------
+# RMSNorm
+# ---------------------------------------------------------------------------
+
+class RMSNorm(nn.Module):
+    def __init__(self, dim: int, dtype: torch.dtype, device: torch.device):
+        super().__init__()
+        self.gamma = param(torch.ones(dim, dtype=dtype, device=device))
+
+
+def rms_norm(p: RMSNorm, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    return ref.rms_norm(x, p.gamma, eps=eps)
+
+
+# ---------------------------------------------------------------------------
 # Embedding (vocab padded to a multiple of 128, as layers.py:69)
 # ---------------------------------------------------------------------------
 
 class Embedding(nn.Module):
-    """The input embedding only: the crossmodal model never unembeds."""
+    """The input embedding and, with ``unembed=True`` (untied decoders),
+    the output projection (dim, vocab) drawn at fan_in^-0.5.  The
+    crossmodal model never unembeds."""
 
     def __init__(self, vocab: int, dim: int, dtype: torch.dtype,
-                 generator: torch.Generator):
+                 generator: torch.Generator, unembed: bool = False):
         super().__init__()
-        self.embedding = param(dense_init((pad_to(vocab, 128), dim), dtype,
+        v = pad_to(vocab, 128)
+        self.embedding = param(dense_init((v, dim), dtype,
                                           generator=generator, scale=0.02))
+        if unembed:
+            self.unembed = param(dense_init((dim, v), dtype,
+                                            generator=generator))
 
 
 def embed_lookup(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
     return p.embedding[tokens]
+
+
+#: Vocabulary columns per f32 product in ``unembed`` of a narrower dtype,
+#: so that the f32 copy of the matrix never exists whole (3.1 GB at
+#: qwen3-32b).
+UNEMBED_CHUNK = 16384
+
+
+def unembed(p: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits in f32 (layers.py:84-90): x and the matrix in x's dtype, the
+    products and sums in f32."""
+    w = p.embedding.t() if cfg.tie_embeddings else p.unembed
+    w = w.to(x.dtype)
+    if x.dtype == torch.float32:
+        return torch.matmul(x, w)
+    xf = x.float()
+    out = torch.empty(x.shape[:-1] + (w.shape[1],), dtype=torch.float32,
+                      device=x.device)
+    for c in range(0, w.shape[1], UNEMBED_CHUNK):
+        out[..., c:c + UNEMBED_CHUNK] = torch.matmul(
+            xf, w[:, c:c + UNEMBED_CHUNK].float())
+    return out
+
+
+# ---------------------------------------------------------------------------
+# RoPE
+# ---------------------------------------------------------------------------
+
+def rope_tables_for(cfg: ModelConfig, seq_len: int, offset: int = 0,
+                    head_dim: Optional[int] = None, device=None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    return ref.rope_tables(seq_len, head_dim or cfg.head_dim,
+                           theta=cfg.rope_theta, offset=offset, device=device)
+
+
+def apply_rope_bsd(x: torch.Tensor, sin: torch.Tensor,
+                   cos: torch.Tensor) -> torch.Tensor:
+    """x: (B, H, S, hd); sin/cos: (S, hd//2) or (B, S, hd//2)."""
+    half = x.shape[-1] // 2
+    if sin.dim() == 2:
+        sin_b, cos_b = sin[None, None], cos[None, None]
+    else:
+        sin_b, cos_b = sin[:, None], cos[:, None]
+    x1, x2 = x[..., :half], x[..., half:]
+    sin_b, cos_b = sin_b.to(x.dtype), cos_b.to(x.dtype)
+    return torch.cat([x1 * cos_b - x2 * sin_b, x2 * cos_b + x1 * sin_b],
+                     dim=-1)
+
+
+def rope_at(pos: int, head_dim: int, theta: float, device=None
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """sin/cos (1, hd//2) for a single position, O(hd), no table."""
+    half = head_dim // 2
+    freqs = 1.0 / (theta ** (torch.arange(half, dtype=torch.float32,
+                                          device=device) / half))
+    ang = freqs * float(pos)        # f32 products, as pos.astype(f32) * freqs
+    return torch.sin(ang)[None], torch.cos(ang)[None]
+
+
+# ---------------------------------------------------------------------------
+# Attention mixer (dense GQA)
+# ---------------------------------------------------------------------------
+
+class Attention(nn.Module):
+    """wq (d, Hq, hd), wk/wv (d, Hkv, hd), wo (Hq, hd, d) and, with
+    qk-norm, the gains q_gamma/k_gamma (hd,): the JAX layouts."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        d, hq, hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                          cfg.head_dim)
+        dt, g = torch_dtype(cfg.param_dtype), generator
+        self.wq = param(dense_init((d, hq, hd), dt, generator=g))
+        self.wk = param(dense_init((d, hkv, hd), dt, generator=g))
+        self.wv = param(dense_init((d, hkv, hd), dt, generator=g))
+        self.wo = param(dense_init((hq, hd, d), dt, generator=g))
+        if cfg.use_qk_norm:
+            self.q_gamma = param(torch.ones(hd, dtype=dt, device=g.device))
+            self.k_gamma = param(torch.ones(hd, dtype=dt, device=g.device))
+
+
+def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
+                      x_kv: Optional[torch.Tensor] = None,
+                      sin: Optional[torch.Tensor] = None,
+                      cos: Optional[torch.Tensor] = None,
+                      causal: bool = True,
+                      mode: Optional[ExecutionMode] = None,
+                      q_offset: int = 0) -> torch.Tensor:
+    """Full attention sublayer on pre-normed x (layers.py:165); x_kv
+    defaults to x.  The mode goes through the planner's per-layer rule."""
+    from repro_torch.plan.heuristics import resolve_layer_mode
+    x_kv = x if x_kv is None else x_kv
+    mode = resolve_layer_mode(
+        ExecutionMode(mode or cfg.execution_mode), d_kv=x_kv.shape[-1],
+        num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
+        attn_kind=cfg.attn_kind, fuse_kv_generation=cfg.fuse_kv_generation)
+    window = cfg.sliding_window if cfg.attn_kind == AttnKind.SLIDING else 0
+    q = torch.einsum("bsd,dhe->bhse", x, p.wq.to(x.dtype))
+    if cfg.use_qk_norm:
+        q = ref.rms_norm(q, p.q_gamma, eps=cfg.norm_eps)
+    if sin is not None:
+        q_sin, q_cos = sin, cos
+        if q_offset or q.shape[2] != x_kv.shape[1]:
+            q_sin = sin[q_offset:q_offset + q.shape[2]]
+            q_cos = cos[q_offset:q_offset + q.shape[2]]
+        q = apply_rope_bsd(q, q_sin, q_cos)
+    out = ops.attention_by_mode(
+        mode, q, x_kv, p.wk, p.wv, sin=sin, cos=cos,
+        k_gamma=getattr(p, "k_gamma", None), causal=causal, window=window,
+        q_offset=q_offset, norm_eps=cfg.norm_eps)
+    return torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
+
+
+def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                     cache: Dict[str, object], lp=None
+                     ) -> Tuple[torch.Tensor, Dict[str, object]]:
+    """x: (B, 1, D) pre-normed; cache: {"k": (B, Hkv, W, hd), "v": ...,
+    "len": int} (layers.py:247); ``lp``: the layer's ``DecodeLayerPlan``
+    or None.
+
+    The new token's K/V (qk-normed, RoPE at its absolute position) are
+    written at slot ``len % W`` *in place* (the JAX function returns new
+    buffers; updating the cache where it lies saves a copy of it per layer
+    and step), then ``ops.batched_decode_attention_by_plan`` runs over the
+    ``len + 1`` valid entries: the ``decode_attention`` kernel on CUDA
+    tensors, its plain version on CPU tensors.  The JAX function reaches
+    the oracle ``ref_decode_attention`` here instead; the two compute the
+    same function.
+    """
+    pos = int(cache["len"])
+    k_cache, v_cache = cache["k"], cache["v"]
+    W = k_cache.shape[2]
+    q = torch.einsum("bsd,dhe->bhse", x, p.wq.to(x.dtype))
+    k_new = torch.einsum("bsd,dhe->bhse", x, p.wk.to(x.dtype))
+    v_new = torch.einsum("bsd,dhe->bhse", x, p.wv.to(x.dtype))
+    if cfg.use_qk_norm:
+        q = ref.rms_norm(q, p.q_gamma, eps=cfg.norm_eps)
+        k_new = ref.rms_norm(k_new, p.k_gamma, eps=cfg.norm_eps)
+    if cfg.head_dim:
+        sin_t, cos_t = rope_at(pos, cfg.head_dim, cfg.rope_theta,
+                               device=x.device)
+        q = apply_rope_bsd(q, sin_t, cos_t)
+        k_new = apply_rope_bsd(k_new, sin_t, cos_t)
+    slot = pos % W
+    k_cache[:, :, slot:slot + 1] = k_new.to(k_cache.dtype)
+    v_cache[:, :, slot:slot + 1] = v_new.to(v_cache.dtype)
+    out = ops.batched_decode_attention_by_plan(lp, q, k_cache, v_cache,
+                                               pos + 1)
+    o = torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
+    return o, {"k": k_cache, "v": v_cache, "len": pos + 1}
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,276 @@
+"""Decoder-only transformer, dense family (counterpart of
+``repro/models/transformer.py``): forward, single-pass prefill that fills
+the KV cache, and one-token decode steps.
+
+Layers loop in Python (the JAX package scans stacked parameters).  Every
+prefill attention layer dispatches under its planner-resolved mode
+(``kernels.ops.attention_by_plan``); a heterogeneous plan splits the
+layers into same-mode segments (``_dispatch_segments``).  Decode attention
+runs through ``layers.attention_decode``,
+``ops.batched_decode_attention_by_plan`` and the ``decode_attention``
+kernel.
+
+The cache is ``{"layers": {"k": (L, B, Hkv, W, hd), "v": ...}, "len":
+int}``, the JAX tree with a Python int for the position; ``decode_step``
+writes the new token's K/V into it in place.
+
+Not ported yet, and refused with ``NotImplementedError``: MoE (with its
+dense-prefix stack), VLM M-RoPE, sliding-window ring caches, SSM/hybrid
+mixers, MLA, biases, and serving on a mesh (ROADMAP Queue 1 items 6, 9,
+10).
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from repro_torch.core import runtime
+from repro_torch.core.types import AttnKind, ExecutionMode, Family, ModelConfig
+from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
+                                       apply_rope_bsd, attention_decode,
+                                       attention_forward, embed_lookup,
+                                       mlp_forward, rms_norm, rope_tables_for,
+                                       torch_dtype, unembed)
+
+Cache = Dict[str, object]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the parts of the JAX transformer the port does not run."""
+    if cfg.family != Family.DENSE:
+        item = {Family.MOE: "6 (MoE)", Family.VLM: "6 (VLM, M-RoPE)",
+                Family.SSM: "9 (SSM/hybrid)", Family.HYBRID: "9 (SSM/hybrid)"
+                }.get(cfg.family, "6")
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family.value} is not ported yet "
+            f"(ROADMAP Queue 1 item {item})")
+    if cfg.attn_kind != AttnKind.FULL:
+        item = "10 (MLA)" if cfg.attn_kind == AttnKind.MLA else \
+            "6 (sliding-window ring caches)"
+        raise NotImplementedError(
+            f"{cfg.name}: {cfg.attn_kind.value} attention is not ported yet "
+            f"(ROADMAP Queue 1 item {item})")
+    if cfg.use_bias or cfg.mrope_sections:
+        raise NotImplementedError(
+            f"{cfg.name}: biases and M-RoPE are not ported yet "
+            f"(ROADMAP Queue 1 item 6)")
+
+
+class Block(nn.Module):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        dt, dev = torch_dtype(cfg.param_dtype), generator.device
+        self.norm1 = RMSNorm(cfg.d_model, dt, dev)
+        self.attn = Attention(cfg, generator)
+        self.norm2 = RMSNorm(cfg.d_model, dt, dev)
+        self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, generator)
+
+
+def _layer_apply(p: Block, cfg: ModelConfig, x: torch.Tensor, *, sin, cos,
+                 mode: Optional[ExecutionMode]) -> torch.Tensor:
+    h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
+    x = x + attention_forward(p.attn, cfg, h, sin=sin, cos=cos, causal=True,
+                              mode=mode)
+    h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
+    return x + mlp_forward(p.mlp, h2)
+
+
+def _decode_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
+                  cache_l: Cache, lp=None) -> torch.Tensor:
+    h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
+    out, _ = attention_decode(p.attn, cfg, h, cache_l, lp)
+    x = x + out
+    h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
+    return x + mlp_forward(p.mlp, h2)
+
+
+def _project_kv(p: Attention, cfg: ModelConfig, h: torch.Tensor, sin, cos):
+    k = torch.einsum("bsd,dhe->bhse", h, p.wk.to(h.dtype))
+    v = torch.einsum("bsd,dhe->bhse", h, p.wv.to(h.dtype))
+    if cfg.use_qk_norm:
+        k = ref.rms_norm(k, p.k_gamma, eps=cfg.norm_eps)
+    if sin is not None:
+        k = apply_rope_bsd(k, sin, cos)
+    return k, v
+
+
+def _prefill_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
+                   k_cache: torch.Tensor, v_cache: torch.Tensor, *,
+                   sin, cos, lp=None) -> torch.Tensor:
+    """One layer of single-pass prefill (transformer.py:352): the layer
+    output, and its K/V written into the layer's cache buffers (B, Hkv, W,
+    hd) in place.  The attention dispatches under ``lp`` (a
+    ``plan.LayerPlan``) through ``ops.attention_by_plan``, else through
+    flash attention (LAYER_STREAM semantics)."""
+    h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
+    a = p.attn
+    q = torch.einsum("bsd,dhe->bhse", h, a.wq.to(h.dtype))
+    if cfg.use_qk_norm:
+        q = ref.rms_norm(q, a.q_gamma, eps=cfg.norm_eps)
+    if sin is not None:
+        q = apply_rope_bsd(q, sin, cos)
+    k, v = _project_kv(a, cfg, h, sin, cos)
+    if lp is not None:
+        attn_out = ops.attention_by_plan(
+            lp, q, h, a.wk, a.wv, sin=sin, cos=cos,
+            k_gamma=getattr(a, "k_gamma", None), causal=True,
+            norm_eps=cfg.norm_eps, kv=(k, v))
+    else:
+        attn_out = ops.multi_head_attention(q, k, v, causal=True)
+    x = x + torch.einsum("bhse,hed->bsd", attn_out, a.wo.to(h.dtype))
+    S = k.shape[2]
+    k_cache[:, :, :S] = k.to(k_cache.dtype)
+    v_cache[:, :, :S] = v.to(v_cache.dtype)
+    h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
+    return x + mlp_forward(p.mlp, h2)
+
+
+def _dispatch_segments(cfg: ModelConfig, plan, lo: int, hi: int
+                       ) -> List[Tuple[int, int, object]]:
+    """Maximal runs ``[a, b)`` of layers in ``[lo, hi)`` that share one
+    dispatch decision (mode + block tiling), each with a representative
+    ``LayerPlan`` (transformer.py:444).  A uniform or absent plan gives
+    one segment; a heterogeneous plan splits at mode boundaries, so no
+    layer runs under another layer's mode."""
+    if plan is None:
+        return [(lo, hi, None)]
+    reps = []
+    for i in range(lo, hi):
+        lps = [lp for lp in plan.layers if lp.layer_index == i]
+        reps.append(lps[0] if lps else None)
+
+    def key(lp):
+        return (lp.mode, lp.block_q, lp.block_kv)
+
+    segs = []
+    start = 0
+    seg_rep = None
+    for i in range(hi - lo):
+        r = reps[i]
+        if r is None:
+            continue
+        if seg_rep is None:
+            seg_rep = r
+        elif key(r) != key(seg_rep):
+            segs.append((lo + start, lo + i, seg_rep))
+            start, seg_rep = i, r
+    segs.append((lo + start, hi, seg_rep))
+    return segs
+
+
+class Transformer(nn.Module):
+    """Dense decoder.  Weights are drawn from ``generator`` (seed 0 on the
+    model's device by default) with the shapes and scales of the JAX init;
+    ``device`` defaults to the card and raises without one."""
+
+    def __init__(self, cfg: ModelConfig, *,
+                 device: Optional[Union[str, torch.device]] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        check_supported(cfg)
+        device = runtime.resolve_device(device)
+        g = generator or torch.Generator(device=device).manual_seed(0)
+        dt = torch_dtype(cfg.param_dtype)
+        self.cfg = cfg
+        self.embed = Embedding(cfg.vocab_size, cfg.d_model, dt, g,
+                               unembed=not cfg.tie_embeddings)
+        self.final_norm = RMSNorm(cfg.d_model, dt, g.device)
+        self.layers = nn.ModuleList(Block(cfg, g)
+                                    for _ in range(cfg.num_layers))
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.embedding.device
+
+    def _rope(self, seq_len: int):
+        return rope_tables_for(self.cfg, seq_len, device=self.device)
+
+    @torch.no_grad()
+    def forward_hidden(self, batch: Dict[str, torch.Tensor], *,
+                       mode: Optional[ExecutionMode] = None) -> torch.Tensor:
+        """``forward`` up to (but excluding) the unembed projection."""
+        cfg = self.cfg
+        mode = mode or cfg.execution_mode
+        x = embed_lookup(self.embed, batch["tokens"])
+        sin, cos = self._rope(x.shape[1])
+        for p in self.layers:
+            x = _layer_apply(p, cfg, x, sin=sin, cos=cos, mode=mode)
+        return rms_norm(self.final_norm, x, eps=cfg.norm_eps)
+
+    @torch.no_grad()
+    def forward(self, batch: Dict[str, torch.Tensor], *,
+                mode: Optional[ExecutionMode] = None) -> torch.Tensor:
+        """batch: {"tokens": (B, S)} -> logits
+        (B, S, vocab padded to 128) in f32."""
+        return unembed(self.embed, self.forward_hidden(batch, mode=mode),
+                       self.cfg)
+
+    def init_cache(self, batch: int, max_len: int) -> Cache:
+        """Zeroed KV cache for ``batch`` rows of ``max_len`` positions."""
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len,
+                 cfg.head_dim)
+        dt = torch_dtype(cfg.dtype)
+        return {"layers": {
+                    "k": torch.zeros(shape, dtype=dt, device=self.device),
+                    "v": torch.zeros(shape, dtype=dt, device=self.device)},
+                "len": 0}
+
+    @torch.no_grad()
+    def decode_step(self, cache: Cache, tokens: torch.Tensor, *,
+                    plan=None) -> Tuple[torch.Tensor, Cache]:
+        """One serving step: tokens (B, 1) -> (logits (B, 1, V) f32, cache
+        advanced by one; its buffers are updated in place).
+
+        ``plan``: the step's ``DecodePlan``; each layer's attention runs
+        through ``ops.batched_decode_attention_by_plan`` under its own
+        ``DecodeLayerPlan`` (which blocks only the plain version)."""
+        cfg = self.cfg
+        x = embed_lookup(self.embed, tokens)
+        pos = int(cache["len"])
+        ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+        lps = {} if plan is None else {lp.layer_index: lp
+                                       for lp in plan.layers}
+        for i, p in enumerate(self.layers):
+            x = _decode_layer(p, cfg, x, {"k": ks[i], "v": vs[i], "len": pos},
+                              lps.get(i))
+        x = rms_norm(self.final_norm, x, eps=cfg.norm_eps)
+        return (unembed(self.embed, x, cfg),
+                {"layers": cache["layers"], "len": pos + 1})
+
+    @torch.no_grad()
+    def prefill(self, batch: Dict[str, torch.Tensor], max_len: int, *,
+                mode: Optional[ExecutionMode] = None,
+                plan=None) -> Tuple[torch.Tensor, Cache]:
+        """Single-pass prompt processing (transformer.py:485): fills a
+        fresh cache of ``max_len`` positions and returns full-prompt
+        logits (B, S, V) in f32.
+
+        ``plan``: an ``ExecutionPlan`` for this model; each layer's
+        attention dispatches under its own resolved mode and tiling, and a
+        heterogeneous plan splits the layers into same-mode segments.
+        ``mode`` is the JAX package's legacy knob and is not read (the
+        cache fill does not depend on it)."""
+        del mode
+        cfg = self.cfg
+        tokens = batch["tokens"]
+        B, S = tokens.shape
+        if S > max_len:
+            raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}"
+                             f" (the ring cache of sliding-window models is "
+                             f"not ported)")
+        cache = self.init_cache(B, max_len)
+        ks, vs = cache["layers"]["k"], cache["layers"]["v"]
+        x = embed_lookup(self.embed, tokens)
+        sin, cos = self._rope(S)
+        for a, b, lp in _dispatch_segments(cfg, plan, 0, cfg.num_layers):
+            for i in range(a, b):
+                x = _prefill_layer(self.layers[i], cfg, x, ks[i], vs[i],
+                                   sin=sin, cos=cos, lp=lp)
+        x = rms_norm(self.final_norm, x, eps=cfg.norm_eps)
+        cache["len"] = S
+        return unembed(self.embed, x, cfg), cache

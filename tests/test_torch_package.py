@@ -14,7 +14,9 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.convert import vilbert_from_jax
 from repro_torch.core import runtime
+from repro_torch.models.transformer import Transformer
 from repro_torch.models.vilbert import ViLBERT
+from repro_torch.serve.kv_cache import PagedKVCache
 
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "src" / "repro_torch"
@@ -35,6 +37,8 @@ def test_import_leaves_no_jax_and_no_repro_module():
         "sys.path.insert(0, '.')\n"
         "import chip_smoke\n"
         "import repro_torch.convert, repro_torch.kernels.ops\n"
+        "import repro_torch.serve.engine, repro_torch.models.transformer\n"
+        "import repro_torch.plan\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print('BAD', bad)\n"
@@ -63,7 +67,19 @@ def test_entry_points_raise_without_a_gpu_or_a_named_device():
         ViLBERT(cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         vilbert_from_jax({}, cfg)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Transformer(get_config("qwen3-32b", smoke=True))
     assert runtime.resolve_device("cpu").type == "cpu"
+
+
+def test_paged_pool_raises_without_a_gpu_or_a_named_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    kw = dict(slots=2, num_layers=1, kv_heads=1, width=8, head_dim=4,
+              dtype=torch.float32)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        PagedKVCache(**kw)
+    assert PagedKVCache(device="cpu", **kw)._k_pool.device.type == "cpu"
 
 
 def test_chip_smoke_fails_without_a_gpu(tmp_path):
