@@ -8,11 +8,14 @@ For each kernel, a copy of chip_smoke.py and src/repro_torch/ under
 build/planted_faults/<kernel>/ (git-ignored) gets one planted fault in the
 kernel's CUDA source: the attention kernels skip their last 64-key tile
 (decode attention: the last of each W chunk), the bf16 GEMM its last
-32-wide K chunk.  chip_smoke's bf16 check of that
-kernel then runs on the copy, in a subprocess, once at the kernel test
-cases and once at the main path's shapes.  Each run must fail with that
-kernel's comparison message; the script exits non-zero if a planted fault
-goes unnoticed.  Needs one CUDA card.
+32-wide K chunk, the SSD scan the carry of the state from one chunk to
+the next (each chunk starts from its own contribution only).
+chip_smoke's bf16 check of that kernel then runs on the copy, in a
+subprocess, once at the kernel test cases and once at the main path's
+shapes.  Each run must fail with that
+kernel's comparison message.  The SSD scan's fault also runs chip_smoke's
+f32 model checks (phase 9), which must fail on it too.  The script exits
+non-zero if a planted fault goes unnoticed.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -40,6 +43,10 @@ FAULTS = {
                          ("for (int t0 = t_lo; t0 < t_hi; t0 += BK)",
                           "for (int t0 = t_lo; t0 < t_hi - BK; t0 += BK)"),
                          ("DECODE_CASES", "MAIN_DECODE", "check_decode")),
+    "ssd_scan": ("ssd_scan.cu",
+                 ("st[n * PS + p] = fmaf(decay, st[n * PS + p], acc[j]);",
+                  "st[n * PS + p] = acc[j];"),
+                 ("SSD_CASES", "MAIN_SSD", "check_ssd")),
 }
 # Run inside the faulty copy: chip_smoke's bf16 check of one kernel, at
 # its test cases only ("cases") or at the main path's shapes only ("main").
@@ -55,6 +62,11 @@ else:
 c._build.build_all([{kernel!r}])
 getattr(c, check)(torch.Generator(device="cuda").manual_seed(0), {{}})
 """
+# Kernels whose fault must also fail a model-level check of chip_smoke:
+# kernel -> (the check's code, the start of its failure message).
+MODEL_CHECKS = {"ssd_scan": ("import chip_smoke as c\n"
+                             "c._build.build_all()\n"
+                             "c.ssm_checks('')\n", "FAIL: f32 ")}
 
 
 def plant(kernel: str, source: str, text: str, fault: str) -> Path:
@@ -79,15 +91,18 @@ def main() -> None:
     try:
         for kernel, (source, (text, fault), names) in FAULTS.items():
             copy = plant(kernel, source, text, fault)
-            for part in ("cases", "main"):
-                run = subprocess.run(
-                    [sys.executable, "-c",
-                     CHECK.format(names=names, part=part, kernel=kernel)],
-                    cwd=copy, capture_output=True, text=True, timeout=600)
+            runs = {part: (CHECK.format(names=names, part=part,
+                                        kernel=kernel), f"FAIL: {kernel}")
+                    for part in ("cases", "main")}
+            if kernel in MODEL_CHECKS:
+                runs["model"] = MODEL_CHECKS[kernel]
+            for part, (code, message) in runs.items():
+                run = subprocess.run([sys.executable, "-c", code], cwd=copy,
+                                     capture_output=True, text=True,
+                                     timeout=600)
                 lines = run.stderr.strip().splitlines()
                 caught = (run.returncode != 0
-                          and any(ln.startswith(f"FAIL: {kernel}")
-                                  for ln in lines))
+                          and any(ln.startswith(message) for ln in lines))
                 print(f"{kernel}, {part}, {fault!r}: "
                       f"{'caught' if caught else 'MISSED'}: "
                       f"{lines[-1] if lines else '(no message)'}",

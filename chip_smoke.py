@@ -23,17 +23,33 @@ caught:
      requests, with the token, pool, batching and launch-counter gates;
   6. serving checks in f32 at qwen3-32b's widths, 2 layers: batched against
      per-slot decode, and NON/LAYER/TILE prefill against each other;
-  7. one JSON line of per-kernel numbers;
-  8. the last line: {"ok": true, "device": {...}}.
+  7. the third main path: mamba2-780m (SSM) at full width and depth, bf16,
+     served by the same Engine (4 slots, per-slot decode: the paged pool
+     does not take SSM caches) on five requests, with the token, decode
+     and launch-counter gates (ssd_scan 48 per prefill, nothing else);
+  8. the fourth: hymba-1.5b (hybrid attention + SSM heads, sliding
+     window 1024) at full width and depth, bf16, the same way on four
+     requests, one of them longer than the window (ssd_scan, flash
+     attention, tile_gemm and decode attention over the ring);
+  9. checks in f32 at both configurations' widths, 2 layers: prefill(S)
+     then one decode step against prefill(S + 1) (for hymba S > 1024:
+     the ring has wrapped), the kernel's prefill against the plain
+     version's, and hymba's NON/LAYER/TILE prefills against each other;
+ 10. one JSON line of per-kernel numbers;
+ 11. the last line: {"ok": true, "device": {...}}.
 
 Bound of a kernel call: the larger of its FLOPs over the H100 SXM peak of
-its input type (989 TFLOP/s bf16, 67 TFLOP/s f32) and the bytes it must
-move (inputs read once, output written once) over 3.35 TB/s.
+its input type (989 TFLOP/s bf16, 67 TFLOP/s f32; ssd_scan's products are
+f32 whatever its input type) and the bytes it must move (inputs read once,
+output written once) over 3.35 TB/s.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import gc
 import json
+import math
 import subprocess
 import sys
 import time
@@ -48,13 +64,15 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.core.types import ExecutionMode  # noqa: E402
-from repro_torch.kernels import _build, blocked, ref  # noqa: E402
+from repro_torch.core.types import ExecutionMode, Family  # noqa: E402
+from repro_torch.kernels import _build, blocked, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.stream_attention import (  # noqa: E402
     query_rows, stream_attention)
 from repro_torch.kernels.tile_gemm import tile_gemm  # noqa: E402
+from repro_torch.models.ssm import SSM  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.vilbert import ViLBERT  # noqa: E402
 from repro_torch.plan import plan_model  # noqa: E402
@@ -79,7 +97,12 @@ TOL = {"flash_attention": {torch.float32: (2e-4, 2e-4),
        "tile_gemm": {torch.float32: (1e-3, 1e-3), torch.bfloat16: BF16_TOL},
        # f32: the JAX package's decode tolerance (test_decode_attention.py)
        "decode_attention": {torch.float32: (1e-5, 1e-5),
-                            torch.bfloat16: BF16_TOL}}
+                            torch.bfloat16: BF16_TOL},
+       # f32: over 10x the largest error read at any case or main shape
+       # (y 7.8e-6, final state 1.8e-6), and below what products done in
+       # TF32 would miss by.  The final state is f32 in both runs and takes
+       # the f32 limits.
+       "ssd_scan": {torch.float32: (1e-4, 1e-4), torch.bfloat16: BF16_TOL}}
 # Three modes against each other, vilbert-base in f32 at N = 1024: the
 # final vision and language streams (the logits say little: with random
 # weights the pooler's tanh saturates), max |difference| over max |value|.
@@ -95,7 +118,15 @@ KERNELS = {
     "tile_gemm": (tile_gemm, "src/repro/kernels/tile_gemm.py:57"),
     "decode_attention": (decode_attention,
                          "src/repro/kernels/decode_attention.py:124"),
+    "ssd_scan": (ssd_scan, "src/repro/kernels/ssd_scan.py:97"),
 }
+
+
+def free() -> None:
+    """Return the last phase's device memory: its Engine and Probe hold
+    reference cycles, which only the collector frees."""
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def fail(msg: str) -> None:
@@ -209,10 +240,27 @@ MAIN_GEMM.update({
     for what, ms in (("prefill", (512, 1024, 1536)), ("decode", (1, 3)))
     for m in ms
     for proj, k, n in (("up", 5120, 25600), ("down", 25600, 5120))})
+# Phases 7 and 8's requests: rid, prompt length, new tokens, arrival step.
+# mamba2: r0/r1 of one length, r3 the longest, r4 waits for a free slot;
+# hymba: r0 (3000) and r2 (2048) longer than the 1024-key window.
+MAMBA2_REQUESTS = [(0, 2048, 32, 0), (1, 2048, 32, 0), (2, 1000, 32, 0),
+                   (3, 4000, 16, 1), (4, 512, 32, 2)]
+HYMBA_REQUESTS = [(0, 3000, 32, 0), (1, 1500, 32, 0), (2, 2048, 32, 1),
+                  (3, 512, 32, 2)]
+# B, S, H, P, N, chunk: the JAX package's test_ssd_kernel_interpret cases
+# (the last one ragged), then every prefill of phases 7 (mamba2-780m: H 48,
+# P 64, N 128) and 8 (hymba-1.5b: H 25, P 128, N 16), chunk 256.
+SSD_CASES = [(1, 128, 2, 32, 16, 64), (2, 256, 4, 64, 32, 64),
+             (1, 200, 3, 16, 8, 64)]
+MAIN_SSD = {f"mamba2-780m prefill {s}": (1, s, 48, 64, 128, 256)
+            for s in sorted({plen for _, plen, _, _ in MAMBA2_REQUESTS})}
+MAIN_SSD.update({f"hymba-1.5b prefill {s}": (1, s, 25, 128, 16, 256)
+                 for s in sorted({plen for _, plen, _, _ in HYMBA_REQUESTS})})
 TIMED = {"decode_attention": "qwen3-32b bucket of 4",
          "flash_attention": "vision self 4096",
          "stream_attention": "vision self 4096",
-         "tile_gemm": "text mlp up"}
+         "tile_gemm": "text mlp up",
+         "ssd_scan": "mamba2-780m prefill 2048"}
 
 
 def check_flash(gen, report):
@@ -424,6 +472,78 @@ def check_decode(gen, report):
                 dtype=dt)
 
 
+def mamba2_rates(gen, H):
+    """Per-head step-size bias and decay rate from Mamba-2's initial
+    ranges: head h steps around exp(lerp(log 1e-3, log 1e-1, h / (H - 1)))
+    (the bias is softplus^-1 of that) and decays at a rate A in [1, 16],
+    so head 0 carries its state across hundreds of rows.  The reference
+    test's inputs (dt ~ 0.8, A ~ 1) and the JAX init (a_log = dt_bias = 0)
+    forget the state within one 64-row chunk, which would leave the carry
+    between chunks unchecked.  Returns (dt_bias, -A), both (H,) f32."""
+    step = torch.exp(torch.linspace(math.log(1e-3), math.log(1e-1), H,
+                                    device="cuda"))
+    bias = step + torch.log(-torch.expm1(-step))          # softplus^-1
+    return bias, -(1 + 15 * torch.rand(H, generator=gen, device="cuda"))
+
+
+def _ssd_inputs(gen, B, S, H, P, N, dt):
+    """x, b, c in ``dt`` as the reference test draws them; the step sizes
+    (softplus of noise plus the bias) and decay rates (f32) from
+    ``mamba2_rates`` instead."""
+    bias, a = mamba2_rates(gen, H)
+    return (randn(gen, B, S, H, P, dtype=dt, scale=0.5),
+            F.softplus(randn(gen, B, S, H, scale=0.5) + bias), a,
+            randn(gen, B, S, N, dtype=dt, scale=0.3),
+            randn(gen, B, S, N, dtype=dt, scale=0.3))
+
+
+def ssd_flops(B, S, H, P, N) -> int:
+    """The fewest FLOPs the SSD takes in its chunked form, over every chunk
+    length L (L = 1 is the sequential scan): per (b, chunk of l rows)
+    C.B^T 2.l^2.N, once for all heads; per (b, h, chunk) M.U 2.l^2.P,
+    C.state 2.l.N.P, the state update 2.l.P.N and its decay P.N.  The
+    element-wise masks and exponentials are left out: a count from below."""
+    def chunk(l):
+        return 2 * l * l * N + H * (2 * l * l * P + 4 * l * N * P + P * N)
+
+    def at(L):
+        n, r = divmod(S, L)
+        return B * (n * chunk(L) + (chunk(r) if r else 0))
+    return min(at(L) for L in range(1, S + 1))
+
+
+def check_ssd(gen, report):
+    name = "ssd_scan"
+    for dt in DTYPES:
+        cases = [(c, c) for c in SSD_CASES] + list(MAIN_SSD.items())
+        for case, (B, S, H, P, N, chunk) in cases:
+            args = _ssd_inputs(gen, B, S, H, P, N, dt)
+            y, st = ssd_scan(*args, chunk=chunk)
+            want_y, want_st = blocked.ssd_chunked_plain(*args, chunk=chunk)
+            err = compare(name, f"{dt} {case} y", y, want_y)
+            st_err = compare(name, f"{dt} {case} final state", st, want_st)
+            say(f"  {name} {str(dt)[6:]} {case} (B, S, H, P, N, chunk) = "
+                f"{(B, S, H, P, N, chunk)}: max|err| y {err:.2e}, state "
+                f"{st_err:.2e}")
+            if dt != torch.bfloat16 or case != TIMED[name]:
+                continue
+            x, dtv, a, b, c = args
+            e = x.element_size()
+            report[name] = dict(
+                max_abs_err=max(err, st_err),
+                ms=time_ms(lambda: ssd_scan(*args, chunk=chunk)),
+                plain_ms=time_ms(
+                    lambda: blocked.ssd_chunked_plain(*args, chunk=chunk)),
+                library_ms=None,      # no single PyTorch call computes SSD
+                shape=f"x {tuple(x.shape)}, b/c {tuple(b.shape)} bf16, "
+                      f"chunk {chunk}",
+                # SIMT f32 products: the f32 peak
+                flops=ssd_flops(B, S, H, P, N),
+                bytes=(2 * x.numel() + 2 * b.numel()) * e
+                + (dtv.numel() + a.numel() + st.numel()) * 4,
+                dtype=torch.float32)
+
+
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
@@ -564,6 +684,13 @@ def make_requests(cfg, spec, gen):
     return fresh
 
 
+def _clone(tree):
+    """A copy of a cache tree's tensors (other leaves as they are)."""
+    if isinstance(tree, dict):
+        return {k: _clone(v) for k, v in tree.items()}
+    return tree.clone() if isinstance(tree, torch.Tensor) else tree
+
+
 class Probe:
     """Wraps an Engine's prefill and decode calls: times each (host clock
     around work that ends in torch.cuda.synchronize()), checks that every
@@ -575,7 +702,7 @@ class Probe:
     def __init__(self, eng, keep_logits=False, profile_call=None):
         self.prefills, self.decodes, self.saved = [], [], None
         prefill_one, decode = eng._prefill_one, eng._decode
-        self.decode_fn = decode
+        self.prefill_fn, self.decode_fn = prefill_one, decode
 
         def timed_prefill(req):
             torch.cuda.synchronize()
@@ -590,9 +717,7 @@ class Probe:
 
         def timed_decode(cache, toks, **kw):
             if len(self.decodes) == profile_call:
-                self.saved = ({"layers": {k: t.clone() for k, t in
-                                          cache["layers"].items()},
-                               "len": cache["len"]}, toks.clone(), kw)
+                self.saved = (_clone(cache), toks.clone(), kw)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = decode(cache, toks, **kw)
@@ -626,32 +751,40 @@ class Probe:
         return per_rid
 
 
-def profile_step(decode, cache, toks, kw, top: int = 5) -> str:
-    """One decode call under torch.profiler, on a saved copy of an engine
-    step's inputs: the device-busy share of its wall time and the kernels
-    that took the most device time.  Its launches are not counted."""
+def profile_call(fn, *args, top: int = 5, **kw) -> str:
+    """One more call of ``fn`` under torch.profiler, after a warm-up call
+    outside the trace: the device-busy share of its wall time, the number
+    of kernels it launched and those that took the most device time.  Its
+    launches are not counted."""
     from torch.profiler import ProfilerActivity, profile
     counts0 = counts()
-    decode(cache, toks, **kw)              # warm-up, outside the trace
+    fn(*args, **kw)                        # warm-up, outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        decode(cache, toks, **kw)
+        fn(*args, **kw)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     for name, n in counts0.items():        # not a launch of the main path
         KERNELS[name][0].launches = n
-    kernels = [(e.key, e.self_device_time_total) for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy = sum(t for _, t in kernels)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in events)
     if busy == 0:
         return "profiler recorded no device time"
-    kernels.sort(key=lambda kt: -kt[1])
-    parts = ", ".join(f"{k[:40]} {t / 1e3:.2f} ms" for k, t in kernels[:top])
-    return (f"B = {toks.shape[0]}: device busy {busy / 1e3:.2f} ms of "
-            f"{wall_us / 1e3:.2f} ms wall ({100 * busy / wall_us:.0f}%); "
-            f"top: {parts}")
+    events.sort(key=lambda e: -e.self_device_time_total)
+    parts = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms"
+                      for e in events[:top])
+    return (f"device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
+            f"wall ({100 * busy / wall_us:.0f}%), "
+            f"{sum(e.count for e in events)} kernels; top: {parts}")
+
+
+def profile_step(decode, cache, toks, kw) -> str:
+    """One decode call under torch.profiler, on a saved copy of an engine
+    step's inputs (``profile_call``)."""
+    return f"B = {toks.shape[0]}: " + profile_call(decode, cache, toks, **kw)
 
 
 def serve(cfg, model, fresh, *, keep_logits=False, profile_call=None,
@@ -677,7 +810,7 @@ def serve(cfg, model, fresh, *, keep_logits=False, profile_call=None,
 
 def qwen3_serving(smi: str, launches: dict) -> None:
     cfg = get_config("qwen3-32b")
-    torch.cuda.empty_cache()
+    free()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
@@ -760,7 +893,7 @@ def _token_gaps(label, got, want, logits_of) -> int:
 def serving_checks(smi: str) -> None:
     cfg = dataclasses.replace(get_config("qwen3-32b"), num_layers=2,
                               dtype="float32", param_dtype="float32")
-    torch.cuda.empty_cache()
+    free()
     gen = torch.Generator(device="cuda").manual_seed(1)
     model = Transformer(cfg, device="cuda", generator=gen)
     fresh = make_requests(cfg, CHECK_REQUESTS, gen)
@@ -819,9 +952,167 @@ def serving_checks(smi: str) -> None:
             fail(f"f32 {mode.value} prefill logits differ by {gap:.2e}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 7, 8 and 9: mamba2-780m and hymba-1.5b served, and their f32 checks
+# ---------------------------------------------------------------------------
+
+def ssm_serving(arch: str, spec, smi: str, launches: dict) -> None:
+    """Serve ``spec`` on ``arch`` at full width and depth, bf16, random
+    weights (CUDA generator, seed 0), Engine(slots=4, max_len=4096)."""
+    cfg = get_config(arch)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = Transformer(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"  {arch} bf16, {n_params / 1e9:.3f} B parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB [{smi}]")
+    fresh = make_requests(cfg, spec, gen)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng, probe, _ = serve(cfg, model, fresh, slots=4, max_len=4096,
+                          profile_call=2)
+    wall = time.perf_counter() - t0
+    got = counts()
+    profile = profile_step(probe.decode_fn, *probe.saved)
+    probe.saved = None
+    first = fresh()[0]
+    prefill_profile = profile_call(probe.prefill_fn, first)
+    for name, n in got.items():
+        launches[name] += n
+    st = eng.stats()
+    say(f"  served {st['requests']} requests in {wall:.2f} s wall, "
+        f"{st['steps']} steps; decode_calls {eng.decode_calls}, "
+        f"decode_batches {eng.decode_batches}; launches {got}")
+    if eng._pool is not None or eng.decode_batches != eng.decode_calls \
+            or any(r.buckets is not None for r in eng.step_log):
+        fail(f"{arch}: decode did not fall back per slot")
+    L, prefills = cfg.num_layers, len(probe.prefills)
+    want = {name: 0 for name in KERNELS}
+    want["ssd_scan"] = L * prefills
+    if cfg.family == Family.HYBRID:
+        want.update(flash_attention=L * prefills,
+                    decode_attention=L * eng.decode_calls,
+                    tile_gemm=3 * L * (prefills + eng.decode_calls))
+    if got != want:
+        fail(f"{arch}: launches {got} do not fit the path: expected {want}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    say(f"  peak device memory {peak:.2f} GiB [{smi}]")
+    for rid, plen, ms, _ in probe.prefills:
+        say(f"  prefill r{rid}, {plen} tokens: {ms:.1f} ms [{smi}]")
+    ttft = st["wall"]["ttft"]
+    say(f"  wall TTFT p50 {ttft['p50'] * 1e3:.1f} ms, max "
+        f"{ttft['max'] * 1e3:.1f} ms [{smi}]")
+    ms = [m for _, m, _ in probe.decodes]
+    say(f"  decode call (B = 1): mean {np.mean(ms):.2f} ms, min "
+        f"{min(ms):.2f} ms, max {max(ms):.2f} ms over {len(ms)} calls "
+        f"[{smi}]")
+    tokens = sum(len(r.decoded) for r in eng.step_log
+                 if r.decoded and not r.admitted)
+    say(f"  decode: {tokens} tokens in {eng.decode_wall_s():.3f} s of "
+        f"pure-decode steps, {tokens / eng.decode_wall_s():.1f} tokens/s "
+        f"[{smi}]")
+    say(f"  profiled decode call: {profile} [{smi}]")
+    say(f"  profiled prefill of r{first.rid}, {len(first.prompt)} tokens: "
+        f"{prefill_profile} [{smi}]")
+
+
+@contextlib.contextmanager
+def plain_ssd():
+    """The SSM mixers take the SSD scan's plain version on the card, for
+    the check of kernel against plain prefill (phase 9 only)."""
+    real = ops.ssd
+    ops.ssd = lambda x, dt, a, b, c, *, chunk: blocked.ssd_chunked_plain(
+        x, dt, a, b, c, chunk=chunk)
+    try:
+        yield
+    finally:
+        ops.ssd = real
+
+
+def _leaves(tree, prefix=""):
+    out = {}
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            out.update(_leaves(val, f"{prefix}{key}."))
+        else:
+            out[prefix + key] = val
+    return out
+
+
+def ssm_checks(smi: str) -> None:
+    """f32 at full widths, 2 layers: relative gaps (max |diff| / max |value|)
+    within SERVE_TOL."""
+    for arch, S in (("mamba2-780m", 1000), ("hymba-1.5b", 1500)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2,
+                                  dtype="float32", param_dtype="float32")
+        free()
+        gen = torch.Generator(device="cuda").manual_seed(2)
+        model = Transformer(cfg, device="cuda", generator=gen)
+        toks = torch.randint(0, cfg.vocab_size, (1, S + 1), generator=gen,
+                             device="cuda")
+        with torch.no_grad():                  # the carry between chunks
+            for m in model.modules():
+                if isinstance(m, SSM):
+                    bias, a = mamba2_rates(gen, m.a_log.numel())
+                    m.dt_bias.copy_(bias)
+                    m.a_log.copy_(torch.log(-a))
+        V, max_len = cfg.vocab_size, S + 8
+        before = ssd_scan.launches
+        full, cache = model.prefill({"tokens": toks}, max_len)
+        _, part = model.prefill({"tokens": toks[:, :S]}, max_len)
+        step, _ = model.decode_step(part, toks[:, S:])
+        if ssd_scan.launches - before != 2 * cfg.num_layers:
+            fail(f"f32 {arch}: the prefills did not run ssd_scan")
+        gap = _rel(step[0, 0, :V], full[0, -1, :V])
+        say(f"  f32 {arch}: prefill({S}) + decode vs prefill({S + 1}), last "
+            f"logits: relative gap {gap:.2e} (tol {SERVE_TOL})")
+        if gap > SERVE_TOL or not torch.isfinite(full).all():
+            fail(f"f32 {arch}: prefill + decode differs from the longer "
+                 f"prefill by {gap:.2e}")
+        with plain_ssd():
+            plain, pcache = model.prefill({"tokens": toks}, max_len)
+        if ssd_scan.launches - before != 2 * cfg.num_layers:
+            fail(f"f32 {arch}: the plain prefill launched ssd_scan")
+        gaps = {"logits": _rel(full[..., :V], plain[..., :V])}
+        want = _leaves(pcache["layers"])
+        for name, t in _leaves(cache["layers"]).items():
+            gaps[name] = _rel(t, want[name])
+        say(f"  f32 {arch}: kernel vs plain-version prefill, relative gaps "
+            + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+            + f" (tol {SERVE_TOL})")
+        if max(gaps.values()) > SERVE_TOL:
+            fail(f"f32 {arch}: kernel and plain prefills differ: {gaps}")
+        if cfg.family != Family.HYBRID:
+            continue
+        modes = {}
+        for mode in ExecutionMode:
+            reset_counts()
+            modes[mode], _ = model.prefill(
+                {"tokens": toks}, max_len,
+                plan=plan_model(cfg, seq_len=S + 1, mode=mode,
+                                force_mode=True))
+            got = counts()
+            tile = mode == ExecutionMode.TILE_STREAM
+            if (got["stream_attention"] > 0) != tile:
+                fail(f"f32 {arch} {mode.value}: launches {got} do not fit "
+                     f"the mode")
+        base = modes[ExecutionMode.NON_STREAM][..., :V]
+        for mode, logits in modes.items():
+            gap = _rel(logits[..., :V], base)
+            say(f"  f32 {arch} {mode.value} prefill vs non_stream, all "
+                f"logits: relative gap {gap:.2e} (tol {SERVE_TOL})")
+            if gap > SERVE_TOL:
+                fail(f"f32 {arch} {mode.value} prefill differs by {gap:.2e}")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one NVIDIA card")
+    start = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -848,25 +1139,41 @@ def main() -> None:
     check_stream(gen, report)
     check_gemm(gen, report)
     check_decode(gen, report)
+    check_ssd(gen, report)
 
     say("== phase 4: main path, vilbert-base")
     launches = {name: 0 for name in KERNELS}
     main_path(launches)
-    torch.cuda.empty_cache()
+    free()
 
     say("== phase 5: main path, qwen3-32b served (paged KV, batched decode)")
     qwen3_serving(smi, launches)
-    torch.cuda.empty_cache()
+    free()
 
     say("== phase 6: serving checks in f32, qwen3-32b widths, 2 layers")
     serving_checks(smi)
+    free()
+
+    say("== phase 7: main path, mamba2-780m served (SSM, per-slot decode)")
+    ssm_serving("mamba2-780m", MAMBA2_REQUESTS, smi, launches)
+    free()
+
+    say("== phase 8: main path, hymba-1.5b served (hybrid, ring cache)")
+    ssm_serving("hymba-1.5b", HYMBA_REQUESTS, smi, launches)
+    free()
+
+    say("== phase 9: SSM and hybrid checks in f32, full widths, 2 layers")
+    ssm_checks(smi)
+    say(f"phases 1-9 took {time.perf_counter() - start:.1f} s")
 
     rows = []
     for name, (_, replaces) in KERNELS.items():
         r = report[name]
         b_ms, b_by = bound(r["flops"], r["bytes"], r["dtype"])
+        lib = ("none (no single PyTorch call)" if r["library_ms"] is None
+               else f"{r['library_ms']:.3f} ms")
         say(f"  {name} at {r['shape']}: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, library {r['library_ms']:.3f} ms, "
+            f"{r['plain_ms']:.3f} ms, library {lib}, "
             f"bound {b_ms:.4f} ms ({b_by})"
             + (f", K/V regeneration x{r['regeneration']:.0f}"
                if "regeneration" in r else ""))

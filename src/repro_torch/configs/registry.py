@@ -3,11 +3,13 @@ model module that runs each family (counterpart of
 ``repro/configs/registry.py``)."""
 from __future__ import annotations
 
-from repro_torch.configs import qwen3_32b, starcoder2_7b, vilbert_base
+from repro_torch.configs import (hymba_1_5b, mamba2_780m, qwen3_32b,
+                                 starcoder2_7b, vilbert_base)
 from repro_torch.core.types import Family, ModelConfig
 
 _MODULES = {"vilbert-base": vilbert_base, "qwen3-32b": qwen3_32b,
-            "starcoder2-7b": starcoder2_7b}
+            "starcoder2-7b": starcoder2_7b, "mamba2-780m": mamba2_780m,
+            "hymba-1.5b": hymba_1_5b}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -26,9 +28,9 @@ def model_module(cfg: ModelConfig):
     if cfg.family == Family.CROSSMODAL:
         from repro_torch.models import vilbert
         return vilbert
-    if cfg.family == Family.DENSE:
+    if cfg.family in (Family.DENSE, Family.SSM, Family.HYBRID):
         from repro_torch.models import transformer
         return transformer
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family.value} is not ported yet "
-        f"(ROADMAP Queue 1 items 6, 9, 10)")
+        f"(ROADMAP Queue 1 items 6, 10)")

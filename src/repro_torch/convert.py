@@ -77,9 +77,11 @@ def transformer_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
                          device: Optional[Union[str, torch.device]] = None
                          ) -> Transformer:
     """A ``Transformer`` holding the weights of a
-    ``repro.models.transformer.init`` tree (dense family) whose leaves
-    were turned into numpy arrays; the stacked ``layers`` axis becomes
-    ``Transformer.layers``."""
+    ``repro.models.transformer.init`` tree (dense, SSM or hybrid family)
+    whose leaves were turned into numpy arrays; the stacked ``layers``
+    axis becomes ``Transformer.layers``.  Every leaf (an SSM mixer's
+    ``ssm.*``, a hybrid layer's ``mix_beta``) must have its parameter, with
+    its shape."""
     model = Transformer(cfg, device=device)
     _load(model, params_np, ("layers",))
     return model

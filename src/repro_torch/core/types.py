@@ -1,8 +1,9 @@
 """Configuration types (counterpart of ``repro/core/types.py``).
 
 Only what the ported slices read is copied: the enums, ``PruningConfig``,
-the fields of ``ModelConfig`` that the dense decoder and crossmodal paths
-and the planner use, and the shape cells (``ShapeConfig``/``SHAPES``).
+the fields of ``ModelConfig`` that the decoder (dense, SSM, hybrid) and
+crossmodal paths and the planner use, and the shape cells
+(``ShapeConfig``/``SHAPES``).
 Values and defaults are the JAX package's.
 """
 from __future__ import annotations
@@ -80,6 +81,13 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w) splits
     tie_embeddings: bool = False
+    # --- SSM (mamba2 / hymba) ---
+    ssm_state: int = 0
+    ssm_heads: int = 0
+    ssm_head_dim: int = 64
+    ssm_chunk: int = 256
+    ssm_expand: int = 2
+    conv_kernel: int = 4
     # --- crossmodal (vilbert) ---
     num_coattn_layers: int = 0
     d_model_y: int = 0        # second-stream width (text stream)

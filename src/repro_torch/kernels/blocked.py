@@ -2,7 +2,9 @@
 ``repro/kernels/jnp_blocked.py`` and the forward passes of ``flash_vjp.py``).
 
 Each follows its JAX mirror: an online softmax over kv blocks, and for the
-stream version the K/V tile generated from ``x_kv`` inside the block loop.
+stream version the K/V tile generated from ``x_kv`` inside the block loop;
+the SSD scan's dense per-chunk products with the state carried in a loop
+over chunks.
 The kernel wrappers take these for CPU tensors; the CPU tests and the
 kernel-against-plain checks on the card use them too.
 """
@@ -190,3 +192,57 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # The GEMM's plain version is its oracle: (M, K) @ (K, N) accumulated in
 # f32, cast to x's dtype.
 tile_gemm_plain = ref_tile_gemm
+
+
+def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                      b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunked Mamba-2 SSD, the mirror of ``jnp_blocked.ssd_chunked_jnp``
+    (jnp_blocked.py:261) and the plain version of the ``ssd_scan`` kernel.
+    Shapes as ``ref.ref_ssd``; returns (y in x's dtype, final state
+    (B, H, P, N) f32).
+
+    The sequence is zero-padded to a chunk multiple and ``dt`` zeroed past
+    S, so that a padded step has decay 1 and no input.  Per chunk, in f32:
+    LD = cumsum(dt·a), M = where(t >= s, exp(LD_t - LD_s)·(C·Bᵀ), 0),
+    y = M·(dt·x) + exp(LD)·(C·stateᵀ), and the state moves on by
+    exp(LD_last)·state + Σ_s exp(LD_last - LD_s)·dt_s·x_s b_sᵀ.
+    """
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    ch = min(chunk, S)
+    x, _ = _pad_axis(x, 1, ch)
+    dt, _ = _pad_axis(dt, 1, ch)
+    b, _ = _pad_axis(b, 1, ch)
+    c, _ = _pad_axis(c, 1, ch)
+    nc = x.shape[1] // ch
+    xf = x.float().reshape(B, nc, ch, H, P)
+    dtf = dt.float().reshape(B, nc, ch, H)
+    bf = b.float().reshape(B, nc, ch, N)
+    cf = c.float().reshape(B, nc, ch, N)
+    af = a.float()
+    valid = (torch.arange(nc * ch, device=x.device) < S).reshape(nc, ch)
+    dtf = dtf * valid[None, :, :, None]
+    tri = (torch.arange(ch, device=x.device)[:, None]
+           >= torch.arange(ch, device=x.device)[None, :])
+    state = torch.zeros((B, H, P, N), device=x.device)
+    ys = []
+    for j in range(nc):
+        x_c, dt_c, b_c, c_c = xf[:, j], dtf[:, j], bf[:, j], cf[:, j]
+        ld = torch.cumsum(dt_c * af[None, None, :], dim=1)     # (B, ch, H)
+        gamma = ld[:, :, None, :] - ld[:, None, :, :]          # (B, ch, ch, H)
+        cb = torch.einsum("bin,bjn->bij", c_c, b_c)
+        m = torch.where(tri[None, :, :, None],
+                        torch.exp(gamma) * cb[..., None],
+                        torch.zeros((), device=x.device))
+        u = x_c * dt_c[..., None]                              # (B, ch, H, P)
+        y = (torch.einsum("bijh,bjhp->bihp", m, u)
+             + torch.exp(ld)[..., None]
+             * torch.einsum("bin,bhpn->bihp", c_c, state))
+        ld_last = ld[:, -1]                                    # (B, H)
+        w = torch.exp(ld_last[:, None] - ld)[..., None] * u
+        state = (torch.exp(ld_last)[..., None, None] * state
+                 + torch.einsum("bjhp,bjn->bhpn", w, b_c))
+        ys.append(y)
+    y = torch.stack(ys, dim=1).reshape(B, nc * ch, H, P)[:, :S]
+    return y.to(x.dtype), state

@@ -1,5 +1,5 @@
-"""Public attention/projection entry points and the paper's three execution
-modes (counterpart of ``repro/kernels/ops.py``):
+"""Public attention/projection/SSD entry points and the paper's three
+execution modes (counterpart of ``repro/kernels/ops.py``):
 
 * ``NON_STREAM``   materializes Q, K, V, S and P (``ref.ref_attention``);
 * ``LAYER_STREAM`` materializes K/V once, then runs flash attention;
@@ -24,6 +24,7 @@ from repro_torch.core.types import ExecutionMode
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.stream_attention import stream_attention
 from repro_torch.kernels.tile_gemm import tile_gemm
 from repro_torch.plan.heuristics import DEFAULT_BLOCK
@@ -60,6 +61,17 @@ def projection(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     lead, K = x.shape[:-1], x.shape[-1]
     out = tile_gemm(x.reshape(-1, K).contiguous(), w.to(x.dtype).contiguous())
     return out.reshape(*lead, w.shape[1])
+
+
+def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+        b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
+        ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mamba-2 SSD scan -> (y, final state) (ops.py:190): the ``ssd_scan``
+    kernel on CUDA tensors, its plain version, chunked by ``chunk``, on CPU
+    tensors.  Nothing is padded here: the kernel masks the ragged last
+    chunk, the plain version pads itself."""
+    return ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
+                    b.contiguous(), c.contiguous(), chunk=chunk)
 
 
 def attention_by_plan(layer_plan, q: torch.Tensor, x_kv: torch.Tensor,

@@ -140,3 +140,30 @@ def ref_decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhgk,bhkd->bhgd", p, v_cache.float())
     return o.reshape(B, Hq, 1, hd).to(q.dtype)
+
+
+def ref_ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+            b: torch.Tensor, c: torch.Tensor, *,
+            initial_state: Optional[torch.Tensor] = None,
+            return_final_state: bool = False):
+    """Mamba-2 SSD oracle, the sequential scan (ref.py:127).
+
+    x (B, S, H, P) per-head inputs; dt (B, S, H) step sizes (already
+    positive); a (H,) negative decay rates; b/c (B, S, N) input and output
+    projections, shared by the heads.  Per step, in f32:
+    state = exp(dt·a)·state + (x·dt) bᵀ and y = state · c.  Returns y
+    (B, S, H, P) in x's dtype and, if asked, the final state (B, H, P, N).
+    """
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    xf, dtf, bf, cf = x.float(), dt.float(), b.float(), c.float()
+    decay = torch.exp(dtf * a.float()[None, None, :])          # (B, S, H)
+    state = (torch.zeros((B, H, P, N), device=x.device)
+             if initial_state is None else initial_state.float())
+    ys = []
+    for t in range(S):
+        state = state * decay[:, t, :, None, None] + torch.einsum(
+            "bhp,bn->bhpn", xf[:, t] * dtf[:, t, :, None], bf[:, t])
+        ys.append(torch.einsum("bhpn,bn->bhp", state, cf[:, t]))
+    y = torch.stack(ys, dim=1).to(x.dtype)
+    return (y, state) if return_final_state else y

@@ -219,7 +219,9 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     written at slot ``len % W`` *in place* (the JAX function returns new
     buffers; updating the cache where it lies saves a copy of it per layer
     and step), then ``ops.batched_decode_attention_by_plan`` runs over the
-    ``len + 1`` valid entries: the ``decode_attention`` kernel on CUDA
+    ``len + 1`` valid entries, or ``min(len + 1, W)`` for a sliding-window
+    ring (RoPE was applied at each key's absolute position, so the ring's
+    order does not matter): the ``decode_attention`` kernel on CUDA
     tensors, its plain version on CPU tensors.  The JAX function reaches
     the oracle ``ref_decode_attention`` here instead; the two compute the
     same function.
@@ -241,8 +243,9 @@ def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     slot = pos % W
     k_cache[:, :, slot:slot + 1] = k_new.to(k_cache.dtype)
     v_cache[:, :, slot:slot + 1] = v_new.to(v_cache.dtype)
+    valid = min(pos + 1, W) if cfg.attn_kind == AttnKind.SLIDING else pos + 1
     out = ops.batched_decode_attention_by_plan(lp, q, k_cache, v_cache,
-                                               pos + 1)
+                                               valid)
     o = torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
     return o, {"k": k_cache, "v": v_cache, "len": pos + 1}
 

@@ -1,0 +1,157 @@
+"""Mamba-2 (SSD) mixer, the attention-free state-space layer
+(arXiv:2405.21060; counterpart of ``repro/models/ssm.py``).  Used alone
+(mamba2-780m) and beside attention in hymba's hybrid layers.
+
+Prefill runs the SSD scan through ``ops.ssd`` (the ``ssd_scan`` kernel on
+CUDA tensors); the in/out projections are ``torch.matmul``, as the
+reference's ``jnp.dot``; the causal conv, the gated RMSNorm and the
+one-token decode recurrence are plain PyTorch.  ``ssm_forward`` also
+serves the reference's ``transformer._ssm_prefill_state``: given a layer
+cache it writes the conv state and the final SSD state into it.  The
+per-layer cache is ``{"conv": (B, K-1, d_inner+2N), "state": (B, H, P, N)
+f32}``; the position counter lives in the model's cache, not here.
+"""
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.types import ModelConfig
+from repro_torch.kernels import ops, ref
+from repro_torch.models.layers import dense_init, param, torch_dtype
+
+Cache = Dict[str, torch.Tensor]
+
+
+def ssm_dims(cfg: ModelConfig) -> Tuple[int, int, int, int]:
+    """(d, d_inner, heads, head width) of the mixer (ssm.py:22)."""
+    d = cfg.d_model
+    d_inner = cfg.ssm_expand * d
+    nheads = cfg.ssm_heads or max(d_inner // cfg.ssm_head_dim, 1)
+    return d, d_inner, nheads, d_inner // nheads
+
+
+class SSM(nn.Module):
+    """The mixer's parameters with the JAX init's shapes, scales and
+    constants (ssm.py:30): ``in_proj`` (d, 2·d_inner + 2N + H) producing
+    [x, z, B, C, dt]; ``conv_w`` (K, d_inner + 2N) at scale 0.5;
+    ``a_log`` 0, ``dt_bias`` 0 and ``d_skip`` 1 (H,) in f32;
+    ``norm_gamma`` (d_inner,) ones; ``out_proj`` (d_inner, d)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        d, d_inner, nheads, _ = ssm_dims(cfg)
+        N = cfg.ssm_state
+        dt, g = torch_dtype(cfg.param_dtype), generator
+        dev = g.device
+        self.in_proj = param(dense_init((d, 2 * d_inner + 2 * N + nheads), dt,
+                                        generator=g))
+        self.conv_w = param(dense_init((cfg.conv_kernel, d_inner + 2 * N), dt,
+                                       generator=g, scale=0.5))
+        self.a_log = param(torch.zeros(nheads, device=dev))
+        self.dt_bias = param(torch.zeros(nheads, device=dev))
+        self.d_skip = param(torch.ones(nheads, device=dev))
+        self.norm_gamma = param(torch.ones(d_inner, dtype=dt, device=dev))
+        self.out_proj = param(dense_init((d_inner, d), dt, generator=g))
+
+
+def _split_proj(cfg: ModelConfig, proj: torch.Tensor, d_inner: int):
+    """[x, z, B, C, dt] of the in-projection's output (ssm.py:48)."""
+    N = cfg.ssm_state
+    return (proj[..., :d_inner], proj[..., d_inner:2 * d_inner],
+            proj[..., 2 * d_inner:2 * d_inner + N],
+            proj[..., 2 * d_inner + N:2 * d_inner + 2 * N],
+            proj[..., 2 * d_inner + 2 * N:])
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor,
+                 state: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Depthwise causal conv1d (ssm.py:58).  x (B, S, C), w (K, C); state
+    (B, K-1, C) is the history before x (zeros if None).  Returns the
+    output and the new history, the last K-1 inputs."""
+    K, S = w.shape[0], x.shape[1]
+    pad = (torch.zeros((x.shape[0], K - 1, x.shape[2]), dtype=x.dtype,
+                       device=x.device)
+           if state is None else state.to(x.dtype))
+    xp = torch.cat([pad, x], dim=1)
+    out = xp[:, 0:S] * w[0]
+    for i in range(1, K):
+        out = out + xp[:, i:i + S] * w[i]
+    return out, (xp[:, -(K - 1):] if K > 1 else pad)
+
+
+def _conv_and_gates(p: SSM, cfg: ModelConfig, xin: torch.Tensor,
+                    conv_state: Optional[torch.Tensor]):
+    """in_proj, causal conv and SiLU, softplus(dt): (x, z, B, C, dt f32,
+    a, new conv history)."""
+    d_inner = ssm_dims(cfg)[1]
+    N = cfg.ssm_state
+    proj = torch.matmul(xin, p.in_proj.to(xin.dtype))
+    x, z, b, c, dt = _split_proj(cfg, proj, d_inner)
+    xbc, conv = _causal_conv(torch.cat([x, b, c], dim=-1),
+                             p.conv_w.to(xin.dtype), conv_state)
+    xbc = F.silu(xbc)
+    dt = F.softplus(dt.float() + p.dt_bias)
+    return (xbc[..., :d_inner], z, xbc[..., d_inner:d_inner + N],
+            xbc[..., d_inner + N:], dt, -torch.exp(p.a_log), conv)
+
+
+def _out(p: SSM, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
+         dtype: torch.dtype) -> torch.Tensor:
+    """Gated RMSNorm (mamba2's norm before the out-projection), then
+    out_proj."""
+    y = ref.rms_norm(y * F.silu(z), p.norm_gamma, eps=cfg.norm_eps)
+    return torch.matmul(y, p.out_proj.to(dtype))
+
+
+def ssm_forward(p: SSM, cfg: ModelConfig, xin: torch.Tensor,
+                cache: Optional[Cache] = None) -> torch.Tensor:
+    """xin (B, S, D) pre-normed -> (B, S, D) (ssm.py:73).  With a layer
+    ``cache`` (prefill, transformer.py:312), the conv history and the
+    final SSD state are written into its buffers in place."""
+    _, d_inner, nheads, headdim = ssm_dims(cfg)
+    B, S, _ = xin.shape
+    x, z, b, c, dt, a, conv = _conv_and_gates(p, cfg, xin, None)
+    xh = x.reshape(B, S, nheads, headdim)
+    y, state = ops.ssd(xh, dt, a, b, c, chunk=cfg.ssm_chunk)
+    y = y + xh * p.d_skip[None, None, :, None].to(xh.dtype)
+    if cache is not None:
+        cache["conv"].copy_(conv)
+        cache["state"].copy_(state)
+    return _out(p, cfg, y.reshape(B, S, d_inner), z, xin.dtype)
+
+
+def ssm_init_cache(cfg: ModelConfig, num_layers: int, batch: int,
+                   dtype: torch.dtype, device) -> Cache:
+    """Zeroed conv history (dtype) and SSD state (f32) of ``num_layers``
+    layers for ``batch`` rows (ssm.py:101, stacked over layers)."""
+    _, d_inner, nheads, headdim = ssm_dims(cfg)
+    return {"conv": torch.zeros((num_layers, batch, cfg.conv_kernel - 1,
+                                 d_inner + 2 * cfg.ssm_state),
+                                dtype=dtype, device=device),
+            "state": torch.zeros((num_layers, batch, nheads, headdim,
+                                  cfg.ssm_state),
+                                 dtype=torch.float32, device=device)}
+
+
+def ssm_decode(p: SSM, cfg: ModelConfig, xin: torch.Tensor,
+               cache: Cache) -> torch.Tensor:
+    """One-token recurrent step (ssm.py:112): xin (B, 1, D) pre-normed ->
+    (B, 1, D).  The conv history and the state are updated in place (the
+    JAX function returns new buffers)."""
+    _, d_inner, nheads, headdim = ssm_dims(cfg)
+    B = xin.shape[0]
+    x, z, b, c, dt, a, conv = _conv_and_gates(p, cfg, xin, cache["conv"])
+    xh = x.reshape(B, nheads, headdim).float()
+    decay = torch.exp(dt[:, 0, :, None, None] * a[None, :, None, None])
+    state = cache["state"] * decay + torch.einsum(
+        "bhp,bn->bhpn", xh * dt[:, 0, :, None], b[:, 0].float())
+    y = torch.einsum("bhpn,bn->bhp", state, c[:, 0].float())
+    y = y + xh * p.d_skip[None, :, None]
+    cache["conv"].copy_(conv)
+    cache["state"].copy_(state)
+    return _out(p, cfg, y.reshape(B, 1, d_inner).to(xin.dtype), z, xin.dtype)

@@ -1,6 +1,6 @@
-"""Decoder-only transformer, dense family (counterpart of
-``repro/models/transformer.py``): forward, single-pass prefill that fills
-the KV cache, and one-token decode steps.
+"""Decoder-only transformer, dense, SSM and hybrid families (counterpart
+of ``repro/models/transformer.py``): forward, single-pass prefill that
+fills the cache, and one-token decode steps.
 
 Layers loop in Python (the JAX package scans stacked parameters).  Every
 prefill attention layer dispatches under its planner-resolved mode
@@ -8,15 +8,25 @@ prefill attention layer dispatches under its planner-resolved mode
 layers into same-mode segments (``_dispatch_segments``).  Decode attention
 runs through ``layers.attention_decode``,
 ``ops.batched_decode_attention_by_plan`` and the ``decode_attention``
-kernel.
+kernel.  SSM mixers (``models.ssm``) run the ``ssd_scan`` kernel at
+prefill and a plain recurrence at decode; a hybrid layer (hymba) runs
+attention and the SSM side by side on the same normed input and mixes
+them by ``softmax(mix_beta)``.
 
-The cache is ``{"layers": {"k": (L, B, Hkv, W, hd), "v": ...}, "len":
-int}``, the JAX tree with a Python int for the position; ``decode_step``
-writes the new token's K/V into it in place.
+The cache is the JAX tree with a Python int for the position, ``{"layers":
+tree, "len": int}``, every leaf stacked over layers:
+
+* dense: ``{"k": (L, B, Hkv, W, hd), "v": ...}``;
+* SSM: ``{"conv": (L, B, K-1, d_inner+2N), "state": (L, B, H, P, N) f32}``;
+* hybrid: ``{"attn": {"k", "v"}, "ssm": {"conv", "state"}}``.
+
+Sliding-window attention (hybrid only) keeps a ring of ``W = min(max_len,
+window)`` slots: absolute position p lives in slot p % W.  ``decode_step``
+updates the cache's buffers in place.
 
 Not ported yet, and refused with ``NotImplementedError``: MoE (with its
-dense-prefix stack), VLM M-RoPE, sliding-window ring caches, SSM/hybrid
-mixers, MLA, biases, and serving on a mesh (ROADMAP Queue 1 items 6, 9,
+dense-prefix stack), VLM M-RoPE, the ring cache of dense sliding-window
+models, MLA, biases, and serving on a mesh (ROADMAP Queue 1 items 6, 7,
 10).
 """
 from __future__ import annotations
@@ -32,24 +42,31 @@ from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
                                        apply_rope_bsd, attention_decode,
                                        attention_forward, embed_lookup,
-                                       mlp_forward, rms_norm, rope_tables_for,
-                                       torch_dtype, unembed)
+                                       mlp_forward, param, rms_norm,
+                                       rope_tables_for, torch_dtype, unembed)
+from repro_torch.models.ssm import (SSM, ssm_decode, ssm_forward,
+                                    ssm_init_cache)
 
 Cache = Dict[str, object]
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of the JAX transformer the port does not run."""
-    if cfg.family != Family.DENSE:
-        item = {Family.MOE: "6 (MoE)", Family.VLM: "6 (VLM, M-RoPE)",
-                Family.SSM: "9 (SSM/hybrid)", Family.HYBRID: "9 (SSM/hybrid)"
+    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID):
+        item = {Family.MOE: "6 (MoE)", Family.VLM: "6 (VLM, M-RoPE)"
                 }.get(cfg.family, "6")
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family.value} is not ported yet "
             f"(ROADMAP Queue 1 item {item})")
-    if cfg.attn_kind != AttnKind.FULL:
-        item = "10 (MLA)" if cfg.attn_kind == AttnKind.MLA else \
-            "6 (sliding-window ring caches)"
+    if cfg.family == Family.SSM:
+        return
+    if cfg.attn_kind == AttnKind.SLIDING and cfg.family != Family.HYBRID:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window attention of a dense model is not "
+            f"ported yet: it needs a paged ring pool (ROADMAP Queue 1 "
+            f"item 6)")
+    if cfg.attn_kind not in (AttnKind.FULL, AttnKind.SLIDING):
+        item = "10 (MLA)" if cfg.attn_kind == AttnKind.MLA else "6"
         raise NotImplementedError(
             f"{cfg.name}: {cfg.attn_kind.value} attention is not ported yet "
             f"(ROADMAP Queue 1 item {item})")
@@ -59,32 +76,75 @@ def check_supported(cfg: ModelConfig) -> None:
             f"(ROADMAP Queue 1 item 6)")
 
 
+def _window(cfg: ModelConfig) -> int:
+    return cfg.sliding_window if cfg.attn_kind == AttnKind.SLIDING else 0
+
+
 class Block(nn.Module):
+    """One layer (transformer.py:30): ``norm1`` and ``ssm`` (SSM family);
+    ``norm1``, ``attn``, ``norm2`` and ``mlp`` (dense); a hybrid layer adds
+    ``ssm`` and the mixing logits ``mix_beta`` (2,) f32, ones."""
+
     def __init__(self, cfg: ModelConfig, generator: torch.Generator):
         super().__init__()
         dt, dev = torch_dtype(cfg.param_dtype), generator.device
         self.norm1 = RMSNorm(cfg.d_model, dt, dev)
+        if cfg.family == Family.SSM:
+            self.ssm = SSM(cfg, generator)
+            return
         self.attn = Attention(cfg, generator)
+        if cfg.family == Family.HYBRID:
+            self.ssm = SSM(cfg, generator)
+            self.mix_beta = param(torch.ones(2, device=dev))
         self.norm2 = RMSNorm(cfg.d_model, dt, dev)
         self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, generator)
+
+
+def _mix(p: Block, x: torch.Tensor, attn_out: torch.Tensor,
+         ssm_out: Optional[torch.Tensor]) -> torch.Tensor:
+    """The residual add of the mixers: x + attn, or for a hybrid layer
+    x + β0·attn + β1·ssm with β = softmax(mix_beta) in x's dtype
+    (transformer.py:72-75)."""
+    if ssm_out is None:
+        return x + attn_out
+    beta = torch.softmax(p.mix_beta, dim=0).to(x.dtype)
+    return x + beta[0] * attn_out + beta[1] * ssm_out
 
 
 def _layer_apply(p: Block, cfg: ModelConfig, x: torch.Tensor, *, sin, cos,
                  mode: Optional[ExecutionMode]) -> torch.Tensor:
     h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
-    x = x + attention_forward(p.attn, cfg, h, sin=sin, cos=cos, causal=True,
-                              mode=mode)
+    if cfg.family == Family.SSM:
+        return x + ssm_forward(p.ssm, cfg, h)
+    attn_out = attention_forward(p.attn, cfg, h, sin=sin, cos=cos,
+                                 causal=True, mode=mode)
+    x = _mix(p, x, attn_out, ssm_forward(p.ssm, cfg, h)
+             if cfg.family == Family.HYBRID else None)
     h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
     return x + mlp_forward(p.mlp, h2)
 
 
 def _decode_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                  cache_l: Cache, lp=None) -> torch.Tensor:
+                  cache_l: Cache, pos: int, lp=None) -> torch.Tensor:
+    """One layer of a decode step (transformer.py:246); ``cache_l`` is the
+    layer's slice of the cache tree, updated in place."""
     h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
-    out, _ = attention_decode(p.attn, cfg, h, cache_l, lp)
-    x = x + out
+    if cfg.family == Family.SSM:
+        return x + ssm_decode(p.ssm, cfg, h, cache_l)
+    hybrid = cfg.family == Family.HYBRID
+    kv = cache_l["attn"] if hybrid else cache_l
+    out, _ = attention_decode(p.attn, cfg, h, {**kv, "len": pos}, lp)
+    x = _mix(p, x, out, ssm_decode(p.ssm, cfg, h, cache_l["ssm"])
+             if hybrid else None)
     h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
     return x + mlp_forward(p.mlp, h2)
+
+
+def _layer_cache(tree, i: int):
+    """Layer ``i``'s slice of a layer-stacked cache tree (views)."""
+    if isinstance(tree, dict):
+        return {k: _layer_cache(v, i) for k, v in tree.items()}
+    return tree[i]
 
 
 def _project_kv(p: Attention, cfg: ModelConfig, h: torch.Tensor, sin, cos):
@@ -97,16 +157,30 @@ def _project_kv(p: Attention, cfg: ModelConfig, h: torch.Tensor, sin, cos):
     return k, v
 
 
+def _fill_kv(kv: Cache, k: torch.Tensor, v: torch.Tensor) -> None:
+    """Write a prompt's K/V (B, Hkv, S, hd) into a layer's cache buffers
+    (B, Hkv, W, hd).  A ring (S > W) keeps the last W keys, rolled so
+    that absolute position p lands in slot p % W (transformer.py:413)."""
+    S, W = k.shape[2], kv["k"].shape[2]
+    if S > W:
+        k = torch.roll(k[:, :, -W:], S % W, dims=2)
+        v = torch.roll(v[:, :, -W:], S % W, dims=2)
+    kv["k"][:, :, :k.shape[2]] = k.to(kv["k"].dtype)
+    kv["v"][:, :, :v.shape[2]] = v.to(kv["v"].dtype)
+
+
 def _prefill_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
-                   k_cache: torch.Tensor, v_cache: torch.Tensor, *,
-                   sin, cos, lp=None) -> torch.Tensor:
+                   cache_l: Cache, *, sin, cos, lp=None) -> torch.Tensor:
     """One layer of single-pass prefill (transformer.py:352): the layer
-    output, and its K/V written into the layer's cache buffers (B, Hkv, W,
-    hd) in place.  The attention dispatches under ``lp`` (a
-    ``plan.LayerPlan``) through ``ops.attention_by_plan``, else through
-    flash attention (LAYER_STREAM semantics)."""
+    output, with the layer's cache (its slice of the tree) filled in
+    place.  The attention dispatches under ``lp`` (a ``plan.LayerPlan``)
+    through ``ops.attention_by_plan``, else through flash attention
+    (LAYER_STREAM semantics); the SSM side leaves its conv history and
+    final SSD state in the cache."""
     h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
-    a = p.attn
+    if cfg.family == Family.SSM:
+        return x + ssm_forward(p.ssm, cfg, h, cache_l)
+    a, window = p.attn, _window(cfg)
     q = torch.einsum("bsd,dhe->bhse", h, a.wq.to(h.dtype))
     if cfg.use_qk_norm:
         q = ref.rms_norm(q, a.q_gamma, eps=cfg.norm_eps)
@@ -116,14 +190,16 @@ def _prefill_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
     if lp is not None:
         attn_out = ops.attention_by_plan(
             lp, q, h, a.wk, a.wv, sin=sin, cos=cos,
-            k_gamma=getattr(a, "k_gamma", None), causal=True,
+            k_gamma=getattr(a, "k_gamma", None), causal=True, window=window,
             norm_eps=cfg.norm_eps, kv=(k, v))
     else:
-        attn_out = ops.multi_head_attention(q, k, v, causal=True)
-    x = x + torch.einsum("bhse,hed->bsd", attn_out, a.wo.to(h.dtype))
-    S = k.shape[2]
-    k_cache[:, :, :S] = k.to(k_cache.dtype)
-    v_cache[:, :, :S] = v.to(v_cache.dtype)
+        attn_out = ops.multi_head_attention(q, k, v, causal=True,
+                                            window=window)
+    attn_out = torch.einsum("bhse,hed->bsd", attn_out, a.wo.to(h.dtype))
+    hybrid = cfg.family == Family.HYBRID
+    _fill_kv(cache_l["attn"] if hybrid else cache_l, k, v)
+    x = _mix(p, x, attn_out, ssm_forward(p.ssm, cfg, h, cache_l["ssm"])
+             if hybrid else None)
     h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
     return x + mlp_forward(p.mlp, h2)
 
@@ -162,9 +238,10 @@ def _dispatch_segments(cfg: ModelConfig, plan, lo: int, hi: int
 
 
 class Transformer(nn.Module):
-    """Dense decoder.  Weights are drawn from ``generator`` (seed 0 on the
-    model's device by default) with the shapes and scales of the JAX init;
-    ``device`` defaults to the card and raises without one."""
+    """Dense, SSM or hybrid decoder.  Weights are drawn from ``generator``
+    (seed 0 on the model's device by default) with the shapes and scales
+    of the JAX init; ``device`` defaults to the card and raises without
+    one."""
 
     def __init__(self, cfg: ModelConfig, *,
                  device: Optional[Union[str, torch.device]] = None,
@@ -187,6 +264,9 @@ class Transformer(nn.Module):
         return self.embed.embedding.device
 
     def _rope(self, seq_len: int):
+        """RoPE tables, or (None, None) for attention-free models."""
+        if not self.cfg.num_heads or self.cfg.attn_kind == AttnKind.NONE:
+            return None, None
         return rope_tables_for(self.cfg, seq_len, device=self.device)
 
     @torch.no_grad()
@@ -210,15 +290,21 @@ class Transformer(nn.Module):
                        self.cfg)
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
-        """Zeroed KV cache for ``batch`` rows of ``max_len`` positions."""
+        """Zeroed cache for ``batch`` rows of ``max_len`` positions
+        (transformer.py:220): the tree of the module docstring.  A
+        sliding-window ring holds ``min(max_len, window)`` slots."""
         cfg = self.cfg
-        shape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len,
-                 cfg.head_dim)
-        dt = torch_dtype(cfg.dtype)
-        return {"layers": {
-                    "k": torch.zeros(shape, dtype=dt, device=self.device),
-                    "v": torch.zeros(shape, dtype=dt, device=self.device)},
-                "len": 0}
+        dt, dev, L = torch_dtype(cfg.dtype), self.device, cfg.num_layers
+        if cfg.family == Family.SSM:
+            return {"layers": ssm_init_cache(cfg, L, batch, dt, dev),
+                    "len": 0}
+        W = min(max_len, _window(cfg) or max_len)
+        shape = (L, batch, cfg.num_kv_heads, W, cfg.head_dim)
+        kv = {"k": torch.zeros(shape, dtype=dt, device=dev),
+              "v": torch.zeros(shape, dtype=dt, device=dev)}
+        if cfg.family == Family.HYBRID:
+            kv = {"attn": kv, "ssm": ssm_init_cache(cfg, L, batch, dt, dev)}
+        return {"layers": kv, "len": 0}
 
     @torch.no_grad()
     def decode_step(self, cache: Cache, tokens: torch.Tensor, *,
@@ -232,12 +318,11 @@ class Transformer(nn.Module):
         cfg = self.cfg
         x = embed_lookup(self.embed, tokens)
         pos = int(cache["len"])
-        ks, vs = cache["layers"]["k"], cache["layers"]["v"]
         lps = {} if plan is None else {lp.layer_index: lp
                                        for lp in plan.layers}
         for i, p in enumerate(self.layers):
-            x = _decode_layer(p, cfg, x, {"k": ks[i], "v": vs[i], "len": pos},
-                              lps.get(i))
+            x = _decode_layer(p, cfg, x, _layer_cache(cache["layers"], i),
+                              pos, lps.get(i))
         x = rms_norm(self.final_norm, x, eps=cfg.norm_eps)
         return (unembed(self.embed, x, cfg),
                 {"layers": cache["layers"], "len": pos + 1})
@@ -253,23 +338,26 @@ class Transformer(nn.Module):
         ``plan``: an ``ExecutionPlan`` for this model; each layer's
         attention dispatches under its own resolved mode and tiling, and a
         heterogeneous plan splits the layers into same-mode segments.
-        ``mode`` is the JAX package's legacy knob and is not read (the
-        cache fill does not depend on it)."""
+        Attention-free models take None.  ``mode`` is the JAX package's
+        legacy knob and is not read (the cache fill does not depend on
+        it).  A prompt longer than ``max_len`` is refused where the cache
+        holds every position; a sliding-window ring keeps the last W keys
+        and an SSM cache has no length."""
         del mode
         cfg = self.cfg
         tokens = batch["tokens"]
         B, S = tokens.shape
-        if S > max_len:
-            raise ValueError(f"prompt of {S} tokens exceeds max_len {max_len}"
-                             f" (the ring cache of sliding-window models is "
-                             f"not ported)")
+        if (S > max_len and cfg.family != Family.SSM
+                and cfg.attn_kind != AttnKind.SLIDING):
+            raise ValueError(f"prompt of {S} tokens exceeds max_len "
+                             f"{max_len}")
         cache = self.init_cache(B, max_len)
-        ks, vs = cache["layers"]["k"], cache["layers"]["v"]
         x = embed_lookup(self.embed, tokens)
         sin, cos = self._rope(S)
         for a, b, lp in _dispatch_segments(cfg, plan, 0, cfg.num_layers):
             for i in range(a, b):
-                x = _prefill_layer(self.layers[i], cfg, x, ks[i], vs[i],
+                x = _prefill_layer(self.layers[i], cfg, x,
+                                   _layer_cache(cache["layers"], i),
                                    sin=sin, cos=cos, lp=lp)
         x = rms_norm(self.final_norm, x, eps=cfg.norm_eps)
         cache["len"] = S

@@ -178,8 +178,7 @@ def test_own_init_has_jax_shapes_and_scales(model):
 @pytest.mark.parametrize("change,item", [
     (dict(family=Family.MOE), "item 6"),
     (dict(family=Family.VLM), "item 6"),
-    (dict(family=Family.HYBRID), "item 9"),
-    (dict(attn_kind=AttnKind.SLIDING), "ring caches"),
+    (dict(attn_kind=AttnKind.SLIDING), "paged ring pool"),
     (dict(attn_kind=AttnKind.MLA), "item 10"),
     (dict(use_bias=True), "item 6"),
 ])
@@ -192,9 +191,11 @@ def test_unported_variants_raise(change, item):
 def test_registry_dispatches_families():
     assert model_module(get_config("qwen3-32b")) is T
     assert model_module(get_config("vilbert-base")).__name__.endswith("vilbert")
+    assert model_module(dataclasses.replace(get_config("qwen3-32b"),
+                                            family=Family.SSM)) is T
     with pytest.raises(NotImplementedError):
         model_module(dataclasses.replace(get_config("qwen3-32b"),
-                                         family=Family.SSM))
+                                         family=Family.MOE))
     with pytest.raises(NotImplementedError, match="smoke"):
         get_config("starcoder2-7b")
 
