@@ -4,18 +4,20 @@ catch a wrong kernel.
 
     python3 chip_faults.py
 
-For each kernel, a copy of chip_smoke.py and src/repro_torch/ under
-build/planted_faults/<kernel>/ (git-ignored) gets one planted fault in the
-kernel's CUDA source: the attention kernels skip their last 64-key tile
-(decode attention: the last of each W chunk), the bf16 GEMM its last
-32-wide K chunk, the SSD scan the carry of the state from one chunk to
-the next (each chunk starts from its own contribution only).
+For each planted fault, a copy of chip_smoke.py and src/repro_torch/
+under build/planted_faults/<fault>/ (git-ignored) gets one fault in a
+kernel's CUDA source: the attention kernels drop the last live kv tile
+of their range (decode attention: the last tile of each W chunk), the
+stream kernel also attends in every sub-step to its own generated tile in
+place of the one forwarded from its peers, the bf16 GEMM skips its last
+32-wide K chunk, the SSD scan drops the carry of the state from one chunk
+to the next (each chunk starts from its own contribution only).
 chip_smoke's bf16 check of that kernel then runs on the copy, in a
 subprocess, once at the kernel test cases and once at the main path's
-shapes.  Each run must fail with that
-kernel's comparison message.  The SSD scan's fault also runs chip_smoke's
-f32 model checks (phase 9), which must fail on it too.  The script exits
-non-zero if a planted fault goes unnoticed.  Needs one CUDA card.
+shapes.  Each run must fail with that kernel's comparison message, which
+names the worst element's error over its limit.  The SSD scan's fault
+also runs chip_smoke's f32 model checks (phase 9), which must fail on it
+too.  The script exits non-zero if a planted fault goes unnoticed.  Needs one CUDA card.
 """
 from __future__ import annotations
 
@@ -26,24 +28,36 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 WORK = ROOT / "build" / "planted_faults"
-SKIP_LAST_KV_TILE = ("for (int j = 0; j < nkb; ++j)",
-                     "for (int j = 0; j < nkb - 1; ++j)")
-# kernel: (CUDA source, (text, planted replacement),
-#          chip_smoke's (test cases, main-path shapes, check function))
+# The tensor-core attention kernels compute their live kv tiles [lo, hi)
+# once, for the producer's loads and the consumers' loop alike.
+LIVE_RANGE = "const KvRange kv = live_kv_tiles(sh, any, qmin, qmax);"
+SKIP_LAST_LIVE_TILE = (LIVE_RANGE, LIVE_RANGE.replace(
+    "= live_kv_tiles(sh, any, qmin, qmax);",
+    "= {live_kv_tiles(sh, any, qmin, qmax).lo, "
+    "live_kv_tiles(sh, any, qmin, qmax).hi - 1};"))
+FLASH = ("FLASH_CASES", "MAIN_FLASH", "check_flash")
+STREAM = ("STREAM_CASES", "MAIN_STREAM", "check_stream")
+# fault: (kernel, CUDA source, (text, planted replacement),
+#         chip_smoke's (test cases, main-path shapes, check function))
 FAULTS = {
-    "flash_attention": ("flash_attention.cu", SKIP_LAST_KV_TILE,
-                        ("FLASH_CASES", "MAIN_FLASH", "check_flash")),
-    "stream_attention": ("stream_attention.cu", SKIP_LAST_KV_TILE,
-                         ("STREAM_CASES", "MAIN_STREAM", "check_stream")),
-    "tile_gemm": ("tile_gemm.cu",
+    "flash_attention": ("flash_attention", "flash_attention.cu",
+                        SKIP_LAST_LIVE_TILE, FLASH),
+    "stream_attention": ("stream_attention", "stream_attention.cu",
+                         SKIP_LAST_LIVE_TILE, STREAM),
+    # every sub-step reads buf[0], the block's own tile, not the forwarded one
+    "stream_attention_own_tile": (
+        "stream_attention", "stream_attention.cu",
+        ("const uint32_t tile = base + (s % 2) * L::TILE;",
+         "const uint32_t tile = base;"), STREAM),
+    "tile_gemm": ("tile_gemm", "tile_gemm.cu",
                   ("for (int k0 = 0; k0 < K; k0 += TBK)",
                    "for (int k0 = 0; k0 < K - TBK; k0 += TBK)"),
                   ("GEMM_CASES", "MAIN_GEMM", "check_gemm")),
-    "decode_attention": ("decode_attention.cu",
+    "decode_attention": ("decode_attention", "decode_attention.cu",
                          ("for (int t0 = t_lo; t0 < t_hi; t0 += BK)",
                           "for (int t0 = t_lo; t0 < t_hi - BK; t0 += BK)"),
                          ("DECODE_CASES", "MAIN_DECODE", "check_decode")),
-    "ssd_scan": ("ssd_scan.cu",
+    "ssd_scan": ("ssd_scan", "ssd_scan.cu",
                  ("st[n * PS + p] = fmaf(decay, st[n * PS + p], acc[j]);",
                   "st[n * PS + p] = acc[j];"),
                  ("SSD_CASES", "MAIN_SSD", "check_ssd")),
@@ -69,8 +83,8 @@ MODEL_CHECKS = {"ssd_scan": ("import chip_smoke as c\n"
                              "c.ssm_checks('')\n", "FAIL: f32 ")}
 
 
-def plant(kernel: str, source: str, text: str, fault: str) -> Path:
-    copy = WORK / kernel
+def plant(label: str, source: str, text: str, fault: str) -> Path:
+    copy = WORK / label
     shutil.rmtree(copy, ignore_errors=True)
     shutil.copytree(ROOT / "src" / "repro_torch", copy / "src" / "repro_torch",
                     ignore=shutil.ignore_patterns("__pycache__"))
@@ -89,13 +103,13 @@ def main() -> None:
         sys.exit("FAIL: no CUDA device: this check needs one NVIDIA card")
     missed = []
     try:
-        for kernel, (source, (text, fault), names) in FAULTS.items():
-            copy = plant(kernel, source, text, fault)
+        for label, (kernel, source, (text, fault), names) in FAULTS.items():
+            copy = plant(label, source, text, fault)
             runs = {part: (CHECK.format(names=names, part=part,
                                         kernel=kernel), f"FAIL: {kernel}")
                     for part in ("cases", "main")}
-            if kernel in MODEL_CHECKS:
-                runs["model"] = MODEL_CHECKS[kernel]
+            if label in MODEL_CHECKS:
+                runs["model"] = MODEL_CHECKS[label]
             for part, (code, message) in runs.items():
                 run = subprocess.run([sys.executable, "-c", code], cwd=copy,
                                      capture_output=True, text=True,
@@ -103,12 +117,12 @@ def main() -> None:
                 lines = run.stderr.strip().splitlines()
                 caught = (run.returncode != 0
                           and any(ln.startswith(message) for ln in lines))
-                print(f"{kernel}, {part}, {fault!r}: "
+                print(f"{label}, {part}, {fault!r}: "
                       f"{'caught' if caught else 'MISSED'}: "
                       f"{lines[-1] if lines else '(no message)'}",
                       flush=True)
                 if not caught:
-                    missed.append(f"{kernel} {part}")
+                    missed.append(f"{label} {part}")
     finally:
         shutil.rmtree(WORK, ignore_errors=True)
     if missed:

@@ -7,13 +7,18 @@ Phases, in order; any failure exits non-zero and no phase's failure is
 caught:
   1. the card's name and power limit, torch and CUDA versions;
   2. build of every kernel in src/repro_torch/csrc (one nvcc per source,
-     in parallel), with the compiler's register/spill report;
+     in parallel), with the compiler's register/spill report, the count
+     of tensor-core (HGMMA) instructions in the attention libraries'
+     SASS, and how many of the stream kernel's clusters fit at once;
   3. each kernel against its plain PyTorch version on the card, in f32 and
      bf16, at the kernel test cases (ragged kv_len / cache_len, K = 768
      included) and at the main paths' shapes, decode attention's batch
      invariance (a row of a batched call equals the B = 1 call, bitwise);
      kernel, plain, library-call times and the card's bound at each
-     kernel's timed main-path shape;
+     kernel's timed main-path shape; flash's time and TFLOP/s at each of
+     its main shapes (vilbert, qwen3-32b's causal GQA prefill, hymba-1.5b's
+     windowed prefill), the stream kernel's also with clusters of 4, 2
+     and 1 block;
   4. the first main path: vilbert-base VQA forward, bf16, B = 2,
      N_X = N_Y = 4096, in NON_STREAM, LAYER_STREAM and TILE_STREAM, with
      the kept-token counts and kernel launch counters checked; then the
@@ -50,6 +55,7 @@ import dataclasses
 import gc
 import json
 import math
+import shutil
 import subprocess
 import sys
 import time
@@ -70,7 +76,7 @@ from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.stream_attention import (  # noqa: E402
-    query_rows, stream_attention)
+    config as stream_config, regeneration, set_cluster_cap, stream_attention)
 from repro_torch.kernels.tile_gemm import tile_gemm  # noqa: E402
 from repro_torch.models.ssm import SSM  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -86,7 +92,10 @@ DTYPES = (torch.float32, torch.bfloat16)
 # atol = rtol.  bf16: kernel and plain version read the same bf16 inputs
 # and both compute in f32, so they differ by the rounding of the output,
 # at most one bf16 ulp, which is at most 2**-7 of the value; atol covers
-# the f32 summation order near zero (measured below 2e-5 in f32).
+# the f32 summation order near zero (measured below 2e-5 in f32).  The
+# tensor-core attention kernels take each f32 operand (P; the stream
+# kernel's K and V) as two bf16 values, which keeps them inside this limit
+# where bf16 operands alone would not (tests/test_torch_attention_split.py).
 # chip_faults.py plants faults (a kv tile or a K chunk skipped) in copies
 # of the kernels and checks that these limits catch them.
 BF16_TOL = (1e-4, 2 ** -7)
@@ -216,10 +225,14 @@ GEMM_CASES = [(256, 128, 192), (512, 384, 256), (128, 256, 128),
 
 # The main path's shapes at vilbert-base, B = 2, N = 4096 (first co-TRM
 # block; text-only layers have the text self-attention shape).
-MAIN_FLASH = {  # name: (B, H, Sq, Sk, hd)
-    "vision self 4096": (2, 8, 4096, 4096, 128),
-    "text self 4096": (2, 12, 4096, 4096, 64),
-    "vision self 1408": (2, 8, 1408, 1408, 128),
+# Flash also carries phase 5's causal GQA prefill (qwen3-32b, 1024 tokens)
+# and phase 8's windowed one (hymba-1.5b, 3000 tokens, window 1024).
+MAIN_FLASH = {  # name: (B, Hq, Hkv, Sq, Sk, hd, causal, window)
+    "vision self 4096": (2, 8, 8, 4096, 4096, 128, False, 0),
+    "text self 4096": (2, 12, 12, 4096, 4096, 64, False, 0),
+    "vision self 1408": (2, 8, 8, 1408, 1408, 128, False, 0),
+    "qwen3-32b prefill 1024": (1, 64, 8, 1024, 1024, 128, True, 0),
+    "hymba-1.5b prefill 3000": (1, 25, 5, 3000, 3000, 64, True, 1024),
 }
 MAIN_STREAM = {  # name: (B, H, Sq, Sk, hd, D)
     "vision self 4096": (2, 8, 4096, 4096, 128, 1024),
@@ -278,14 +291,23 @@ def check_flash(gen, report):
             say(f"  {name} {str(dt)[6:]} {(B, Hq, Hkv, Sq, Sk, hd, hdv)} "
                 f"causal={causal} window={window} kv_len={kv_len}: "
                 f"max|err| {err:.2e}")
-        for case, (B, H, Sq, Sk, hd) in MAIN_FLASH.items():
+        for case, (B, H, Hkv, Sq, Sk, hd, causal, window) in \
+                MAIN_FLASH.items():
             q = randn(gen, B, H, Sq, hd, dtype=dt)
-            k = randn(gen, B, H, Sk, hd, dtype=dt)
-            v = randn(gen, B, H, Sk, hd, dtype=dt)
-            got = flash_attention(q, k, v)
+            k = randn(gen, B, Hkv, Sk, hd, dtype=dt)
+            v = randn(gen, B, Hkv, Sk, hd, dtype=dt)
+            kw = dict(causal=causal, window=window,
+                      q_offset=Sk - Sq if causal else 0)
+            got = flash_attention(q, k, v, **kw)
             err = compare(name, f"{dt} {case}", got,
-                          blocked.flash_attention_plain(q, k, v))
-            say(f"  {name} {str(dt)[6:]} main path {case}: max|err| {err:.2e}")
+                          blocked.flash_attention_plain(q, k, v, **kw))
+            line = f"  {name} {str(dt)[6:]} main path {case}: max|err| {err:.2e}"
+            if dt == torch.bfloat16:
+                ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+                flops = 4 * B * H * hd * live_pairs(Sq, Sk, **kw)
+                line += (f"; {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s "
+                         f"over the live keys")
+            say(line)
             if dt == torch.bfloat16 and case == TIMED[name]:
                 e = q.element_size()
                 flops = 4 * B * H * Sq * Sk * hd
@@ -299,6 +321,15 @@ def check_flash(gen, report):
                         lambda: F.scaled_dot_product_attention(q, k, v)),
                     shape=f"q/k/v {(B, H, Sq, hd)} bf16",
                     flops=flops, bytes=nbytes, dtype=dt)
+
+
+def live_pairs(Sq: int, Sk: int, causal: bool = False, window: int = 0,
+               q_offset: int = 0) -> int:
+    """(query, key) pairs of one head that the mask leaves live."""
+    qpos = np.arange(Sq) + q_offset
+    hi = np.minimum(qpos + 1, Sk) if causal else np.full(Sq, Sk)
+    lo = np.maximum(qpos - window + 1, 0) if window > 0 else np.zeros(Sq)
+    return int(np.maximum(hi - lo, 0).sum())
 
 
 def check_stream(gen, report):
@@ -364,7 +395,20 @@ def check_stream(gen, report):
                     library_ms=time_ms(library),
                     shape=f"q {(B, H, Sq, hd)}, x_kv {(B, Sk, D)} bf16",
                     flops=flops, bytes=nbytes, dtype=dt,
-                    regeneration=Sq / query_rows())
+                    regeneration=regeneration(1, Sq, *stream_config()[:2]))
+                want = blocked.stream_attention_plain(q, x, wk, wv)
+                rows, largest, _ = stream_config()
+                try:      # the cluster's size against its regeneration
+                    for cap in (4, 2, 1):
+                        set_cluster_cap(cap)
+                        e = compare(name, f"{dt} {case}, clusters of {cap}",
+                                    stream_attention(q, x, wk, wv), want)
+                        ms = time_ms(lambda: stream_attention(q, x, wk, wv))
+                        say(f"  {name} {case}, clusters of {cap} (K/V "
+                            f"regeneration x{regeneration(1, Sq, rows, cap)}"
+                            f"): {ms:.3f} ms, max|err| {e:.2e}")
+                finally:
+                    set_cluster_cap(largest)
 
 
 def check_gemm(gen, report):
@@ -1109,6 +1153,21 @@ def ssm_checks(smi: str) -> None:
                 fail(f"f32 {arch} {mode.value} prefill differs by {gap:.2e}")
 
 
+def tensor_core_sass() -> str:
+    """How many HGMMA (wgmma) instructions the SASS of each attention
+    library holds, from the toolkit's cuobjdump."""
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if not Path(tool).exists():
+        return "cuobjdump not in the toolkit: SASS not read"
+    found = []
+    for name in ("flash_attention", "stream_attention"):
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True,
+                              timeout=300).stdout
+        found.append(f"{name} {sass.count('HGMMA')} HGMMA")
+    return ", ".join(found)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         fail("no CUDA device: this smoke run needs one NVIDIA card")
@@ -1131,6 +1190,11 @@ def main() -> None:
         for line in _build.build_log(name).splitlines():
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
+    say(f"  tensor-core instructions: {tensor_core_sass()}")
+    rows, cluster, resident = stream_config()
+    say(f"  stream_attention bf16: {rows} query rows per block, clusters of "
+        f"up to {cluster} blocks, {resident} such clusters resident at once "
+        f"(cudaOccupancyMaxActiveClusters, hd 128)")
 
     say("== phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1172,10 +1236,11 @@ def main() -> None:
         b_ms, b_by = bound(r["flops"], r["bytes"], r["dtype"])
         lib = ("none (no single PyTorch call)" if r["library_ms"] is None
                else f"{r['library_ms']:.3f} ms")
-        say(f"  {name} at {r['shape']}: kernel {r['ms']:.3f} ms, plain "
-            f"{r['plain_ms']:.3f} ms, library {lib}, "
+        say(f"  {name} at {r['shape']}: kernel {r['ms']:.3f} ms "
+            f"({r['flops'] / r['ms'] / 1e9:.1f} TFLOP/s of the function), "
+            f"plain {r['plain_ms']:.3f} ms, library {lib}, "
             f"bound {b_ms:.4f} ms ({b_by})"
-            + (f", K/V regeneration x{r['regeneration']:.0f}"
+            + (f", K/V regeneration x{r['regeneration']}"
                if "regeneration" in r else ""))
         rows.append({"name": name, "route": "cuda",
                      "source": f"src/repro_torch/csrc/{name}.cu",

@@ -1,19 +1,22 @@
-// Online-softmax attention core shared by flash_attention.cu and
-// stream_attention.cu.
+// SIMT f32 online-softmax attention core shared by flash_attention.cu and
+// stream_attention.cu: their route for f32 inputs, and for bf16 shapes
+// that the tensor-core core (attention_tc.cuh) does not take (hd, hdv or
+// x_kv's width not a multiple of 8, which TMA cannot read; a stream head
+// width other than 32, 64, 96 or 128).
 //
 // A block of 256 threads owns ROWS query rows of one (batch, kv head): the
 // rows are a slice of the flattened (G query heads x Sq) row space of that
 // kv head, so every query head of a GQA group reuses one K/V tile.  Per kv
-// tile of BK keys the kernel fills k_s/v_s (loaded, or generated on chip by
-// the stream kernel), then:
+// tile of BK keys (every tile: no live-tile skipping here) the kernel fills
+// k_s/v_s (loaded, or generated on chip by the stream kernel), then:
 //   scores()  S = (Q K^T) * scale, masked (kv_len, causal/q_offset, window)
 //   softmax() m_new = max(m, rowmax S); P = exp(S - m_new);
 //             alpha = exp(m - m_new); l = l * alpha + rowsum P
 //   pv()      acc = acc * alpha + P V
 // and store() writes acc / l (l == 0 -> 1).  The arithmetic is the Pallas
 // kernels' (flash_attention.py:41-73): f32 tiles, f32 dots, NEG_INF = -1e30
-// for masked scores.  Products are SIMT f32 FMAs; tensor cores are a later
-// step.
+// for masked scores, every product an f32 FMA (no TF32), so it holds the
+// f32 limits of chip_smoke.py.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -9,26 +9,52 @@
 // softmax with P·V_j.  K and V are never written to device memory: the only
 // global store of this kernel is the output.
 //
-// What bounds it on the H100: the FLOPs.  Besides attention (4·Sq·Sk·hd per
-// query head) every block regenerates its K/V tiles, so the generation work
-// is (G·Sq / ROWS) times one projection of K/V: with ROWS = 128 query rows
-// per block that is Sq/128 projections (32 at Sq = 4096), i.e. D/128 times
-// the attention FLOPs for an MHA layer (8x at D = 1024, 6x at D = 768).
-// This first version computes in SIMT f32 FMAs; tensor cores are a later PR.
+// What bounds it on the H100: the FLOPs.  Attention is 4·Sq·Sk·hd per query
+// head; every tile of K/V is generated once per group of query rows that
+// consumes it, G·Sq / (rows per group) projections of K/V per kv head.
 //
-// Design: the Pallas kernel keeps all of W_K/W_V resident in VMEM.  That is
-// up to 2 MiB at vilbert-base, far over the 227 KB of shared memory of a
-// Hopper block, so here a block owns (batch, 128 query rows, one kv head)
-// and builds each (64 x hd) K_j/V_j tile in shared memory by streaming D in
-// chunks of 32: a chunk of x_kv rows and the matching rows of that head's
-// W_K[:, h, :] and W_V[:, h, :] (which stay hot in L2 across blocks).  ROWS
-// is as large as the 227 KB allow (about 204 KB at hd = 128), to keep the
-// regeneration factor low.
+// Design, bf16 (attention_tc.cuh).  The Pallas kernel keeps W_K/W_V whole
+// in VMEM (up to 2 MiB); a Hopper block has 227 KB.  A block of 384
+// threads owns 128 query rows of one (batch, kv head): two consumer
+// warpgroups of 64 rows and a producer warpgroup.  Blocks are launched in
+// thread block clusters of C = 8 consecutive row tiles (fewer when the
+// rows are fewer; cudaLaunchKernelEx with a cluster dimension).  Per round
+// of C live kv tiles:
+//   1. generation: block c of the cluster generates tile j0 + c once.  The
+//      producer brings 64-wide D chunks of x_kv (64 keys) and of
+//      W_K[:, h, :], W_V[:, h, :] (hot in L2 across blocks) by TMA through
+//      a ring of 4 stages (2 at hd 128), running up to a ring ahead into
+//      the next round; warpgroup 0 forms K_j, warpgroup 1 V_j, as wgmma
+//      products with f32 sums.  qk-RMSNorm and RoPE run in f32 on the
+//      accumulators (a row lies in one quad; RoPE's partner column in the
+//      same thread), and the tile is stored split, K_hi/K_lo/V_hi/V_lo in
+//      bf16, into the block's buf[0] (64 KB at hd 128).
+//   2. cross-forwarding around the cluster's ring: in sub-step s = 0 ..
+//      C - 1 every block attends to the tile in buf[s % 2] (its own at
+//      s = 0, then the tile of rank - s) and, at the same time, pushes that
+//      buffer into buf[(s + 1) % 2] of its right-hand peer over the SM-to-SM
+//      network (one cp.async.bulk shared::cluster of the whole tile,
+//      completing on the peer's mbarrier).  Every SM sends and receives one
+//      tile per sub-step, overlapped with the products: Q·K_hi^T + Q·K_lo^T,
+//      online softmax, P_hi·V_hi + P_hi·V_lo + P_lo·V_hi (wgmma reads only
+//      its own block's shared memory, so a tile is used where it landed).
+//      A cluster barrier closes each sub-step once the block's products are
+//      done and the next tile has landed: C + 1 per round.
+// So the regeneration factor is G·Sq / (128·C): 4 at vilbert-base's
+// 4096 x 4096 vision self-attention, against 32 without the cluster.
+// Budget at hd 128: buf[0] + buf[1] 2 x 64 KB + ring 2 x 40 KB = 208 KB of
+// the 227 KB; Q lives in registers (the A operand of Q·K^T).  Clusters of
+// 8 beat 4, 2 and 1 (no cluster) on the H100 (chip_smoke.py times all four
+// at the timed shape; PERF.md).  A block past the last row still generates
+// and forwards its tile and stores nothing.
+// TMA needs hd and D multiples of 8; hd must be 32, 64, 96 or 128.  Other
+// shapes, and f32 inputs, take the SIMT f32 core of attention_tile.cuh
+// (one block per 128 rows, every block regenerates every tile).
 #include "attention_tile.cuh"
 
 namespace repro {
 
-constexpr int STREAM_ROWS = 128;   // read from Python: stream_attention_rows
+constexpr int STREAM_ROWS = 128;   // query rows per block of the SIMT core
 constexpr int DC = 32;   // D chunk of the generation loop
 
 template <int HDT>
@@ -184,10 +210,328 @@ int dispatch(const void* q, const void* x, const void* wk, const void* wv,
 
 }  // namespace repro
 
+#include "attention_tc.cuh"
+
+namespace repro {
+namespace tc {
+
+// Stages of the generation ring: 4 at hd <= 64, 2 at hd 128 (the budget).
+template <int HDP>
+constexpr int stream_stages() { return HDP <= 64 ? 4 : 2; }
+constexpr int MAX_CLUSTER = 8;
+int cluster_cap = MAX_CLUSTER;   // lowered only to time smaller clusters
+
+template <int HDP>
+struct StreamSmem {
+  static constexpr int PART = (HDP / 64) * BOX_BYTES;   // one of K_hi .. V_lo
+  static constexpr int TILE = 4 * PART;
+  static constexpr int RING = 2 * TILE;                  // after buf[0], buf[1]
+  static constexpr int X_BYTES = BOX_BYTES;
+  static constexpr int STAGE = X_BYTES + 2 * PART;      // x, W_K, W_V chunks
+  static constexpr int STAGES = stream_stages<HDP>();
+  static constexpr int BARS = RING + STAGES * STAGE;
+  static constexpr int BYTES = BARS + (2 * STAGES + 2) * 8 + 1024;
+};
+
+struct StreamSide {
+  const float *sin_t, *cos_t, *k_gamma;
+  int D, use_rope, use_knorm;
+  float eps;
+};
+
+// Generate this block's tile j (warpgroup 0: K, 1: V) into buf[0].
+template <int HD, int HDP>
+__device__ void generate(int j, int wg, uint32_t base, uint32_t full,
+                         uint32_t empty, int& it, const AttnShape& sh,
+                         const StreamSide& sd) {
+  using L = StreamSmem<HDP>;
+  float g[HDP / 2];
+#pragma unroll
+  for (int i = 0; i < HDP / 2; ++i) g[i] = 0.f;
+  const int nch = (sd.D + 63) / 64;
+  for (int ci = 0; ci < nch; ++ci, ++it) {
+    const int st = it % L::STAGES, ph = (it / L::STAGES) & 1;
+    const uint32_t xs = base + L::RING + st * L::STAGE;
+    const uint32_t ws = xs + L::X_BYTES + wg * L::PART;
+    mbar_wait(full + 8 * st, ph);
+    fence_regs(g);
+    wgmma_fence();
+#pragma unroll
+    for (int ks = 0; ks < 4; ++ks)
+      wgmma_ss<1>(g, desc_kmajor(xs + ks * 32), desc_mnmajor(ws + ks * 2048), 1);
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(g);
+    mbar_arrive(empty + 8 * st);
+  }
+  const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4, t = lane % 4;
+  if (wg == 0 && sd.use_knorm) {               // qk-RMSNorm of K, f32
+    float ss[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < HDP / 8; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) ss[h] += g[4 * i + 2 * h + e] * g[4 * i + 2 * h + e];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      ss[h] += __shfl_xor_sync(0xffffffff, ss[h], 1);
+      ss[h] += __shfl_xor_sync(0xffffffff, ss[h], 2);
+      ss[h] = rsqrtf(ss[h] / HD + sd.eps);
+    }
+#pragma unroll
+    for (int i = 0; i < HDP / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int col = 8 * i + 2 * t + e;
+        const float gm = col < HD ? sd.k_gamma[col] : 0.f;
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          g[4 * i + 2 * h + e] = g[4 * i + 2 * h + e] * ss[h] * gm;
+      }
+  }
+  if (wg == 0 && sd.use_rope) {                // rotate-half RoPE of K, f32
+    constexpr int HALF = HD / 2, NB = HALF / 8;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int kpos = j * BK + w * 16 + lane / 4 + 8 * h;
+#pragma unroll
+      for (int i = 0; i < NB; ++i)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = 8 * i + 2 * t + e;
+          float sn = 0.f, cs = 0.f;
+          if (kpos < sh.Sk) {
+            sn = sd.sin_t[(size_t)kpos * HALF + col];
+            cs = sd.cos_t[(size_t)kpos * HALF + col];
+          }
+          const float k1 = g[4 * i + 2 * h + e], k2 = g[4 * (i + NB) + 2 * h + e];
+          g[4 * i + 2 * h + e] = k1 * cs - k2 * sn;
+          g[4 * (i + NB) + 2 * h + e] = k2 * cs + k1 * sn;
+        }
+    }
+  }
+  // split into bf16 hi/lo, in the swizzled layout TMA would give
+  const uint32_t hi = base + 2 * wg * L::PART, lo = hi + L::PART;
+#pragma unroll
+  for (int i = 0; i < HDP / 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = w * 16 + lane / 4 + 8 * h, col = 8 * i + 2 * t;
+      const float a = g[4 * i + 2 * h], b = g[4 * i + 2 * h + 1];
+      const float ah = __bfloat162float(__float2bfloat16_rn(a));
+      const float bh = __bfloat162float(__float2bfloat16_rn(b));
+      const uint32_t off = swz(row, col);
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(hi + off), "r"(pack_bf16(ah, bh))
+                   : "memory");
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(lo + off),
+                   "r"(pack_bf16(a - ah, b - bh))
+                   : "memory");
+    }
+  fence_proxy_async();
+}
+
+template <int HD>
+__global__ void __launch_bounds__(THREADS, 1)
+stream_tc_kernel(const __grid_constant__ CUtensorMap xmap,
+                 const __grid_constant__ CUtensorMap wkmap,
+                 const __grid_constant__ CUtensorMap wvmap,
+                 const bf16* __restrict__ q, bf16* __restrict__ out,
+                 AttnShape sh, StreamSide sd) {
+  constexpr int HDP = HD <= 64 ? 64 : 128;
+  using L = StreamSmem<HDP>;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t full = base + L::BARS, empty = full + 8 * L::STAGES;
+  // arrival of a forwarded tile in buf[0], buf[1]
+  const uint32_t arrived = empty + 8 * L::STAGES;
+  const int C = cluster_size(), rank = cluster_rank();
+  const int G = sh.Hq / sh.Hkv, nrows = G * sh.Sq;
+  const int t0 = blockIdx.x * ROWS, kvh = blockIdx.y, b = blockIdx.z;
+  // the cluster's rows decide its kv tiles: every block walks them all
+  const int c0 = (blockIdx.x - rank) * ROWS;
+  int qmin = 0, qmax = 0;
+  bool any = q_span(c0, min(c0 + C * ROWS, nrows), sh, qmin, qmax);
+  const KvRange kv = live_kv_tiles(sh, any, qmin, qmax);
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < L::STAGES; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, CONSUMERS);
+    }
+    mbar_init(arrived, 1);
+    mbar_init(arrived + 8, 1);
+    mbar_init_fence();
+  }
+  cluster_sync();   // every peer's barriers exist before any push
+
+  if (threadIdx.x >= CONSUMERS) {             // producer warpgroup
+    setmaxnreg_dec<40>();
+    const bool lead = threadIdx.x == CONSUMERS;
+    // The block's loads in order: the D chunks of its tile j0 + rank, for
+    // every round that has one.  Each round's loads are followed by up to
+    // STAGES of the next round's, so that generation starts on arrived data.
+    int next_j0 = kv.lo, next_d0 = 0, issued = 0;
+    for (int j0 = kv.lo; j0 < kv.hi; j0 += C) {
+      for (int ahead = 0; lead;) {
+        while (next_j0 < kv.hi && next_j0 + rank >= kv.hi) next_j0 += C;
+        if (next_j0 >= kv.hi || (next_j0 > j0 && ahead++ == L::STAGES)) break;
+        const int st = issued % L::STAGES, ph = (issued / L::STAGES) & 1;
+        if (issued >= L::STAGES) mbar_wait(empty + 8 * st, ph ^ 1);
+        const uint32_t xs = base + L::RING + st * L::STAGE;
+        const uint32_t wks = xs + L::X_BYTES, wvs = wks + L::PART;
+        mbar_expect_tx(full + 8 * st, L::STAGE);
+        tma_load_3d(xs, &xmap, full + 8 * st, next_d0, (next_j0 + rank) * BK, b);
+        for (int c = 0; c < HDP / 64; ++c) {
+          tma_load_3d(wks + c * BOX_BYTES, &wkmap, full + 8 * st, 64 * c, kvh, next_d0);
+          tma_load_3d(wvs + c * BOX_BYTES, &wvmap, full + 8 * st, 64 * c, kvh, next_d0);
+        }
+        ++issued;
+        next_d0 += 64;
+        if (next_d0 >= sd.D) {
+          next_d0 = 0;
+          next_j0 += C;
+        }
+      }
+      __syncwarp();
+      cluster_sync();                         // buf[0] holds the own tile
+      for (int s = 0; s < C; ++s) {
+        if (lead && s + 1 < C) {              // forward buf[s % 2] to the right
+          const int right = (rank + 1) % C, nb = (s + 1) % 2;
+          mbar_expect_tx(arrived + 8 * nb, L::TILE);
+          bulk_push(map_to_rank(base + nb * L::TILE, right),
+                    base + (s % 2) * L::TILE, L::TILE,
+                    map_to_rank(arrived + 8 * nb, right));
+        }
+        __syncwarp();
+        cluster_sync();
+      }
+    }
+  } else {                                    // consumer warpgroups
+    setmaxnreg_inc<232>();
+    const int wg = threadIdx.x / 128;
+    TcRows<HDP, HDP> rows;
+    rows.init(q, sh, b, kvh, t0 + 64 * wg);
+    int it = 0, phases = 0;   // bit b: parity of buf[b]'s next arrival
+    for (int j0 = kv.lo; j0 < kv.hi; j0 += C) {
+      if (j0 + rank < kv.hi)
+        generate<HD, HDP>(j0 + rank, wg, base, full, empty, it, sh, sd);
+      cluster_sync();                         // buf[0] holds the own tile
+      for (int s = 0; s < C; ++s) {
+        // sub-step s: the tile of rank - s, forwarded s times to the right
+        const int j = j0 + (rank - s + C) % C;
+        const uint32_t tile = base + (s % 2) * L::TILE;
+        if (j < kv.hi)
+          rows.template tile<true>(sh, j, tile, tile + L::PART,
+                                   tile + 2 * L::PART, tile + 3 * L::PART);
+        if (s + 1 < C) {                      // the next tile has landed
+          const int nb = (s + 1) % 2;
+          mbar_wait_cluster(arrived + 8 * nb, (phases >> nb) & 1);
+          phases ^= 1 << nb;
+        }
+        cluster_sync();
+      }
+    }
+    rows.store(out, sh, b);
+  }
+}
+
+// Cluster size for a row-tile count: 8 (cluster_cap), or the least power
+// of two that covers the row tiles.
+inline int cluster_for(int row_tiles) {
+  int c = 1;
+  while (c < cluster_cap && c < row_tiles) c *= 2;
+  return c;
+}
+
+template <int HD>
+int launch(const void* q, const void* x, const void* wk, const void* wv,
+           const StreamSide& sd, void* out, const AttnShape& sh,
+           cudaStream_t stream) {
+  using L = StreamSmem<(HD <= 64 ? 64 : 128)>;
+  CUtensorMap xmap, wkmap, wvmap;
+  int err = make_map(&xmap, x, sd.D, sh.Sk, sh.B, (uint64_t)sd.D * 2,
+                     (uint64_t)sh.Sk * sd.D * 2, BK, 1);
+  if (!err)
+    err = make_map(&wkmap, wk, sh.hd, sh.Hkv, sd.D, (uint64_t)sh.hd * 2,
+                   (uint64_t)sh.Hkv * sh.hd * 2, 1, 64);
+  if (!err)
+    err = make_map(&wvmap, wv, sh.hd, sh.Hkv, sd.D, (uint64_t)sh.hd * 2,
+                   (uint64_t)sh.Hkv * sh.hd * 2, 1, 64);
+  if (err) return err;
+  auto kernel = stream_tc_kernel<HD>;
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, L::BYTES);
+  if (e != cudaSuccess) return (int)e;
+  const int G = sh.Hq / sh.Hkv, row_tiles = (G * sh.Sq + ROWS - 1) / ROWS;
+  const int C = cluster_for(row_tiles);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((row_tiles + C - 1) / C * C, sh.Hkv, sh.B);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = C;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wkmap, wvmap, (const bf16*)q,
+                         (bf16*)out, sh, sd);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
+inline bool takes(const AttnShape& sh, int D, const void* x, const void* wk,
+                  const void* wv) {
+  return (sh.hd == 32 || sh.hd == 64 || sh.hd == 96 || sh.hd == 128) &&
+         D % 8 == 0 && tma_ok(x, D) && tma_ok(wk, sh.hd) && tma_ok(wv, sh.hd);
+}
+
+// The tensor-core route, or -1 when the shapes need the SIMT core.
+inline int dispatch(const void* q, const void* x, const void* wk, const void* wv,
+                    const StreamSide& sd, void* out, const AttnShape& sh,
+                    cudaStream_t stream) {
+  if (!takes(sh, sd.D, x, wk, wv)) return -1;
+  switch (sh.hd) {
+    case 32: return launch<32>(q, x, wk, wv, sd, out, sh, stream);
+    case 64: return launch<64>(q, x, wk, wv, sd, out, sh, stream);
+    case 96: return launch<96>(q, x, wk, wv, sd, out, sh, stream);
+    default: return launch<128>(q, x, wk, wv, sd, out, sh, stream);
+  }
+}
+
+// Clusters of the hd-128 kernel that fit on the card at once.
+inline int max_active_clusters(int cluster) {
+  using L = StreamSmem<128>;
+  auto kernel = stream_tc_kernel<128>;
+  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::BYTES) != cudaSuccess)
+    return -1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster * 16);
+  cfg.blockDim = dim3(THREADS);
+  cfg.dynamicSmemBytes = L::BYTES;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = -1;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) return -1;
+  return n;
+}
+
+}  // namespace tc
+}  // namespace repro
+
 // dtype: 0 = float32, 1 = bfloat16 (q, x_kv, wk, wv and out).  sin/cos
 // (Sk, hd/2) and k_gamma (hd,) are float32 and may be null when unused.
-// All tensors contiguous; hd <= 128 (the Python wrapper checks).  Returns
-// cudaGetLastError() of the launch.
+// All tensors contiguous; hd <= 128 (the Python wrapper checks).  bf16 takes
+// the tensor-core kernel where TMA can read x_kv and W (see the header),
+// else the SIMT core.  Returns the launch's CUDA error code.
 extern "C" int stream_attention_launch(
     const void* q, const void* x, const void* wk, const void* wv,
     const void* sin_t, const void* cos_t, const void* k_gamma, void* out,
@@ -202,10 +546,30 @@ extern "C" int stream_attention_launch(
               *kg = (const float*)k_gamma;
   if (dtype == 0)
     return repro::dispatch<float>(q, x, wk, wv, sn, cs, kg, out, sh, sa, s);
+  repro::tc::StreamSide sd{sn, cs, kg, D, use_rope, use_knorm, eps};
+  int rc = repro::tc::dispatch(q, x, wk, wv, sd, out, sh, s);
+  if (rc >= 0) return rc;
   return repro::dispatch<__nv_bfloat16>(q, x, wk, wv, sn, cs, kg, out, sh, sa, s);
 }
 
-// Query rows (of the G x Sq rows of a kv head) per block: every block
-// regenerates its K/V tiles, so the generation work is G·Sq / rows
-// projections of K/V per kv head.
-extern "C" int stream_attention_rows() { return repro::STREAM_ROWS; }
+// How the bf16 tensor-core route regenerates K/V: query rows per block and
+// the largest cluster (the cap); a tile is generated once per cluster of consecutive
+// row tiles, so G·Sq / (rows·cluster) times per kv head when the rows fill
+// the clusters.  max_clusters: clusters of that size (hd 128) resident at
+// once, from cudaOccupancyMaxActiveClusters (-1 if the query fails).
+extern "C" int stream_attention_config(int* rows, int* cluster,
+                                       int* max_clusters) {
+  *rows = repro::tc::ROWS;
+  *cluster = repro::tc::cluster_cap;
+  *max_clusters = repro::tc::max_active_clusters(repro::tc::MAX_CLUSTER);
+  return 0;
+}
+
+// Cap the cluster size at 1, 2, 4 or 8 (the default) for later launches:
+// chip_smoke.py times the smaller clusters against 8.  Returns 0, or -1
+// for another value.
+extern "C" int stream_attention_set_cluster_cap(int cap) {
+  if (cap != 1 && cap != 2 && cap != 4 && cap != 8) return -1;
+  repro::tc::cluster_cap = cap;
+  return 0;
+}

@@ -40,10 +40,41 @@ def _mask(qpos: torch.Tensor, kpos: torch.Tensor, kv_len: int, causal: bool,
     return mask
 
 
+def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """An f32 tensor as two bf16 values, t ~ hi + lo with lo = bf16(t - hi),
+    returned in f32: the tensor-core kernels' operands for an f32 value
+    (about 16 bits of it)."""
+    hi = t.bfloat16().float()
+    return hi, (t - hi).bfloat16().float()
+
+
+def _operands(t: torch.Tensor, rounding: str):
+    """The bf16 operands a rounding mode gives an f32 tensor: [hi, lo] for
+    "split", [bf16(t)] for "bf16"."""
+    if rounding == "split":
+        return list(split_bf16(t))
+    if rounding == "bf16":
+        return [t.bfloat16().float()]
+    raise ValueError(f"rounding {rounding!r}: 'split' or 'bf16'")
+
+
+def _products(a_ops, b_ops, eq):
+    """Sum of the products of two operand lists, leaving out lo x lo (the
+    kernels' three products of two split operands)."""
+    return sum(torch.einsum(eq, a, b) for i, a in enumerate(a_ops)
+               for j, b in enumerate(b_ops) if i + j < 2)
+
+
 def _online_softmax(qf, kv_blocks, qpos, bk, kv_len, causal, window,
-                    out_shape, dtype):
-    """Shared block loop.  qf: (B,Hkv,G,Sq,hd) pre-scaled f32; kv_blocks
-    yields (j, k_j (B,Hkv,bk,hd), v_j (B,Hkv,bk,hdv)) in f32."""
+                    out_shape, dtype, rounding=None, round_kv=False,
+                    scale=1.0):
+    """Shared block loop.  qf: (B,Hkv,G,Sq,hd) f32, pre-scaled unless
+    ``rounding`` is set; kv_blocks yields (j, k_j (B,Hkv,bk,hd), v_j
+    (B,Hkv,bk,hdv)) in f32.
+
+    ``rounding`` ("split" or "bf16") mirrors the tensor-core kernels'
+    operands: P (and with ``round_kv`` K and V) enter the products as bf16
+    values, and the scores are (Q K^T) * scale."""
     B, Hkv, G, Sq, _ = qf.shape
     m = l = acc = None
     for j, k_j, v_j in kv_blocks:
@@ -51,7 +82,11 @@ def _online_softmax(qf, kv_blocks, qpos, bk, kv_len, causal, window,
             m = torch.full((B, Hkv, G, Sq), NEG_INF, device=qf.device)
             l = torch.zeros((B, Hkv, G, Sq), device=qf.device)
             acc = torch.zeros((B, Hkv, G, Sq, v_j.shape[-1]), device=qf.device)
-        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k_j)
+        if rounding is None:
+            s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k_j)
+        else:
+            k_ops = _operands(k_j, rounding) if round_kv else [k_j]
+            s = _products([qf], k_ops, "bhgqd,bhkd->bhgqk") * scale
         kpos = j * bk + torch.arange(bk, device=qf.device)
         s = torch.where(_mask(qpos, kpos, kv_len, causal, window), s,
                         torch.full_like(s, NEG_INF))
@@ -59,7 +94,13 @@ def _online_softmax(qf, kv_blocks, qpos, bk, kv_len, causal, window,
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, v_j)
+        if rounding is None:
+            pv = torch.einsum("bhgqk,bhkd->bhgqd", p, v_j)
+        else:
+            v_ops = _operands(v_j, rounding) if round_kv else [v_j]
+            pv = _products(_operands(p, rounding), v_ops,
+                           "bhgqk,bhkd->bhgqd")
+        acc = acc * alpha[..., None] + pv
         m = m_new
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l_safe[..., None]).reshape(out_shape).to(dtype)
@@ -72,6 +113,21 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           block_k: int = 512) -> torch.Tensor:
     """GQA flash attention: q (B,Hq,Sq,hd), k (B,Hkv,Sk,hd), v (B,Hkv,Sk,hdv)
     -> (B,Hq,Sq,hdv).  Keys at or past ``kv_len`` are masked."""
+    return _flash(q, k, v, causal=causal, window=window, q_offset=q_offset,
+                  scale=scale, kv_len=kv_len, block_k=block_k)
+
+
+def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          *, rounding: str = "split", block_k: int = 64,
+                          **kw) -> torch.Tensor:
+    """``flash_attention_plain`` with the tensor-core kernel's operands: P
+    enters P V as P_hi + P_lo ("split") or as bf16(P) ("bf16", what a
+    product of bf16 P would give).  Q, K, V are the bf16 inputs."""
+    return _flash(q, k, v, block_k=block_k, rounding=rounding, **kw)
+
+
+def _flash(q, k, v, *, causal=False, window=0, q_offset=0, scale=None,
+           kv_len=None, block_k=512, rounding=None):
     B, Hq, Sq, hd = q.shape
     Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
@@ -81,12 +137,72 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     k, _ = _pad_axis(k, 2, bk)
     v, _ = _pad_axis(v, 2, bk)
     nkb = k.shape[2] // bk
-    qf = q.float().reshape(B, Hkv, G, Sq, hd) * scale
+    qf = q.float().reshape(B, Hkv, G, Sq, hd)
+    if rounding is None:
+        qf = qf * scale
     qpos = torch.arange(Sq, device=q.device) + q_offset
     blocks = ((j, k[:, :, j * bk:(j + 1) * bk].float(),
                v[:, :, j * bk:(j + 1) * bk].float()) for j in range(nkb))
     return _online_softmax(qf, blocks, qpos, bk, kv_len, causal, window,
-                           (B, Hq, Sq, hdv), q.dtype)
+                           (B, Hq, Sq, hdv), q.dtype, rounding=rounding,
+                           scale=scale)
+
+
+def live_kv_tiles(r0: int, r1: int, Sq: int, *, kv_len: int,
+                  causal: bool = False, window: int = 0, q_offset: int = 0,
+                  bk: int = 64) -> Tuple[int, int]:
+    """The kv tiles [lo, hi) of ``bk`` keys that hold a live key for some
+    row of the flattened (G x Sq) query rows [r0, r1) of a kv head: the
+    range the CUDA kernels walk (``live_kv_tiles`` in attention_tc.cuh).
+    A span that crosses from one head's rows into the next holds both ends
+    of the query range."""
+    if r1 <= r0:
+        return 0, 0
+    if r0 // Sq == (r1 - 1) // Sq:
+        qmin, qmax = r0 % Sq + q_offset, (r1 - 1) % Sq + q_offset
+    else:
+        qmin, qmax = q_offset, Sq - 1 + q_offset
+    kend, kbeg = kv_len, 0
+    if causal:
+        kend = min(kend, qmax + 1)
+    if window > 0:
+        kbeg = max(0, qmin - window + 1)
+    if kend <= kbeg:
+        return 0, 0
+    return kbeg // bk, -(-kend // bk)
+
+
+def flash_attention_live(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         *, causal: bool = False, window: int = 0,
+                         q_offset: int = 0, scale: Optional[float] = None,
+                         kv_len: Optional[int] = None, rows: int = 128,
+                         bk: int = 64) -> torch.Tensor:
+    """``flash_attention_plain`` walked as the CUDA kernel walks it: each
+    block of ``rows`` flattened query rows of a kv head runs the online
+    softmax over its ``live_kv_tiles`` only (a block with none gives 0)."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    G = Hq // Hkv
+    kv_len = Sk if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    k, _ = _pad_axis(k, 2, bk)
+    v, _ = _pad_axis(v, 2, bk)
+    qf = q.float().reshape(B, Hkv, G * Sq, hd) * scale
+    out = torch.zeros((B, Hkv, G * Sq, hdv), device=q.device)
+    for r0 in range(0, G * Sq, rows):
+        r1 = min(r0 + rows, G * Sq)
+        lo, hi = live_kv_tiles(r0, r1, Sq, kv_len=kv_len, causal=causal,
+                               window=window, q_offset=q_offset, bk=bk)
+        if hi <= lo:
+            continue
+        qpos = torch.arange(r0, r1, device=q.device) % Sq + q_offset
+        blocks = ((j, k[:, :, j * bk:(j + 1) * bk].float(),
+                   v[:, :, j * bk:(j + 1) * bk].float())
+                  for j in range(lo, hi))
+        out[:, :, r0:r1] = _online_softmax(
+            qf[:, :, None, r0:r1], blocks, qpos, bk, kv_len, causal, window,
+            (B, Hkv, r1 - r0, hdv), torch.float32)
+    return out.reshape(B, Hq, Sq, hdv).to(q.dtype)
 
 
 def stream_attention_plain(q: torch.Tensor, x_kv: torch.Tensor,
@@ -104,6 +220,26 @@ def stream_attention_plain(q: torch.Tensor, x_kv: torch.Tensor,
 
     q (B,Hq,Sq,hd), x_kv (B,Sk,D), wk/wv (D,Hkv,hd), sin/cos (Sk,hd//2),
     k_gamma (hd,) -> (B,Hq,Sq,hd)."""
+    return _stream(q, x_kv, wk, wv, sin=sin, cos=cos, k_gamma=k_gamma,
+                   causal=causal, window=window, q_offset=q_offset,
+                   scale=scale, norm_eps=norm_eps, kv_len=kv_len,
+                   block_k=block_k)
+
+
+def stream_attention_split(q: torch.Tensor, x_kv: torch.Tensor,
+                           wk: torch.Tensor, wv: torch.Tensor, *,
+                           rounding: str = "split", block_k: int = 64,
+                           **kw) -> torch.Tensor:
+    """``stream_attention_plain`` with the tensor-core kernel's operands:
+    the generated (f32) K and V and the softmax's P enter the products as
+    hi + lo bf16 pairs ("split"; Q K_hi^T + Q K_lo^T and P_hi V_hi +
+    P_hi V_lo + P_lo V_hi) or rounded to bf16 ("bf16")."""
+    return _stream(q, x_kv, wk, wv, block_k=block_k, rounding=rounding, **kw)
+
+
+def _stream(q, x_kv, wk, wv, *, sin=None, cos=None, k_gamma=None,
+            causal=False, window=0, q_offset=0, scale=None, norm_eps=1e-6,
+            kv_len=None, block_k=512, rounding=None):
     B, Hq, Sq, hd = q.shape
     Sk, D = x_kv.shape[1], x_kv.shape[2]
     Hkv = wk.shape[1]
@@ -116,7 +252,9 @@ def stream_attention_plain(q: torch.Tensor, x_kv: torch.Tensor,
         sin, _ = _pad_axis(sin, 0, bk)
         cos, _ = _pad_axis(cos, 0, bk)
     nkb = x_kv.shape[1] // bk
-    qf = q.float().reshape(B, Hkv, G, Sq, hd) * scale
+    qf = q.float().reshape(B, Hkv, G, Sq, hd)
+    if rounding is None:
+        qf = qf * scale
     qpos = torch.arange(Sq, device=q.device) + q_offset
     wkf, wvf = wk.float(), wv.float()
     half = hd // 2
@@ -136,7 +274,8 @@ def stream_attention_plain(q: torch.Tensor, x_kv: torch.Tensor,
         return j, k_j.transpose(1, 2), v_j.transpose(1, 2)
 
     return _online_softmax(qf, (gen(j) for j in range(nkb)), qpos, bk,
-                           kv_len, causal, window, (B, Hq, Sq, hd), q.dtype)
+                           kv_len, causal, window, (B, Hq, Sq, hd), q.dtype,
+                           rounding=rounding, round_kv=True, scale=scale)
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
