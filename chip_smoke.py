@@ -12,13 +12,14 @@ caught:
      SASS, and how many of the stream kernel's clusters fit at once;
   3. each kernel against its plain PyTorch version on the card, in f32 and
      bf16, at the kernel test cases (ragged kv_len / cache_len, K = 768
-     included) and at the main paths' shapes, decode attention's batch
+     included; attention rows with no live key also against the mean of
+     V; the bf16 attention kernels' live kv tiles against their Python
+     mirror) and at the main paths' shapes, decode attention's batch
      invariance (a row of a batched call equals the B = 1 call, bitwise);
      kernel, plain, library-call times and the card's bound at each
      kernel's timed main-path shape; flash's time and TFLOP/s at each of
      its main shapes (vilbert, qwen3-32b's causal GQA prefill, hymba-1.5b's
-     windowed prefill), the stream kernel's also with clusters of 4, 2
-     and 1 block;
+     windowed prefill), the stream kernel's K/V regeneration factor;
   4. the first main path: vilbert-base VQA forward, bf16, B = 2,
      N_X = N_Y = 4096, in NON_STREAM, LAYER_STREAM and TILE_STREAM, with
      the kept-token counts and kernel launch counters checked; then the
@@ -73,10 +74,11 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.types import ExecutionMode, Family  # noqa: E402
 from repro_torch.kernels import _build, blocked, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
-from repro_torch.kernels.flash_attention import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    flash_attention, live_tiles)
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.stream_attention import (  # noqa: E402
-    config as stream_config, regeneration, set_cluster_cap, stream_attention)
+    config as stream_config, regeneration, stream_attention)
 from repro_torch.kernels.tile_gemm import tile_gemm  # noqa: E402
 from repro_torch.models.ssm import SSM  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -207,6 +209,10 @@ FLASH_CASES = [
     (2, 8, 8, 300, 1408, 128, 128, False, 0, None),  # pruned vilbert kv
     (2, 4, 2, 96, 200, 32, 32, True, 64, 190),       # hd = 32, ragged
     (1, 64, 8, 1024, 1024, 128, 128, True, 0, None),  # qwen3-32b prefill
+    # rows with no live key (see no_live_key): past kv_len + window - 1 ...
+    (1, 2, 1, 300, 300, 64, 64, False, 32, 100),
+    (2, 8, 2, 130, 700, 128, 128, True, 8, 600),
+    (1, 2, 2, 64, 150, 32, 32, False, 0, 0),         # ... or every row
 ]
 # B, Hq, Hkv, Sq, Sk, hd, D, causal, window, rope, knorm, kv_len
 STREAM_CASES = [
@@ -218,6 +224,19 @@ STREAM_CASES = [
     (2, 12, 12, 300, 1408, 64, 1024, False, 0, False, False, None),
     (2, 4, 2, 96, 200, 32, 150, True, 0, True, True, 190),  # hd = 32
     (1, 64, 8, 256, 256, 128, 5120, True, 0, True, True, None),  # qwen3 TILE
+    # fewer D chunks than generation stages, over 8 rounds of kv tiles:
+    # clusters of 1 (128 rows, 8 tiles) and of 8 (1024 rows, 64 tiles)
+    (1, 1, 1, 128, 512, 64, 64, False, 0, False, False, None),
+    (1, 8, 1, 128, 4096, 64, 64, False, 0, True, False, None),
+    (1, 1, 1, 128, 512, 64, 96, True, 0, True, True, None),
+    (1, 8, 1, 128, 4096, 64, 96, False, 0, False, True, None),
+    (1, 1, 1, 128, 512, 64, 192, False, 0, True, False, None),
+    (1, 8, 1, 128, 4096, 64, 192, True, 0, True, True, None),
+    (1, 1, 1, 128, 512, 128, 64, False, 0, False, True, None),
+    (1, 8, 1, 128, 4096, 128, 64, False, 0, True, False, None),
+    # rows with no live key (see no_live_key)
+    (1, 2, 1, 300, 300, 64, 128, False, 32, True, False, 100),
+    (1, 8, 2, 130, 700, 128, 256, True, 8, True, True, 600),
 ]
 GEMM_CASES = [(256, 128, 192), (512, 384, 256), (128, 256, 128),
               (128, 768, 256),   # K = 768: the reference's ragged-K case
@@ -276,8 +295,53 @@ TIMED = {"decode_attention": "qwen3-32b bucket of 4",
          "ssd_scan": "mamba2-780m prefill 2048"}
 
 
+def no_live_key(Sq: int, Sk: int, causal: bool, window: int,
+                kv_len) -> torch.Tensor:
+    """The query rows of a case (q_offset Sk - Sq when causal) that have no
+    live key.  Such a row takes the softmax of equal -1e30 scores, as
+    ref_attention does: the mean of V over the Sk keys."""
+    kv_len = Sk if kv_len is None else kv_len
+    qpos = torch.arange(Sq, device="cuda") + (Sk - Sq if causal else 0)
+    if kv_len == 0:
+        return torch.ones_like(qpos, dtype=torch.bool)
+    if window > 0:
+        return qpos >= kv_len + window - 1
+    return torch.zeros_like(qpos, dtype=torch.bool)
+
+
+def check_mean_rows(name, case, got, v, dead):
+    """The rows with no live key against the mean of V (B, Hkv, Sk, hdv)
+    over its keys."""
+    if not dead.any():
+        return
+    B, Hq = got.shape[:2]
+    mean = v.float().mean(dim=2).repeat_interleave(Hq // v.shape[1], dim=1)
+    compare(name, f"{case}, rows with no live key against the mean of V",
+            got[:, :, dead], mean[:, :, None].expand(-1, -1, int(dead.sum()),
+                                                     -1))
+
+
+def check_live_tiles():
+    """The kernels' live kv tiles (read from the library) against their
+    Python mirror, at every 128-row span of every flash case."""
+    for B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len in FLASH_CASES:
+        kw = dict(kv_len=Sk if kv_len is None else kv_len, causal=causal,
+                  window=window, q_offset=Sk - Sq if causal else 0)
+        for r0 in range(0, Hq // Hkv * Sq, 64):
+            r1 = min(r0 + 128, Hq // Hkv * Sq)
+            got = live_tiles(r0, r1, Sq, sk=Sk, **kw)
+            want = blocked.live_kv_tiles(r0, r1, Sq, sk=Sk, **kw)
+            if got != want:
+                fail(f"flash_attention live kv tiles of rows [{r0}, {r1}) "
+                     f"at {(Sq, Sk)} {kw}: library {got}, "
+                     f"blocked.live_kv_tiles {want}")
+    say("  live kv tiles: the library's rule equals blocked.live_kv_tiles "
+        "at every flash case")
+
+
 def check_flash(gen, report):
     name = "flash_attention"
+    check_live_tiles()
     for dt in DTYPES:
         for B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len in FLASH_CASES:
             q = randn(gen, B, Hq, Sq, hd, dtype=dt, scale=0.5)
@@ -285,9 +349,12 @@ def check_flash(gen, report):
             v = randn(gen, B, Hkv, Sk, hdv, dtype=dt, scale=0.5)
             kw = dict(causal=causal, window=window,
                       q_offset=Sk - Sq if causal else 0, kv_len=kv_len)
-            err = compare(name, f"{dt} case {(B, Hq, Hkv, Sq, Sk, hd, hdv)}",
-                          flash_attention(q, k, v, **kw),
+            case = f"{dt} case {(B, Hq, Hkv, Sq, Sk, hd, hdv)}"
+            got = flash_attention(q, k, v, **kw)
+            err = compare(name, case, got,
                           blocked.flash_attention_plain(q, k, v, **kw))
+            check_mean_rows(name, case, got, v,
+                            no_live_key(Sq, Sk, causal, window, kv_len))
             say(f"  {name} {str(dt)[6:]} {(B, Hq, Hkv, Sq, Sk, hd, hdv)} "
                 f"causal={causal} window={window} kv_len={kv_len}: "
                 f"max|err| {err:.2e}")
@@ -349,9 +416,14 @@ def check_stream(gen, report):
             kw = dict(sin=sin, cos=cos, k_gamma=kg, causal=causal,
                       window=window, q_offset=Sk - Sq if causal else 0,
                       kv_len=kv_len)
-            err = compare(name, f"{dt} case {(B, Hq, Hkv, Sq, Sk, hd, D)}",
-                          stream_attention(q, x, wk, wv, **kw),
+            case = f"{dt} case {(B, Hq, Hkv, Sq, Sk, hd, D)}"
+            got = stream_attention(q, x, wk, wv, **kw)
+            err = compare(name, case, got,
                           blocked.stream_attention_plain(q, x, wk, wv, **kw))
+            check_mean_rows(name, case, got,
+                            torch.einsum("btd,dhe->bhte", x.float(),
+                                         wv.float()),
+                            no_live_key(Sq, Sk, causal, window, kv_len))
             say(f"  {name} {str(dt)[6:]} {(B, Hq, Hkv, Sq, Sk, hd, D)} "
                 f"causal={causal} window={window} rope={rope} "
                 f"knorm={knorm} kv_len={kv_len}: max|err| {err:.2e}")
@@ -395,20 +467,7 @@ def check_stream(gen, report):
                     library_ms=time_ms(library),
                     shape=f"q {(B, H, Sq, hd)}, x_kv {(B, Sk, D)} bf16",
                     flops=flops, bytes=nbytes, dtype=dt,
-                    regeneration=regeneration(1, Sq, *stream_config()[:2]))
-                want = blocked.stream_attention_plain(q, x, wk, wv)
-                rows, largest, _ = stream_config()
-                try:      # the cluster's size against its regeneration
-                    for cap in (4, 2, 1):
-                        set_cluster_cap(cap)
-                        e = compare(name, f"{dt} {case}, clusters of {cap}",
-                                    stream_attention(q, x, wk, wv), want)
-                        ms = time_ms(lambda: stream_attention(q, x, wk, wv))
-                        say(f"  {name} {case}, clusters of {cap} (K/V "
-                            f"regeneration x{regeneration(1, Sq, rows, cap)}"
-                            f"): {ms:.3f} ms, max|err| {e:.2e}")
-                finally:
-                    set_cluster_cap(largest)
+                    regeneration=regeneration(1, Sq))
 
 
 def check_gemm(gen, report):
@@ -1191,10 +1250,13 @@ def main() -> None:
             if "registers" in line or "spill" in line:
                 say(f"  {name}: {line.strip()}")
     say(f"  tensor-core instructions: {tensor_core_sass()}")
-    rows, cluster, resident = stream_config()
-    say(f"  stream_attention bf16: {rows} query rows per block, clusters of "
-        f"up to {cluster} blocks, {resident} such clusters resident at once "
-        f"(cudaOccupancyMaxActiveClusters, hd 128)")
+    G, Sq = 1, MAIN_STREAM[TIMED["stream_attention"]][2]
+    rows, cluster, resident = stream_config(G, Sq)
+    say(f"  stream_attention bf16: {rows} query rows per block; at "
+        f"{TIMED['stream_attention']} clusters of {cluster} blocks, "
+        f"{resident} such clusters resident at once "
+        f"(cudaOccupancyMaxActiveClusters, hd 128), K/V regeneration "
+        f"x{regeneration(G, Sq)}")
 
     say("== phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)

@@ -23,7 +23,11 @@
 // Live tiles only.  live_kv_tiles() gives the kv tiles [lo, hi) that hold a
 // live key (kv_len, causal with q_offset, window) for any row of a span of
 // flattened rows; masks are applied on the tiles that are not live for every
-// row of a warpgroup.  The Python mirror is blocked.live_kv_tiles.
+// row of a warpgroup.  A row with no live key at all takes the softmax of
+// equal -1e30 scores, the mean of V over the Sk keys (as the plain versions
+// and ref_attention do): a span that holds such a row walks every tile,
+// and store() divides its sum by Sk.  The Python mirror is
+// blocked.live_kv_tiles; flash_attention_live_tiles exports this one.
 // Shared-memory tiles are TMA boxes of 64 rows x 64 bf16 (128 bytes, 8 KB),
 // swizzled by 128 bytes; a tile of width 128 is two boxes 8 KB apart.
 #pragma once
@@ -262,8 +266,9 @@ struct KvRange {
 // Query positions of the flattened rows [r0, r1): [qmin, qmax].  A span
 // that crosses from one head's rows into the next holds both ends of the
 // query range.  Returns false for an empty span.
-__device__ __forceinline__ bool q_span(int r0, int r1, const AttnShape& sh,
-                                       int& qmin, int& qmax) {
+__host__ __device__ __forceinline__ bool q_span(int r0, int r1,
+                                                const AttnShape& sh,
+                                                int& qmin, int& qmax) {
   if (r1 <= r0) return false;
   if (r0 / sh.Sq == (r1 - 1) / sh.Sq) {
     qmin = r0 % sh.Sq + sh.q_offset;
@@ -275,15 +280,25 @@ __device__ __forceinline__ bool q_span(int r0, int r1, const AttnShape& sh,
   return true;
 }
 
+// The keys [beg, end) live for query position q; both ends grow with q.
+__host__ __device__ __forceinline__ void live_keys(const AttnShape& sh, int q,
+                                                   int& beg, int& end) {
+  end = sh.causal && q + 1 < sh.kv_len ? q + 1 : sh.kv_len;
+  beg = sh.window > 0 && q - sh.window + 1 > 0 ? q - sh.window + 1 : 0;
+}
+
 // The kv tiles that hold a live key for some query position in [qmin, qmax]:
-// keys in [max(0, qmin - window + 1), min(kv_len, qmax + 1 if causal)).
-__device__ __forceinline__ KvRange live_kv_tiles(const AttnShape& sh, bool any,
-                                                 int qmin, int qmax) {
-  int kend = sh.kv_len, kbeg = 0;
-  if (sh.causal) kend = min(kend, qmax + 1);
-  if (sh.window > 0) kbeg = max(0, qmin - sh.window + 1);
-  if (!any || kend <= kbeg) return {0, 0};
-  return {kbeg / BK, (kend + BK - 1) / BK};
+// keys in [beg(qmin), end(qmax)).  The positions with no live key lie at
+// the ends of the span; if one is there, every tile (see the note atop).
+__host__ __device__ __forceinline__ KvRange live_kv_tiles(const AttnShape& sh,
+                                                          bool any, int qmin,
+                                                          int qmax) {
+  if (!any) return {0, 0};
+  int beg0, end0, beg1, end1;
+  live_keys(sh, qmin, beg0, end0);
+  live_keys(sh, qmax, beg1, end1);
+  if (end0 <= beg0 || end1 <= beg1) return {0, (sh.Sk + BK - 1) / BK};
+  return {beg0 / BK, (end1 + BK - 1) / BK};
 }
 
 // Does tile j need the mask for some query position in [qmin, qmax]?
@@ -442,12 +457,16 @@ struct TcRows {
     fence_regs(p_lo);
   }
 
-  // out (B, Hq, Sq, hdv) = O / l; a row whose l is 0 (no tile) gives 0.
+  // out (B, Hq, Sq, hdv) = O / l.  A row with no live key walked every
+  // tile with weight 1 per key, and the keys past Sk hold V = 0 (TMA's
+  // zero fill, or generated from zero rows of x_kv): its l becomes Sk.  A
+  // row whose l is 0 (no tile: Sk = 0) gives 0.
   __device__ void store(bf16* __restrict__ out, const AttnShape& sh, int b) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffff, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffff, l[h], 2);
+      if (m[h] == NEG_INF) l[h] = (float)sh.Sk;
     }
 #pragma unroll
     for (int h = 0; h < 2; ++h) {

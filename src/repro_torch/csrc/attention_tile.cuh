@@ -210,7 +210,9 @@ struct AttnCore {
     for (int i = 0; i < RI; ++i) {
       int r = ty + TX * i, head, qi;
       if (!row(r, head, qi)) continue;
-      float l = l_s[r];
+      // A row with no live key weighed every key 1 and the keys past Sk
+      // hold V = 0: its mean is over the Sk keys.
+      float l = m_s[r] == NEG_INF ? (float)sh.Sk : l_s[r];
       float l_safe = l == 0.f ? 1.f : l;   // l == 0 only with no key at all
       T* o = out + ((size_t)(b * sh.Hq + head) * sh.Sq + qi) * sh.hdv;
 #pragma unroll

@@ -207,3 +207,19 @@ extern "C" int flash_attention_launch(
   if (rc >= 0) return rc;
   return repro::dispatch<__nv_bfloat16>(q, k, v, out, sh, s);
 }
+
+// The kv tiles [*lo, *hi) of 64 keys that the bf16 tensor-core kernels walk
+// for the flattened (G x Sq) query rows [r0, r1) of a kv head: the rule the
+// Python mirror blocked.live_kv_tiles copies.
+extern "C" int flash_attention_live_tiles(int r0, int r1, int Sq, int Sk,
+                                          int kv_len, int causal, int window,
+                                          int q_offset, int* lo, int* hi) {
+  repro::AttnShape sh{1, 1, 1, Sq, Sk, 0, 0, 0.f,
+                      causal, window, q_offset, kv_len};
+  int qmin = 0, qmax = 0;
+  const bool any = repro::tc::q_span(r0, r1, sh, qmin, qmax);
+  const repro::tc::KvRange kv = repro::tc::live_kv_tiles(sh, any, qmin, qmax);
+  *lo = kv.lo;
+  *hi = kv.hi;
+  return 0;
+}

@@ -23,8 +23,8 @@
 //   1. generation: block c of the cluster generates tile j0 + c once.  The
 //      producer brings 64-wide D chunks of x_kv (64 keys) and of
 //      W_K[:, h, :], W_V[:, h, :] (hot in L2 across blocks) by TMA through
-//      a ring of 4 stages (2 at hd 128), running up to a ring ahead into
-//      the next round; warpgroup 0 forms K_j, warpgroup 1 V_j, as wgmma
+//      a ring of 4 stages (2 at hd 128), running at most a ring of chunks
+//      past the round's own; warpgroup 0 forms K_j, warpgroup 1 V_j, as wgmma
 //      products with f32 sums.  qk-RMSNorm and RoPE run in f32 on the
 //      accumulators (a row lies in one quad; RoPE's partner column in the
 //      same thread), and the tile is stored split, K_hi/K_lo/V_hi/V_lo in
@@ -44,9 +44,9 @@
 // 4096 x 4096 vision self-attention, against 32 without the cluster.
 // Budget at hd 128: buf[0] + buf[1] 2 x 64 KB + ring 2 x 40 KB = 208 KB of
 // the 227 KB; Q lives in registers (the A operand of Q·K^T).  Clusters of
-// 8 beat 4, 2 and 1 (no cluster) on the H100 (chip_smoke.py times all four
-// at the timed shape; PERF.md).  A block past the last row still generates
-// and forwards its tile and stores nothing.
+// 8 beat 4, 2 and 1 (no cluster) on the H100 at the timed shape (a one-off
+// sweep, PERF.md), and 8 is the largest portable size.  A block past the
+// last row still generates and forwards its tile and stores nothing.
 // TMA needs hd and D multiples of 8; hd must be 32, 64, 96 or 128.  Other
 // shapes, and f32 inputs, take the SIMT f32 core of attention_tile.cuh
 // (one block per 128 rows, every block regenerates every tile).
@@ -219,7 +219,6 @@ namespace tc {
 template <int HDP>
 constexpr int stream_stages() { return HDP <= 64 ? 4 : 2; }
 constexpr int MAX_CLUSTER = 8;
-int cluster_cap = MAX_CLUSTER;   // lowered only to time smaller clusters
 
 template <int HDP>
 struct StreamSmem {
@@ -368,13 +367,18 @@ stream_tc_kernel(const __grid_constant__ CUtensorMap xmap,
     setmaxnreg_dec<40>();
     const bool lead = threadIdx.x == CONSUMERS;
     // The block's loads in order: the D chunks of its tile j0 + rank, for
-    // every round that has one.  Each round's loads are followed by up to
-    // STAGES of the next round's, so that generation starts on arrived data.
-    int next_j0 = kv.lo, next_d0 = 0, issued = 0;
+    // every round that has one.  A chunk is issued only once the chunk a
+    // ring before it is one that this round's generation consumes: at most
+    // STAGES chunks past the end of the round, so that the wait for a free
+    // stage never outlasts the round (the consumers free the stages of
+    // later rounds only after this round's cluster barriers).
+    const int nch = (sd.D + 63) / 64;
+    int next_j0 = kv.lo, next_d0 = 0, issued = 0, through = 0;
     for (int j0 = kv.lo; j0 < kv.hi; j0 += C) {
-      for (int ahead = 0; lead;) {
+      if (j0 + rank < kv.hi) through += nch;   // chunks up to this round's end
+      while (lead && issued < through + L::STAGES) {
         while (next_j0 < kv.hi && next_j0 + rank >= kv.hi) next_j0 += C;
-        if (next_j0 >= kv.hi || (next_j0 > j0 && ahead++ == L::STAGES)) break;
+        if (next_j0 >= kv.hi) break;
         const int st = issued % L::STAGES, ph = (issued / L::STAGES) & 1;
         if (issued >= L::STAGES) mbar_wait(empty + 8 * st, ph ^ 1);
         const uint32_t xs = base + L::RING + st * L::STAGE;
@@ -435,11 +439,11 @@ stream_tc_kernel(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// Cluster size for a row-tile count: 8 (cluster_cap), or the least power
-// of two that covers the row tiles.
+// Cluster size for a row-tile count: MAX_CLUSTER, or the least power of
+// two that covers the row tiles.
 inline int cluster_for(int row_tiles) {
   int c = 1;
-  while (c < cluster_cap && c < row_tiles) c *= 2;
+  while (c < MAX_CLUSTER && c < row_tiles) c *= 2;
   return c;
 }
 
@@ -552,24 +556,17 @@ extern "C" int stream_attention_launch(
   return repro::dispatch<__nv_bfloat16>(q, x, wk, wv, sn, cs, kg, out, sh, sa, s);
 }
 
-// How the bf16 tensor-core route regenerates K/V: query rows per block and
-// the largest cluster (the cap); a tile is generated once per cluster of consecutive
-// row tiles, so G·Sq / (rows·cluster) times per kv head when the rows fill
-// the clusters.  max_clusters: clusters of that size (hd 128) resident at
-// once, from cudaOccupancyMaxActiveClusters (-1 if the query fails).
-extern "C" int stream_attention_config(int* rows, int* cluster,
+// How the bf16 tensor-core route regenerates K/V for `nrows` flattened
+// (G x Sq) query rows of a kv head: query rows per block, and the cluster
+// the launch takes for them; a tile is generated once per cluster of
+// consecutive row tiles.  max_clusters: clusters of MAX_CLUSTER blocks
+// (hd 128) resident at once, from cudaOccupancyMaxActiveClusters (-1 if
+// the query fails).
+extern "C" int stream_attention_config(int nrows, int* rows, int* cluster,
                                        int* max_clusters) {
   *rows = repro::tc::ROWS;
-  *cluster = repro::tc::cluster_cap;
+  *cluster = repro::tc::cluster_for((nrows + repro::tc::ROWS - 1) /
+                                    repro::tc::ROWS);
   *max_clusters = repro::tc::max_active_clusters(repro::tc::MAX_CLUSTER);
-  return 0;
-}
-
-// Cap the cluster size at 1, 2, 4 or 8 (the default) for later launches:
-// chip_smoke.py times the smaller clusters against 8.  Returns 0, or -1
-// for another value.
-extern "C" int stream_attention_set_cluster_cap(int cap) {
-  if (cap != 1 && cap != 2 && cap != 4 && cap != 8) return -1;
-  repro::tc::cluster_cap = cap;
   return 0;
 }

@@ -48,33 +48,45 @@ def split_bf16(t: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     return hi, (t - hi).bfloat16().float()
 
 
-def _operands(t: torch.Tensor, rounding: str):
-    """The bf16 operands a rounding mode gives an f32 tensor: [hi, lo] for
-    "split", [bf16(t)] for "bf16"."""
-    if rounding == "split":
-        return list(split_bf16(t))
-    if rounding == "bf16":
-        return [t.bfloat16().float()]
-    raise ValueError(f"rounding {rounding!r}: 'split' or 'bf16'")
+def _qk(qf, k_j):
+    return torch.einsum("bhgqd,bhkd->bhgqk", qf, k_j)
 
 
-def _products(a_ops, b_ops, eq):
-    """Sum of the products of two operand lists, leaving out lo x lo (the
-    kernels' three products of two split operands)."""
-    return sum(torch.einsum(eq, a, b) for i, a in enumerate(a_ops)
-               for j, b in enumerate(b_ops) if i + j < 2)
+def _pv(p, v_j):
+    return torch.einsum("bhgqk,bhkd->bhgqd", p, v_j)
 
 
-def _online_softmax(qf, kv_blocks, qpos, bk, kv_len, causal, window,
-                    out_shape, dtype, rounding=None, round_kv=False,
-                    scale=1.0):
-    """Shared block loop.  qf: (B,Hkv,G,Sq,hd) f32, pre-scaled unless
-    ``rounding`` is set; kv_blocks yields (j, k_j (B,Hkv,bk,hd), v_j
-    (B,Hkv,bk,hdv)) in f32.
+def _split_products(rounding: str, round_kv: bool, scale: float):
+    """The (qk, pv) products of the tensor-core kernels' operands: P (and
+    with ``round_kv`` K and V) enter as [hi, lo] ("split", leaving out
+    lo x lo) or as [bf16(t)] ("bf16"); the scores are (Q K^T) * scale."""
+    if rounding not in ("split", "bf16"):
+        raise ValueError(f"rounding {rounding!r}: 'split' or 'bf16'")
 
-    ``rounding`` ("split" or "bf16") mirrors the tensor-core kernels'
-    operands: P (and with ``round_kv`` K and V) enter the products as bf16
-    values, and the scores are (Q K^T) * scale."""
+    def ops(t):
+        return list(split_bf16(t)) if rounding == "split" \
+            else [t.bfloat16().float()]
+
+    def products(a_ops, b_ops, dot):
+        return sum(dot(a, b) for i, a in enumerate(a_ops)
+                   for j, b in enumerate(b_ops) if i + j < 2)
+
+    def qk(qf, k_j):
+        return products([qf], ops(k_j) if round_kv else [k_j], _qk) * scale
+
+    def pv(p, v_j):
+        return products(ops(p), ops(v_j) if round_kv else [v_j], _pv)
+
+    return qk, pv
+
+
+def _online_softmax(qf, kv_blocks, qpos, bk, sk, kv_len, causal, window,
+                    out_shape, dtype, qk=_qk, pv=_pv):
+    """Shared block loop.  qf: (B,Hkv,G,Sq,hd) f32; kv_blocks yields (j,
+    k_j (B,Hkv,bk,hd), v_j (B,Hkv,bk,hdv)) in f32, zero-padded past ``sk``
+    keys; qk(qf, k_j) gives the scaled scores, pv(p, v_j) the products with
+    V.  A row with no live key takes the softmax of equal -1e30 scores: the
+    mean of V over the ``sk`` keys (padding weighs nothing)."""
     B, Hkv, G, Sq, _ = qf.shape
     m = l = acc = None
     for j, k_j, v_j in kv_blocks:
@@ -82,25 +94,16 @@ def _online_softmax(qf, kv_blocks, qpos, bk, kv_len, causal, window,
             m = torch.full((B, Hkv, G, Sq), NEG_INF, device=qf.device)
             l = torch.zeros((B, Hkv, G, Sq), device=qf.device)
             acc = torch.zeros((B, Hkv, G, Sq, v_j.shape[-1]), device=qf.device)
-        if rounding is None:
-            s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k_j)
-        else:
-            k_ops = _operands(k_j, rounding) if round_kv else [k_j]
-            s = _products([qf], k_ops, "bhgqd,bhkd->bhgqk") * scale
+        s = qk(qf, k_j)
         kpos = j * bk + torch.arange(bk, device=qf.device)
         s = torch.where(_mask(qpos, kpos, kv_len, causal, window), s,
                         torch.full_like(s, NEG_INF))
+        s = torch.where(kpos < sk, s, torch.full_like(s, -torch.inf))
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1)
-        if rounding is None:
-            pv = torch.einsum("bhgqk,bhkd->bhgqd", p, v_j)
-        else:
-            v_ops = _operands(v_j, rounding) if round_kv else [v_j]
-            pv = _products(_operands(p, rounding), v_ops,
-                           "bhgqk,bhkd->bhgqd")
-        acc = acc * alpha[..., None] + pv
+        acc = acc * alpha[..., None] + pv(p, v_j)
         m = m_new
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
     return (acc / l_safe[..., None]).reshape(out_shape).to(dtype)
@@ -123,11 +126,13 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``flash_attention_plain`` with the tensor-core kernel's operands: P
     enters P V as P_hi + P_lo ("split") or as bf16(P) ("bf16", what a
     product of bf16 P would give).  Q, K, V are the bf16 inputs."""
-    return _flash(q, k, v, block_k=block_k, rounding=rounding, **kw)
+    return _flash(q, k, v, block_k=block_k,
+                  products=lambda scale: _split_products(rounding, False,
+                                                         scale), **kw)
 
 
 def _flash(q, k, v, *, causal=False, window=0, q_offset=0, scale=None,
-           kv_len=None, block_k=512, rounding=None):
+           kv_len=None, block_k=512, products=None):
     B, Hq, Sq, hd = q.shape
     Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
@@ -138,38 +143,41 @@ def _flash(q, k, v, *, causal=False, window=0, q_offset=0, scale=None,
     v, _ = _pad_axis(v, 2, bk)
     nkb = k.shape[2] // bk
     qf = q.float().reshape(B, Hkv, G, Sq, hd)
-    if rounding is None:
-        qf = qf * scale
     qpos = torch.arange(Sq, device=q.device) + q_offset
     blocks = ((j, k[:, :, j * bk:(j + 1) * bk].float(),
                v[:, :, j * bk:(j + 1) * bk].float()) for j in range(nkb))
-    return _online_softmax(qf, blocks, qpos, bk, kv_len, causal, window,
-                           (B, Hq, Sq, hdv), q.dtype, rounding=rounding,
-                           scale=scale)
+    if products is None:
+        return _online_softmax(qf * scale, blocks, qpos, bk, Sk, kv_len,
+                               causal, window, (B, Hq, Sq, hdv), q.dtype)
+    return _online_softmax(qf, blocks, qpos, bk, Sk, kv_len, causal, window,
+                           (B, Hq, Sq, hdv), q.dtype, *products(scale))
 
 
-def live_kv_tiles(r0: int, r1: int, Sq: int, *, kv_len: int,
+def live_kv_tiles(r0: int, r1: int, Sq: int, *, sk: int, kv_len: int,
                   causal: bool = False, window: int = 0, q_offset: int = 0,
                   bk: int = 64) -> Tuple[int, int]:
     """The kv tiles [lo, hi) of ``bk`` keys that hold a live key for some
     row of the flattened (G x Sq) query rows [r0, r1) of a kv head: the
-    range the CUDA kernels walk (``live_kv_tiles`` in attention_tc.cuh).
-    A span that crosses from one head's rows into the next holds both ends
-    of the query range."""
+    range the CUDA kernels walk (``live_kv_tiles`` in attention_tc.cuh;
+    ``flash_attention.live_tiles`` reads that one).  A span that crosses
+    from one head's rows into the next holds both ends of the query range.
+    A span that holds a row with no live key walks all ``sk`` keys' tiles:
+    that row's output is the mean of V over them."""
     if r1 <= r0:
         return 0, 0
     if r0 // Sq == (r1 - 1) // Sq:
         qmin, qmax = r0 % Sq + q_offset, (r1 - 1) % Sq + q_offset
     else:
         qmin, qmax = q_offset, Sq - 1 + q_offset
-    kend, kbeg = kv_len, 0
-    if causal:
-        kend = min(kend, qmax + 1)
-    if window > 0:
-        kbeg = max(0, qmin - window + 1)
-    if kend <= kbeg:
-        return 0, 0
-    return kbeg // bk, -(-kend // bk)
+
+    def live_keys(qpos):   # both ends grow with qpos
+        return (max(0, qpos - window + 1) if window > 0 else 0,
+                min(kv_len, qpos + 1) if causal else kv_len)
+
+    (beg0, end0), (beg1, end1) = live_keys(qmin), live_keys(qmax)
+    if end0 <= beg0 or end1 <= beg1:
+        return 0, -(-sk // bk)
+    return beg0 // bk, -(-end1 // bk)
 
 
 def flash_attention_live(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -191,8 +199,9 @@ def flash_attention_live(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.zeros((B, Hkv, G * Sq, hdv), device=q.device)
     for r0 in range(0, G * Sq, rows):
         r1 = min(r0 + rows, G * Sq)
-        lo, hi = live_kv_tiles(r0, r1, Sq, kv_len=kv_len, causal=causal,
-                               window=window, q_offset=q_offset, bk=bk)
+        lo, hi = live_kv_tiles(r0, r1, Sq, sk=Sk, kv_len=kv_len,
+                               causal=causal, window=window,
+                               q_offset=q_offset, bk=bk)
         if hi <= lo:
             continue
         qpos = torch.arange(r0, r1, device=q.device) % Sq + q_offset
@@ -200,8 +209,8 @@ def flash_attention_live(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    v[:, :, j * bk:(j + 1) * bk].float())
                   for j in range(lo, hi))
         out[:, :, r0:r1] = _online_softmax(
-            qf[:, :, None, r0:r1], blocks, qpos, bk, kv_len, causal, window,
-            (B, Hkv, r1 - r0, hdv), torch.float32)
+            qf[:, :, None, r0:r1], blocks, qpos, bk, Sk, kv_len, causal,
+            window, (B, Hkv, r1 - r0, hdv), torch.float32)
     return out.reshape(B, Hq, Sq, hdv).to(q.dtype)
 
 
@@ -234,12 +243,14 @@ def stream_attention_split(q: torch.Tensor, x_kv: torch.Tensor,
     the generated (f32) K and V and the softmax's P enter the products as
     hi + lo bf16 pairs ("split"; Q K_hi^T + Q K_lo^T and P_hi V_hi +
     P_hi V_lo + P_lo V_hi) or rounded to bf16 ("bf16")."""
-    return _stream(q, x_kv, wk, wv, block_k=block_k, rounding=rounding, **kw)
+    return _stream(q, x_kv, wk, wv, block_k=block_k,
+                   products=lambda scale: _split_products(rounding, True,
+                                                          scale), **kw)
 
 
 def _stream(q, x_kv, wk, wv, *, sin=None, cos=None, k_gamma=None,
             causal=False, window=0, q_offset=0, scale=None, norm_eps=1e-6,
-            kv_len=None, block_k=512, rounding=None):
+            kv_len=None, block_k=512, products=None):
     B, Hq, Sq, hd = q.shape
     Sk, D = x_kv.shape[1], x_kv.shape[2]
     Hkv = wk.shape[1]
@@ -253,8 +264,6 @@ def _stream(q, x_kv, wk, wv, *, sin=None, cos=None, k_gamma=None,
         cos, _ = _pad_axis(cos, 0, bk)
     nkb = x_kv.shape[1] // bk
     qf = q.float().reshape(B, Hkv, G, Sq, hd)
-    if rounding is None:
-        qf = qf * scale
     qpos = torch.arange(Sq, device=q.device) + q_offset
     wkf, wvf = wk.float(), wv.float()
     half = hd // 2
@@ -273,9 +282,12 @@ def _stream(q, x_kv, wk, wv, *, sin=None, cos=None, k_gamma=None,
             k_j = torch.cat([k1 * c_ - k2 * s_, k2 * c_ + k1 * s_], dim=-1)
         return j, k_j.transpose(1, 2), v_j.transpose(1, 2)
 
-    return _online_softmax(qf, (gen(j) for j in range(nkb)), qpos, bk,
-                           kv_len, causal, window, (B, Hq, Sq, hd), q.dtype,
-                           rounding=rounding, round_kv=True, scale=scale)
+    blocks = (gen(j) for j in range(nkb))
+    if products is None:
+        return _online_softmax(qf * scale, blocks, qpos, bk, Sk, kv_len,
+                               causal, window, (B, Hq, Sq, hd), q.dtype)
+    return _online_softmax(qf, blocks, qpos, bk, Sk, kv_len, causal, window,
+                           (B, Hq, Sq, hd), q.dtype, *products(scale))
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

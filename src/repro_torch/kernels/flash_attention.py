@@ -7,7 +7,7 @@ CUDA kernel: ``csrc/flash_attention.cu``.  Plain version:
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -23,6 +23,20 @@ def _lib():
     fn.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_F] + [_I] * 4 + [_P]
     fn.restype = _I
     return fn
+
+
+def live_tiles(r0: int, r1: int, Sq: int, *, sk: int, kv_len: int,
+               causal: bool = False, window: int = 0,
+               q_offset: int = 0) -> Tuple[int, int]:
+    """The kv tiles [lo, hi) of 64 keys that the bf16 kernels walk for the
+    flattened query rows [r0, r1) of a kv head, read from the library
+    (built on first use): the rule ``blocked.live_kv_tiles`` mirrors."""
+    fn = _build.load("flash_attention").flash_attention_live_tiles
+    fn.argtypes, fn.restype = [_I] * 8 + [ctypes.POINTER(_I)] * 2, _I
+    lo, hi = _I(), _I()
+    fn(r0, r1, Sq, sk, kv_len, int(causal), window, q_offset,
+       ctypes.byref(lo), ctypes.byref(hi))
+    return lo.value, hi.value
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

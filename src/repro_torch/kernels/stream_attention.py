@@ -25,39 +25,25 @@ def _lib():
     return fn
 
 
-def config() -> Tuple[int, int, int]:
-    """(query rows per block, largest cluster, clusters of that size
-    resident at once) of the bf16 tensor-core kernel, read from its library
-    (built on first use)."""
+def config(G: int, Sq: int) -> Tuple[int, int, int]:
+    """(query rows per block, cluster size, clusters of the largest size
+    resident at once) of the bf16 tensor-core kernel for the G*Sq
+    flattened query rows of a kv head, read from its library (built on
+    first use)."""
     fn = _build.load("stream_attention").stream_attention_config
-    fn.argtypes, fn.restype = [ctypes.POINTER(_I)] * 3, _I
+    fn.argtypes, fn.restype = [_I] + [ctypes.POINTER(_I)] * 3, _I
     rows, cluster, resident = _I(), _I(), _I()
-    fn(ctypes.byref(rows), ctypes.byref(cluster), ctypes.byref(resident))
+    fn(G * Sq, ctypes.byref(rows), ctypes.byref(cluster),
+       ctypes.byref(resident))
     return rows.value, cluster.value, resident.value
 
 
-def set_cluster_cap(cap: int) -> None:
-    """Cap the bf16 kernel's clusters at ``cap`` blocks (1, 2, 4 or the
-    default 8) for later launches; chip_smoke.py times smaller clusters
-    with it."""
-    fn = _build.load("stream_attention").stream_attention_set_cluster_cap
-    fn.argtypes, fn.restype = [_I], _I
-    if fn(cap) != 0:
-        raise ValueError(f"stream_attention: cluster cap {cap} not in "
-                         f"(1, 2, 4, 8)")
-
-
-def regeneration(G: int, Sq: int, rows: int, max_cluster: int) -> int:
+def regeneration(G: int, Sq: int) -> int:
     """How many times the bf16 kernel generates each K/V tile of a kv head:
-    once per cluster of consecutive blocks of ``rows`` of the G*Sq query
-    rows.  The cluster is ``max_cluster`` blocks, or the least power of two
-    that covers the row tiles (``cluster_for`` in the CUDA source); pass
-    the first two values of ``config()``."""
-    tiles = -(-G * Sq // rows)
-    cluster = 1
-    while cluster < max_cluster and cluster < tiles:
-        cluster *= 2
-    return -(-tiles // cluster)
+    once per cluster of consecutive blocks over the G*Sq query rows."""
+    rows, cluster, _ = config(G, Sq)
+    row_tiles = -(-G * Sq // rows)
+    return -(-row_tiles // cluster)
 
 
 def stream_attention(q: torch.Tensor, x_kv: torch.Tensor, wk: torch.Tensor,

@@ -7,13 +7,15 @@ the plain mirror of that rounding (``blocked.flash_attention_split``,
 ``blocked.stream_attention_split``) to chip_smoke.py's bf16 limit against
 the f32 plain versions at a main-path shape, show that rounding those
 operands to bf16 alone would not hold it, and check the kernels' live-tile
-rule (``blocked.live_kv_tiles``) against the full loop.
+rule (``blocked.live_kv_tiles``) against the full loop, with the rows that
+have no live key at all.  The test marked ``cuda`` reads the stream
+kernel's cluster policy from its CUDA library and skips without a card.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import blocked
+from repro_torch.kernels import blocked, ref
 
 # chip_smoke.py's bf16 limit: |got - want| <= 1e-4 + 2**-7 |want|
 BF16_TOL = (1e-4, 2 ** -7)
@@ -82,7 +84,7 @@ def test_split_bf16_keeps_sixteen_bits():
 
 
 def test_live_kv_tiles_ranges():
-    kw = dict(kv_len=1024, bk=64)
+    kw = dict(sk=1024, kv_len=1024, bk=64)
     assert blocked.live_kv_tiles(0, 128, 1024, causal=True, **kw) == (0, 2)
     assert blocked.live_kv_tiles(896, 1024, 1024, causal=True, **kw) == (0, 16)
     # window 256: rows 512..639 see keys 257..639
@@ -91,10 +93,16 @@ def test_live_kv_tiles_ranges():
     # a span across two heads' rows holds queries 0 and Sq - 1
     assert blocked.live_kv_tiles(1000, 1100, 1024, causal=True, **kw) == (0, 16)
     # kv_len and q_offset
-    assert blocked.live_kv_tiles(0, 100, 100, kv_len=170, causal=True,
-                                 q_offset=100, bk=64) == (0, 3)
-    assert blocked.live_kv_tiles(0, 64, 64, kv_len=0, bk=64) == (0, 0)
-    assert blocked.live_kv_tiles(5, 5, 64, kv_len=64, bk=64) == (0, 0)
+    assert blocked.live_kv_tiles(0, 100, 100, sk=200, kv_len=170,
+                                 causal=True, q_offset=100, bk=64) == (0, 3)
+    assert blocked.live_kv_tiles(5, 5, 64, sk=64, kv_len=64, bk=64) == (0, 0)
+    # a row with no live key (kv_len 0; past kv_len + window - 1) makes its
+    # span walk every tile of the sk keys
+    assert blocked.live_kv_tiles(0, 64, 64, sk=64, kv_len=0, bk=64) == (0, 1)
+    assert blocked.live_kv_tiles(0, 128, 300, sk=300, kv_len=100,
+                                 window=32, bk=64) == (0, 2)
+    assert blocked.live_kv_tiles(128, 256, 300, sk=300, kv_len=100,
+                                 window=32, bk=64) == (0, 5)
 
 
 # B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len: chip_smoke's
@@ -110,6 +118,10 @@ LIVE_CASES = [
     (1, 8, 2, 300, 300, 64, 64, True, 0, None),
     (1, 5, 1, 600, 600, 64, 64, True, 128, None),
     (1, 3, 1, 200, 200, 32, 32, False, 96, None),
+    # rows with no live key: past kv_len + window - 1, or kv_len 0
+    (1, 2, 1, 300, 300, 64, 64, False, 32, 100),
+    (2, 4, 2, 200, 260, 64, 32, True, 16, 40),
+    (1, 2, 2, 64, 150, 32, 32, False, 0, 0),
 ]
 
 
@@ -127,7 +139,7 @@ def test_live_tiles_equal_the_full_loop(case):
     want = blocked.flash_attention_plain(q, k, v, block_k=64, **kw)
     torch.testing.assert_close(got, want, atol=1e-6, rtol=1e-6)
     G = Hq // Hkv
-    tiles = [blocked.live_kv_tiles(r0, min(r0 + 128, G * Sq), Sq,
+    tiles = [blocked.live_kv_tiles(r0, min(r0 + 128, G * Sq), Sq, sk=Sk,
                                    kv_len=Sk if kv_len is None else kv_len,
                                    causal=causal, window=window,
                                    q_offset=kw["q_offset"])
@@ -139,13 +151,60 @@ def test_live_tiles_equal_the_full_loop(case):
         assert walked < full
 
 
+# B, Hq, Hkv, Sq, Sk, hd, causal, window, kv_len: the query rows at or
+# past kv_len + window - 1 (or all rows, at kv_len 0) have no live key.
+MASKED_CASES = [
+    (1, 2, 1, 300, 300, 64, False, 32, 100),
+    (1, 4, 2, 130, 700, 32, True, 8, 600),
+    (2, 2, 2, 64, 150, 32, False, 0, 0),
+]
+
+
+@pytest.mark.parametrize("case", MASKED_CASES)
+@pytest.mark.parametrize("block_k", [64, 512])
+def test_row_with_no_live_key_takes_the_mean_of_v(case, block_k):
+    """A row with no live key averages V over the Sk keys, as
+    ref_attention's softmax over equal -1e30 scores does, whatever the
+    blocking (padding past Sk weighs nothing); the other rows are the
+    reference's too."""
+    B, Hq, Hkv, Sq, Sk, hd, causal, window, kv_len = case
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               for s in ((B, Hq, Sq, hd), (B, Hkv, Sk, hd), (B, Hkv, Sk, hd)))
+    q_offset = Sk - Sq if causal else 0
+    got = blocked.flash_attention_plain(
+        q, k, v, causal=causal, window=window, q_offset=q_offset,
+        kv_len=kv_len, block_k=block_k)
+    qpos = np.arange(Sq) + q_offset
+    dead = (kv_len == 0) | ((window > 0) & (qpos >= kv_len + window - 1))
+    assert dead.any() and (kv_len == 0 or not dead.all())
+    mean = v.mean(dim=2).repeat_interleave(Hq // Hkv, dim=1)
+    torch.testing.assert_close(
+        got[:, :, dead], mean[:, :, None].expand_as(got[:, :, dead]),
+        atol=1e-5, rtol=1e-5)
+    if kv_len == Sk or kv_len == 0:
+        return
+    want = ref.ref_attention(q, k[:, :, :kv_len], v[:, :, :kv_len],
+                             causal=causal, window=window,
+                             q_offset=q_offset)
+    torch.testing.assert_close(got[:, :, ~dead], want[:, :, ~dead],
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.fixture
+def card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: reads the CUDA library's policy")
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("G, Sq, want", [
     (1, 4096, 4),     # vilbert-base at N = 4096: 32 row tiles, clusters of 8
     (1, 1408, 2),     # 11 row tiles
     (8, 256, 2),      # qwen3-32b's GQA rows at 256 tokens
     (1, 100, 1),      # one row tile: a cluster of one
 ])
-def test_regeneration_factor(G, Sq, want):
+def test_regeneration_factor(card, G, Sq, want):
     from repro_torch.kernels.stream_attention import regeneration
-    assert regeneration(G, Sq, 128, 8) == want
-    assert regeneration(G, Sq, 128, 1) == -(-G * Sq // 128)
+    assert regeneration(G, Sq) == want
+
