@@ -9,9 +9,11 @@ under build/planted_faults/<fault>/ (git-ignored) gets one fault in a
 kernel's CUDA source: the attention kernels drop the last live kv tile
 of their range (decode attention: the last tile of each W chunk), the
 stream kernel also attends in every sub-step to its own generated tile in
-place of the one forwarded from its peers, the bf16 GEMM skips its last
-32-wide K chunk, the SSD scan drops the carry of the state from one chunk
-to the next (each chunk starts from its own contribution only).
+place of the one forwarded from its peers; the GEMM's three bf16 routes:
+mma skips its last 32-wide K chunk, wgmma's consumers skip the products of
+their last 64-wide k-step, splitk's reduction drops its last K split; the
+SSD scan drops the carry of the state from one chunk to the next (each
+chunk starts from its own contribution only).
 chip_smoke's bf16 check of that kernel then runs on the copy, in a
 subprocess, once at the kernel test cases and once at the main path's
 shapes.  Each run must fail with that kernel's comparison message, which
@@ -37,6 +39,7 @@ SKIP_LAST_LIVE_TILE = (LIVE_RANGE, LIVE_RANGE.replace(
     "live_kv_tiles(sh, any, qmin, qmax).hi - 1};"))
 FLASH = ("FLASH_CASES", "MAIN_FLASH", "check_flash")
 STREAM = ("STREAM_CASES", "MAIN_STREAM", "check_stream")
+GEMM = ("GEMM_CASES", "MAIN_GEMM", "check_gemm")
 # fault: (kernel, CUDA source, (text, planted replacement),
 #         chip_smoke's (test cases, main-path shapes, check function))
 FAULTS = {
@@ -49,10 +52,21 @@ FAULTS = {
         "stream_attention", "stream_attention.cu",
         ("const uint32_t tile = base + (s % 2) * L::TILE;",
          "const uint32_t tile = base;"), STREAM),
-    "tile_gemm": ("tile_gemm", "tile_gemm.cu",
-                  ("for (int k0 = 0; k0 < K; k0 += TBK)",
-                   "for (int k0 = 0; k0 < K - TBK; k0 += TBK)"),
-                  ("GEMM_CASES", "MAIN_GEMM", "check_gemm")),
+    # the GEMM's routes: mma skips its last K chunk, wgmma's consumers their
+    # last k-step, splitk's reduction its last split
+    "tile_gemm_mma": ("tile_gemm", "tile_gemm.cu",
+                      ("for (int k0 = 0; k0 < K; k0 += TBK)",
+                       "for (int k0 = 0; k0 < K - TBK; k0 += TBK)"), GEMM),
+    "tile_gemm_wgmma": (
+        "tile_gemm", "tile_gemm.cu",
+        ("        wgmma_ss<1>(acc, desc_kmajor(a + kk * 32), "
+         "desc_mnmajor(b + kk * 2048), 1);",
+         "        if (ks < ksteps - 1) wgmma_ss<1>(acc, desc_kmajor(a + kk * 32), "
+         "desc_mnmajor(b + kk * 2048), 1);"), GEMM),
+    "tile_gemm_splitk": ("tile_gemm", "tile_gemm.cu",
+                         ("for (int r = 1; r < S; ++r) v += __ldcg(",
+                          "for (int r = 1; r < S - 1; ++r) v += __ldcg("),
+                         GEMM),
     "decode_attention": ("decode_attention", "decode_attention.cu",
                          ("for (int t0 = t_lo; t0 < t_hi; t0 += BK)",
                           "for (int t0 = t_lo; t0 < t_hi - BK; t0 += BK)"),

@@ -56,6 +56,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import shutil
 import subprocess
 import sys
@@ -79,7 +80,8 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.stream_attention import (  # noqa: E402
     config as stream_config, regeneration, stream_attention)
-from repro_torch.kernels.tile_gemm import tile_gemm  # noqa: E402
+from repro_torch.kernels.tile_gemm import (  # noqa: E402
+    route_of, splits_of, tile_gemm)
 from repro_torch.models.ssm import SSM  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.vilbert import ViLBERT  # noqa: E402
@@ -238,9 +240,19 @@ STREAM_CASES = [
     (1, 2, 1, 300, 300, 64, 128, False, 32, True, False, 100),
     (1, 8, 2, 130, 700, 128, 256, True, 8, True, True, 600),
 ]
+M_SMALL = blocked.GEMM_M_SMALL
 GEMM_CASES = [(256, 128, 192), (512, 384, 256), (128, 256, 128),
               (128, 768, 256),   # K = 768: the reference's ragged-K case
-              (100, 770, 130)]   # ragged M, N and K
+              (100, 770, 130),   # ragged M, N and K: mma (bf16), simt (f32)
+              # the edge between splitk and wgmma
+              (M_SMALL, 256, 512), (M_SMALL + 1, 256, 512),
+              # K below one K tile, N a multiple of 8 but not of a tile
+              (M_SMALL, 40, 136), (200, 40, 136),
+              # K and N multiples of 8 but not of a tile; splitk in 13
+              # splits, the last of 8 rows
+              (300, 776, 264), (3, 776, 264),
+              (4, 3000, 520),    # splitk in 47 splits, the last ragged
+              (5, 770, 130)]     # splitk's element loads (N % 8 != 0)
 
 # The main path's shapes at vilbert-base, B = 2, N = 4096 (first co-TRM
 # block; text-only layers have the text self-attention shape).
@@ -288,6 +300,13 @@ MAIN_SSD = {f"mamba2-780m prefill {s}": (1, s, 48, 64, 128, 256)
             for s in sorted({plen for _, plen, _, _ in MAMBA2_REQUESTS})}
 MAIN_SSD.update({f"hymba-1.5b prefill {s}": (1, s, 25, 128, 16, 256)
                  for s in sorted({plen for _, plen, _, _ in HYMBA_REQUESTS})})
+# tile_gemm is also timed at these main-path shapes, each against the
+# mma route (the first port's kernel, unchanged: the parent's kernel) in
+# turns, and against torch.matmul.
+GEMM_TIMED = ("text mlp up", "qwen3 prefill M=1024 mlp up",
+              "qwen3 prefill M=1024 mlp down", "qwen3 decode M=3 mlp up",
+              "qwen3 decode M=3 mlp down", "qwen3 decode M=1 mlp up",
+              "qwen3 decode M=1 mlp down")
 TIMED = {"decode_attention": "qwen3-32b bucket of 4",
          "flash_attention": "vision self 4096",
          "stream_attention": "vision self 4096",
@@ -470,28 +489,129 @@ def check_stream(gen, report):
                     regeneration=regeneration(1, Sq))
 
 
+def check_gemm_rules():
+    """The library's route and split rules against their Python mirrors
+    (blocked.gemm_route, blocked.gemm_splits) at every case, main shape
+    and M of 1..20 at the main paths' (K, N)."""
+    shapes = set(GEMM_CASES) | set(MAIN_GEMM.values())
+    shapes |= {(m, k, n) for m in range(1, 21)
+               for _, k, n in MAIN_GEMM.values()}
+    for M, K, N in sorted(shapes):
+        for dt, code in _build.DTYPE_CODES.items():
+            got = route_of(M, K, N, code)
+            if got != blocked.gemm_route(M, K, N, dt):
+                fail(f"tile_gemm route at {(M, K, N)} {dt}: library {got}, "
+                     f"blocked.gemm_route {blocked.gemm_route(M, K, N, dt)}")
+        if splits_of(K, N) != blocked.gemm_splits(K, N):
+            fail(f"tile_gemm splits at {(K, N)}: library {splits_of(K, N)}, "
+                 f"blocked.gemm_splits {blocked.gemm_splits(K, N)}")
+    say(f"  tile_gemm: the library's route and split rules equal "
+        f"blocked.gemm_route / gemm_splits at {len(shapes)} shapes")
+
+
+def check_gemm_rows(gen):
+    """splitk: row i of an M = 3 (and M = 4) call equals the M = 1 call on
+    row i, bitwise, at qwen3-32b's decode shapes."""
+    for dt in DTYPES:
+        for proj, K, N in (("up", 5120, 25600), ("down", 25600, 5120)):
+            w = randn(gen, K, N, dtype=dt, scale=K ** -0.5)
+            x = randn(gen, 4, K, dtype=dt)
+            for M in (3, 4):
+                got = tile_gemm(x[:M], w)
+                for i in range(M):
+                    if not torch.equal(got[i:i + 1], tile_gemm(x[i:i + 1], w)):
+                        fail(f"tile_gemm splitk {dt} mlp {proj}: row {i} of "
+                             f"the M = {M} call differs from the M = 1 call")
+            say(f"  tile_gemm splitk {str(dt)[6:]} qwen3 mlp {proj} {(K, N)}: "
+                f"rows of M = 3 and 4 calls equal the M = 1 calls bitwise")
+
+
+def time_gemm(case, x, w, err, shapes):
+    """Kernel, parent (the mma route) in turns, torch.matmul and bound at
+    one main-path shape, bf16."""
+    M, K = x.shape
+    N = w.shape[1]
+    route = blocked.gemm_route(M, K, N, x.dtype)
+    turns = [time_ms(lambda: tile_gemm(x, w, route=r))
+             for r in ("mma", route, route, "mma")]
+    ms, parent = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
+    lib = time_ms(lambda: torch.matmul(x, w))
+    flops, nbytes = 2 * M * K * N, (M * K + K * N + M * N) * x.element_size()
+    b_ms, b_by = bound(flops, nbytes, x.dtype)
+    rate = (f"{flops / ms / 1e9:.1f} TFLOP/s" if b_by == "operations"
+            else f"{nbytes / ms / 1e9:.3f} TB/s")
+    say(f"    timed: {route} {ms:.4f} ms ({turns[1]:.4f}, {turns[2]:.4f}), "
+        f"{rate}; parent (mma) {parent:.4f} ms ({turns[0]:.4f}, "
+        f"{turns[3]:.4f}); torch.matmul {lib:.4f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}); {ms / lib:.2f}x matmul, {ms / b_ms:.2f}x bound")
+    if route == "wgmma":     # design trial: one block per tile or persistent
+        cap = _build.load("tile_gemm").tile_gemm_set_wgmma_grid_cap
+        trial = []
+        for c in (0, 132, 132, 0):
+            cap(c)
+            trial.append(time_ms(lambda: tile_gemm(x, w)))
+        cap(0)
+        say(f"    wgmma grid: one block per tile {trial[0]:.4f} / "
+            f"{trial[3]:.4f} ms, persistent (132 blocks) {trial[1]:.4f} / "
+            f"{trial[2]:.4f} ms")
+    shapes.append(dict(name=case, shape=[M, K, N], route=route, ms=ms,
+                       parent_ms=parent, library_ms=lib, bound_ms=b_ms,
+                       bound_by=b_by, max_abs_err=err))
+    return ms, lib
+
+
+def m_small_sweep(gen):
+    """splitk against wgmma (both forced) at qwen3-32b's decode widths for
+    M around M_SMALL: the measurement behind the route's threshold."""
+    for proj, K, N in (("up", 5120, 25600), ("down", 25600, 5120)):
+        w = randn(gen, K, N, dtype=torch.bfloat16, scale=K ** -0.5)
+        line = []
+        for M in (4, 8, 12, 16):
+            x = randn(gen, M, K, dtype=torch.bfloat16)
+            s = time_ms(lambda: tile_gemm(x, w, route="splitk"))
+            g = time_ms(lambda: tile_gemm(x, w, route="wgmma"))
+            line.append(f"M={M} splitk {s:.4f} / wgmma {g:.4f}")
+        say(f"  tile_gemm M_SMALL sweep (ms), qwen3 mlp {proj} "
+            f"{(K, N)}: " + ", ".join(line) + f"; M_SMALL = {M_SMALL}")
+
+
 def check_gemm(gen, report):
     name = "tile_gemm"
+    check_gemm_rules()
+    shapes = []
     for dt in DTYPES:
         cases = [(c, c) for c in GEMM_CASES] + list(MAIN_GEMM.items())
         for case, (M, K, N) in cases:
             x = randn(gen, M, K, dtype=dt)
             w = randn(gen, K, N, dtype=dt, scale=K ** -0.5)
+            route = blocked.gemm_route(M, K, N, dt)
+            before = tile_gemm.routes[route]
             got = tile_gemm(x, w)
-            err = compare(name, f"{dt} {case}", got,
-                          blocked.tile_gemm_plain(x, w))
-            say(f"  {name} {str(dt)[6:]} {case} (M, K, N) = {(M, K, N)}: "
-                f"max|err| {err:.2e}")
-            if dt == torch.bfloat16 and case == TIMED[name]:
+            if tile_gemm.routes[route] != before + 1:
+                fail(f"{name} {dt} {case}: did not take the {route} route")
+            want = blocked.tile_gemm_plain(x, w)
+            err = compare(name, f"{dt} {case} ({route})", got, want)
+            line = (f"  {name} {str(dt)[6:]} {case} (M, K, N) = {(M, K, N)}, "
+                    f"{route}: max|err| {err:.2e}")
+            if dt == torch.bfloat16 and route != "mma":   # the parent's kernel
+                line += ", mma route %.2e" % compare(
+                    name, f"{dt} {case} (mma route)",
+                    tile_gemm(x, w, route="mma"), want)
+            say(line)
+            if dt != torch.bfloat16 or case not in GEMM_TIMED:
+                continue
+            ms, lib = time_gemm(case, x, w, err, shapes)
+            if case == TIMED[name]:
                 e = x.element_size()
                 report[name] = dict(
-                    max_abs_err=err,
-                    ms=time_ms(lambda: tile_gemm(x, w)),
+                    max_abs_err=err, ms=ms,
                     plain_ms=time_ms(lambda: blocked.tile_gemm_plain(x, w)),
-                    library_ms=time_ms(lambda: torch.matmul(x, w)),
-                    shape=f"(M, K, N) {(M, K, N)} bf16",
+                    library_ms=lib, shape=f"(M, K, N) {(M, K, N)} bf16",
                     flops=2 * M * K * N,
-                    bytes=(M * K + K * N + M * N) * e, dtype=dt)
+                    bytes=(M * K + K * N + M * N) * e, dtype=dt,
+                    shapes=shapes)
+    check_gemm_rows(gen)
+    m_small_sweep(gen)
 
 
 # B, Hq, Hkv, W, hd, window, cache_len (an int: scalar for every row)
@@ -654,6 +774,27 @@ def check_ssd(gen, report):
 def reset_counts() -> None:
     for fn, _ in KERNELS.values():
         fn.launches = 0
+    tile_gemm.routes = dict.fromkeys(tile_gemm.routes, 0)
+
+
+def tally(launches: dict) -> dict:
+    """Add the counters of a main-path run to ``launches`` (its
+    "tile_gemm routes" too); returns the run's launches per kernel."""
+    got = counts()
+    for name, n in got.items():
+        launches[name] += n
+    for route, n in tile_gemm.routes.items():
+        launches["tile_gemm routes"][route] += n
+    return got
+
+
+def check_routes(what: str, routes: dict, want: str) -> None:
+    """Fail unless tile_gemm launched in ``routes`` (route: launches), and
+    every launch took route ``want``."""
+    if routes.get(want, 0) == 0 or any(n for r, n in routes.items()
+                                       if r != want):
+        fail(f"{what}: tile_gemm routes {dict(routes)}; every launch must "
+             f"take the {want} route")
 
 
 def counts() -> dict:
@@ -714,18 +855,15 @@ def main_path(launches: dict) -> None:
         out, kept = model(batch, mode=mode, return_token_counts=True)
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-        got = counts()
-        for name, n in got.items():
-            launches[name] += n
+        got = tally(launches)
         say(f"  {mode.value}: wall {wall:.1f} ms, launches {got}, "
-            f"kept {kept}")
+            f"tile_gemm routes {tile_gemm.routes}, kept {kept}")
         if out.shape != (2, 3129) or not torch.isfinite(out).all():
             fail(f"{mode.value}: logits {tuple(out.shape)} not finite "
                  f"(2, 3129)")
         if kept != EXPECTED_COUNTS:
             fail(f"{mode.value}: kept counts {kept} != {EXPECTED_COUNTS}")
-        if got["tile_gemm"] == 0:
-            fail(f"{mode.value}: tile_gemm never launched")
+        check_routes(f"vilbert {mode.value}", tile_gemm.routes, "wgmma")
         want_stream = mode == ExecutionMode.TILE_STREAM
         want_flash = mode == ExecutionMode.LAYER_STREAM
         if (got["stream_attention"] > 0) != want_stream \
@@ -804,15 +942,19 @@ class Probe:
 
     def __init__(self, eng, keep_logits=False, profile_call=None):
         self.prefills, self.decodes, self.saved = [], [], None
+        # tile_gemm's launches per route, in prefill and in decode calls
+        self.routes = {"prefill": defaultdict(int), "decode": defaultdict(int)}
         prefill_one, decode = eng._prefill_one, eng._decode
         self.prefill_fn, self.decode_fn = prefill_one, decode
 
         def timed_prefill(req):
+            before = dict(tile_gemm.routes)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = prefill_one(req)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            self._count_routes("prefill", before)
             self._check(logits, f"prefill of r{req.rid}")
             self.prefills.append((req.rid, len(req.prompt), ms,
                                   logits.cpu() if keep_logits else None))
@@ -821,17 +963,23 @@ class Probe:
         def timed_decode(cache, toks, **kw):
             if len(self.decodes) == profile_call:
                 self.saved = (_clone(cache), toks.clone(), kw)
+            before = dict(tile_gemm.routes)
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             logits, cache = decode(cache, toks, **kw)
             torch.cuda.synchronize()
             ms = (time.perf_counter() - t0) * 1e3
+            self._count_routes("decode", before)
             self._check(logits, f"decode call {len(self.decodes)}")
             self.decodes.append((toks.shape[0], ms,
                                  logits[:, 0].cpu() if keep_logits else None))
             return logits, cache
 
         eng._prefill_one, eng._decode = timed_prefill, timed_decode
+
+    def _count_routes(self, phase, before):
+        for route, n in tile_gemm.routes.items():
+            self.routes[phase][route] += n - before[route]
 
     @staticmethod
     def _check(logits, what):
@@ -860,7 +1008,7 @@ def profile_call(fn, *args, top: int = 5, **kw) -> str:
     of kernels it launched and those that took the most device time.  Its
     launches are not counted."""
     from torch.profiler import ProfilerActivity, profile
-    counts0 = counts()
+    counts0, routes0 = counts(), dict(tile_gemm.routes)
     fn(*args, **kw)                        # warm-up, outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -871,17 +1019,26 @@ def profile_call(fn, *args, top: int = 5, **kw) -> str:
         wall_us = (time.perf_counter() - t0) * 1e6
     for name, n in counts0.items():        # not a launch of the main path
         KERNELS[name][0].launches = n
+    tile_gemm.routes = routes0
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events)
     if busy == 0:
         return "profiler recorded no device time"
+    gemm = sum(e.self_device_time_total for e in events
+               if TILE_GEMM_KERNELS.search(e.key))
     events.sort(key=lambda e: -e.self_device_time_total)
     parts = ", ".join(f"{e.key[:40]} {e.self_device_time_total / 1e3:.2f} ms"
                       for e in events[:top])
     return (f"device busy {busy / 1e3:.2f} ms of {wall_us / 1e3:.2f} ms "
             f"wall ({100 * busy / wall_us:.0f}%), "
-            f"{sum(e.count for e in events)} kernels; top: {parts}")
+            f"{sum(e.count for e in events)} kernels; tile_gemm "
+            f"{gemm / 1e3:.2f} ms; top: {parts}")
+
+
+# tile_gemm's kernels, by their names in a profiler trace
+TILE_GEMM_KERNELS = re.compile(
+    r"repro::gemm::gemm_|\(anonymous namespace\)::gemm_(bf16|f32)\b")
 
 
 def profile_step(decode, cache, toks, kw) -> str:
@@ -932,12 +1089,17 @@ def qwen3_serving(smi: str, launches: dict) -> None:
     got = counts()
     profile = profile_step(probe.decode_fn, *probe.saved)
     probe.saved = None
-    for name, n in got.items():
-        launches[name] += n
+    first = fresh()[0]
+    prefill_profile = profile_call(probe.prefill_fn, first)
+    tally(launches)
     st = eng.stats()
     say(f"  served {st['requests']} requests in {wall:.1f} s wall, "
         f"{st['steps']} steps; decode_calls {eng.decode_calls}, "
-        f"decode_batches {eng.decode_batches}; launches {got}")
+        f"decode_batches {eng.decode_batches}; launches {got}; tile_gemm "
+        f"routes: prefill {dict(probe.routes['prefill'])}, decode "
+        f"{dict(probe.routes['decode'])}")
+    check_routes("qwen3-32b prefill", probe.routes["prefill"], "wgmma")
+    check_routes("qwen3-32b decode", probe.routes["decode"], "splitk")
     if eng.decode_batches >= eng.decode_calls:
         fail("qwen3-32b: batched decode did not batch")
     if got["flash_attention"] == 0 or got["tile_gemm"] == 0 \
@@ -964,6 +1126,8 @@ def qwen3_serving(smi: str, launches: dict) -> None:
         f"pure-decode steps, {tokens / eng.decode_wall_s():.1f} tokens/s "
         f"[{smi}]")
     say(f"  profiled decode call: {profile} [{smi}]")
+    say(f"  profiled prefill of r{first.rid}, {len(first.prompt)} tokens: "
+        f"{prefill_profile} [{smi}]")
 
 
 def _rel(a, b) -> float:
@@ -1084,8 +1248,7 @@ def ssm_serving(arch: str, spec, smi: str, launches: dict) -> None:
     probe.saved = None
     first = fresh()[0]
     prefill_profile = profile_call(probe.prefill_fn, first)
-    for name, n in got.items():
-        launches[name] += n
+    tally(launches)
     st = eng.stats()
     say(f"  served {st['requests']} requests in {wall:.2f} s wall, "
         f"{st['steps']} steps; decode_calls {eng.decode_calls}, "
@@ -1102,6 +1265,11 @@ def ssm_serving(arch: str, spec, smi: str, launches: dict) -> None:
                     tile_gemm=3 * L * (prefills + eng.decode_calls))
     if got != want:
         fail(f"{arch}: launches {got} do not fit the path: expected {want}")
+    if cfg.family == Family.HYBRID:
+        say(f"  tile_gemm routes: prefill {dict(probe.routes['prefill'])}, "
+            f"decode {dict(probe.routes['decode'])}")
+        check_routes(f"{arch} prefill", probe.routes["prefill"], "wgmma")
+        check_routes(f"{arch} decode", probe.routes["decode"], "splitk")
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     say(f"  peak device memory {peak:.2f} GiB [{smi}]")
     for rid, plen, ms, _ in probe.prefills:
@@ -1269,6 +1437,7 @@ def main() -> None:
 
     say("== phase 4: main path, vilbert-base")
     launches = {name: 0 for name in KERNELS}
+    launches["tile_gemm routes"] = dict.fromkeys(blocked.GEMM_ROUTES, 0)
     main_path(launches)
     free()
 
@@ -1292,7 +1461,14 @@ def main() -> None:
     ssm_checks(smi)
     say(f"phases 1-9 took {time.perf_counter() - start:.1f} s")
 
-    rows = []
+    rows, gemm_shapes = [], report["tile_gemm"]["shapes"]
+    main_routes = launches["tile_gemm routes"]
+    say(f"  tile_gemm routes over the main paths: {main_routes}")
+    for s in gemm_shapes:
+        say(f"  tile_gemm {s['name']} {tuple(s['shape'])}: {s['route']} "
+            f"{s['ms']:.4f} ms, parent {s['parent_ms']:.4f} ms, matmul "
+            f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
+            f"({s['bound_by']})")
     for name, (_, replaces) in KERNELS.items():
         r = report[name]
         b_ms, b_by = bound(r["flops"], r["bytes"], r["dtype"])
@@ -1311,7 +1487,9 @@ def main() -> None:
                      "max_err": r["max_abs_err"], "kernel_ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": r["library_ms"]})
-    say(json.dumps({"kernels": rows}))
+        if name == "tile_gemm":
+            rows[-1]["routes"] = main_routes
+    say(json.dumps({"kernels": rows, "tile_gemm_shapes": gemm_shapes}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

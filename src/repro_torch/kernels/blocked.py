@@ -10,7 +10,7 @@ kernel-against-plain checks on the card use them too.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -343,6 +343,61 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # The GEMM's plain version is its oracle: (M, K) @ (K, N) accumulated in
 # f32, cast to x's dtype.
 tile_gemm_plain = ref_tile_gemm
+
+# The CUDA GEMM's routes and its splitk geometry (csrc/tile_gemm.cu, which
+# exports the rules as tile_gemm_route and tile_gemm_splits).
+GEMM_ROUTES = ("simt", "mma", "wgmma", "splitk")
+GEMM_M_SMALL = 8          # most rows of the splitk route
+GEMM_SLAB = 256           # splitk: N columns per block
+GEMM_KT = 64              # splitk: a split's K range is a multiple of this
+GEMM_KMAX = 1024          # splitk: most K rows per split
+GEMM_SPLIT_BLOCKS = 1024  # splitk: blocks a call aims at
+
+
+def gemm_route(M: int, K: int, N: int, dtype: torch.dtype) -> str:
+    """The route the CUDA GEMM takes for (M, K) @ (K, N) in ``dtype``:
+    "splitk" for M <= GEMM_M_SMALL, else "wgmma" (bf16, K > 0, K and N
+    multiples of 8; the wrapper also needs 16-byte aligned x and w),
+    "mma" (other bf16) or "simt" (f32)."""
+    if M <= GEMM_M_SMALL:
+        return "splitk"
+    if dtype == torch.float32:
+        return "simt"
+    return "wgmma" if K > 0 and K % 8 == 0 and N % 8 == 0 else "mma"
+
+
+def gemm_splits(K: int, N: int) -> int:
+    """S, the K splits of the splitk route: enough blocks of GEMM_SLAB
+    columns to fill the card, at most GEMM_KMAX rows a split, none empty.
+    Depends on (K, N) only, so a row's sum never depends on M."""
+    slabs, ktiles = -(-N // GEMM_SLAB), -(-K // GEMM_KT)
+    if ktiles <= 1:
+        return 1
+    S = max(-(-GEMM_SPLIT_BLOCKS // slabs),
+            -(-ktiles // (GEMM_KMAX // GEMM_KT)))
+    per = -(-ktiles // min(S, ktiles))
+    return -(-ktiles // per)
+
+
+def gemm_split_ranges(K: int, N: int) -> List[Tuple[int, int]]:
+    """The K rows [lo, hi) of each split, in split order."""
+    S, ktiles = gemm_splits(K, N), -(-K // GEMM_KT)
+    rows = -(-ktiles // S) * GEMM_KT
+    return [(s * rows, min(K, (s + 1) * rows)) for s in range(S)]
+
+
+def tile_gemm_splitk_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The splitk route's sum: an f32 partial of each K split, the partials
+    added in split order 0..S-1, cast to x's dtype.  Each row is computed
+    on its own (a vector-matrix product per row and split), so row i equals
+    the M = 1 call on row i bitwise, as in the kernel."""
+    xf, wf = x.float(), w.float()
+    out = None
+    for lo, hi in gemm_split_ranges(x.shape[1], w.shape[1]):
+        part = torch.stack([xf[i, lo:hi] @ wf[lo:hi]
+                            for i in range(x.shape[0])])
+        out = part if out is None else out + part
+    return out.to(x.dtype)
 
 
 def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
