@@ -544,16 +544,6 @@ def time_gemm(case, x, w, err, shapes):
         f"{rate}; parent (mma) {parent:.4f} ms ({turns[0]:.4f}, "
         f"{turns[3]:.4f}); torch.matmul {lib:.4f} ms; bound {b_ms:.4f} ms "
         f"({b_by}); {ms / lib:.2f}x matmul, {ms / b_ms:.2f}x bound")
-    if route == "wgmma":     # design trial: one block per tile or persistent
-        cap = _build.load("tile_gemm").tile_gemm_set_wgmma_grid_cap
-        trial = []
-        for c in (0, 132, 132, 0):
-            cap(c)
-            trial.append(time_ms(lambda: tile_gemm(x, w)))
-        cap(0)
-        say(f"    wgmma grid: one block per tile {trial[0]:.4f} / "
-            f"{trial[3]:.4f} ms, persistent (132 blocks) {trial[1]:.4f} / "
-            f"{trial[2]:.4f} ms")
     shapes.append(dict(name=case, shape=[M, K, N], route=route, ms=ms,
                        parent_ms=parent, library_ms=lib, bound_ms=b_ms,
                        bound_by=b_by, max_abs_err=err))

@@ -28,10 +28,12 @@
 //   tiles of x (K-major) and 64 x 256 tiles of W (MN-major, W's own
 //   layout) by TMA into a ring of four stages, two consumer warpgroups
 //   each run wgmma m64n256k16 on 64 rows of the 128 x 256 output tile,
-//   keeping one k-step of products in flight.  Tiles go out n-major, so
-//   that blocks resident together share W's column block in L2 (the TPU
-//   kernel's weight-stationary order).  TMA zero-fills past M, N and K;
-//   the epilogue stores bf16 pairs masked on M and N.
+//   keeping one k-step of products in flight.  A persistent grid, one
+//   block an SM, walks the tiles in n-major order, so that the blocks at
+//   work share W's column block in L2 (the TPU kernel's weight-stationary
+//   order), and the producer loads a tile's first stages while the
+//   consumers store the last one.  TMA zero-fills past M, N and K; the
+//   epilogue stores bf16 pairs masked on M and N.
 // mma, any other bf16 shape: 128 x 128 x 32 tiles, mma.sync m16n8k16 (the
 //   first port's kernel, kept as it was: right, but slow).
 // simt, any other f32 shape: 64 x 64 x 16 tiles of SIMT f32 FMAs, so that
@@ -273,10 +275,16 @@ gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
   }
 }
 
-// Blocks of the wgmma route (one per tile, or at most this many); 0: one per
-// tile.
-static int wgmma_grid_cap = 0;
-extern "C" void tile_gemm_set_wgmma_grid_cap(int cap) { wgmma_grid_cap = cap; }
+// The device's SMs: the wgmma route's persistent grid (one block an SM).
+inline int sm_count() {
+  static int n = 0;
+  if (!n) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  }
+  return n;
+}
 
 int launch_wgmma(const void* x, const void* w, void* out, int M, int N, int K,
                  cudaStream_t stream) {
@@ -289,8 +297,8 @@ int launch_wgmma(const void* x, const void* w, void* out, int M, int N, int K,
   cudaError_t e = cudaFuncSetAttribute(
       gemm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, WSMEM);
   if (e != cudaSuccess) return (int)e;
-  int grid = ((M + WBM - 1) / WBM) * ((N + WBN - 1) / WBN);
-  if (wgmma_grid_cap > 0 && grid > wgmma_grid_cap) grid = wgmma_grid_cap;
+  const int tiles = ((M + WBM - 1) / WBM) * ((N + WBN - 1) / WBN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
   gemm_wgmma<<<grid, WTHREADS, WSMEM, stream>>>(xmap, wmap, (bf16*)out, M, N, K);
   return (int)cudaGetLastError();
 }
