@@ -303,7 +303,8 @@ MAIN_SSD.update({f"hymba-1.5b prefill {s}": (1, s, 25, 128, 16, 256)
 # tile_gemm is also timed at these main-path shapes, each against the
 # mma route (the first port's kernel, unchanged: the parent's kernel) in
 # turns, and against torch.matmul.
-GEMM_TIMED = ("text mlp up", "qwen3 prefill M=1024 mlp up",
+GEMM_TIMED = ("text mlp up", "text mlp down", "vision mlp",
+              "qwen3 prefill M=1024 mlp up",
               "qwen3 prefill M=1024 mlp down", "qwen3 decode M=3 mlp up",
               "qwen3 decode M=3 mlp down", "qwen3 decode M=1 mlp up",
               "qwen3 decode M=1 mlp down")
@@ -544,6 +545,18 @@ def time_gemm(case, x, w, err, shapes):
         f"{rate}; parent (mma) {parent:.4f} ms ({turns[0]:.4f}, "
         f"{turns[3]:.4f}); torch.matmul {lib:.4f} ms; bound {b_ms:.4f} ms "
         f"({b_by}); {ms / lib:.2f}x matmul, {ms / b_ms:.2f}x bound")
+    if route == "wgmma":     # design trial: tile width 256 or 128
+        set_bn = _build.load("tile_gemm").tile_gemm_set_wgmma_bn
+        trial = []
+        for bn in (256, 128, 128, 256):
+            set_bn(bn)
+            trial.append(time_ms(lambda: tile_gemm(x, w)))
+            if bn == 128:
+                compare("tile_gemm", f"{case} (wgmma, tile width 128)",
+                        tile_gemm(x, w), blocked.tile_gemm_plain(x, w))
+        set_bn(256)
+        say(f"    wgmma tile width: 256 {trial[0]:.4f} / {trial[3]:.4f} ms, "
+            f"128 {trial[1]:.4f} / {trial[2]:.4f} ms")
     shapes.append(dict(name=case, shape=[M, K, N], route=route, ms=ms,
                        parent_ms=parent, library_ms=lib, bound_ms=b_ms,
                        bound_by=b_by, max_abs_err=err))
