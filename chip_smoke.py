@@ -20,13 +20,22 @@ caught:
      kernel's timed main-path shape; flash's time and TFLOP/s at each of
      its main shapes (vilbert, qwen3-32b's causal GQA prefill, hymba-1.5b's
      windowed prefill), the stream kernel's K/V regeneration factor;
+     tile_gemm: its library's route and split rules against their Python
+     mirrors, each case and main shape on its intended route (and bf16
+     also through the mma route, the first port's kernel), a row of a
+     splitk call equal to the M = 1 call bitwise at qwen3-32b's decode
+     shapes, times at GEMM_TIMED against the mma route in turns and
+     torch.matmul, and splitk against wgmma around M_SMALL;
   4. the first main path: vilbert-base VQA forward, bf16, B = 2,
      N_X = N_Y = 4096, in NON_STREAM, LAYER_STREAM and TILE_STREAM, with
-     the kept-token counts and kernel launch counters checked; then the
-     three modes against each other in f32 at N = 1024, B = 1;
+     the kept-token counts and kernel launch counters checked (every
+     tile_gemm launch on the wgmma route); then the three modes against
+     each other in f32 at N = 1024, B = 1;
   5. the second main path: qwen3-32b at full width and depth, bf16, served
      by the paged-KV Engine (4 slots, prefill + batched decode) on five
-     requests, with the token, pool, batching and launch-counter gates;
+     requests, with the token, pool, batching and launch-counter gates
+     (tile_gemm: prefill on the wgmma route only, decode on splitk only),
+     a profiled decode call and a profiled 1024-token prefill;
   6. serving checks in f32 at qwen3-32b's widths, 2 layers: batched against
      per-slot decode, and NON/LAYER/TILE prefill against each other;
   7. the third main path: mamba2-780m (SSM) at full width and depth, bf16,
@@ -36,12 +45,14 @@ caught:
   8. the fourth: hymba-1.5b (hybrid attention + SSM heads, sliding
      window 1024) at full width and depth, bf16, the same way on four
      requests, one of them longer than the window (ssd_scan, flash
-     attention, tile_gemm and decode attention over the ring);
+     attention, tile_gemm and decode attention over the ring; tile_gemm's
+     routes gated as in phase 5);
   9. checks in f32 at both configurations' widths, 2 layers: prefill(S)
      then one decode step against prefill(S + 1) (for hymba S > 1024:
      the ring has wrapped), the kernel's prefill against the plain
      version's, and hymba's NON/LAYER/TILE prefills against each other;
- 10. one JSON line of per-kernel numbers;
+ 10. one JSON line of per-kernel numbers, with tile_gemm's routes over
+     the main paths and its timed shapes ("tile_gemm_shapes");
  11. the last line: {"ok": true, "device": {...}}.
 
 Bound of a kernel call: the larger of its FLOPs over the H100 SXM peak of
@@ -545,18 +556,6 @@ def time_gemm(case, x, w, err, shapes):
         f"{rate}; parent (mma) {parent:.4f} ms ({turns[0]:.4f}, "
         f"{turns[3]:.4f}); torch.matmul {lib:.4f} ms; bound {b_ms:.4f} ms "
         f"({b_by}); {ms / lib:.2f}x matmul, {ms / b_ms:.2f}x bound")
-    if route == "wgmma":     # design trial: tile width 256 or 128
-        set_bn = _build.load("tile_gemm").tile_gemm_set_wgmma_bn
-        trial = []
-        for bn in (256, 128, 128, 256):
-            set_bn(bn)
-            trial.append(time_ms(lambda: tile_gemm(x, w)))
-            if bn == 128:
-                compare("tile_gemm", f"{case} (wgmma, tile width 128)",
-                        tile_gemm(x, w), blocked.tile_gemm_plain(x, w))
-        set_bn(256)
-        say(f"    wgmma tile width: 256 {trial[0]:.4f} / {trial[3]:.4f} ms, "
-            f"128 {trial[1]:.4f} / {trial[2]:.4f} ms")
     shapes.append(dict(name=case, shape=[M, K, N], route=route, ms=ms,
                        parent_ms=parent, library_ms=lib, bound_ms=b_ms,
                        bound_by=b_by, max_abs_err=err))

@@ -182,24 +182,17 @@ enum Route { SIMT = 0, MMA = 1, WGMMA = 2, SPLITK = 3 };
 constexpr int M_SMALL = 8;             // most rows of the splitk route
 
 // ---- wgmma: TMA ring, two consumer warpgroups ----
-constexpr int WBM = 128, WBK = 64;
+constexpr int WBM = 128, WBN = 256, WBK = 64, WSTAGES = 4;
 constexpr int WCONSUMERS = 256, WTHREADS = 384;
 constexpr int A_BYTES = WBM * WBK * 2;       // x tile: one TMA box, 128 rows
+constexpr int B_BYTES = WBK * WBN * 2;       // W tile: WBN / 64 boxes
+constexpr int WSTAGE = A_BYTES + B_BYTES;
+constexpr int WSMEM = WSTAGES * WSTAGE + 2 * WSTAGES * 8 + 1024;  // + align
 
-template <int WBN>
-struct WLayout {
-  static constexpr int STAGES = WBN == 256 ? 4 : 6;
-  static constexpr int B_BYTES = WBK * WBN * 2;   // W tile: WBN / 64 boxes
-  static constexpr int STAGE = A_BYTES + B_BYTES;
-  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
-};
-
-template <int WBN>
 __global__ void __launch_bounds__(WTHREADS, 1)
 gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
            const __grid_constant__ CUtensorMap wmap, bf16* __restrict__ out,
            int M, int N, int K) {
-  constexpr int WSTAGES = WLayout<WBN>::STAGES, WSTAGE = WLayout<WBN>::STAGE;
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   const uint32_t full = base + WSTAGES * WSTAGE, empty = full + 8 * WSTAGES;
@@ -259,7 +252,7 @@ gemm_wgmma(const __grid_constant__ CUtensorMap xmap,
         fence_regs(acc);                      // its stage: release it
         if (ks > 0) mbar_arrive(empty + 8 * ((it - 1) % WSTAGES));
       }
-      wgmma_wait<0>();
+      wgmma_wait_all();
       fence_regs(acc);
       mbar_arrive(empty + 8 * ((it - 1) % WSTAGES));
       // The producer loads the next tile's first stages meanwhile.  Thread
@@ -293,22 +286,6 @@ inline int sm_count() {
   return n;
 }
 
-static int wgmma_bn = 256;   // design trial: the tile width
-extern "C" void tile_gemm_set_wgmma_bn(int bn) { wgmma_bn = bn; }
-
-template <int WBN>
-int launch_wgmma_bn(const CUtensorMap& xmap, const CUtensorMap& wmap, void* out,
-                    int M, int N, int K, cudaStream_t stream) {
-  constexpr int SMEM = WLayout<WBN>::SMEM;
-  cudaError_t e = cudaFuncSetAttribute(
-      gemm_wgmma<WBN>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM);
-  if (e != cudaSuccess) return (int)e;
-  const int tiles = ((M + WBM - 1) / WBM) * ((N + WBN - 1) / WBN);
-  const int grid = tiles < sm_count() ? tiles : sm_count();
-  gemm_wgmma<WBN><<<grid, WTHREADS, SMEM, stream>>>(xmap, wmap, (bf16*)out, M, N, K);
-  return (int)cudaGetLastError();
-}
-
 int launch_wgmma(const void* x, const void* w, void* out, int M, int N, int K,
                  cudaStream_t stream) {
   if (K <= 0 || K % 8 || N % 8 || !tma_ok(x, K) || !tma_ok(w, N))
@@ -317,8 +294,13 @@ int launch_wgmma(const void* x, const void* w, void* out, int M, int N, int K,
   int err = make_map_2d(&xmap, x, K, M, (uint64_t)K * 2, WBM);
   if (!err) err = make_map_2d(&wmap, w, N, K, (uint64_t)N * 2, WBK);
   if (err) return err;
-  if (wgmma_bn == 128) return launch_wgmma_bn<128>(xmap, wmap, out, M, N, K, stream);
-  return launch_wgmma_bn<256>(xmap, wmap, out, M, N, K, stream);
+  cudaError_t e = cudaFuncSetAttribute(
+      gemm_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, WSMEM);
+  if (e != cudaSuccess) return (int)e;
+  const int tiles = ((M + WBM - 1) / WBM) * ((N + WBN - 1) / WBN);
+  const int grid = tiles < sm_count() ? tiles : sm_count();
+  gemm_wgmma<<<grid, WTHREADS, WSMEM, stream>>>(xmap, wmap, (bf16*)out, M, N, K);
+  return (int)cudaGetLastError();
 }
 
 // ---- splitk: the weight stream ----

@@ -34,14 +34,14 @@ def _lib():
     return _fn("tile_gemm_launch", [_P, _P, _P] + [_I] * 5 + [_P] * 3)
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=4096)
 def route_of(M: int, K: int, N: int, code: int) -> str:
     """The library's route for (M, K) @ (K, N), dtype code 0 f32 / 1 bf16
     (before the wrapper's alignment check)."""
     return GEMM_ROUTES[_fn("tile_gemm_route", [_I] * 4)(M, K, N, code)]
 
 
-@functools.lru_cache(maxsize=None)
+@functools.lru_cache(maxsize=4096)
 def splits_of(K: int, N: int) -> int:
     """The library's K splits of the splitk route at (K, N)."""
     return _fn("tile_gemm_splits", [_I] * 2)(K, N)
