@@ -16,7 +16,8 @@ SSD scan drops the carry of the state from one chunk to the next (each
 chunk starts from its own contribution only).
 chip_smoke's bf16 check of that kernel then runs on the copy, in a
 subprocess, once at the kernel test cases and once at the main path's
-shapes.  Each run must fail with that kernel's comparison message, which
+shapes (the GEMM's faults once more at hymba-1.5b's main shapes alone, as
+the first failing shape ends a run).  Each run must fail with that kernel's comparison message, which
 names the worst element's error over its limit.  The SSD scan's fault
 also runs chip_smoke's f32 model checks (phase 9), which must fail on it
 too.  The script exits non-zero if a planted fault goes unnoticed.  Needs one CUDA card.
@@ -76,17 +77,24 @@ FAULTS = {
                   "st[n * PS + p] = acc[j];"),
                  ("SSD_CASES", "MAIN_SSD", "check_ssd")),
 }
+# Kernel -> the name prefixes of main shapes it is also checked at alone.
+MAIN_SUBSETS = {"tile_gemm": ("hymba",)}
 # Run inside the faulty copy: chip_smoke's bf16 check of one kernel, at
-# its test cases only ("cases") or at the main path's shapes only ("main").
+# its test cases only ("cases"), at the main path's shapes only ("main"),
+# or at the main shapes whose names start with the part.
 CHECK = """
 import torch
 import chip_smoke as c
 cases, main, check = {names!r}
+part = {part!r}
 c.DTYPES = (torch.bfloat16,)
-if {part!r} == "cases":
+if part == "cases":
     setattr(c, main, {{}})
 else:
     setattr(c, cases, [])
+if part not in ("cases", "main"):
+    setattr(c, main, {{k: v for k, v in getattr(c, main).items()
+                       if k.startswith(part)}})
 c._build.build_all([{kernel!r}])
 getattr(c, check)(torch.Generator(device="cuda").manual_seed(0), {{}})
 """
@@ -121,7 +129,8 @@ def main() -> None:
             copy = plant(label, source, text, fault)
             runs = {part: (CHECK.format(names=names, part=part,
                                         kernel=kernel), f"FAIL: {kernel}")
-                    for part in ("cases", "main")}
+                    for part in ("cases", "main")
+                    + MAIN_SUBSETS.get(kernel, ())}
             if label in MODEL_CHECKS:
                 runs["model"] = MODEL_CHECKS[label]
             for part, (code, message) in runs.items():

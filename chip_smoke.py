@@ -21,11 +21,13 @@ caught:
      its main shapes (vilbert, qwen3-32b's causal GQA prefill, hymba-1.5b's
      windowed prefill), the stream kernel's K/V regeneration factor;
      tile_gemm: its library's route and split rules against their Python
-     mirrors, each case and main shape on its intended route (and bf16
-     also through the mma route, the first port's kernel), a row of a
-     splitk call equal to the M = 1 call bitwise at qwen3-32b's decode
-     shapes, times at GEMM_TIMED against the mma route in turns and
-     torch.matmul, and splitk against wgmma around M_SMALL;
+     mirrors, each case and main shape (vilbert-base's, qwen3-32b's and
+     hymba-1.5b's MLPs) on its intended route (and bf16 wgmma ones also
+     through the mma route, the first port's kernel, which the wrapper
+     takes for an x off 16-byte alignment), a row of a splitk call equal
+     to the M = 1 call bitwise at qwen3-32b's decode shapes, times at
+     GEMM_TIMED against the mma route (the parent's kernel) in turns and
+     torch.matmul;
   4. the first main path: vilbert-base VQA forward, bf16, B = 2,
      N_X = N_Y = 4096, in NON_STREAM, LAYER_STREAM and TILE_STREAM, with
      the kept-token counts and kernel launch counters checked (every
@@ -91,6 +93,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.stream_attention import (  # noqa: E402
     config as stream_config, regeneration, stream_attention)
+from repro_torch.kernels import tile_gemm as tile_gemm_lib  # noqa: E402
 from repro_torch.kernels.tile_gemm import (  # noqa: E402
     route_of, splits_of, tile_gemm)
 from repro_torch.models.ssm import SSM  # noqa: E402
@@ -302,6 +305,15 @@ MAMBA2_REQUESTS = [(0, 2048, 32, 0), (1, 2048, 32, 0), (2, 1000, 32, 0),
                    (3, 4000, 16, 1), (4, 512, 32, 2)]
 HYMBA_REQUESTS = [(0, 3000, 32, 0), (1, 1500, 32, 0), (2, 2048, 32, 1),
                   (3, 512, 32, 2)]
+# Phase 8's MLP projections (hymba-1.5b: d_model 1600, d_ff 5504): gate/up
+# (M, 1600, 5504) and down (M, 5504, 1600) at its prompt lengths and its
+# per-slot decode (M = 1).
+MAIN_GEMM.update({
+    f"hymba {what} M={m} mlp {proj}": (m, k, n)
+    for what, ms in (("prefill", sorted({p for _, p, _, _ in HYMBA_REQUESTS})),
+                     ("decode", (1,)))
+    for m in ms
+    for proj, k, n in (("up", 1600, 5504), ("down", 5504, 1600))})
 # B, S, H, P, N, chunk: the JAX package's test_ssd_kernel_interpret cases
 # (the last one ragged), then every prefill of phases 7 (mamba2-780m: H 48,
 # P 64, N 128) and 8 (hymba-1.5b: H 25, P 128, N 16), chunk 256.
@@ -318,7 +330,9 @@ GEMM_TIMED = ("text mlp up", "text mlp down", "vision mlp",
               "qwen3 prefill M=1024 mlp up",
               "qwen3 prefill M=1024 mlp down", "qwen3 decode M=3 mlp up",
               "qwen3 decode M=3 mlp down", "qwen3 decode M=1 mlp up",
-              "qwen3 decode M=1 mlp down")
+              "qwen3 decode M=1 mlp down", "hymba prefill M=3000 mlp up",
+              "hymba prefill M=3000 mlp down", "hymba decode M=1 mlp up",
+              "hymba decode M=1 mlp down")
 TIMED = {"decode_attention": "qwen3-32b bucket of 4",
          "flash_attention": "vision self 4096",
          "stream_attention": "vision self 4096",
@@ -538,14 +552,37 @@ def check_gemm_rows(gen):
                 f"rows of M = 3 and 4 calls equal the M = 1 calls bitwise")
 
 
+def misaligned(x: torch.Tensor) -> torch.Tensor:
+    """x's values in a contiguous view 2 bytes past a 16-byte boundary:
+    the wrapper then sends a bf16 product that wgmma would take to the mma
+    route."""
+    view = torch.empty(x.numel() + 1, dtype=x.dtype, device=x.device)[1:]
+    return view.view(x.shape).copy_(x)
+
+
+def parent_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The parent's kernel at any shape: the library's mma route (the
+    first port's kernel, its source unchanged), launched through the C
+    interface.  The wrapper never takes mma at M <= M_SMALL, so the timing
+    in turns launches it here; it counts no launch."""
+    M, K = x.shape
+    N = w.shape[1]
+    out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    _build.raise_on("tile_gemm (mma route)", tile_gemm_lib._lib()(
+        x.data_ptr(), w.data_ptr(), out.data_ptr(),
+        _build.DTYPE_CODES[x.dtype], blocked.GEMM_ROUTES.index("mma"),
+        M, N, K, None, None, _build.stream_ptr(x.device)))
+    return out
+
+
 def time_gemm(case, x, w, err, shapes):
     """Kernel, parent (the mma route) in turns, torch.matmul and bound at
     one main-path shape, bf16."""
     M, K = x.shape
     N = w.shape[1]
     route = blocked.gemm_route(M, K, N, x.dtype)
-    turns = [time_ms(lambda: tile_gemm(x, w, route=r))
-             for r in ("mma", route, route, "mma")]
+    turns = [time_ms(lambda: fn(x, w))
+             for fn in (parent_gemm, tile_gemm, tile_gemm, parent_gemm)]
     ms, parent = (turns[1] + turns[2]) / 2, (turns[0] + turns[3]) / 2
     lib = time_ms(lambda: torch.matmul(x, w))
     flops, nbytes = 2 * M * K * N, (M * K + K * N + M * N) * x.element_size()
@@ -560,21 +597,6 @@ def time_gemm(case, x, w, err, shapes):
                        parent_ms=parent, library_ms=lib, bound_ms=b_ms,
                        bound_by=b_by, max_abs_err=err))
     return ms, lib
-
-
-def m_small_sweep(gen):
-    """splitk against wgmma (both forced) at qwen3-32b's decode widths for
-    M around M_SMALL: the measurement behind the route's threshold."""
-    for proj, K, N in (("up", 5120, 25600), ("down", 25600, 5120)):
-        w = randn(gen, K, N, dtype=torch.bfloat16, scale=K ** -0.5)
-        line = []
-        for M in (4, 8, 12, 16):
-            x = randn(gen, M, K, dtype=torch.bfloat16)
-            s = time_ms(lambda: tile_gemm(x, w, route="splitk"))
-            g = time_ms(lambda: tile_gemm(x, w, route="wgmma"))
-            line.append(f"M={M} splitk {s:.4f} / wgmma {g:.4f}")
-        say(f"  tile_gemm M_SMALL sweep (ms), qwen3 mlp {proj} "
-            f"{(K, N)}: " + ", ".join(line) + f"; M_SMALL = {M_SMALL}")
 
 
 def check_gemm(gen, report):
@@ -595,10 +617,14 @@ def check_gemm(gen, report):
             err = compare(name, f"{dt} {case} ({route})", got, want)
             line = (f"  {name} {str(dt)[6:]} {case} (M, K, N) = {(M, K, N)}, "
                     f"{route}: max|err| {err:.2e}")
-            if dt == torch.bfloat16 and route != "mma":   # the parent's kernel
+            if route == "wgmma":     # also through mma, the parent's kernel
+                before = tile_gemm.routes["mma"]
+                got_mma = tile_gemm(misaligned(x), w)
+                if tile_gemm.routes["mma"] != before + 1:
+                    fail(f"{name} {dt} {case}: an x off 16-byte alignment "
+                         f"did not take the mma route")
                 line += ", mma route %.2e" % compare(
-                    name, f"{dt} {case} (mma route)",
-                    tile_gemm(x, w, route="mma"), want)
+                    name, f"{dt} {case} (mma route)", got_mma, want)
             say(line)
             if dt != torch.bfloat16 or case not in GEMM_TIMED:
                 continue
@@ -613,7 +639,6 @@ def check_gemm(gen, report):
                     bytes=(M * K + K * N + M * N) * e, dtype=dt,
                     shapes=shapes)
     check_gemm_rows(gen)
-    m_small_sweep(gen)
 
 
 # B, Hq, Hkv, W, hd, window, cache_len (an int: scalar for every row)

@@ -310,7 +310,6 @@ constexpr int KMAX = 1024;          // most K rows per split (x in shared memory
 constexpr int SPLIT_BLOCKS = 1024;  // blocks a call aims at: ~8 per SM
 constexpr int SK_THREADS = 256;     // 8 row lanes x 32 column groups
 constexpr int UNROLL = 8;           // W rows in flight per thread
-constexpr int MR_MAX = 16;          // most rows a launch takes
 
 // S, the K splits of a (K, N) product: enough blocks to fill the card, at
 // most KMAX rows a split, every split non-empty.  Never depends on M.
@@ -482,8 +481,7 @@ int launch_splitk(const void* x, const void* w, void* out, void* part,
   if (M <= 1) return launch_splitk_mr<T, 1>(x, w, out, part, ticket, M, N, K, s);
   if (M <= 2) return launch_splitk_mr<T, 2>(x, w, out, part, ticket, M, N, K, s);
   if (M <= 4) return launch_splitk_mr<T, 4>(x, w, out, part, ticket, M, N, K, s);
-  if (M <= 8) return launch_splitk_mr<T, 8>(x, w, out, part, ticket, M, N, K, s);
-  if (M <= MR_MAX) return launch_splitk_mr<T, MR_MAX>(x, w, out, part, ticket, M, N, K, s);
+  if (M <= M_SMALL) return launch_splitk_mr<T, M_SMALL>(x, w, out, part, ticket, M, N, K, s);
   return (int)cudaErrorInvalidValue;
 }
 

@@ -10,7 +10,7 @@ kernel-against-plain checks on the card use them too.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -377,27 +377,6 @@ def gemm_splits(K: int, N: int) -> int:
             -(-ktiles // (GEMM_KMAX // GEMM_KT)))
     per = -(-ktiles // min(S, ktiles))
     return -(-ktiles // per)
-
-
-def gemm_split_ranges(K: int, N: int) -> List[Tuple[int, int]]:
-    """The K rows [lo, hi) of each split, in split order."""
-    S, ktiles = gemm_splits(K, N), -(-K // GEMM_KT)
-    rows = -(-ktiles // S) * GEMM_KT
-    return [(s * rows, min(K, (s + 1) * rows)) for s in range(S)]
-
-
-def tile_gemm_splitk_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The splitk route's sum: an f32 partial of each K split, the partials
-    added in split order 0..S-1, cast to x's dtype.  Each row is computed
-    on its own (a vector-matrix product per row and split), so row i equals
-    the M = 1 call on row i bitwise, as in the kernel."""
-    xf, wf = x.float(), w.float()
-    out = None
-    for lo, hi in gemm_split_ranges(x.shape[1], w.shape[1]):
-        part = torch.stack([xf[i, lo:hi] @ wf[lo:hi]
-                            for i in range(x.shape[0])])
-        out = part if out is None else out + part
-    return out.to(x.dtype)
 
 
 def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -4,13 +4,13 @@
 CUDA kernel: ``csrc/tile_gemm.cu``, four routes picked by shape (the
 library's ``tile_gemm_route``; ``blocked.gemm_route`` mirrors it): splitk
 (M <= 8, the decode weight stream), wgmma (bf16 prefill), mma (other bf16
-shapes), simt (other f32 shapes).  Plain version: ``blocked.tile_gemm_plain``.
+shapes, and x or w not 16-byte aligned), simt (other f32 shapes).  Plain version: ``blocked.tile_gemm_plain``.
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Dict, Tuple
 
 import torch
 
@@ -55,14 +55,13 @@ def _tickets(device: torch.device, stream: int, slabs: int) -> torch.Tensor:
     return t
 
 
-def tile_gemm(x: torch.Tensor, w: torch.Tensor, *,
-              route: Optional[str] = None) -> torch.Tensor:
+def tile_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x (M, K) @ w (K, N) -> (M, N) in x's dtype, f32 accumulation.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel's
-    route for the shape (``route`` forces one, for measurements; a route
-    that cannot take the shape raises).  Every route masks ragged M, N
-    and K: nothing needs padding."""
+    CPU tensors take the plain version; CUDA tensors launch the library's
+    route for the shape, wgmma falling back to mma when x or w is not
+    16-byte aligned.  Every route masks ragged M, N and K: nothing needs
+    padding."""
     if x.device.type == "cpu":
         return tile_gemm_plain(x, w)
     code = _build.check_cuda("tile_gemm", x=x, w=w)
@@ -74,10 +73,9 @@ def tile_gemm(x: torch.Tensor, w: torch.Tensor, *,
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
     if not (M and N):
         return out
-    if route is None:
-        route = route_of(M, K, N, code)
-        if route == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
-            route = "mma"
+    route = route_of(M, K, N, code)
+    if route == "wgmma" and (x.data_ptr() % 16 or w.data_ptr() % 16):
+        route = "mma"
     stream = _build.stream_ptr(x.device)
     part = ticket = None
     if route == "splitk":

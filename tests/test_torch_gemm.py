@@ -1,14 +1,14 @@
 """The CUDA GEMM's route and split rules and its splitk sum, on the CPU.
 
 ``csrc/tile_gemm.cu`` picks one of four routes by shape and splits K for
-the decode route; ``blocked.gemm_route``, ``gemm_splits`` and
-``gemm_split_ranges`` mirror those rules (``chip_smoke.py`` holds the
-library's against them on the card), and ``blocked.tile_gemm_splitk_plain``
-mirrors the splitk route's sum: f32 partials of each K split added in split
-order.  Here: every main-path GEMM of ``chip_smoke.py`` takes its intended
-route, the splits cover K once, and the splitk sum matches the JAX Pallas
-GEMM (interpret mode, block-dividing shapes) and ``ref_tile_gemm``, with a
-row of a batched call equal to the M = 1 call bitwise."""
+the decode route; ``blocked.gemm_route`` and ``gemm_splits`` mirror those
+rules (``chip_smoke.py`` holds the library's against them on the card).
+``split_ranges`` and ``splitk_plain`` below mirror the splitk route's K
+ranges and its sum: f32 partials of each K split added in split order.
+Here: every main-path GEMM of ``chip_smoke.py`` takes its intended route,
+the splits cover K once, and the splitk sum matches the JAX Pallas GEMM
+(interpret mode, block-dividing shapes) and ``ref_tile_gemm``, with a row
+of a batched call equal to the M = 1 call bitwise."""
 import sys
 from pathlib import Path
 
@@ -38,6 +38,28 @@ def _close(got, want, tol):
     np.testing.assert_allclose(np.asarray(got, np.float32),
                                np.asarray(want, np.float32),
                                atol=tol, rtol=tol)
+
+
+def split_ranges(K, N):
+    """The K rows [lo, hi) of each split of the splitk route, in split
+    order."""
+    S, ktiles = blocked.gemm_splits(K, N), -(-K // blocked.GEMM_KT)
+    rows = -(-ktiles // S) * blocked.GEMM_KT
+    return [(s * rows, min(K, (s + 1) * rows)) for s in range(S)]
+
+
+def splitk_plain(x, w):
+    """The splitk route's sum: an f32 partial of each K split, the partials
+    added in split order 0..S-1, cast to x's dtype.  Each row is computed
+    on its own (a vector-matrix product per row and split), so row i equals
+    the M = 1 call on row i bitwise, as in the kernel."""
+    xf, wf = x.float(), w.float()
+    out = None
+    for lo, hi in split_ranges(x.shape[1], w.shape[1]):
+        part = torch.stack([xf[i, lo:hi] @ wf[lo:hi]
+                            for i in range(x.shape[0])])
+        out = part if out is None else out + part
+    return out.to(x.dtype)
 
 
 def _mlp(name):
@@ -99,7 +121,7 @@ SPLIT_SHAPES = sorted({kn for name in MAIN_PATHS for kn in _mlp(name)}
 
 @pytest.mark.parametrize("K, N", SPLIT_SHAPES)
 def test_splits_cover_k_once_in_k_tiles(K, N):
-    ranges = blocked.gemm_split_ranges(K, N)
+    ranges = split_ranges(K, N)
     assert len(ranges) == blocked.gemm_splits(K, N)
     assert ranges[0][0] == 0 and ranges[-1][1] == K
     for (lo, hi), (lo2, _) in zip(ranges, ranges[1:]):
@@ -124,7 +146,7 @@ def test_splitk_plain_matches_pallas_and_ref(shape):
     M, K, N = shape
     rng = np.random.default_rng(11)
     x, w = _rand(rng, M, K, scale=1.0), _rand(rng, K, N, scale=K ** -0.5)
-    got = blocked.tile_gemm_splitk_plain(T(x), T(w))
+    got = splitk_plain(T(x), T(w))
     pal = pallas_gemm(jnp.asarray(x), jnp.asarray(w), block_m=M,
                       block_n=128, block_k=512, interpret=True)
     _close(got, pal, 1e-3)
@@ -137,8 +159,7 @@ def test_splitk_plain_ragged_matches_ref(shape):
     M, K, N = shape
     rng = np.random.default_rng(12)
     x, w = _rand(rng, M, K, scale=1.0), _rand(rng, K, N, scale=K ** -0.5)
-    _close(blocked.tile_gemm_splitk_plain(T(x), T(w)),
-           jref.ref_tile_gemm(x, w), 1e-3)
+    _close(splitk_plain(T(x), T(w)), jref.ref_tile_gemm(x, w), 1e-3)
 
 
 @pytest.mark.parametrize("dtype", [F32, BF16])
@@ -149,25 +170,8 @@ def test_splitk_rows_equal_the_single_row_call(shape, dtype):
     rng = np.random.default_rng(13)
     x = T(_rand(rng, M, K, scale=1.0)).to(dtype)
     w = T(_rand(rng, K, N, scale=K ** -0.5)).to(dtype)
-    got = blocked.tile_gemm_splitk_plain(x, w)
+    got = splitk_plain(x, w)
     assert got.dtype == dtype
     for i in range(M):
-        assert torch.equal(got[i:i + 1],
-                           blocked.tile_gemm_splitk_plain(x[i:i + 1], w))
+        assert torch.equal(got[i:i + 1], splitk_plain(x[i:i + 1], w))
 
-
-@pytest.fixture
-def card():
-    if not torch.cuda.is_available():
-        pytest.skip("needs an NVIDIA card: reads the CUDA library's rules")
-
-
-@pytest.mark.cuda
-def test_library_rules_equal_the_mirrors(card):
-    from repro_torch.kernels.tile_gemm import route_of, splits_of
-    for K, N in SPLIT_SHAPES:
-        assert splits_of(K, N) == blocked.gemm_splits(K, N), (K, N)
-        for M in range(1, 20):
-            for dt, code in ((F32, 0), (BF16, 1)):
-                assert route_of(M, K, N, code) == \
-                    blocked.gemm_route(M, K, N, dt), (M, K, N, dt)
