@@ -7,19 +7,24 @@ catch a wrong kernel.
 For each planted fault, a copy of chip_smoke.py and src/repro_torch/
 under build/planted_faults/<fault>/ (git-ignored) gets one fault in a
 kernel's CUDA source: the attention kernels drop the last live kv tile
-of their range (decode attention: the last tile of each W chunk), the
-stream kernel also attends in every sub-step to its own generated tile in
-place of the one forwarded from its peers; the GEMM's three bf16 routes:
-mma skips its last 32-wide K chunk, wgmma's consumers skip the products of
-their last 64-wide k-step, splitk's reduction drops its last K split; the
-SSD scan drops the carry of the state from one chunk to the next (each
-chunk starts from its own contribution only).
-chip_smoke's bf16 check of that kernel then runs on the copy, in a
-subprocess, once at the kernel test cases and once at the main path's
-shapes (the GEMM's faults once more at hymba-1.5b's main shapes alone, as
-the first failing shape ends a run).  Each run must fail with that kernel's comparison message, which
-names the worst element's error over its limit.  The SSD scan's fault
-also runs chip_smoke's f32 model checks (phase 9), which must fail on it
+of their range, the stream kernel also attends in every sub-step to its
+own generated tile in place of the one forwarded from its peers; the
+GEMM's three bf16 routes: mma skips its last 32-wide K chunk, wgmma's
+consumers skip the products of their last 64-wide k-step, splitk's
+reduction drops its last K split; decode attention's tc route (bf16)
+never loads a row's last live tile, or its merge leaves out the last
+split's values, and its simt route (f32) skips the last tile of each W
+chunk; the SSD scan's tc route (bf16) drops the carry between chunks in
+its state-passing stage, or writes no y for the last chunk, and its simt
+route (f32) drops the carry of the state from one chunk to the next.
+chip_smoke's check of that kernel then runs on the copy, in a
+subprocess, in the dtype of the faulty route, once at the kernel test
+cases and once at the main path's shapes (the GEMM's faults once more at
+hymba-1.5b's main shapes alone, as the first failing shape ends a run).
+Each run must fail with that kernel's comparison message, which names
+the worst element's error over its limit.  The SSD scan's carry faults
+also run chip_smoke's model checks (phase 9: f32 for the simt route, the
+bf16 first-layer state for the tc route), which must fail on them
 too.  The script exits non-zero if a planted fault goes unnoticed.  Needs one CUDA card.
 """
 from __future__ import annotations
@@ -41,6 +46,8 @@ SKIP_LAST_LIVE_TILE = (LIVE_RANGE, LIVE_RANGE.replace(
 FLASH = ("FLASH_CASES", "MAIN_FLASH", "check_flash")
 STREAM = ("STREAM_CASES", "MAIN_STREAM", "check_stream")
 GEMM = ("GEMM_CASES", "MAIN_GEMM", "check_gemm")
+DECODE = ("DECODE_CASES", "MAIN_DECODE", "check_decode")
+SSD = ("SSD_CASES", "MAIN_SSD", "check_ssd")
 # fault: (kernel, CUDA source, (text, planted replacement),
 #         chip_smoke's (test cases, main-path shapes, check function))
 FAULTS = {
@@ -68,17 +75,46 @@ FAULTS = {
                          ("for (int r = 1; r < S; ++r) v += __ldcg(",
                           "for (int r = 1; r < S - 1; ++r) v += __ldcg("),
                          GEMM),
-    "decode_attention": ("decode_attention", "decode_attention.cu",
-                         ("for (int t0 = t_lo; t0 < t_hi; t0 += BK)",
-                          "for (int t0 = t_lo; t0 < t_hi - BK; t0 += BK)"),
-                         ("DECODE_CASES", "MAIN_DECODE", "check_decode")),
-    "ssd_scan": ("ssd_scan", "ssd_scan.cu",
-                 ("st[n * PS + p] = fmaf(decay, st[n * PS + p], acc[j]);",
-                  "st[n * PS + p] = acc[j];"),
-                 ("SSD_CASES", "MAIN_SSD", "check_ssd")),
+    # decode attention's tc route (bf16): the row's last live tile is never
+    # loaded, or the merge leaves out the last split's values; its simt
+    # route (f32): the last tile of each W chunk is skipped
+    "decode_attention_tc_tile": (
+        "decode_attention", "decode_attention.cu",
+        ("const int t_lo = lo / BK, t_hi = (hi + BK - 1) / BK;",
+         "const int t_lo = lo / BK, "
+         "t_hi = max(t_lo + 1, (hi + BK - 1) / BK - 1);"), DECODE),
+    "decode_attention_tc_merge": (
+        "decode_attention", "decode_attention.cu",
+        ("#pragma unroll 8\n    for (int sp = 0; sp < n_live; ++sp) {",
+         "#pragma unroll 8\n    for (int sp = 0; sp < n_live - 1; ++sp) {"),
+        DECODE),
+    "decode_attention_simt": ("decode_attention", "decode_attention.cu",
+                              ("for (int t0 = t_lo; t0 < t_hi; t0 += BK)",
+                               "for (int t0 = t_lo; t0 < t_hi - BK; t0 += BK)"),
+                              DECODE),
+    # the SSD scan's tc route (bf16): stage 3 drops the carry between
+    # chunks (each chunk enters with the last one's own contribution), or
+    # stage 4 writes no y for the last chunk; its simt route (f32): the
+    # carry of the state from one chunk to the next is dropped
+    "ssd_scan_tc_carry": (
+        "ssd_scan", "ssd_scan.cu",
+        ("      run = make_float4(fmaf(d[i], run.x, v[i].x), "
+         "fmaf(d[i], run.y, v[i].y),\n"
+         "                        fmaf(d[i], run.z, v[i].z), "
+         "fmaf(d[i], run.w, v[i].w));",
+         "      run = v[i];"), SSD),
+    "ssd_scan_tc_last_chunk": (
+        "ssd_scan", "ssd_scan.cu",
+        ("      if (row[r] < tv && p < pw)",
+         "      if (row[r] < tv && p < pw && ch + 1 < sh.nc)"), SSD),
+    "ssd_scan_simt": ("ssd_scan", "ssd_scan.cu",
+                      ("st[n * PS + p] = fmaf(decay, st[n * PS + p], acc[j]);",
+                       "st[n * PS + p] = acc[j];"), SSD),
 }
 # Kernel -> the name prefixes of main shapes it is also checked at alone.
 MAIN_SUBSETS = {"tile_gemm": ("hymba",)}
+# Faults in an f32 route: their runs check f32, the others bf16.
+F32_FAULTS = ("decode_attention_simt", "ssd_scan_simt")
 # Run inside the faulty copy: chip_smoke's bf16 check of one kernel, at
 # its test cases only ("cases"), at the main path's shapes only ("main"),
 # or at the main shapes whose names start with the part.
@@ -87,7 +123,7 @@ import torch
 import chip_smoke as c
 cases, main, check = {names!r}
 part = {part!r}
-c.DTYPES = (torch.bfloat16,)
+c.DTYPES = (torch.{dtype},)
 if part == "cases":
     setattr(c, main, {{}})
 else:
@@ -100,9 +136,12 @@ getattr(c, check)(torch.Generator(device="cuda").manual_seed(0), {{}})
 """
 # Kernels whose fault must also fail a model-level check of chip_smoke:
 # kernel -> (the check's code, the start of its failure message).
-MODEL_CHECKS = {"ssd_scan": ("import chip_smoke as c\n"
-                             "c._build.build_all()\n"
-                             "c.ssm_checks('')\n", "FAIL: f32 ")}
+MODEL_CHECKS = {
+    label: ("import chip_smoke as c\n"
+            "c._build.build_all()\n"
+            "c.ssm_checks('')\n", message)
+    for label, message in (("ssd_scan_simt", "FAIL: f32 "),
+                           ("ssd_scan_tc_carry", "FAIL: bf16 "))}
 
 
 def plant(label: str, source: str, text: str, fault: str) -> Path:
@@ -127,8 +166,10 @@ def main() -> None:
     try:
         for label, (kernel, source, (text, fault), names) in FAULTS.items():
             copy = plant(label, source, text, fault)
+            dtype = "float32" if label in F32_FAULTS else "bfloat16"
             runs = {part: (CHECK.format(names=names, part=part,
-                                        kernel=kernel), f"FAIL: {kernel}")
+                                        kernel=kernel, dtype=dtype),
+                           f"FAIL: {kernel}")
                     for part in ("cases", "main")
                     + MAIN_SUBSETS.get(kernel, ())}
             if label in MODEL_CHECKS:

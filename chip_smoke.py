@@ -15,19 +15,26 @@ caught:
      included; attention rows with no live key also against the mean of
      V; the bf16 attention kernels' live kv tiles against their Python
      mirror) and at the main paths' shapes, decode attention's batch
-     invariance (a row of a batched call equals the B = 1 call, bitwise);
-     kernel, plain, library-call times and the card's bound at each
-     kernel's timed main-path shape; flash's time and TFLOP/s at each of
-     its main shapes (vilbert, qwen3-32b's causal GQA prefill, hymba-1.5b's
-     windowed prefill), the stream kernel's K/V regeneration factor;
-     tile_gemm: its library's route and split rules against their Python
-     mirrors, each case and main shape (vilbert-base's, qwen3-32b's and
-     hymba-1.5b's MLPs) on its intended route (and bf16 wgmma ones also
-     through the mma route, the first port's kernel, which the wrapper
-     takes for an x off 16-byte alignment), a row of a splitk call equal
-     to the M = 1 call bitwise at qwen3-32b's decode shapes, times at
-     GEMM_TIMED against the mma route (the parent's kernel) in turns and
-     torch.matmul;
+     invariance (a row of a batched call equals the B = 1 call, bitwise,
+     at every case and main shape; a single row also inside a batch of
+     three); kernel, plain, library-call times and the card's bound at
+     each kernel's timed main-path shape; flash's time and TFLOP/s at each
+     of its main shapes (vilbert, qwen3-32b's causal GQA prefill,
+     hymba-1.5b's windowed prefill), the stream kernel's K/V regeneration
+     factor; tile_gemm: its library's route and split rules against their
+     Python mirrors, each case and main shape (vilbert-base's, qwen3-32b's
+     and hymba-1.5b's MLPs) on its intended route (and bf16 wgmma ones
+     also through the mma route, the first port's kernel, which the
+     wrapper takes for an x off 16-byte alignment), a row of a splitk call
+     equal to the M = 1 call bitwise at qwen3-32b's decode shapes, times
+     at GEMM_TIMED against the mma route (the parent's kernel) in turns
+     and torch.matmul; decode attention and the SSD scan: every call on
+     its intended route (bf16 tc, f32 simt), the decode split rule of the
+     library against blocked.decode_splits, and at DECODE_TIMED and every
+     MAIN_SSD shape the kernel against the parent's kernel (the simt
+     route, launched through the C interface) in turns, decode also
+     against SDPA in turns, each also by its device time from
+     torch.profiler (the decode tc route must be one launch);
   4. the first main path: vilbert-base VQA forward, bf16, B = 2,
      N_X = N_Y = 4096, in NON_STREAM, LAYER_STREAM and TILE_STREAM, with
      the kept-token counts and kernel launch counters checked (every
@@ -48,19 +55,26 @@ caught:
      window 1024) at full width and depth, bf16, the same way on four
      requests, one of them longer than the window (ssd_scan, flash
      attention, tile_gemm and decode attention over the ring; tile_gemm's
-     routes gated as in phase 5);
+     routes gated as in phase 5; in phases 5, 7 and 8 every decode
+     attention and SSD launch on the tc route);
   9. checks in f32 at both configurations' widths, 2 layers: prefill(S)
      then one decode step against prefill(S + 1) (for hymba S > 1024:
      the ring has wrapped), the kernel's prefill against the plain
      version's, and hymba's NON/LAYER/TILE prefills against each other;
- 10. one JSON line of per-kernel numbers, with tile_gemm's routes over
-     the main paths and its timed shapes ("tile_gemm_shapes");
+     in bf16, the first layer's SSD state after the kernel's prefill (the
+     tc route) against the plain version's;
+ 10. one JSON line of per-kernel numbers, with the routes of tile_gemm,
+     decode attention and the SSD scan over the main paths and their timed
+     shapes ("tile_gemm_shapes", "decode_attention_shapes",
+     "ssd_scan_shapes");
  11. the last line: {"ok": true, "device": {...}}.
 
 Bound of a kernel call: the larger of its FLOPs over the H100 SXM peak of
-its input type (989 TFLOP/s bf16, 67 TFLOP/s f32; ssd_scan's products are
-f32 whatever its input type) and the bytes it must move (inputs read once,
-output written once) over 3.35 TB/s.
+its input type (989 TFLOP/s bf16, 67 TFLOP/s f32; ssd_scan's bf16 route
+takes each f32 operand as two bf16 halves, so its FLOPs count three times
+at the bf16 peak, with the f32-peak figure printed beside it) and the
+bytes it must move (inputs read once, output written once) over
+3.35 TB/s.
 """
 from __future__ import annotations
 
@@ -87,9 +101,11 @@ import torch.nn.functional as F  # noqa: E402
 from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core.types import ExecutionMode, Family  # noqa: E402
 from repro_torch.kernels import _build, blocked, ops, ref  # noqa: E402
+from repro_torch.kernels import decode_attention as decode_lib  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, live_tiles)
+from repro_torch.kernels import ssd_scan as ssd_lib  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.stream_attention import (  # noqa: E402
     config as stream_config, regeneration, stream_attention)
@@ -650,15 +666,21 @@ DECODE_CASES = [
     (2, 16, 2, 1000, 64, 0, (1000, 513)),    # four W chunks, hd = 64
     (1, 8, 8, 64, 128, 17, (5,)),            # window wider than the row
 ]
-# qwen3-32b's decode step at W = max_len: name: (B, Hq, Hkv, W, hd,
-# cache_len).  Phase 5 calls the kernel on buckets of 3 and of 1 with a
-# scalar cache_len; the timed one holds all four slots with phase 5's
-# lengths, per row.
+# The decode steps of the main paths at W = max_len: name: (B, Hq, Hkv, W,
+# hd, cache_len).  Phase 5 calls the kernel on qwen3-32b buckets of 3 and
+# of 1 with a scalar cache_len; the timed one holds all four slots with
+# phase 5's lengths, per row.  Phase 8 calls it on hymba-1.5b's ring of
+# the 1024-key window, one slot at a time, full or not.
 MAIN_DECODE = {
     "qwen3-32b bucket of 4": (4, 64, 8, 2048, 128, (1025, 1025, 1025, 1537)),
     "qwen3-32b bucket of 3": (3, 64, 8, 2048, 128, 1025),
     "qwen3-32b bucket of 1": (1, 64, 8, 2048, 128, 1537),
+    "hymba-1.5b bucket of 1": (1, 25, 5, 1024, 64, 700),
+    "hymba-1.5b bucket of 1, full ring": (1, 25, 5, 1024, 64, 1024),
 }
+# decode attention is also timed at these, against the parent's kernel and
+# SDPA in turns, with each one's device time from the profiler.
+DECODE_TIMED = ("qwen3-32b bucket of 4", "hymba-1.5b bucket of 1")
 
 
 def _decode_inputs(gen, B, Hq, Hkv, W, hd, clen, dt):
@@ -670,8 +692,23 @@ def _decode_inputs(gen, B, Hq, Hkv, W, hd, clen, dt):
     return q, k, v, lens
 
 
-def check_batch_invariance(name, case, q, k, v, lens, window=0):
-    """Row i of the batched call equals the B = 1 call on row i, bitwise."""
+def check_batch_invariance(gen, name, case, q, k, v, lens, window=0):
+    """Row i of the batched call equals the B = 1 call on row i, bitwise.
+    A single row is also checked as row 0 of a batch of three, beside two
+    rows with other lengths (1 and W)."""
+    if q.shape[0] == 1:
+        W = k.shape[2]
+        q2, k2, v2 = (torch.cat([t, randn(gen, 2, *t.shape[1:],
+                                          dtype=t.dtype)])
+                      for t in (q, k, v))
+        li = lens[0].item() if isinstance(lens, torch.Tensor) else lens
+        lens2 = torch.tensor([li, 1, W], dtype=torch.int32, device="cuda")
+        got = decode_attention(q2, k2, v2, lens2, window=window)
+        if not torch.equal(got[:1], decode_attention(q, k, v, lens,
+                                                     window=window)):
+            fail(f"{name} {case}: the row in a batch of three differs from "
+                 f"the B = 1 call")
+        return
     got = decode_attention(q, k, v, lens, window=window)
     for i in range(q.shape[0]):
         li = lens[i:i + 1] if isinstance(lens, torch.Tensor) else lens
@@ -682,44 +719,161 @@ def check_batch_invariance(name, case, q, k, v, lens, window=0):
                  f"the B = 1 call")
 
 
+def check_decode_rules():
+    """The library's tc split rule and group limit against their Python
+    mirrors (blocked.decode_splits, DECODE_TC_GROUP) at every case, main
+    shape and W of 1..4096 for 1..16, 25 and 64 kv heads."""
+    shapes = {(W, Hkv) for W in range(1, 4097)
+              for Hkv in (*range(1, 17), 25, 64)}
+    shapes |= {(c[3], c[2]) for c in DECODE_CASES}
+    shapes |= {(c[3], c[2]) for c in MAIN_DECODE.values()}
+    for W, Hkv in sorted(shapes):
+        got, want = decode_lib.splits_of(W, Hkv), blocked.decode_splits(W, Hkv)
+        if got != want:
+            fail(f"decode_attention splits at (W, Hkv) = {(W, Hkv)}: library "
+                 f"{got}, blocked.decode_splits {want}")
+    if decode_lib.tc_group() != blocked.DECODE_TC_GROUP:
+        fail(f"decode_attention tc group: library {decode_lib.tc_group()}, "
+             f"blocked {blocked.DECODE_TC_GROUP}")
+    say(f"  decode_attention: the library's split rule equals "
+        f"blocked.decode_splits at {len(shapes)} (W, Hkv); at the main "
+        f"shapes (splits, tiles per split): "
+        + ", ".join(f"{n} {blocked.decode_splits(c[3], c[2])}"
+                    for n, c in MAIN_DECODE.items()))
+
+
+def parent_decode(q, k, v, lens):
+    """The parent's kernel: the library's simt route (the first port's
+    kernel), launched through the C interface in the dtype it is given;
+    it counts no launch."""
+    B, Hq, _, hd = q.shape
+    Hkv, W = k.shape[1], k.shape[2]
+    clen, clen0 = decode_lib._row_lengths(lens, B, q.device)
+    part = torch.empty(B * Hq * decode_lib._simt_splits(W) * (2 + hd),
+                       dtype=torch.float32, device=q.device)
+    out = torch.empty_like(q)
+    _build.raise_on("decode_attention (simt route)", decode_lib._lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        None if clen is None else clen.data_ptr(), out.data_ptr(),
+        part.data_ptr(), None, blocked.DECODE_ROUTES.index("simt"),
+        _build.DTYPE_CODES[q.dtype], B, Hq, Hkv, W, hd, hd ** -0.5, 0, clen0,
+        _build.stream_ptr(q.device)))
+    return out
+
+
+def device_ms(fn, reps: int = 20):
+    """(device time per call in ms, kernels per call, {kernel: ms per
+    call}) of fn() under torch.profiler, after a warm-up outside the
+    trace: the kernels' own time, without the host's share of a call."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA]
+    return (sum(e.self_device_time_total for e in events) / reps / 1e3,
+            sum(e.count for e in events) / reps,
+            {e.key: e.self_device_time_total / reps / 1e3 for e in events})
+
+
+def kernel_name(key: str) -> str:
+    """A kernel's function name from its demangled profiler key."""
+    m = re.search(r"(\w+)(?:<[^()]*>)?\(", key)
+    return m.group(1) if m else key[:24]
+
+
+def in_turns(base, new):
+    """time_ms of base, new, new, base: (new, base, the four times)."""
+    t = [time_ms(f) for f in (base, new, new, base)]
+    return (t[1] + t[2]) / 2, (t[0] + t[3]) / 2, t
+
+
+def time_decode(case, q, k, v, lens, err):
+    """The kernel against the parent's kernel and SDPA, in turns (host
+    clock per call, CUDA events) and by the profiler's device time, at
+    one main shape, bf16.  The tc route must be one launch."""
+    B, Hq, _, hd = q.shape
+    Hkv, W = k.shape[1], k.shape[2]
+    lens_t = (lens if isinstance(lens, torch.Tensor) else torch.full(
+        (B,), lens, dtype=torch.int32, device="cuda"))
+    mask = (torch.arange(W, device="cuda")[None, :] < lens_t[:, None]
+            )[:, None, None, :]
+
+    def ours():
+        return decode_attention(q, k, v, lens)
+
+    def parent():
+        return parent_decode(q, k, v, lens)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                              enable_gqa=True)
+
+    n0 = decode_attention.launches
+    ms, parent_ms, tp = in_turns(parent, ours)
+    _, sdpa_ms, ts = in_turns(sdpa, ours)
+    dev, kernels, _ = device_ms(ours)
+    parent_dev, parent_kernels, _ = device_ms(parent)
+    sdpa_dev, sdpa_kernels, _ = device_ms(sdpa)
+    decode_attention.launches = n0          # timing launches are not counted
+    if kernels != 1:
+        fail(f"decode_attention {case}: {kernels} kernels per call, the tc "
+             f"route must be one launch")
+    clen = lens_t.tolist()
+    nbytes = (2 * sum(clen) * Hkv * hd + 2 * q.numel()) * q.element_size()
+    b_ms, b_by = bound(4 * sum(clen) * Hq * hd, nbytes, q.dtype)
+    say(f"    timed {case}: kernel {ms:.4f} ms ({tp[1]:.4f}, {tp[2]:.4f}; "
+        f"with SDPA {ts[1]:.4f}, {ts[2]:.4f}), device {dev:.4f} ms in "
+        f"{kernels:g} launch; parent {parent_ms:.4f} ms ({tp[0]:.4f}, "
+        f"{tp[3]:.4f}), device {parent_dev:.4f} ms in {parent_kernels:g}; "
+        f"SDPA {sdpa_ms:.4f} ms ({ts[0]:.4f}, {ts[3]:.4f}), device "
+        f"{sdpa_dev:.4f} ms in {sdpa_kernels:g}; bound {b_ms:.4f} ms "
+        f"({b_by}): device {dev / b_ms:.1f}x bound, "
+        f"{nbytes / dev / 1e9:.2f} TB/s")
+    return dict(name=case, max_abs_err=err, ms=ms, device_ms=dev,
+                parent_ms=parent_ms, parent_device_ms=parent_dev,
+                library_ms=sdpa_ms, library_device_ms=sdpa_dev,
+                bound_ms=b_ms, bound_by=b_by, flops=4 * sum(clen) * Hq * hd,
+                bytes=nbytes)
+
+
 def check_decode(gen, report):
     name = "decode_attention"
+    check_decode_rules()
+    shapes = []
     for dt in DTYPES:
-        for B, Hq, Hkv, W, hd, window, clen in DECODE_CASES:
+        want_route = "tc" if dt == torch.bfloat16 else "simt"
+        cases = ([(f"case {c[:5]} window={c[5]} cache_len={c[6]}", c)
+                  for c in DECODE_CASES]
+                 + [(n, (*c[:5], 0, c[5])) for n, c in MAIN_DECODE.items()])
+        for case, (B, Hq, Hkv, W, hd, window, clen) in cases:
             q, k, v, lens = _decode_inputs(gen, B, Hq, Hkv, W, hd, clen, dt)
-            case = f"{str(dt)[6:]} {(B, Hq, Hkv, W, hd)} window={window} " \
-                   f"cache_len={clen}"
-            err = compare(name, case,
-                          decode_attention(q, k, v, lens, window=window),
+            before = decode_attention.routes[want_route]
+            got = decode_attention(q, k, v, lens, window=window)
+            if decode_attention.routes[want_route] != before + 1:
+                fail(f"{name} {dt} {case}: did not take the {want_route} "
+                     f"route")
+            err = compare(name, f"{dt} {case}", got,
                           blocked.decode_attention_plain(q, k, v, lens,
                                                          window=window))
-            check_batch_invariance(name, case, q, k, v, lens, window)
-            say(f"  {name} {case}: max|err| {err:.2e}, batch-invariant")
-        for case, (B, Hq, Hkv, W, hd, clen) in MAIN_DECODE.items():
-            q, k, v, lens = _decode_inputs(gen, B, Hq, Hkv, W, hd, clen, dt)
-            err = compare(name, f"{dt} {case}", decode_attention(q, k, v, lens),
-                          blocked.decode_attention_plain(q, k, v, lens))
-            check_batch_invariance(name, case, q, k, v, lens)
-            say(f"  {name} {str(dt)[6:]} main path {case} cache_len={clen}: "
-                f"max|err| {err:.2e}, batch-invariant")
-            if dt != torch.bfloat16 or case != TIMED[name]:
+            check_batch_invariance(gen, name, f"{dt} {case}", q, k, v, lens,
+                                   window)
+            say(f"  {name} {str(dt)[6:]} {case} {(B, Hq, Hkv, W, hd)}, "
+                f"{want_route}: max|err| {err:.2e}, batch-invariant")
+            if dt != torch.bfloat16 or case not in DECODE_TIMED:
                 continue
-            e = q.element_size()
-            mask = (torch.arange(W, device="cuda")[None, :] < lens[:, None]
-                    )[:, None, None, :]
-            report[name] = dict(
-                max_abs_err=err,
-                ms=time_ms(lambda: decode_attention(q, k, v, lens)),
-                plain_ms=time_ms(
-                    lambda: blocked.decode_attention_plain(q, k, v, lens)),
-                library_ms=time_ms(lambda: F.scaled_dot_product_attention(
-                    q, k, v, attn_mask=mask, enable_gqa=True)),
-                shape=f"q {(B, Hq, 1, hd)}, k/v {(B, Hkv, W, hd)}, "
-                      f"cache_len {clen} bf16",
-                # the valid K/V rows, read once; q read and out written
-                flops=4 * sum(clen) * Hq * hd,
-                bytes=(2 * sum(clen) * Hkv * hd + 2 * q.numel()) * e,
-                dtype=dt)
+            timed = time_decode(case, q, k, v, lens, err)
+            shapes.append(timed)
+            if case == TIMED[name]:
+                report[name] = dict(
+                    timed, plain_ms=time_ms(
+                        lambda: blocked.decode_attention_plain(q, k, v, lens)),
+                    shape=f"q {(B, Hq, 1, hd)}, k/v {(B, Hkv, W, hd)}, "
+                          f"cache_len {clen} bf16", dtype=dt, shapes=shapes)
 
 
 def mamba2_rates(gen, H):
@@ -762,46 +916,126 @@ def ssd_flops(B, S, H, P, N) -> int:
     return min(at(L) for L in range(1, S + 1))
 
 
+def parent_ssd(x, dt, a, b, c):
+    """The parent's kernel: the library's simt route (the first port's
+    kernel), launched through the C interface in the dtype it is given;
+    it counts no launch."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    y = torch.empty_like(x)
+    state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
+    _build.raise_on("ssd_scan (simt route)", ssd_lib._lib()(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), y.data_ptr(), state.data_ptr(), None,
+        blocked.SSD_ROUTES.index("simt"), _build.DTYPE_CODES[x.dtype],
+        B, S, H, P, N, _build.stream_ptr(x.device)))
+    return y, state
+
+
+def time_ssd(case, args, chunk, err):
+    """The kernel against the parent's kernel in turns (host clock per
+    call, CUDA events) and by the profiler's device time, at one main
+    shape, bf16.  The bound: the larger of the bytes and the FLOPs taken
+    three times (hi.hi + hi.lo + lo.hi) at the bf16 peak; the f32-peak
+    figure, the bound of the SIMT kernel, is kept beside it."""
+    x, dtv, a, b, c = args
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+
+    def ours():
+        return ssd_scan(*args, chunk=chunk)
+
+    def parent():
+        return parent_ssd(*args)
+
+    n0 = ssd_scan.launches
+    ms, parent_ms, t = in_turns(parent, ours)
+    dev, kernels, stages = device_ms(ours)
+    parent_dev, parent_kernels, _ = device_ms(parent)
+    ssd_scan.launches = n0                  # timing launches are not counted
+    flops = ssd_flops(B, S, H, P, N)
+    nbytes = ((2 * x.numel() + 2 * b.numel()) * x.element_size()
+              + (dtv.numel() + a.numel() + B * H * P * N) * 4)
+    b_ms, b_by = bound(3 * flops, nbytes, torch.bfloat16)
+    f32_ms, _ = bound(flops, nbytes, torch.float32)
+    say(f"    timed {case}: kernel {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
+        f"device {dev:.4f} ms in {kernels:g} launches; parent {parent_ms:.4f}"
+        f" ms ({t[0]:.4f}, {t[3]:.4f}), device {parent_dev:.4f} ms in "
+        f"{parent_kernels:g}; {parent_dev / dev:.2f}x faster; bound "
+        f"{b_ms:.4f} ms ({b_by}; at the f32 peak {f32_ms:.4f} ms): device "
+        f"{dev / b_ms:.1f}x bound; by kernel: "
+        + ", ".join(f"{kernel_name(k)} {v:.4f}" for k, v in stages.items()))
+    return dict(name=case, shape=[B, S, H, P, N], max_abs_err=err, ms=ms,
+                device_ms=dev, parent_ms=parent_ms,
+                parent_device_ms=parent_dev, bound_ms=b_ms, bound_by=b_by,
+                f32_bound_ms=f32_ms, flops=3 * flops, bytes=nbytes)
+
+
 def check_ssd(gen, report):
     name = "ssd_scan"
+    if ssd_lib.tc_width() != blocked.SSD_TC_WIDTH:
+        fail(f"ssd_scan tc width: library {ssd_lib.tc_width()}, blocked "
+             f"{blocked.SSD_TC_WIDTH}")
+    shapes = []
     for dt in DTYPES:
+        want_route = "tc" if dt == torch.bfloat16 else "simt"
         cases = [(c, c) for c in SSD_CASES] + list(MAIN_SSD.items())
         for case, (B, S, H, P, N, chunk) in cases:
             args = _ssd_inputs(gen, B, S, H, P, N, dt)
+            before = ssd_scan.routes[want_route]
             y, st = ssd_scan(*args, chunk=chunk)
+            if ssd_scan.routes[want_route] != before + 1:
+                fail(f"{name} {dt} {case}: did not take the {want_route} "
+                     f"route")
             want_y, want_st = blocked.ssd_chunked_plain(*args, chunk=chunk)
             err = compare(name, f"{dt} {case} y", y, want_y)
             st_err = compare(name, f"{dt} {case} final state", st, want_st)
             say(f"  {name} {str(dt)[6:]} {case} (B, S, H, P, N, chunk) = "
-                f"{(B, S, H, P, N, chunk)}: max|err| y {err:.2e}, state "
-                f"{st_err:.2e}")
-            if dt != torch.bfloat16 or case != TIMED[name]:
+                f"{(B, S, H, P, N, chunk)}, {want_route}: max|err| y "
+                f"{err:.2e}, state {st_err:.2e}")
+            if dt != torch.bfloat16 or case not in MAIN_SSD:
                 continue
-            x, dtv, a, b, c = args
-            e = x.element_size()
-            report[name] = dict(
-                max_abs_err=max(err, st_err),
-                ms=time_ms(lambda: ssd_scan(*args, chunk=chunk)),
-                plain_ms=time_ms(
-                    lambda: blocked.ssd_chunked_plain(*args, chunk=chunk)),
-                library_ms=None,      # no single PyTorch call computes SSD
-                shape=f"x {tuple(x.shape)}, b/c {tuple(b.shape)} bf16, "
-                      f"chunk {chunk}",
-                # SIMT f32 products: the f32 peak
-                flops=ssd_flops(B, S, H, P, N),
-                bytes=(2 * x.numel() + 2 * b.numel()) * e
-                + (dtv.numel() + a.numel() + st.numel()) * 4,
-                dtype=torch.float32)
+            timed = time_ssd(case, args, chunk, max(err, st_err))
+            shapes.append(timed)
+            if case == TIMED[name]:
+                x, b = args[0], args[3]
+                report[name] = dict(
+                    timed, plain_ms=time_ms(
+                        lambda: blocked.ssd_chunked_plain(*args, chunk=chunk)),
+                    library_ms=None,  # no single PyTorch call computes SSD
+                    shape=f"x {tuple(x.shape)}, b/c {tuple(b.shape)} bf16, "
+                          f"chunk {chunk}",
+                    dtype=torch.bfloat16, shapes=shapes)
 
 
 # ---------------------------------------------------------------------------
 # Phase 4: the main path
 # ---------------------------------------------------------------------------
 
+# Kernels whose wrappers count launches per route as well.
+ROUTED = {"tile_gemm": tile_gemm, "decode_attention": decode_attention,
+          "ssd_scan": ssd_scan}
+
+
 def reset_counts() -> None:
     for fn, _ in KERNELS.values():
         fn.launches = 0
-    tile_gemm.routes = dict.fromkeys(tile_gemm.routes, 0)
+    for fn in ROUTED.values():
+        fn.routes = dict.fromkeys(fn.routes, 0)
+
+
+def route_counts() -> dict:
+    return {name: dict(fn.routes) for name, fn in ROUTED.items()}
+
+
+def check_kernel_routes(what: str, routes: dict, got: dict) -> None:
+    """Fail unless every launch of decode attention and of the SSD scan in
+    a bf16 main-path run took the tc route (``routes``: the run's
+    route_counts(), ``got``: its counts())."""
+    for name in ("decode_attention", "ssd_scan"):
+        if routes[name] != {"simt": 0, "tc": got[name]}:
+            fail(f"{what}: {name} routes {routes[name]}; every one of its "
+                 f"{got[name]} launches must take the tc route")
 
 
 def tally(launches: dict) -> dict:
@@ -810,8 +1044,9 @@ def tally(launches: dict) -> dict:
     got = counts()
     for name, n in got.items():
         launches[name] += n
-    for route, n in tile_gemm.routes.items():
-        launches["tile_gemm routes"][route] += n
+    for name, fn in ROUTED.items():
+        for route, n in fn.routes.items():
+            launches[f"{name} routes"][route] += n
     return got
 
 
@@ -1035,7 +1270,7 @@ def profile_call(fn, *args, top: int = 5, **kw) -> str:
     of kernels it launched and those that took the most device time.  Its
     launches are not counted."""
     from torch.profiler import ProfilerActivity, profile
-    counts0, routes0 = counts(), dict(tile_gemm.routes)
+    counts0, routes0 = counts(), route_counts()
     fn(*args, **kw)                        # warm-up, outside the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -1046,7 +1281,8 @@ def profile_call(fn, *args, top: int = 5, **kw) -> str:
         wall_us = (time.perf_counter() - t0) * 1e6
     for name, n in counts0.items():        # not a launch of the main path
         KERNELS[name][0].launches = n
-    tile_gemm.routes = routes0
+    for name, fn in ROUTED.items():
+        fn.routes = routes0[name]
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in events)
@@ -1113,7 +1349,8 @@ def qwen3_serving(smi: str, launches: dict) -> None:
     eng, probe, _ = serve(cfg, model, fresh, slots=4, max_len=2048,
                           page_size=64, profile_call=2)
     wall = time.perf_counter() - t0
-    got = counts()
+    got, routes = counts(), route_counts()
+    check_kernel_routes("qwen3-32b", routes, got)
     profile = profile_step(probe.decode_fn, *probe.saved)
     probe.saved = None
     first = fresh()[0]
@@ -1270,7 +1507,8 @@ def ssm_serving(arch: str, spec, smi: str, launches: dict) -> None:
     eng, probe, _ = serve(cfg, model, fresh, slots=4, max_len=4096,
                           profile_call=2)
     wall = time.perf_counter() - t0
-    got = counts()
+    got, routes = counts(), route_counts()
+    check_kernel_routes(arch, routes, got)
     profile = profile_step(probe.decode_fn, *probe.saved)
     probe.saved = None
     first = fresh()[0]
@@ -1405,6 +1643,48 @@ def ssm_checks(smi: str) -> None:
                 f"logits: relative gap {gap:.2e} (tol {SERVE_TOL})")
             if gap > SERVE_TOL:
                 fail(f"f32 {arch} {mode.value} prefill differs by {gap:.2e}")
+    ssm_bf16_checks()
+
+
+def ssm_bf16_checks() -> None:
+    """bf16 at full widths, 2 layers, the SSD scan's tc route: the first
+    layer's final SSD state after the kernel's prefill against the plain
+    version's.  Both read the same bf16 inputs and keep the state in f32,
+    so it takes the f32 limit (relative gap within SERVE_TOL); the later
+    layer's inputs and the logits differ by bf16 roundings (printed, not
+    gated)."""
+    for arch, S in (("mamba2-780m", 1000), ("hymba-1.5b", 1500)):
+        cfg = dataclasses.replace(get_config(arch), num_layers=2)
+        free()
+        gen = torch.Generator(device="cuda").manual_seed(3)
+        model = Transformer(cfg, device="cuda", generator=gen)
+        toks = torch.randint(0, cfg.vocab_size, (1, S), generator=gen,
+                             device="cuda")
+        with torch.no_grad():                  # the carry between chunks
+            for m in model.modules():
+                if isinstance(m, SSM):
+                    bias, a = mamba2_rates(gen, m.a_log.numel())
+                    m.dt_bias.copy_(bias)
+                    m.a_log.copy_(torch.log(-a))
+        V, before = cfg.vocab_size, dict(ssd_scan.routes)
+        full, cache = model.prefill({"tokens": toks}, S + 8)
+        if ssd_scan.routes["tc"] - before["tc"] != cfg.num_layers:
+            fail(f"bf16 {arch}: the prefill did not run ssd_scan's tc route")
+        with plain_ssd():
+            plain, pcache = model.prefill({"tokens": toks}, S + 8)
+        want = _leaves(pcache["layers"])
+        gaps = {name: (_rel(t[0], want[name][0]), _rel(t[1], want[name][1]))
+                for name, t in _leaves(cache["layers"]).items()
+                if name.endswith("state")}
+        logits = _rel(full[..., :V].float(), plain[..., :V].float())
+        say(f"  bf16 {arch}: kernel vs plain-version prefill, final SSD "
+            f"state relative gaps (layer 0, layer 1): "
+            + ", ".join(f"{k} {g[0]:.2e}, {g[1]:.2e}" for k, g in gaps.items())
+            + f" (layer 0 tol {SERVE_TOL}); logits {logits:.2e} (not gated)")
+        if not gaps or max(g[0] for g in gaps.values()) > SERVE_TOL \
+                or not torch.isfinite(full).all():
+            fail(f"bf16 {arch}: the first layer's SSD state from the kernel "
+                 f"differs from the plain version's: {gaps}")
 
 
 def tensor_core_sass() -> str:
@@ -1464,7 +1744,8 @@ def main() -> None:
 
     say("== phase 4: main path, vilbert-base")
     launches = {name: 0 for name in KERNELS}
-    launches["tile_gemm routes"] = dict.fromkeys(blocked.GEMM_ROUTES, 0)
+    for name, fn in ROUTED.items():
+        launches[f"{name} routes"] = dict.fromkeys(fn.routes, 0)
     main_path(launches)
     free()
 
@@ -1489,13 +1770,22 @@ def main() -> None:
     say(f"phases 1-9 took {time.perf_counter() - start:.1f} s")
 
     rows, gemm_shapes = [], report["tile_gemm"]["shapes"]
-    main_routes = launches["tile_gemm routes"]
-    say(f"  tile_gemm routes over the main paths: {main_routes}")
+    for name in ROUTED:
+        say(f"  {name} routes over the main paths: {launches[name + ' routes']}")
     for s in gemm_shapes:
         say(f"  tile_gemm {s['name']} {tuple(s['shape'])}: {s['route']} "
             f"{s['ms']:.4f} ms, parent {s['parent_ms']:.4f} ms, matmul "
             f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
             f"({s['bound_by']})")
+    for name in ("decode_attention", "ssd_scan"):
+        for s in report[name]["shapes"]:
+            lib = (f", SDPA {s['library_ms']:.4f} ms (device "
+                   f"{s['library_device_ms']:.4f})" if "library_ms" in s
+                   else "")
+            say(f"  {name} {s['name']}: kernel {s['ms']:.4f} ms (device "
+                f"{s['device_ms']:.4f}), parent {s['parent_ms']:.4f} ms "
+                f"(device {s['parent_device_ms']:.4f}){lib}, bound "
+                f"{s['bound_ms']:.4f} ms ({s['bound_by']})")
     for name, (_, replaces) in KERNELS.items():
         r = report[name]
         b_ms, b_by = bound(r["flops"], r["bytes"], r["dtype"])
@@ -1514,9 +1804,16 @@ def main() -> None:
                      "max_err": r["max_abs_err"], "kernel_ms": r["ms"],
                      "plain_ms": r["plain_ms"], "bound_ms": b_ms,
                      "bound_by": b_by, "library_ms": r["library_ms"]})
-        if name == "tile_gemm":
-            rows[-1]["routes"] = main_routes
-    say(json.dumps({"kernels": rows, "tile_gemm_shapes": gemm_shapes}))
+        for key in ("device_ms", "parent_ms", "parent_device_ms",
+                    "library_device_ms"):
+            if key in r:
+                rows[-1][key] = r[key]
+        if name in ROUTED:
+            rows[-1]["routes"] = launches[f"{name} routes"]
+    say(json.dumps({"kernels": rows, "tile_gemm_shapes": gemm_shapes,
+                    "decode_attention_shapes":
+                        report["decode_attention"]["shapes"],
+                    "ssd_scan_shapes": report["ssd_scan"]["shapes"]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -340,6 +340,91 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return (acc / l_safe[..., None]).reshape(B, Hq, Sq, hd).to(q.dtype)
 
 
+# The bf16 decode kernel's geometry (csrc/decode_attention.cu, which
+# exports the split rule as decode_attention_splits).
+DECODE_ROUTES = ("simt", "tc")
+DECODE_BK = 64               # keys per tile
+DECODE_SPLIT_BLOCKS = 132    # (kv head, split) blocks a B = 1 call aims at
+DECODE_TC_GROUP = 16         # most query heads per kv head of the tc route
+
+
+def decode_splits(W: int, Hkv: int) -> Tuple[int, int]:
+    """(splits, tiles per split) of the bf16 decode kernel for a cache of
+    width W and Hkv kv heads: enough splits that Hkv x splits fills the
+    card at B = 1, whole 64-key tiles each, none empty.  Depends on
+    (W, Hkv) only, so a row's sum never depends on B."""
+    tiles = -(-W // DECODE_BK)
+    S = min(tiles, -(-DECODE_SPLIT_BLOCKS // Hkv))
+    per = -(-tiles // S)
+    return -(-tiles // per), per
+
+
+def decode_attention_split(q: torch.Tensor, k: torch.Tensor,
+                           v: torch.Tensor, cache_len, *, window: int = 0,
+                           scale: Optional[float] = None,
+                           rounding: Optional[str] = None) -> torch.Tensor:
+    """``decode_attention_plain`` summed as the bf16 kernel sums it: W is
+    cut into ``decode_splits(W, Hkv)`` splits of whole 64-key tiles; each
+    split runs the online softmax over its tiles into (m, l, acc), and the
+    splits are merged in split order: m = max m_s, l = sum l_s e^(m_s - m),
+    acc = sum acc_s e^(m_s - m), out = acc / l.  A split, or a tile, that
+    holds no valid key adds nothing (the kernel skips it).  ``rounding``:
+    None for f32 products, or "split" / "bf16" for the kernel's operands
+    (P enters P V as P_hi + P_lo, or as bf16(P)); the scores are
+    (q K^T) * scale.  A row with no valid key gives 0."""
+    B, Hq, _, hd = q.shape
+    Hkv, W = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = hd ** -0.5 if scale is None else scale
+    nsplit, per = decode_splits(W, Hkv)
+    bk = DECODE_BK
+    k, _ = _pad_axis(k, 2, bk)
+    v, _ = _pad_axis(v, 2, bk)
+    ntiles = k.shape[2] // bk
+    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(B)
+    hi = clen.clamp(max=W)
+    lo = (clen - window).clamp(min=0) if window > 0 else torch.zeros_like(clen)
+    if rounding is None:
+        def qk(qf, k_j):
+            return _qk(qf, k_j) * scale
+        pv = _pv
+    else:
+        qk, pv = _split_products(rounding, False, scale)
+    qf = q.float().reshape(B, Hkv, G, 1, hd)
+    shape = (B, Hkv, G, 1)
+    ms, ls, accs = [], [], []
+    for s in range(nsplit):
+        m = torch.full(shape, NEG_INF, device=q.device)
+        l = torch.zeros(shape, device=q.device)
+        acc = torch.zeros(shape + (hd,), device=q.device)
+        for j in range(s * per, min((s + 1) * per, ntiles)):
+            kpos = j * bk + torch.arange(bk, device=q.device)
+            ok = ((kpos[None, :] >= lo[:, None]) & (kpos[None, :] < hi[:, None])
+                  )[:, None, None, None, :]                  # (B, 1, 1, 1, bk)
+            sc = qk(qf, k[:, :, j * bk:(j + 1) * bk].float())
+            sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.where(ok, torch.exp(sc - m_new[..., None]),
+                            torch.zeros_like(sc))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + pv(p, v[:, :, j * bk:(j + 1) * bk]
+                                              .float())
+            m = m_new
+        ms.append(m)
+        ls.append(l)
+        accs.append(acc)
+    m_all = torch.stack(ms).amax(dim=0)
+    l_all = torch.zeros(shape, device=q.device)
+    acc_all = torch.zeros(shape + (hd,), device=q.device)
+    for m, l, acc in zip(ms, ls, accs):
+        w = torch.exp(m - m_all)
+        l_all = l_all + l * w
+        acc_all = acc_all + acc * w[..., None]
+    l_safe = torch.where(l_all == 0.0, torch.ones_like(l_all), l_all)
+    return (acc_all / l_safe[..., None]).reshape(B, Hq, 1, hd).to(q.dtype)
+
+
 # The GEMM's plain version is its oracle: (M, K) @ (K, N) accumulated in
 # f32, cast to x's dtype.
 tile_gemm_plain = ref_tile_gemm
@@ -430,4 +515,69 @@ def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                  + torch.einsum("bjhp,bjn->bhpn", w, b_c))
         ys.append(y)
     y = torch.stack(ys, dim=1).reshape(B, nc * ch, H, P)[:, :S]
+    return y.to(x.dtype), state
+
+
+SSD_ROUTES = ("simt", "tc")
+SSD_CHUNK = 64        # rows per chunk of the bf16 SSD kernel
+SSD_TC_WIDTH = 256    # most P and N of its tc route (multiples of 8)
+
+
+def ssd_four_stage_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                         b: torch.Tensor, c: torch.Tensor, *,
+                         chunk: int = SSD_CHUNK
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The Mamba-2 SSD in the four stages of the bf16 ``ssd_scan`` kernel
+    (arXiv:2405.21060, section 6), each over every chunk at once but the
+    third.  Shapes and results as ``ssd_chunked_plain``.
+
+    1. per (row, chunk): CB = C Bᵀ, once for all heads;
+    2. per (row, chunk, head): LD = cumsum(dt·a), the chunk's decay
+       exp(LD_last) and its own contribution to the state,
+       Σ_s exp(LD_last - LD_s)·dt_s·x_s b_sᵀ (P x N);
+    3. per (row, head), along the chunks: the state entering chunk c,
+       state_c = exp(LD_last,c-1)·state_c-1 + contribution_c-1, and the
+       final state;
+    4. per (row, chunk, head): y = (tril ⊙ exp(LD_t - LD_s) ⊙ CB)·(dt·x)
+       + exp(LD_t)·C·state_cᵀ.
+    """
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    L = min(chunk, S)
+    x, _ = _pad_axis(x, 1, L)
+    dt, _ = _pad_axis(dt, 1, L)
+    b, _ = _pad_axis(b, 1, L)
+    c, _ = _pad_axis(c, 1, L)
+    nc = x.shape[1] // L
+    valid = (torch.arange(nc * L, device=x.device) < S).reshape(nc, L)
+    xf = x.float().reshape(B, nc, L, H, P)
+    dtf = dt.float().reshape(B, nc, L, H) * valid[None, :, :, None]
+    bf = b.float().reshape(B, nc, L, N)
+    cf = c.float().reshape(B, nc, L, N)
+    # 1
+    cb = torch.einsum("bctn,bcsn->bcts", cf, bf)
+    # 2
+    ld = torch.cumsum(dtf * a.float(), dim=2)                 # (B, nc, L, H)
+    ld_last = ld[:, :, -1]                                    # (B, nc, H)
+    u = xf * dtf[..., None]                                   # (B, nc, L, H, P)
+    w = torch.exp(ld_last[:, :, None] - ld)[..., None] * u
+    contrib = torch.einsum("bcshp,bcsn->bchpn", w, bf)
+    decay = torch.exp(ld_last)
+    # 3
+    state = torch.zeros((B, H, P, N), device=x.device)
+    entering = []
+    for j in range(nc):
+        entering.append(state)
+        state = decay[:, j, :, None, None] * state + contrib[:, j]
+    entering = torch.stack(entering, dim=1)                   # (B, nc, H, P, N)
+    # 4
+    tri = (torch.arange(L, device=x.device)[:, None]
+           >= torch.arange(L, device=x.device)[None, :])[..., None]
+    gamma = ld[:, :, :, None, :] - ld[:, :, None, :, :]       # (B, nc, t, s, H)
+    m = torch.where(tri, torch.exp(gamma) * cb[..., None],
+                    torch.zeros((), device=x.device))
+    y = (torch.einsum("bctsh,bcshp->bcthp", m, u)
+         + torch.exp(ld)[..., None]
+         * torch.einsum("bctn,bchpn->bcthp", cf, entering))
+    y = y.reshape(B, nc * L, H, P)[:, :S]
     return y.to(x.dtype), state

@@ -4,34 +4,66 @@ Prefill of every SSM mixer goes through it: per head, a (P, N) f32 state
 is carried along the sequence, and within a chunk the recurrence is a
 masked quadratic product (``ref.ref_ssd`` is the sequential definition).
 
-CUDA kernel: ``csrc/ssd_scan.cu`` (64-row chunks whatever ``chunk`` says:
-the function is the same, only the order of the sums differs).  Plain
-version: ``blocked.ssd_chunked_plain``, chunked as ``chunk`` says.
+CUDA kernel: ``csrc/ssd_scan.cu``, two routes, each in 64-row chunks
+whatever ``chunk`` says (the function is the same, only the order of the
+sums differs): ``tc`` (bf16 with P and N multiples of 8, at most 256, and
+16-byte aligned x, b, c: the four stages of ``blocked.ssd_four_stage_plain``
+on the tensor cores) and ``simt`` (every other call; the first port's
+kernel).  Plain version: ``blocked.ssd_chunked_plain``, chunked as
+``chunk`` says.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.blocked import ssd_chunked_plain
+from repro_torch.kernels.blocked import (SSD_ROUTES, SSD_TC_WIDTH,
+                                         ssd_chunked_plain)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
 
-def _lib():
-    fn = _build.load("ssd_scan").ssd_scan_launch
-    fn.argtypes = [_P] * 7 + [_I] * 6 + [_P]
-    fn.restype = _I
+def _fn(name: str, argtypes, restype=_I):
+    fn = getattr(_build.load("ssd_scan"), name)
+    fn.argtypes, fn.restype = argtypes, restype
     return fn
 
 
+@functools.lru_cache(maxsize=1)
+def _lib():
+    return _fn("ssd_scan_launch", [_P] * 8 + [_I] * 7 + [_P])
+
+
+@functools.lru_cache(maxsize=1)
 def _max_state() -> int:
-    fn = _build.load("ssd_scan").ssd_scan_max_state
-    fn.argtypes, fn.restype = [], _I
-    return fn()
+    return _fn("ssd_scan_max_state", [])()
+
+
+@functools.lru_cache(maxsize=1)
+def tc_width() -> int:
+    """The largest P and N of the library's tc route."""
+    return _fn("ssd_scan_tc_width", [])()
+
+
+@functools.lru_cache(maxsize=1024)
+def _scratch_floats(B: int, S: int, H: int, P: int, N: int) -> int:
+    return _fn("ssd_scan_scratch", [_I] * 5, ctypes.c_longlong)(B, S, H, P, N)
+
+
+def route_of(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> str:
+    """The route the wrapper takes for CUDA inputs x (B, S, H, P), b/c
+    (B, S, N)."""
+    P, N = x.shape[-1], b.shape[-1]
+    if (x.dtype == torch.bfloat16 and P % 8 == 0 and N % 8 == 0
+            and max(P, N) <= SSD_TC_WIDTH
+            and not (x.data_ptr() % 16 or b.data_ptr() % 16
+                     or c.data_ptr() % 16)):
+        return "tc"
+    return "simt"
 
 
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -63,12 +95,20 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"[1, {_max_state()}]")
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    _build.raise_on("ssd_scan", _lib()(
+    route = route_of(x, b, c)
+    scratch = (torch.empty(_scratch_floats(B, S, H, P, N),
+                           dtype=torch.float32, device=x.device)
+               if route == "tc" else None)
+    _build.raise_on(f"ssd_scan ({route} route)", _lib()(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
-        c.data_ptr(), y.data_ptr(), state.data_ptr(), code, B, S, H, P, N,
+        c.data_ptr(), y.data_ptr(), state.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        SSD_ROUTES.index(route), code, B, S, H, P, N,
         _build.stream_ptr(x.device)))
     ssd_scan.launches += 1
+    ssd_scan.routes[route] += 1
     return y, state
 
 
 ssd_scan.launches = 0
+ssd_scan.routes = dict.fromkeys(SSD_ROUTES, 0)

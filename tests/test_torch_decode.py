@@ -167,3 +167,98 @@ def test_cuda_only_checks_raise_before_any_launch():
     k = torch.empty((2, 2, 16, 32), device="meta")
     with pytest.raises(ValueError, match="CUDA device"):
         decode_attention(q, k, k, 16)
+
+
+# ---- the bf16 kernel's split-then-merge sum (blocked.decode_attention_split)
+
+# CASES, then: hymba-1.5b's ring at its decode shape (Hq 25, Hkv 5, hd 64,
+# W 1024; a full ring and a partial one), a window over several splits,
+# W not a multiple of the 64-key tile, and W split in 32 tiles of one.
+SPLIT_CASES = CASES + [
+    (2, 25, 5, 1024, 64, (1024, 700), 0),
+    (3, 8, 2, 500, 128, (500, 99, 300), 100),
+    (2, 8, 2, 200, 32, (200, 130), 0),
+    (1, 16, 2, 2048, 32, (1537,), 0),
+]
+
+
+@pytest.mark.parametrize("W,Hkv", [(50, 2), (200, 2), (1024, 5), (2048, 8),
+                                   (2048, 1), (4096, 8), (130, 64), (64, 8)])
+def test_split_rule(W, Hkv):
+    """Whole 64-key tiles, none empty, every tile in one split; Hkv x
+    splits reaches at least half the block target when the tiles allow it
+    (a split holds whole tiles).  The rule takes no B: it cannot depend on
+    it."""
+    splits, per = blocked.decode_splits(W, Hkv)
+    tiles = -(-W // blocked.DECODE_BK)
+    assert (splits - 1) * per < tiles <= splits * per
+    assert 2 * Hkv * splits >= min(Hkv * tiles, blocked.DECODE_SPLIT_BLOCKS)
+
+
+def test_split_rule_at_the_main_shapes():
+    assert blocked.decode_splits(2048, 8) == (16, 2)     # qwen3-32b
+    assert blocked.decode_splits(1024, 5) == (16, 1)     # hymba-1.5b ring
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,W,hd,clen,window", SPLIT_CASES)
+def test_split_mirror_matches_jax_oracle(B, Hq, Hkv, W, hd, clen, window):
+    q, k, v = _inputs(B, Hq, Hkv, W, hd, seed=4)
+    c = _clen(clen, B)
+    got = blocked.decode_attention_split(T(q), T(k), T(v), torch.as_tensor(c),
+                                         window=window)
+    want = jref(q, k, v, c, window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,W,hd,clen,window",
+                         SPLIT_CASES[:1] + SPLIT_CASES[3:4]
+                         + SPLIT_CASES[5:8])
+def test_split_mirror_matches_pallas_interpret(B, Hq, Hkv, W, hd, clen,
+                                               window):
+    q, k, v = _inputs(B, Hq, Hkv, W, hd, seed=5)
+    c = _clen(clen, B)
+    want = jdecode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   jnp.asarray(c), window=window, block_k=64, interpret=True)
+    got = blocked.decode_attention_split(T(q), T(k), T(v), torch.as_tensor(c),
+                                         window=window)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+def test_split_mirror_empty_row_gives_zero():
+    q, k, v = _inputs(3, 4, 2, 300, 16, seed=6)
+    lens = torch.tensor([0, 300, 70])
+    got = blocked.decode_attention_split(T(q), T(k), T(v), lens)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    want = jref(q[1:], k[1:], v[1:], np.asarray([300, 70], np.int32))
+    np.testing.assert_allclose(got[1:].numpy(), np.asarray(want), atol=TOL,
+                               rtol=TOL)
+
+
+@pytest.mark.parametrize("rounding", [None, "split"])
+@pytest.mark.parametrize("B,Hq,Hkv,W,hd,clen,window", SPLIT_CASES[5:])
+def test_split_mirror_rows_are_batch_independent(B, Hq, Hkv, W, hd, clen,
+                                                 window, rounding):
+    """Row i of a batched call equals the B = 1 call on row i, bitwise."""
+    q, k, v = (T(a) for a in _inputs(B, Hq, Hkv, W, hd, seed=7))
+    lens = torch.as_tensor(_clen(clen, B)).reshape(-1).expand(B)
+    got = blocked.decode_attention_split(q, k, v, lens, window=window,
+                                         rounding=rounding)
+    for i in range(B):
+        solo = blocked.decode_attention_split(
+            q[i:i + 1], k[i:i + 1], v[i:i + 1], lens[i], window=window,
+            rounding=rounding)
+        assert torch.equal(got[i:i + 1], solo)
+
+
+def test_split_mirror_bf16_operands_hold_one_ulp():
+    """With bf16 inputs, P entering P V as P_hi + P_lo (the kernel's
+    operands) stays within one output ulp of the plain version; P in bf16
+    alone would not be held to it."""
+    q, k, v = (T(a).bfloat16() for a in _inputs(2, 25, 5, 1024, 64, seed=8))
+    lens = torch.tensor([1024, 700])
+    want = blocked.decode_attention_plain(q, k, v, lens).float()
+    got = blocked.decode_attention_split(q, k, v, lens,
+                                         rounding="split").float()
+    assert ((got - want).abs() <= 1e-4 + 2 ** -7 * want.abs()).all()

@@ -131,3 +131,77 @@ def test_cuda_only_checks_raise_before_any_launch():
     with pytest.raises(ValueError, match="CUDA device"):
         ssd_scan(x, torch.empty((1, 8, 2), device="meta"),
                  torch.empty((2,), device="meta"), bc, bc)
+
+
+# ---- the bf16 kernel's four stages (blocked.ssd_four_stage_plain)
+
+def _mamba2_inputs(B, S, H, P, N, seed):
+    """Mamba-2's initial ranges (arXiv:2405.21060): head h steps around
+    exp(lerp(log 1e-3, log 1e-1, h / (H - 1))) and decays at a rate A in
+    [1, 16], so the slow heads carry their state across many chunks."""
+    rng = np.random.default_rng(seed)
+    step = np.exp(np.linspace(np.log(1e-3), np.log(1e-1), H))
+    bias = step + np.log(-np.expm1(-step))                 # softplus^-1
+    pre = rng.standard_normal((B, S, H)) * 0.5 + bias
+    x = (rng.standard_normal((B, S, H, P)) * 0.5).astype(np.float32)
+    dt = np.log1p(np.exp(pre)).astype(np.float32)
+    a = (-(1 + 15 * rng.random(H))).astype(np.float32)
+    b = (rng.standard_normal((B, S, N)) * 0.3).astype(np.float32)
+    c = (rng.standard_normal((B, S, N)) * 0.3).astype(np.float32)
+    return x, dt, a, b, c
+
+
+FOUR_TOL = 1e-5
+# CASES, a ragged S over several chunks, and Mamba-2's slow decay
+FOUR_STAGE_INPUTS = (
+    [(case, "ref", 0) for case in CASES]
+    + [((1, 333, 3, 16, 8, 64), "ref", 9),
+       ((2, 300, 4, 32, 16, 64), "mamba2", 10),
+       ((1, 700, 6, 16, 32, 128), "mamba2", 11)])
+
+
+def _four_stage_inputs(case, kind, seed):
+    B, S, H, P, N, _ = case
+    if kind == "mamba2":
+        return _mamba2_inputs(B, S, H, P, N, seed)
+    return _inputs(B, S, H, P, N, seed=seed)
+
+
+@pytest.mark.parametrize("L", [64, 128])
+@pytest.mark.parametrize("case,kind,seed", FOUR_STAGE_INPUTS)
+def test_four_stage_matches_ref(case, kind, seed, L):
+    """Every stage over all chunks at once, the state passed along after:
+    the same function as the sequential oracle, at two chunk lengths."""
+    arrs = _four_stage_inputs(case, kind, seed)
+    y, st = blocked.ssd_four_stage_plain(*_torch(*arrs), chunk=L)
+    ry, rs = jref.ref_ssd(*arrs, return_final_state=True)
+    _close(y, ry, FOUR_TOL)
+    _close(st, rs, FOUR_TOL)
+
+
+@pytest.mark.parametrize("case,kind,seed", FOUR_STAGE_INPUTS[:3]
+                         + FOUR_STAGE_INPUTS[4:5])
+def test_four_stage_matches_pallas_interpret(case, kind, seed):
+    B, S, H, P, N, chunk = case
+    x, dt, a, b, c = _four_stage_inputs(case, kind, seed)
+    Sp = -(-S // chunk) * chunk
+    pad = [(0, 0), (0, Sp - S)]
+    want_y, want_s = jssd_scan(
+        jnp.pad(x, pad + [(0, 0), (0, 0)]), jnp.pad(dt, pad + [(0, 0)]), a,
+        jnp.pad(b, pad + [(0, 0)]), jnp.pad(c, pad + [(0, 0)]), chunk=chunk,
+        seq_len=S, interpret=True)
+    y, st = blocked.ssd_four_stage_plain(*_torch(x, dt, a, b, c))
+    _close(y, want_y[:, :S], FOUR_TOL)
+    _close(st, want_s, FOUR_TOL)
+
+
+def test_mamba2_inputs_need_the_carry():
+    """With Mamba-2's ranges the state carried into a chunk moves y there by
+    far more than the tolerance: the second chunk's y computed from a zero
+    state (a dropped carry) fails the comparison."""
+    x, dt, a, b, c = _torch(*_mamba2_inputs(1, 128, 4, 16, 16, seed=12))
+    y, _ = blocked.ssd_four_stage_plain(x, dt, a, b, c)
+    y2, _ = blocked.ssd_four_stage_plain(x[:, 64:], dt[:, 64:], a,
+                                         b[:, 64:], c[:, 64:])
+    gap = (y[:, 64:] - y2).abs() / (FOUR_TOL * (1 + y[:, 64:].abs()))
+    assert gap.max() > 100
