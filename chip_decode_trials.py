@@ -48,8 +48,7 @@ def variants(src: str) -> dict:
         s = s.replace("__threadfence();",
                       'asm volatile("fence.acq_rel.gpu;" ::: "memory");')
         # plain loads: __ldcg's asm is not ordered by an asm fence
-        s = s.replace("__ldcg(part_m + slot)", "part_m[slot]")
-        s = s.replace("__ldcg(part_l + slot)", "part_l[slot]")
+        s = re.sub(r"__ldcg\((part_[ml]) \+ ([^;]*)\);", r"\1[\2];", s)
         return s.replace("__ldcg(reinterpret_cast<const float4*>(",
                          "*(reinterpret_cast<const float4*>(")
 

@@ -762,8 +762,8 @@ def parent_decode(q, k, v, lens):
 
 
 def device_ms(fn, reps: int = 20):
-    """(device time per call in ms, kernels per call, {kernel: ms per
-    call}) of fn() under torch.profiler, after a warm-up outside the
+    """(device time per call in ms, kernel launches per call, {kernel: ms
+    per call}) of fn() under torch.profiler, after a warm-up outside the
     trace: the kernels' own time, without the host's share of a call."""
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -773,11 +773,16 @@ def device_ms(fn, reps: int = 20):
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA]
-    return (sum(e.self_device_time_total for e in events) / reps / 1e3,
-            sum(e.count for e in events) / reps,
-            {e.key: e.self_device_time_total / reps / 1e3 for e in events})
+    # Per kernel: its mean time a launch times its launches a call, the
+    # count rounded, so that an event the trace drops changes neither.
+    per_call = {e.key: (e.self_device_time_total / e.count / 1e3,
+                        round(e.count / reps))
+                for e in prof.key_averages()
+                if e.device_type == torch.autograd.DeviceType.CUDA
+                and e.count}
+    return (sum(ms * n for ms, n in per_call.values()),
+            sum(n for _, n in per_call.values()),
+            {k: ms * n for k, (ms, n) in per_call.items() if n})
 
 
 def kernel_name(key: str) -> str:

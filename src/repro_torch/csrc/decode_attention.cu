@@ -42,7 +42,7 @@
 //   between warps;
 // * a split writes its (m, l, acc) partial; the last block of a (batch
 //   row, kv head) to finish (a ticket it resets) merges the row's live
-//   splits in split order and writes the output.  A row with one live
+//   splits online in split order and writes the output.  A row with one live
 //   split writes its output directly.  Everything a row computes depends
 //   on that row alone: a row of a batched call equals the B = 1 call
 //   bitwise.
@@ -55,8 +55,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
-
-#include <algorithm>
 
 #include "warp_mma.cuh"
 
@@ -96,6 +94,7 @@ constexpr int TC_STAGES = 2;          // K/V tiles in flight per block
 constexpr int QROWS = 16;             // query rows of the mma tile
 constexpr int SPLIT_BLOCKS = 132;     // (kv head, split) blocks at B = 1
 constexpr int MAX_TC_GROUP = QROWS;
+constexpr int MERGE_BATCH = 8;        // splits a merging thread loads at once
 
 // (splits, tiles per split) of a cache of width W with Hkv kv heads:
 // enough splits that Hkv x splits reaches SPLIT_BLOCKS where the tiles
@@ -134,12 +133,6 @@ __device__ __forceinline__ void load_rows(bf16* dst, const bf16* src, int r0,
                           in ? src + (size_t)(r0 + r) * hd + c * 8 : src,
                           in ? 16 : 0);
   }
-}
-
-// Shared memory of the merge, in floats: each live split's m, then l, per
-// query row (G x splits each), then each row's l.
-inline size_t merge_smem(int G, int nsplit) {
-  return sizeof(float) * (size_t)(2 * G * nsplit + G);
 }
 
 template <int HDP>
@@ -358,44 +351,39 @@ decode_tc(const bf16* __restrict__ q, const bf16* __restrict__ k,
   __syncthreads();
   if (!last) return;
   __threadfence();
-  // The merge, in split order: per row, m = max m_s and the weights
-  // w_s = e^(m_s - m) with l = sum l_s w_s (in shared memory, reused),
-  // then out = sum acc_s w_s / l, four columns a thread.
-  float* wm = reinterpret_cast<float*>(smem_raw);   // (G, n_live): m_s, w_s
-  float* wl = wm + G * n_live;                      // (G, n_live): l_s
-  float* lr = wl + G * n_live;                      // (G): l
-  for (int i = tid; i < G * n_live; i += TC_THREADS) {
-    const int gr = i / n_live;
-    const size_t slot = (row0 + gr) * sh.nsplit + s_lo + (i - gr * n_live);
-    wm[i] = __ldcg(part_m + slot);
-    wl[i] = __ldcg(part_l + slot);
-  }
-  __syncthreads();
-  if (tid < G) {
-    float* m = wm + tid * n_live;
-    float m_all = NEG_INF, l_all = 0.f;
-    for (int sp = 0; sp < n_live; ++sp) m_all = fmaxf(m_all, m[sp]);
-    for (int sp = 0; sp < n_live; ++sp) {
-      m[sp] = expf(m[sp] - m_all);
-      l_all += wl[tid * n_live + sp] * m[sp];
-    }
-    lr[tid] = l_all;
-  }
-  __syncthreads();
+  // The merge, in split order, online: per item (four columns of a
+  // row), m, l and acc start from split s_lo's and take in each next
+  // split s as m' = max(m, m_s), l = l e^(m - m') + l_s e^(m_s - m'), acc
+  // likewise; then out = acc / l.  A thread loads MERGE_BATCH splits of
+  // (m_s, l_s, acc_s) before adding any.  Every thread of a row repeats
+  // the same sums on m and l, so they agree bitwise.
   for (int i = tid; i < G * hd / 4; i += TC_THREADS) {
     const int gr = i / (hd / 4), d = (i - gr * (hd / 4)) * 4;
-    const float* src = part_acc + ((row0 + gr) * sh.nsplit + s_lo) * hd + d;
-    const float* w = wm + gr * n_live;
+    const size_t base = (row0 + gr) * sh.nsplit + s_lo;
+    float m = NEG_INF, l = 0.f;
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll 8
-    for (int sp = 0; sp < n_live; ++sp) {
-      const float4 a = __ldcg(reinterpret_cast<const float4*>(src + sp * hd));
-      acc.x += a.x * w[sp];
-      acc.y += a.y * w[sp];
-      acc.z += a.z * w[sp];
-      acc.w += a.w * w[sp];
+    for (int s0 = 0; s0 < n_live; s0 += MERGE_BATCH) {
+      float ms[MERGE_BATCH], ls[MERGE_BATCH];
+      float4 as[MERGE_BATCH];
+#pragma unroll
+      for (int j = 0; j < MERGE_BATCH; ++j)
+        if (s0 + j < n_live) {
+          ms[j] = __ldcg(part_m + base + s0 + j);
+          ls[j] = __ldcg(part_l + base + s0 + j);
+          as[j] = __ldcg(reinterpret_cast<const float4*>(
+              part_acc + (base + s0 + j) * hd + d));
+        }
+#pragma unroll
+      for (int j = 0; j < MERGE_BATCH; ++j)
+        if (s0 + j < n_live) {
+          const float m_new = fmaxf(m, ms[j]);
+          const float a = expf(m - m_new), w = expf(ms[j] - m_new);
+          l = l * a + ls[j] * w;
+          acc = make_float4(acc.x * a + as[j].x * w, acc.y * a + as[j].y * w,
+                            acc.z * a + as[j].z * w, acc.w * a + as[j].w * w);
+          m = m_new;
+        }
     }
-    const float l = lr[gr];
     __nv_bfloat162* o2 =
         reinterpret_cast<__nv_bfloat162*>(out + (row0 + gr) * hd + d);
     o2[0] = __floats2bfloat162_rn(acc.x / l, acc.y / l);
@@ -409,14 +397,11 @@ int launch_tc(const void* q, const void* k, const void* v, const int* clen,
               void* out, float* part, int* ticket, const DecShape& sh,
               cudaStream_t stream) {
   static unsigned long long done = 0;
-  const int G = sh.Hq / sh.Hkv;
   const int stages = sh.per < TC_STAGES ? sh.per : TC_STAGES;
-  const size_t most = std::max(TcSmem<HDP>::bytes(TC_STAGES),
-                               merge_smem(MAX_TC_GROUP, SPLIT_BLOCKS));
-  cudaError_t err = allow_smem(decode_tc<HDP>, most, done);
+  cudaError_t err = allow_smem(decode_tc<HDP>, TcSmem<HDP>::bytes(TC_STAGES),
+                               done);
   if (err != cudaSuccess) return (int)err;
-  const size_t smem = std::max(TcSmem<HDP>::bytes(stages),
-                               merge_smem(G, sh.nsplit));
+  const size_t smem = TcSmem<HDP>::bytes(stages);
   dim3 grid(sh.nsplit, sh.Hkv, sh.B);
   decode_tc<HDP><<<grid, TC_THREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, clen, (bf16*)out, part,

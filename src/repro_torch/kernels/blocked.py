@@ -366,12 +366,13 @@ def decode_attention_split(q: torch.Tensor, k: torch.Tensor,
     """``decode_attention_plain`` summed as the bf16 kernel sums it: W is
     cut into ``decode_splits(W, Hkv)`` splits of whole 64-key tiles; each
     split runs the online softmax over its tiles into (m, l, acc), and the
-    splits are merged in split order: m = max m_s, l = sum l_s e^(m_s - m),
-    acc = sum acc_s e^(m_s - m), out = acc / l.  A split, or a tile, that
-    holds no valid key adds nothing (the kernel skips it).  ``rounding``:
-    None for f32 products, or "split" / "bf16" for the kernel's operands
-    (P enters P V as P_hi + P_lo, or as bf16(P)); the scores are
-    (q K^T) * scale.  A row with no valid key gives 0."""
+    splits are merged online in split order, as the kernel merges them:
+    m' = max(m, m_s), l = l e^(m - m') + l_s e^(m_s - m'), acc likewise,
+    out = acc / l.  A split, or a tile, that holds no valid key adds
+    nothing (the kernel skips it).  ``rounding``: None for f32 products, or
+    "split" / "bf16" for the kernel's operands (P enters P V as P_hi +
+    P_lo, or as bf16(P)); the scores are (q K^T) * scale.  A row with no
+    valid key gives 0."""
     B, Hq, _, hd = q.shape
     Hkv, W = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -414,13 +415,15 @@ def decode_attention_split(q: torch.Tensor, k: torch.Tensor,
         ms.append(m)
         ls.append(l)
         accs.append(acc)
-    m_all = torch.stack(ms).amax(dim=0)
+    m_all = torch.full(shape, NEG_INF, device=q.device)
     l_all = torch.zeros(shape, device=q.device)
     acc_all = torch.zeros(shape + (hd,), device=q.device)
     for m, l, acc in zip(ms, ls, accs):
-        w = torch.exp(m - m_all)
-        l_all = l_all + l * w
-        acc_all = acc_all + acc * w[..., None]
+        m_new = torch.maximum(m_all, m)
+        a, w = torch.exp(m_all - m_new), torch.exp(m - m_new)
+        l_all = l_all * a + l * w
+        acc_all = acc_all * a[..., None] + acc * w[..., None]
+        m_all = m_new
     l_safe = torch.where(l_all == 0.0, torch.ones_like(l_all), l_all)
     return (acc_all / l_safe[..., None]).reshape(B, Hq, 1, hd).to(q.dtype)
 
