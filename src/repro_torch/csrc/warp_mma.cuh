@@ -48,15 +48,13 @@ template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
+// (n > 3 waits as for 3: more than the caller needs, never less.)
 __device__ __forceinline__ void cp_async_wait(int n) {
   switch (n) {
     case 0: cp_async_wait<0>(); break;
     case 1: cp_async_wait<1>(); break;
     case 2: cp_async_wait<2>(); break;
-    case 3: cp_async_wait<3>(); break;
-    case 4: cp_async_wait<4>(); break;
-    case 5: cp_async_wait<5>(); break;
-    default: cp_async_wait<6>(); break;
+    default: cp_async_wait<3>(); break;
   }
 }
 
