@@ -85,9 +85,10 @@ FAULTS = {
          "t_hi = max(t_lo + 1, (hi + BK - 1) / BK - 1);"), DECODE),
     "decode_attention_tc_merge": (
         "decode_attention", "decode_attention.cu",
-        ("#pragma unroll 8\n    for (int sp = 0; sp < n_live; ++sp) {",
-         "#pragma unroll 8\n    for (int sp = 0; sp < n_live - 1; ++sp) {"),
-        DECODE),
+        ("        if (s0 + j < n_live) {\n"
+         "          const float m_new = fmaxf(m, ms[j]);",
+         "        if (s0 + j < n_live - 1) {\n"
+         "          const float m_new = fmaxf(m, ms[j]);"), DECODE),
     "decode_attention_simt": ("decode_attention", "decode_attention.cu",
                               ("for (int t0 = t_lo; t0 < t_hi; t0 += BK)",
                                "for (int t0 = t_lo; t0 < t_hi - BK; t0 += BK)"),

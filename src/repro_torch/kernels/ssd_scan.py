@@ -54,18 +54,6 @@ def _scratch_floats(B: int, S: int, H: int, P: int, N: int) -> int:
     return _fn("ssd_scan_scratch", [_I] * 5, ctypes.c_longlong)(B, S, H, P, N)
 
 
-def route_of(x: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> str:
-    """The route the wrapper takes for CUDA inputs x (B, S, H, P), b/c
-    (B, S, N)."""
-    P, N = x.shape[-1], b.shape[-1]
-    if (x.dtype == torch.bfloat16 and P % 8 == 0 and N % 8 == 0
-            and max(P, N) <= SSD_TC_WIDTH
-            and not (x.data_ptr() % 16 or b.data_ptr() % 16
-                     or c.data_ptr() % 16)):
-        return "tc"
-    return "simt"
-
-
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
              b: torch.Tensor, c: torch.Tensor, *, chunk: int = 128
              ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,7 +83,10 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                          f"[1, {_max_state()}]")
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
-    route = route_of(x, b, c)
+    route = ("tc" if code == 1 and P % 8 == 0 and N % 8 == 0
+             and max(P, N) <= SSD_TC_WIDTH
+             and not (x.data_ptr() % 16 or b.data_ptr() % 16
+                      or c.data_ptr() % 16) else "simt")
     scratch = (torch.empty(_scratch_floats(B, S, H, P, N),
                            dtype=torch.float32, device=x.device)
                if route == "tc" else None)
