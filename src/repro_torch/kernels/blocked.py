@@ -345,7 +345,6 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 DECODE_ROUTES = ("simt", "tc")
 DECODE_BK = 64               # keys per tile
 DECODE_SPLIT_BLOCKS = 132    # (kv head, split) blocks a B = 1 call aims at
-DECODE_TC_GROUP = 16         # most query heads per kv head of the tc route
 
 
 def decode_splits(W: int, Hkv: int) -> Tuple[int, int]:
@@ -357,75 +356,6 @@ def decode_splits(W: int, Hkv: int) -> Tuple[int, int]:
     S = min(tiles, -(-DECODE_SPLIT_BLOCKS // Hkv))
     per = -(-tiles // S)
     return -(-tiles // per), per
-
-
-def decode_attention_split(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor, cache_len, *, window: int = 0,
-                           scale: Optional[float] = None,
-                           rounding: Optional[str] = None) -> torch.Tensor:
-    """``decode_attention_plain`` summed as the bf16 kernel sums it: W is
-    cut into ``decode_splits(W, Hkv)`` splits of whole 64-key tiles; each
-    split runs the online softmax over its tiles into (m, l, acc), and the
-    splits are merged online in split order, as the kernel merges them:
-    m' = max(m, m_s), l = l e^(m - m') + l_s e^(m_s - m'), acc likewise,
-    out = acc / l.  A split, or a tile, that holds no valid key adds
-    nothing (the kernel skips it).  ``rounding``: None for f32 products, or
-    "split" / "bf16" for the kernel's operands (P enters P V as P_hi +
-    P_lo, or as bf16(P)); the scores are (q K^T) * scale.  A row with no
-    valid key gives 0."""
-    B, Hq, _, hd = q.shape
-    Hkv, W = k.shape[1], k.shape[2]
-    G = Hq // Hkv
-    scale = hd ** -0.5 if scale is None else scale
-    nsplit, per = decode_splits(W, Hkv)
-    bk = DECODE_BK
-    k, _ = _pad_axis(k, 2, bk)
-    v, _ = _pad_axis(v, 2, bk)
-    ntiles = k.shape[2] // bk
-    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1).expand(B)
-    hi = clen.clamp(max=W)
-    lo = (clen - window).clamp(min=0) if window > 0 else torch.zeros_like(clen)
-    if rounding is None:
-        def qk(qf, k_j):
-            return _qk(qf, k_j) * scale
-        pv = _pv
-    else:
-        qk, pv = _split_products(rounding, False, scale)
-    qf = q.float().reshape(B, Hkv, G, 1, hd)
-    shape = (B, Hkv, G, 1)
-    ms, ls, accs = [], [], []
-    for s in range(nsplit):
-        m = torch.full(shape, NEG_INF, device=q.device)
-        l = torch.zeros(shape, device=q.device)
-        acc = torch.zeros(shape + (hd,), device=q.device)
-        for j in range(s * per, min((s + 1) * per, ntiles)):
-            kpos = j * bk + torch.arange(bk, device=q.device)
-            ok = ((kpos[None, :] >= lo[:, None]) & (kpos[None, :] < hi[:, None])
-                  )[:, None, None, None, :]                  # (B, 1, 1, 1, bk)
-            sc = qk(qf, k[:, :, j * bk:(j + 1) * bk].float())
-            sc = torch.where(ok, sc, torch.full_like(sc, NEG_INF))
-            m_new = torch.maximum(m, sc.amax(dim=-1))
-            p = torch.where(ok, torch.exp(sc - m_new[..., None]),
-                            torch.zeros_like(sc))
-            alpha = torch.exp(m - m_new)
-            l = l * alpha + p.sum(dim=-1)
-            acc = acc * alpha[..., None] + pv(p, v[:, :, j * bk:(j + 1) * bk]
-                                              .float())
-            m = m_new
-        ms.append(m)
-        ls.append(l)
-        accs.append(acc)
-    m_all = torch.full(shape, NEG_INF, device=q.device)
-    l_all = torch.zeros(shape, device=q.device)
-    acc_all = torch.zeros(shape + (hd,), device=q.device)
-    for m, l, acc in zip(ms, ls, accs):
-        m_new = torch.maximum(m_all, m)
-        a, w = torch.exp(m_all - m_new), torch.exp(m - m_new)
-        l_all = l_all * a + l * w
-        acc_all = acc_all * a[..., None] + acc * w[..., None]
-        m_all = m_new
-    l_safe = torch.where(l_all == 0.0, torch.ones_like(l_all), l_all)
-    return (acc_all / l_safe[..., None]).reshape(B, Hq, 1, hd).to(q.dtype)
 
 
 # The GEMM's plain version is its oracle: (M, K) @ (K, N) accumulated in
@@ -523,7 +453,6 @@ def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 SSD_ROUTES = ("simt", "tc")
 SSD_CHUNK = 64        # rows per chunk of the bf16 SSD kernel
-SSD_TC_WIDTH = 256    # most P and N of its tc route (multiples of 8)
 
 
 def ssd_four_stage_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -9,8 +9,7 @@ CUDA kernel: ``csrc/decode_attention.cu``, two routes: ``tc`` (bf16, at
 most 16 query heads per kv head, 16-byte aligned q, k, v; one launch,
 mma.sync, W in ``blocked.decode_splits`` splits merged in split order) and
 ``simt`` (every other call; the first port's kernel).  Plain version:
-``blocked.decode_attention_plain``; ``blocked.decode_attention_split``
-sums as the tc route does.
+``blocked.decode_attention_plain``.
 """
 from __future__ import annotations
 

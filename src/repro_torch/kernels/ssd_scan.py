@@ -21,8 +21,7 @@ from typing import Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.blocked import (SSD_ROUTES, SSD_TC_WIDTH,
-                                         ssd_chunked_plain)
+from repro_torch.kernels.blocked import SSD_ROUTES, ssd_chunked_plain
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 
@@ -84,7 +83,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     y = torch.empty_like(x)
     state = torch.empty((B, H, P, N), dtype=torch.float32, device=x.device)
     route = ("tc" if code == 1 and P % 8 == 0 and N % 8 == 0
-             and max(P, N) <= SSD_TC_WIDTH
+             and max(P, N) <= tc_width()
              and not (x.data_ptr() % 16 or b.data_ptr() % 16
                       or c.data_ptr() % 16) else "simt")
     scratch = (torch.empty(_scratch_floats(B, S, H, P, N),

@@ -169,7 +169,66 @@ def test_cuda_only_checks_raise_before_any_launch():
         decode_attention(q, k, k, 16)
 
 
-# ---- the bf16 kernel's split-then-merge sum (blocked.decode_attention_split)
+# ---- the bf16 kernel's split-then-merge sum
+
+def split_mirror(q, k, v, cache_len, *, window=0, scale=None, split_p=False):
+    """``decode_attention_plain`` summed as the bf16 kernel sums it: W is
+    cut into ``decode_splits(W, Hkv)`` splits of whole 64-key tiles; each
+    split runs the online softmax over its tiles into (m, l, acc), and the
+    splits are merged online in split order, as the kernel merges them:
+    m' = max(m, m_s), l = l e^(m - m') + l_s e^(m_s - m'), acc likewise,
+    out = acc / l.  A split, or a tile, that holds no valid key adds
+    nothing (the kernel skips it).  ``split_p``: P enters P V as P_hi +
+    P_lo, the kernel's operands (else f32 products); the scores are
+    (q K^T) * scale.  A row with no valid key gives 0."""
+    B, Hq, _, hd = q.shape
+    Hkv, W = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    scale = hd ** -0.5 if scale is None else scale
+    nsplit, per = blocked.decode_splits(W, Hkv)
+    bk = blocked.DECODE_BK
+    k, _ = blocked._pad_axis(k, 2, bk)
+    v, _ = blocked._pad_axis(v, 2, bk)
+    ntiles = k.shape[2] // bk
+    clen = torch.as_tensor(cache_len).reshape(-1).expand(B)
+    hi = clen.clamp(max=W)
+    lo = (clen - window).clamp(min=0) if window > 0 else torch.zeros_like(clen)
+    if split_p:
+        qk, pv = blocked._split_products("split", False, scale)
+    else:
+        def qk(qf, k_j):
+            return blocked._qk(qf, k_j) * scale
+        pv = blocked._pv
+    qf = q.float().reshape(B, Hkv, G, 1, hd)
+    shape = (B, Hkv, G, 1)
+    neg = blocked.NEG_INF
+    m_all, l_all = torch.full(shape, neg), torch.zeros(shape)
+    acc_all = torch.zeros(shape + (hd,))
+    for s in range(nsplit):
+        m, l, acc = torch.full(shape, neg), torch.zeros(shape), \
+            torch.zeros(shape + (hd,))
+        for j in range(s * per, min((s + 1) * per, ntiles)):
+            kpos = j * bk + torch.arange(bk)
+            ok = ((kpos[None, :] >= lo[:, None]) & (kpos[None, :] < hi[:, None])
+                  )[:, None, None, None, :]                  # (B, 1, 1, 1, bk)
+            sc = qk(qf, k[:, :, j * bk:(j + 1) * bk].float())
+            sc = torch.where(ok, sc, torch.full_like(sc, neg))
+            m_new = torch.maximum(m, sc.amax(dim=-1))
+            p = torch.where(ok, torch.exp(sc - m_new[..., None]),
+                            torch.zeros_like(sc))
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + pv(p, v[:, :, j * bk:(j + 1) * bk]
+                                              .float())
+            m = m_new
+        m_new = torch.maximum(m_all, m)
+        a, w = torch.exp(m_all - m_new), torch.exp(m - m_new)
+        l_all = l_all * a + l * w
+        acc_all = acc_all * a[..., None] + acc * w[..., None]
+        m_all = m_new
+    l_safe = torch.where(l_all == 0.0, torch.ones_like(l_all), l_all)
+    return (acc_all / l_safe[..., None]).reshape(B, Hq, 1, hd).to(q.dtype)
+
 
 # CASES, then: hymba-1.5b's ring at its decode shape (Hq 25, Hkv 5, hd 64,
 # W 1024; a full ring and a partial one), a window over several splits,
@@ -204,8 +263,7 @@ def test_split_rule_at_the_main_shapes():
 def test_split_mirror_matches_jax_oracle(B, Hq, Hkv, W, hd, clen, window):
     q, k, v = _inputs(B, Hq, Hkv, W, hd, seed=4)
     c = _clen(clen, B)
-    got = blocked.decode_attention_split(T(q), T(k), T(v), torch.as_tensor(c),
-                                         window=window)
+    got = split_mirror(T(q), T(k), T(v), torch.as_tensor(c), window=window)
     want = jref(q, k, v, c, window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
@@ -220,8 +278,7 @@ def test_split_mirror_matches_pallas_interpret(B, Hq, Hkv, W, hd, clen,
     c = _clen(clen, B)
     want = jdecode(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
                    jnp.asarray(c), window=window, block_k=64, interpret=True)
-    got = blocked.decode_attention_split(T(q), T(k), T(v), torch.as_tensor(c),
-                                         window=window)
+    got = split_mirror(T(q), T(k), T(v), torch.as_tensor(c), window=window)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
 
@@ -229,26 +286,25 @@ def test_split_mirror_matches_pallas_interpret(B, Hq, Hkv, W, hd, clen,
 def test_split_mirror_empty_row_gives_zero():
     q, k, v = _inputs(3, 4, 2, 300, 16, seed=6)
     lens = torch.tensor([0, 300, 70])
-    got = blocked.decode_attention_split(T(q), T(k), T(v), lens)
+    got = split_mirror(T(q), T(k), T(v), lens)
     assert torch.equal(got[0], torch.zeros_like(got[0]))
     want = jref(q[1:], k[1:], v[1:], np.asarray([300, 70], np.int32))
     np.testing.assert_allclose(got[1:].numpy(), np.asarray(want), atol=TOL,
                                rtol=TOL)
 
 
-@pytest.mark.parametrize("rounding", [None, "split"])
+@pytest.mark.parametrize("split_p", [False, True], ids=["None", "split"])
 @pytest.mark.parametrize("B,Hq,Hkv,W,hd,clen,window", SPLIT_CASES[5:])
 def test_split_mirror_rows_are_batch_independent(B, Hq, Hkv, W, hd, clen,
-                                                 window, rounding):
+                                                 window, split_p):
     """Row i of a batched call equals the B = 1 call on row i, bitwise."""
     q, k, v = (T(a) for a in _inputs(B, Hq, Hkv, W, hd, seed=7))
     lens = torch.as_tensor(_clen(clen, B)).reshape(-1).expand(B)
-    got = blocked.decode_attention_split(q, k, v, lens, window=window,
-                                         rounding=rounding)
+    got = split_mirror(q, k, v, lens, window=window, split_p=split_p)
     for i in range(B):
-        solo = blocked.decode_attention_split(
+        solo = split_mirror(
             q[i:i + 1], k[i:i + 1], v[i:i + 1], lens[i], window=window,
-            rounding=rounding)
+            split_p=split_p)
         assert torch.equal(got[i:i + 1], solo)
 
 
@@ -259,6 +315,5 @@ def test_split_mirror_bf16_operands_hold_one_ulp():
     q, k, v = (T(a).bfloat16() for a in _inputs(2, 25, 5, 1024, 64, seed=8))
     lens = torch.tensor([1024, 700])
     want = blocked.decode_attention_plain(q, k, v, lens).float()
-    got = blocked.decode_attention_split(q, k, v, lens,
-                                         rounding="split").float()
+    got = split_mirror(q, k, v, lens, split_p=True).float()
     assert ((got - want).abs() <= 1e-4 + 2 ** -7 * want.abs()).all()
