@@ -16,7 +16,12 @@ never loads a row's last live tile, or its merge leaves out the last
 split's values, and its simt route (f32) skips the last tile of each W
 chunk; the SSD scan's tc route (bf16) drops the carry between chunks in
 its state-passing stage, or writes no y for the last chunk, and its simt
-route (f32) drops the carry of the state from one chunk to the next.
+route (f32) drops the carry of the state from one chunk to the next; the
+flash backward's dK/dV kernel skips the last query tile of each head, its
+dQ kernel the last live kv tile; the stream backward's dK/dV kernel drops
+the rotation terms of the RoPE backward, or the second term of the
+qk-norm backward (those two only at the test cases: the main shapes,
+vilbert-base's, have neither RoPE nor qk-norm).
 chip_smoke's check of that kernel then runs on the copy, in a
 subprocess, in the dtype of the faulty route, once at the kernel test
 cases and once at the main path's shapes (the GEMM's faults once more at
@@ -48,6 +53,8 @@ STREAM = ("STREAM_CASES", "MAIN_STREAM", "check_stream")
 GEMM = ("GEMM_CASES", "MAIN_GEMM", "check_gemm")
 DECODE = ("DECODE_CASES", "MAIN_DECODE", "check_decode")
 SSD = ("SSD_CASES", "MAIN_SSD", "check_ssd")
+FLASH_BWD = ("FLASH_BWD_CASES", "MAIN_FLASH_BWD", "check_flash_bwd")
+STREAM_BWD = ("STREAM_BWD_CASES", "MAIN_STREAM_BWD", "check_stream_bwd")
 # fault: (kernel, CUDA source, (text, planted replacement),
 #         chip_smoke's (test cases, main-path shapes, check function))
 FAULTS = {
@@ -111,7 +118,30 @@ FAULTS = {
     "ssd_scan_simt": ("ssd_scan", "ssd_scan.cu",
                       ("st[n * PS + p] = fmaf(decay, st[n * PS + p], acc[j]);",
                        "st[n * PS + p] = acc[j];"), SSD),
+    # the backward kernels: flash dK/dV skips each head's last query tile,
+    # flash dQ its last live kv tile; stream dK/dV drops the rotation terms
+    # of the RoPE backward, or the second term of the qk-norm backward
+    "flash_attention_bwd_dkv": (
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        ("for (int q0 = 0; q0 < sh.Sq; q0 += BQ) {",
+         "for (int q0 = 0; q0 < sh.Sq - BQ; q0 += BQ) {"), FLASH_BWD),
+    "flash_attention_bwd_dq": (
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        ("for (int j = kv.lo; j < kv.hi; ++j) {",
+         "for (int j = kv.lo; j < kv.hi - 1; ++j) {"), FLASH_BWD),
+    "stream_attention_bwd_rope": (
+        "stream_attention_bwd", "stream_attention_bwd.cu",
+        ("      kr[e] = g1 * cs + g2 * sn;\n"
+         "      kr[e + half] = g2 * cs - g1 * sn;",
+         "      kr[e] = g1 * cs;\n"
+         "      kr[e + half] = g2 * cs;"), STREAM_BWD),
+    "stream_attention_bwd_norm": (
+        "stream_attention_bwd", "stream_attention_bwd.cu",
+        ("kr[e] = r * sd.k_gamma[e] * kr[e] - r * r * r * kp[e] * dot / hd;",
+         "kr[e] = r * sd.k_gamma[e] * kr[e];"), STREAM_BWD),
 }
+# Faults checked at the test cases only (the main shapes do not reach them).
+CASES_ONLY = ("stream_attention_bwd_rope", "stream_attention_bwd_norm")
 # Kernel -> the name prefixes of main shapes it is also checked at alone.
 MAIN_SUBSETS = {"tile_gemm": ("hymba",)}
 # Faults in an f32 route: their runs check f32, the others bf16.
@@ -171,8 +201,9 @@ def main() -> None:
             runs = {part: (CHECK.format(names=names, part=part,
                                         kernel=kernel, dtype=dtype),
                            f"FAIL: {kernel}")
-                    for part in ("cases", "main")
-                    + MAIN_SUBSETS.get(kernel, ())}
+                    for part in (("cases",) if label in CASES_ONLY
+                                 else ("cases", "main")
+                                 + MAIN_SUBSETS.get(kernel, ()))}
             if label in MODEL_CHECKS:
                 runs["model"] = MODEL_CHECKS[label]
             for part, (code, message) in runs.items():

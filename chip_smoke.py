@@ -105,6 +105,8 @@ from repro_torch.kernels import decode_attention as decode_lib  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     flash_attention, live_tiles)
+from repro_torch.kernels.flash_vjp import (  # noqa: E402
+    flash_attention_bwd, stream_attention_bwd)
 from repro_torch.kernels import ssd_scan as ssd_lib  # noqa: E402
 from repro_torch.kernels.ssd_scan import ssd_scan  # noqa: E402
 from repro_torch.kernels.stream_attention import (  # noqa: E402
@@ -117,6 +119,14 @@ from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.vilbert import ViLBERT  # noqa: E402
 from repro_torch.plan import plan_model  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from repro_torch.configs import registry  # noqa: E402
+from repro_torch.core.types import ShapeConfig  # noqa: E402
+from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
+from repro_torch.kernels import flash_vjp  # noqa: E402
+from repro_torch.plan.heuristics import resolve_layer_mode  # noqa: E402
+from repro_torch.train import optimizer as OPT  # noqa: E402
+from repro_torch.train import steps as ST  # noqa: E402
+from repro_torch.train.loop import build_model, to_device  # noqa: E402
 
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 HBM_BYTES_PER_S = 3.35e12
@@ -145,7 +155,13 @@ TOL = {"flash_attention": {torch.float32: (2e-4, 2e-4),
        # (y 7.8e-6, final state 1.8e-6), and below what products done in
        # TF32 would miss by.  The final state is f32 in both runs and takes
        # the f32 limits.
-       "ssd_scan": {torch.float32: (1e-4, 1e-4), torch.bfloat16: BF16_TOL}}
+       "ssd_scan": {torch.float32: (1e-4, 1e-4), torch.bfloat16: BF16_TOL},
+       # the backward kernels: f32 at the JAX package's gradient tolerances
+       # (test_kernels.py:179, :196); bf16 as the forwards
+       "flash_attention_bwd": {torch.float32: (2e-4, 2e-4),
+                               torch.bfloat16: BF16_TOL},
+       "stream_attention_bwd": {torch.float32: (5e-4, 5e-4),
+                                torch.bfloat16: BF16_TOL}}
 # Three modes against each other, vilbert-base in f32 at N = 1024: the
 # final vision and language streams (the logits say little: with random
 # weights the pooler's tanh saturates), max |difference| over max |value|.
@@ -162,6 +178,11 @@ KERNELS = {
     "decode_attention": (decode_attention,
                          "src/repro/kernels/decode_attention.py:124"),
     "ssd_scan": (ssd_scan, "src/repro/kernels/ssd_scan.py:97"),
+    # the JAX training path's custom VJPs (jnp, not Pallas kernels)
+    "flash_attention_bwd": (flash_attention_bwd,
+                            "src/repro/kernels/flash_vjp.py:114"),
+    "stream_attention_bwd": (stream_attention_bwd,
+                             "src/repro/kernels/flash_vjp.py:267"),
 }
 
 
@@ -443,6 +464,7 @@ def check_flash(gen, report):
                 report[name] = dict(
                     max_abs_err=err,
                     ms=time_ms(lambda: flash_attention(q, k, v)),
+                    device_ms=device_ms(lambda: flash_attention(q, k, v))[0],
                     plain_ms=time_ms(
                         lambda: blocked.flash_attention_plain(q, k, v)),
                     library_ms=time_ms(
@@ -523,12 +545,249 @@ def check_stream(gen, report):
                 report[name] = dict(
                     max_abs_err=err,
                     ms=time_ms(lambda: stream_attention(q, x, wk, wv)),
+                    device_ms=device_ms(
+                        lambda: stream_attention(q, x, wk, wv))[0],
                     plain_ms=time_ms(
                         lambda: blocked.stream_attention_plain(q, x, wk, wv)),
                     library_ms=time_ms(library),
                     shape=f"q {(B, H, Sq, hd)}, x_kv {(B, Sk, D)} bf16",
                     flops=flops, bytes=nbytes, dtype=dt,
                     regeneration=regeneration(1, Sq))
+
+
+# ---------------------------------------------------------------------------
+# Phase 3 (training): the backward kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+# B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len (None = Sk)
+FLASH_BWD_CASES = [
+    (1, 4, 4, 128, 128, 128, 128, False, 0, None),   # MHA square
+    (2, 8, 2, 256, 256, 128, 128, True, 0, None),    # GQA causal
+    (1, 4, 2, 128, 384, 128, 128, True, 0, None),    # causal, offset KV
+    (2, 4, 4, 128, 256, 64, 64, True, 100, None),    # sliding window
+    (2, 4, 2, 100, 200, 64, 64, True, 50, 170),      # ragged Sq/Sk + kv_len
+    (1, 4, 1, 77, 150, 96, 32, False, 0, None),      # hdv != hd, ragged
+    (2, 4, 2, 96, 200, 32, 32, True, 64, 190),       # hd = 32, ragged
+    # rows with no live key (see no_live_key)
+    (1, 2, 1, 300, 300, 64, 64, False, 32, 100),
+    (2, 8, 2, 130, 700, 128, 128, True, 8, 600),
+]
+# B, Hq, Hkv, Sq, Sk, hd, D, causal, window, rope, knorm, kv_len
+STREAM_BWD_CASES = [
+    (1, 4, 4, 128, 128, 128, 256, False, 0, False, False, None),
+    (2, 8, 2, 128, 256, 128, 256, True, 0, True, False, None),
+    (1, 4, 2, 128, 128, 128, 384, True, 0, True, True, None),
+    (1, 4, 2, 128, 256, 128, 256, True, 96, True, False, None),
+    (2, 4, 2, 100, 200, 64, 96, True, 0, True, True, 170),   # ragged
+    (2, 4, 2, 96, 200, 32, 150, True, 0, True, True, 190),   # hd = 32
+    (1, 4, 1, 77, 150, 96, 100, False, 0, False, True, None),  # hd = 96
+    (1, 64, 8, 256, 256, 128, 5120, True, 0, True, True, None),  # qwen3
+    # rows with no live key (see no_live_key)
+    (1, 2, 1, 300, 300, 64, 128, False, 32, True, False, 100),
+    (1, 8, 2, 130, 700, 128, 256, True, 8, True, True, 600),
+]
+# The training path's attention shapes (phase 10): vilbert-base at B = 2,
+# N = 4096 (the text-only layers and the first co-TRM block; later blocks
+# see the pruned counts); qwen3-32b at B = 1, S = 4096, causal GQA, whose
+# TILE_STREAM layers resolve to flash (2 Hkv hd = 2048 < d 5120).
+MAIN_FLASH_BWD = {  # name: (B, Hq, Hkv, Sq, Sk, hd, causal)
+    "vision self 4096": (2, 8, 8, 4096, 4096, 128, False),
+    "text self 4096": (2, 12, 12, 4096, 4096, 64, False),
+    "qwen3-32b train 4096": (1, 64, 8, 4096, 4096, 128, True),
+}
+MAIN_STREAM_BWD = {  # name: (B, H, Sq, Sk, hd, D)
+    "vision self 4096": (2, 8, 4096, 4096, 128, 1024),
+    "text self 4096": (2, 12, 4096, 4096, 64, 768),
+    "vision co 4096": (2, 8, 4096, 4096, 128, 768),
+    "text co 4096": (2, 12, 4096, 4096, 64, 1024),
+}
+BWD_TIMED = {"flash_attention_bwd": "vision self 4096",
+             "stream_attention_bwd": "vision self 4096"}
+
+
+def compare_grads(name: str, case: str, got, want) -> float:
+    """Each gradient against the plain version's, through ``compare``;
+    returns the largest error."""
+    return max(compare(name, f"{case} d{label}", g, w)
+               for label, g, w in zip(GRAD_NAMES[name], got, want)
+               if w is not None)
+
+
+GRAD_NAMES = {"flash_attention_bwd": ("q", "k", "v"),
+              "stream_attention_bwd": ("q", "x_kv", "wk", "wv", "gamma")}
+
+
+def check_deterministic(name: str, case: str, fn, first) -> None:
+    """A second call gives bitwise-equal gradients."""
+    again = fn()
+    for label, a, b in zip(GRAD_NAMES[name], first, again):
+        if a is not None and not torch.equal(a, b):
+            fail(f"{name} {case}: d{label} differs bitwise between two calls")
+
+
+def flash_bwd_flops(B, H, Sq, Sk, hd, hdv, causal=False, window=0,
+                    q_offset=0) -> int:
+    """The backward's products, once each: S = Q K^T and dK = dS^T Q and
+    dQ = dS K (hd wide), dP = dO V^T and dV = P^T dO (hdv wide), over the
+    live (query, key) pairs."""
+    pairs = live_pairs(Sq, Sk, causal=causal, window=window,
+                       q_offset=q_offset)
+    return 2 * B * H * pairs * (3 * hd + 2 * hdv)
+
+
+def check_flash_bwd(gen, report):
+    name = "flash_attention_bwd"
+    for dt in DTYPES:
+        cases = [(c, False) for c in FLASH_BWD_CASES] + [
+            ((B, H, Hkv, Sq, Sk, hd, hd, causal, 0, None), key)
+            for key, (B, H, Hkv, Sq, Sk, hd, causal) in MAIN_FLASH_BWD.items()]
+        for (B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len), key \
+                in cases:
+            sc = 0.5 if not key else 1.0
+            q = randn(gen, B, Hq, Sq, hd, dtype=dt, scale=sc)
+            k = randn(gen, B, Hkv, Sk, hd, dtype=dt, scale=sc)
+            v = randn(gen, B, Hkv, Sk, hdv, dtype=dt, scale=sc)
+            do = randn(gen, B, Hq, Sq, hdv, dtype=dt)
+            kw = dict(causal=causal, window=window,
+                      q_offset=Sk - Sq if causal else 0, kv_len=kv_len)
+            out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+            _, lse_plain = blocked.flash_attention_plain(q, k, v,
+                                                         return_lse=True, **kw)
+            case = f"{dt} {key or 'case'} {(B, Hq, Hkv, Sq, Sk, hd, hdv)}"
+            compare("flash_attention", f"{case} lse", lse, lse_plain)
+
+            def run():
+                return flash_attention_bwd(q, k, v, out, lse, do, **kw)
+
+            got = run()
+            err = compare_grads(name, case, got, blocked.flash_attention_bwd_plain(
+                q, k, v, out, lse, do, **kw))
+            check_deterministic(name, case, run, got)
+            line = (f"  {name} {str(dt)[6:]} {key or 'case'} "
+                    f"{(B, Hq, Hkv, Sq, Sk, hd, hdv)} causal={causal} "
+                    f"window={window} kv_len={kv_len}: max|err| {err:.2e}, "
+                    f"bitwise deterministic")
+            if key and dt == torch.bfloat16:
+                ms = time_ms(run)
+                flops = flash_bwd_flops(B, Hq, Sq, Sk, hd, hdv, **{
+                    k_: kw[k_] for k_ in ("causal", "window", "q_offset")})
+                line += f"; {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s"
+            say(line)
+            if key == BWD_TIMED[name] and dt == torch.bfloat16:
+                e = q.element_size()
+                qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
+                ref_out = F.scaled_dot_product_attention(qr, kr, vr)
+
+                def library():
+                    return torch.autograd.grad(ref_out, (qr, kr, vr), do,
+                                               retain_graph=True)
+
+                report[name] = dict(
+                    max_abs_err=err, ms=time_ms(run),
+                    device_ms=device_ms(run)[0],
+                    plain_ms=time_ms(lambda: blocked.flash_attention_bwd_plain(
+                        q, k, v, out, lse, do, **kw)),
+                    library_ms=time_ms(library),
+                    shape=f"q/k/v/dO {(B, Hq, Sq, hd)} bf16 (SDPA's backward "
+                          f"as the library call)",
+                    flops=flash_bwd_flops(B, Hq, Sq, Sk, hd, hdv),
+                    bytes=(4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * e
+                    + 4 * lse.numel(), dtype=dt)
+                del ref_out
+
+
+def stream_bwd_flops(B, Hq, Hkv, Sq, Sk, hd, D, causal=False, window=0,
+                     q_offset=0) -> int:
+    """The attention backward's products over the live pairs plus K and V
+    generated from x_kv (2 products) and their gradients (dx: 2, dW: 2)."""
+    return (flash_bwd_flops(B, Hq, Sq, Sk, hd, hd, causal=causal,
+                            window=window, q_offset=q_offset)
+            + 6 * 2 * B * Sk * D * Hkv * hd)
+
+
+def check_stream_bwd(gen, report):
+    name = "stream_attention_bwd"
+    for dt in DTYPES:
+        cases = [(c, False) for c in STREAM_BWD_CASES] + [
+            ((B, H, H, Sq, Sk, hd, D, False, 0, False, False, None), key)
+            for key, (B, H, Sq, Sk, hd, D) in MAIN_STREAM_BWD.items()]
+        for (B, Hq, Hkv, Sq, Sk, hd, D, causal, window, rope, knorm,
+             kv_len), key in cases:
+            sc = 0.5 if not key else 1.0
+            q = randn(gen, B, Hq, Sq, hd, dtype=dt, scale=sc)
+            x = randn(gen, B, Sk, D, dtype=dt, scale=sc)
+            wk = randn(gen, D, Hkv, hd, dtype=dt, scale=D ** -0.5)
+            wv = randn(gen, D, Hkv, hd, dtype=dt, scale=D ** -0.5)
+            do = randn(gen, B, Hq, Sq, hd, dtype=dt)
+            sin = cos = kg = None
+            if rope:
+                sin, cos = ref.rope_tables(Sk, hd, device="cuda")
+            if knorm:
+                kg = randn(gen, hd, scale=0.1) + 1.0
+            kw = dict(sin=sin, cos=cos, k_gamma=kg, causal=causal,
+                      window=window, q_offset=Sk - Sq if causal else 0,
+                      kv_len=kv_len)
+            out, lse = stream_attention(q, x, wk, wv, return_lse=True, **kw)
+            _, lse_plain = blocked.stream_attention_plain(
+                q, x, wk, wv, return_lse=True, **kw)
+            case = f"{dt} {key or 'case'} {(B, Hq, Hkv, Sq, Sk, hd, D)}"
+            compare("stream_attention", f"{case} lse", lse, lse_plain)
+
+            def run():
+                return stream_attention_bwd(q, x, wk, wv, out, lse, do, **kw)
+
+            got = run()
+            err = compare_grads(name, case, got,
+                                blocked.stream_attention_bwd_plain(
+                                    q, x, wk, wv, out, lse, do, **kw))
+            check_deterministic(name, case, run, got)
+            line = (f"  {name} {str(dt)[6:]} {key or 'case'} "
+                    f"{(B, Hq, Hkv, Sq, Sk, hd, D)} causal={causal} "
+                    f"window={window} rope={rope} knorm={knorm} "
+                    f"kv_len={kv_len}: max|err| {err:.2e}, bitwise "
+                    f"deterministic")
+            if key and dt == torch.bfloat16:
+                ms = time_ms(run)
+                flops = stream_bwd_flops(B, Hq, Hkv, Sq, Sk, hd, D)
+                line += f"; {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s"
+            say(line)
+            if key == BWD_TIMED[name] and dt == torch.bfloat16:
+                e = q.element_size()
+                x2 = x.reshape(B * Sk, D)
+                wk2, wv2 = wk.reshape(D, Hkv * hd), wv.reshape(D, Hkv * hd)
+
+                def heads(t):
+                    return t.view(B, Sk, Hkv, hd).transpose(1, 2)
+
+                qr = q.detach().requires_grad_()
+                kr = heads(x2 @ wk2).detach().requires_grad_()
+                vr = heads(x2 @ wv2).detach().requires_grad_()
+                ref_out = F.scaled_dot_product_attention(qr, kr, vr)
+
+                def library():
+                    # generation, SDPA's backward, then dx and dW
+                    heads(x2 @ wk2), heads(x2 @ wv2)
+                    _, dk, dv = torch.autograd.grad(
+                        ref_out, (qr, kr, vr), do, retain_graph=True)
+                    dk2 = dk.transpose(1, 2).reshape(B * Sk, Hkv * hd)
+                    dv2 = dv.transpose(1, 2).reshape(B * Sk, Hkv * hd)
+                    return (dk2 @ wk2.t() + dv2 @ wv2.t(), x2.t() @ dk2,
+                            x2.t() @ dv2)
+
+                report[name] = dict(
+                    max_abs_err=err, ms=time_ms(run),
+                    device_ms=device_ms(run, reps=3)[0],
+                    plain_ms=time_ms(lambda: blocked.stream_attention_bwd_plain(
+                        q, x, wk, wv, out, lse, do, **kw)),
+                    library_ms=time_ms(library),
+                    shape=f"q/dO {(B, Hq, Sq, hd)}, x_kv {(B, Sk, D)} bf16 "
+                          f"(library: matmul K/V generation, SDPA's "
+                          f"backward, the dx/dW matmuls)",
+                    flops=stream_bwd_flops(B, Hq, Hkv, Sq, Sk, hd, D),
+                    bytes=(4 * q.numel() + 2 * x.numel() + 2 * wk.numel()
+                           + 2 * wv.numel()) * e + 4 * lse.numel(),
+                    dtype=dt)
+                del ref_out
 
 
 def check_gemm_rules():
@@ -649,6 +908,7 @@ def check_gemm(gen, report):
                 e = x.element_size()
                 report[name] = dict(
                     max_abs_err=err, ms=ms,
+                    device_ms=device_ms(lambda: tile_gemm(x, w))[0],
                     plain_ms=time_ms(lambda: blocked.tile_gemm_plain(x, w)),
                     library_ms=lib, shape=f"(M, K, N) {(M, K, N)} bf16",
                     flops=2 * M * K * N,
@@ -1691,6 +1951,227 @@ def ssm_bf16_checks() -> None:
                  f"differs from the plain version's: {gaps}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 10 and 11: training (make_train_step) at full width, then f32
+# gradient checks
+# ---------------------------------------------------------------------------
+
+# vilbert-base: 10 steps per mode on one repeated batch; qwen3-32b at full
+# width, 4 of its 64 layers (bf16 parameters and gradients with f32 AdamW
+# moments: 12 bytes a parameter, ~42 GB at 3.5 B parameters), 5 steps.
+TRAIN_RUNS = (("vilbert-base", None, 2, 4096, 10, tuple(ExecutionMode)),
+              ("qwen3-32b", 4, 1, 4096, 5,
+               (ExecutionMode.LAYER_STREAM, ExecutionMode.TILE_STREAM)))
+TRAIN_OPT = OPT.OptimizerConfig(learning_rate=1e-3, warmup_steps=0)
+# The f32 checks (phase 11): max |difference| over max |value| of each
+# parameter's gradient, the kernel path against the plain path, and the
+# three modes against each other.  f32 sums in other orders through the
+# layers, as phase 4's MODE_TOL; the measured gaps are printed.
+GRAD_TOL = 1e-4
+MODE_GRAD_TOL = 1e-4
+TRAIN_CHECKS = (("vilbert-base", None, 1, 1024), ("qwen3-32b", 2, 1, 1024))
+
+
+def train_model(arch: str, layers, dtype: str = "bfloat16", seed: int = 0):
+    cfg = get_config(arch)
+    cut = {} if layers is None else {"num_layers": layers}
+    if dtype != cfg.dtype:
+        cut.update(dtype=dtype, param_dtype=dtype)
+    cfg = dataclasses.replace(cfg, **cut)
+    return cfg, build_model(cfg, torch.device("cuda"), seed)
+
+
+def train_batch(cfg, B: int, S: int, seed: int = 0) -> dict:
+    """One batch of the data pipeline's synthetic source, on the card."""
+    shape = ShapeConfig("chip", S, B, "train")
+    return to_device(SyntheticLM(cfg, shape, seed=seed).batch(0), cfg,
+                     torch.device("cuda"))
+
+
+def train_launches(cfg, mode: ExecutionMode) -> dict:
+    """The kernel launches one remat train step must make: every attention
+    layer's and MLP projection's forward twice (the forward, then its
+    recompute in the backward), every attention backward once; the
+    backward's projection products are torch.matmul (ProjectionFn)."""
+    if cfg.family == Family.CROSSMODAL:
+        n_att = cfg.num_layers - cfg.num_coattn_layers \
+            + 4 * cfg.num_coattn_layers
+        n_proj = 2 * (cfg.num_layers + cfg.num_coattn_layers)
+    else:
+        n_att, n_proj = cfg.num_layers, 3 * cfg.num_layers
+    want = {name: 0 for name in KERNELS}
+    want["tile_gemm"] = 2 * n_proj
+    d_kv = cfg.d_model_y if cfg.family == Family.CROSSMODAL else cfg.d_model
+    resolved = resolve_layer_mode(mode, d_kv=d_kv,
+                                  num_kv_heads=cfg.num_kv_heads,
+                                  head_dim=cfg.head_dim)
+    att = {ExecutionMode.LAYER_STREAM: "flash_attention",
+           ExecutionMode.TILE_STREAM: "stream_attention"}.get(resolved)
+    if att:
+        want[att] = 2 * n_att
+        want[f"{att}_bwd"] = n_att
+    return want
+
+
+def profiled_step(model, cfg, mode, batch, state) -> str:
+    """One more train step, timed in parts by CUDA events (forward + loss,
+    backward, optimizer) and under torch.profiler (the device's busy share
+    of the step)."""
+    from torch.profiler import ProfilerActivity, profile
+    mod = registry.model_module(cfg)
+    params = {k: p for k, p in model.named_parameters()}
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ev[0].record()
+        loss = mod.loss_fn(model, batch, mode=mode, remat=True)
+        ev[1].record()
+        grads = torch.autograd.grad(loss, list(params.values()))
+        ev[2].record()
+        OPT.apply(TRAIN_OPT, params, dict(zip(params, grads)), state)
+        ev[3].record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    busy = sum(e.self_device_time_total for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    fwd, bwd, opt = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
+    return (f"forward + loss {fwd:.1f} ms, backward {bwd:.1f} ms, optimizer "
+            f"{opt:.1f} ms on the stream; device busy {busy:.1f} ms of "
+            f"{wall:.1f} ms wall ({100 * busy / wall:.0f}%)")
+
+
+def training(smi: str, launches: dict) -> None:
+    for arch, layers, B, S, steps, modes in TRAIN_RUNS:
+        for mode in modes:
+            cfg, model = train_model(arch, layers)
+            batch = train_batch(cfg, B, S)
+            params = dict(model.named_parameters())
+            n_params = sum(p.numel() for p in params.values())
+            state = OPT.init(params)
+            step = ST.make_train_step(cfg, TRAIN_OPT, mode=mode)
+            want = train_launches(cfg, mode)
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            losses, ms = [], []
+            for i in range(steps):
+                reset_counts()
+                t0 = time.perf_counter()
+                model, state, m = step(model, state, batch)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                got = tally(launches)
+                if got != want:
+                    fail(f"train {arch} {mode.value} step {i + 1}: launches "
+                         f"{got}, expected {want}")
+                check_routes(f"train {arch} {mode.value}", tile_gemm.routes,
+                             "wgmma")
+                if not (math.isfinite(m["loss"])
+                        and math.isfinite(m["grad_norm"])):
+                    fail(f"train {arch} {mode.value} step {i + 1}: loss "
+                         f"{m['loss']}, grad norm {m['grad_norm']}")
+                losses.append(m["loss"])
+                say(f"  {arch} {mode.value} step {i + 1}: loss "
+                    f"{m['loss']:.4f}, grad norm {m['grad_norm']:.3f}, "
+                    f"{ms[-1]:.1f} ms")
+            if not losses[-1] < losses[0]:
+                fail(f"train {arch} {mode.value}: the loss on the repeated "
+                     f"batch went from {losses[0]:.4f} to {losses[-1]:.4f}")
+            peak = torch.cuda.max_memory_allocated() / 2 ** 30
+            step_ms = float(np.mean(ms[1:]))
+            rate = (f"{B * S / step_ms * 1e3:.0f} tokens/s"
+                    if cfg.family != Family.CROSSMODAL
+                    else f"{B / step_ms * 1e3:.2f} samples/s")
+            say(f"  {arch} ({cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+                f"parameters) {mode.value}, B = {B}, S = {S}: step "
+                f"{step_ms:.1f} ms mean of steps 2-{steps}, {rate}, peak "
+                f"memory {peak:.2f} GiB, launches a step {want} [{smi}]")
+            say(f"    profiled step: "
+                f"{profiled_step(model, cfg, mode, batch, state)} [{smi}]")
+            del model, state, batch, params, step
+            free()
+
+
+@contextlib.contextmanager
+def plain_kernels():
+    """The training path's kernels replaced by their plain versions on the
+    card (phase 11's plain path): forward and backward attention and the
+    projection's forward.  No kernel launches in it."""
+    saved = {(flash_vjp, n): getattr(flash_vjp, n)
+             for n in ("flash_attention", "stream_attention",
+                       "flash_attention_bwd", "stream_attention_bwd")}
+    saved[(ops, "tile_gemm")] = ops.tile_gemm
+    flash_vjp.flash_attention = blocked.flash_attention_plain
+    flash_vjp.stream_attention = blocked.stream_attention_plain
+    flash_vjp.flash_attention_bwd = blocked.flash_attention_bwd_plain
+    flash_vjp.stream_attention_bwd = blocked.stream_attention_bwd_plain
+    ops.tile_gemm = ref.ref_tile_gemm
+    try:
+        yield
+    finally:
+        for (mod, n), fn in saved.items():
+            setattr(mod, n, fn)
+
+
+def grads_of(model, cfg, batch, mode) -> dict:
+    mod = registry.model_module(cfg)
+    params = dict(model.named_parameters())
+    loss = mod.loss_fn(model, batch, mode=mode, remat=True)
+    return dict(zip(params, torch.autograd.grad(loss, list(params.values()))))
+
+
+def grad_gap(got: dict, want: dict) -> tuple:
+    """The largest max |difference| / max |value| over the parameters, and
+    that parameter."""
+    return max(((((g.float() - want[k].float()).abs().max()
+                   / want[k].float().abs().max().clamp(min=1e-30)).item()),
+                 k) for k, g in got.items())
+
+
+def training_checks(smi: str) -> None:
+    """Per configuration and mode: the kernel path's gradients against the
+    plain path's, then against NON_STREAM's (kept while the other modes
+    run; each other mode's gradients are dropped once compared)."""
+    for arch, layers, B, S in TRAIN_CHECKS:
+        cfg, model = train_model(arch, layers, dtype="float32", seed=1)
+        batch = train_batch(cfg, B, S, seed=1)
+        base = None
+        for mode in ExecutionMode:
+            reset_counts()
+            kernel = grads_of(model, cfg, batch, mode)
+            got, want = counts(), train_launches(cfg, mode)
+            if got != want:
+                fail(f"f32 {arch} {mode.value}: launches {got}, expected "
+                     f"{want}")
+            with plain_kernels():
+                reset_counts()
+                plain = grads_of(model, cfg, batch, mode)
+                if any(counts().values()):
+                    fail(f"f32 {arch} {mode.value}: the plain path launched "
+                         f"{counts()}")
+            gap, name = grad_gap(kernel, plain)
+            del plain
+            say(f"  f32 {arch} ({cfg.num_layers} layers, B = {B}, S = {S}) "
+                f"{mode.value}: kernel against plain gradients, largest gap "
+                f"{gap:.2e} ({name}; tol {GRAD_TOL}); launches {got}")
+            if not gap <= GRAD_TOL:
+                fail(f"f32 {arch} {mode.value}: kernel gradients differ from "
+                     f"the plain path's by {gap:.2e} ({name})")
+            if base is None:
+                base = kernel
+                continue
+            gap, name = grad_gap(kernel, base)
+            del kernel
+            say(f"  f32 {arch} {mode.value} against non_stream: largest "
+                f"gradient gap {gap:.2e} ({name}; tol {MODE_GRAD_TOL})")
+            if not gap <= MODE_GRAD_TOL:
+                fail(f"f32 {arch}: {mode.value} gradients differ from "
+                     f"non_stream's by {gap:.2e} ({name})")
+        del model, base, batch
+        free()
+
+
 def tensor_core_sass() -> str:
     """How many HGMMA (wgmma) instructions the SASS of each attention
     library holds, from the toolkit's cuobjdump."""
@@ -1745,6 +2226,8 @@ def main() -> None:
     check_gemm(gen, report)
     check_decode(gen, report)
     check_ssd(gen, report)
+    check_flash_bwd(gen, report)
+    check_stream_bwd(gen, report)
 
     say("== phase 4: main path, vilbert-base")
     launches = {name: 0 for name in KERNELS}
@@ -1772,6 +2255,16 @@ def main() -> None:
     say("== phase 9: SSM and hybrid checks in f32, full widths, 2 layers")
     ssm_checks(smi)
     say(f"phases 1-9 took {time.perf_counter() - start:.1f} s")
+    free()
+
+    say("== phase 10: training, vilbert-base and qwen3-32b (4 layers), bf16")
+    training(smi, launches)
+    free()
+
+    say("== phase 11: training checks in f32: kernel against plain "
+        "gradients, modes against each other")
+    training_checks(smi)
+    say(f"phases 1-11 took {time.perf_counter() - start:.1f} s")
 
     rows, gemm_shapes = [], report["tile_gemm"]["shapes"]
     for name in ROUTED:

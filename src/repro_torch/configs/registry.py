@@ -5,7 +5,9 @@ from __future__ import annotations
 
 from repro_torch.configs import (hymba_1_5b, mamba2_780m, qwen3_32b,
                                  starcoder2_7b, vilbert_base)
-from repro_torch.core.types import Family, ModelConfig
+from typing import Dict, Tuple
+
+from repro_torch.core.types import Family, ModelConfig, ShapeConfig
 
 _MODULES = {"vilbert-base": vilbert_base, "qwen3-32b": qwen3_32b,
             "starcoder2-7b": starcoder2_7b, "mamba2-780m": mamba2_780m,
@@ -34,3 +36,28 @@ def model_module(cfg: ModelConfig):
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family.value} is not ported yet "
         f"(ROADMAP Queue 1 items 6, 10)")
+
+
+ARCHS = tuple(_MODULES)
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig
+                ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
+    """{name: (shape, dtype name)} of one global batch (registry.py:116):
+    the token batch (with labels, or for the crossmodal family the vision
+    regions and VQA answers, when ``shape.kind`` is "train"); a decode
+    shape has one token per row."""
+    B = shape.global_batch
+    S = 1 if shape.is_decode else shape.seq_len
+    if cfg.family == Family.CROSSMODAL:
+        specs = {"regions": ((B, shape.seq_len, cfg.d_model), cfg.dtype),
+                 "tokens": ((B, shape.seq_len), "int32")}
+        if shape.kind == "train":
+            specs["answers"] = ((B,), "int32")
+        return specs
+    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID):
+        model_module(cfg)        # raises for the families not ported
+    specs = {"tokens": ((B, S), "int32")}
+    if shape.kind == "train":
+        specs["labels"] = ((B, S), "int32")
+    return specs

@@ -250,7 +250,8 @@ struct TcRows {
   // out (B, Hq, Sq, hdv) = O / l.  A row with no live key walked every
   // tile with weight 1 per key, and the keys past Sk hold V = 0 (TMA's
   // zero fill, or generated from zero rows of x_kv): its l becomes Sk.  A
-  // row whose l is 0 (no tile: Sk = 0) gives 0.
+  // row whose l is 0 (no tile: Sk = 0) gives 0.  With sh.lse set, m + log l
+  // of each row goes there too.
   __device__ void store(bf16* __restrict__ out, const AttnShape& sh, int b) {
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -262,6 +263,9 @@ struct TcRows {
     for (int h = 0; h < 2; ++h) {
       if (!valid[h]) continue;
       float inv = 1.f / (l[h] == 0.f ? 1.f : l[h]);
+      if (sh.lse && t == 0)
+        sh.lse[(size_t)(b * sh.Hq + head[h]) * sh.Sq + qi[h]] =
+            m[h] + logf(l[h] == 0.f ? 1.f : l[h]);
       bf16* row = out + ((size_t)(b * sh.Hq + head[h]) * sh.Sq + qi[h]) * sh.hdv;
 #pragma unroll
       for (int i = 0; i < HDVP / 8; ++i) {

@@ -13,7 +13,8 @@
 //   softmax() m_new = max(m, rowmax S); P = exp(S - m_new);
 //             alpha = exp(m - m_new); l = l * alpha + rowsum P
 //   pv()      acc = acc * alpha + P V
-// and store() writes acc / l (l == 0 -> 1).  The arithmetic is the Pallas
+// and store() writes acc / l (l == 0 -> 1), and m + log l to sh.lse when
+// that is set.  The arithmetic is the Pallas
 // kernels' (flash_attention.py:41-73): f32 tiles, f32 dots, NEG_INF = -1e30
 // for masked scores, every product an f32 FMA (no TF32), so it holds the
 // f32 limits of chip_smoke.py.
@@ -58,6 +59,9 @@ struct AttnShape {
   int B, Hq, Hkv, Sq, Sk, hd, hdv;
   float scale;
   int causal, window, q_offset, kv_len;
+  // (B, Hq, Sq) f32: m + log l per query row, the backward's residual;
+  // null where nothing needs it (the serving paths).
+  float* lse = nullptr;
 };
 
 // Shared memory of the core, in floats.  Row strides are padded by one
@@ -214,6 +218,8 @@ struct AttnCore {
       // hold V = 0: its mean is over the Sk keys.
       float l = m_s[r] == NEG_INF ? (float)sh.Sk : l_s[r];
       float l_safe = l == 0.f ? 1.f : l;   // l == 0 only with no key at all
+      if (sh.lse && tx == 0)
+        sh.lse[(size_t)(b * sh.Hq + head) * sh.Sq + qi] = m_s[r] + logf(l_safe);
       T* o = out + ((size_t)(b * sh.Hq + head) * sh.Sq + qi) * sh.hdv;
 #pragma unroll
       for (int c = 0; c < CJ; ++c) {

@@ -194,13 +194,15 @@ inline int dispatch(const void* q, const void* k, const void* v, void* out,
 
 // dtype: 0 = float32, 1 = bfloat16.  All tensors contiguous; hd, hdv <= 128
 // (the Python wrapper checks).  bf16 takes the tensor-core kernel where TMA
-// can read K and V, else the SIMT core.  Returns cudaGetLastError() of the launch.
+// can read K and V, else the SIMT core.  lse: null, or (B, Hq, Sq) f32 that
+// receives m + log l of every query row (the training path's residual).
+// Returns cudaGetLastError() of the launch.
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* out, int dtype, int B,
     int Hq, int Hkv, int Sq, int Sk, int hd, int hdv, float scale, int causal,
-    int window, int q_offset, int kv_len, void* stream) {
+    int window, int q_offset, int kv_len, float* lse, void* stream) {
   repro::AttnShape sh{B, Hq, Hkv, Sq, Sk, hd, hdv, scale,
-                      causal, window, q_offset, kv_len};
+                      causal, window, q_offset, kv_len, lse};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0) return repro::dispatch<float>(q, k, v, out, sh, s);
   int rc = repro::tc::dispatch(q, k, v, out, sh, s);

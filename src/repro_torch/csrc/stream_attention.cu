@@ -535,15 +535,16 @@ inline int max_active_clusters(int cluster) {
 // (Sk, hd/2) and k_gamma (hd,) are float32 and may be null when unused.
 // All tensors contiguous; hd <= 128 (the Python wrapper checks).  bf16 takes
 // the tensor-core kernel where TMA can read x_kv and W (see the header),
-// else the SIMT core.  Returns the launch's CUDA error code.
+// else the SIMT core.  lse: null, or (B, Hq, Sq) f32 for m + log l of every
+// query row.  Returns the launch's CUDA error code.
 extern "C" int stream_attention_launch(
     const void* q, const void* x, const void* wk, const void* wv,
     const void* sin_t, const void* cos_t, const void* k_gamma, void* out,
     int dtype, int B, int Hq, int Hkv, int Sq, int Sk, int D, int hd,
     float scale, int causal, int window, int q_offset, int kv_len,
-    int use_rope, int use_knorm, float eps, void* stream) {
+    int use_rope, int use_knorm, float eps, float* lse, void* stream) {
   repro::AttnShape sh{B, Hq, Hkv, Sq, Sk, hd, hd, scale,
-                      causal, window, q_offset, kv_len};
+                      causal, window, q_offset, kv_len, lse};
   repro::StreamArgs sa{D, use_rope, use_knorm, eps};
   cudaStream_t s = (cudaStream_t)stream;
   const float *sn = (const float*)sin_t, *cs = (const float*)cos_t,

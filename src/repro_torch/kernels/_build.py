@@ -24,7 +24,8 @@ import torch
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("tile_gemm", "flash_attention", "stream_attention",
-           "decode_attention", "ssd_scan")
+           "decode_attention", "ssd_scan", "flash_attention_bwd",
+           "stream_attention_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -128,6 +129,16 @@ def stream_ptr(device: torch.device) -> int:
     """PyTorch's current CUDA stream on ``device``, as the kernels' launch
     argument."""
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def refuse_grad(kernel: str, item: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through ``kernel``, which has
+    no backward yet: its result would be silently detached."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{kernel}: no backward is ported yet (ROADMAP Queue 1 "
+            f"item {item}); call it under torch.no_grad()")
 
 
 def raise_on(kernel: str, rc: int) -> None:

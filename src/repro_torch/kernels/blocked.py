@@ -81,12 +81,15 @@ def _split_products(rounding: str, round_kv: bool, scale: float):
 
 
 def _online_softmax(qf, kv_blocks, qpos, bk, sk, kv_len, causal, window,
-                    out_shape, dtype, qk=_qk, pv=_pv):
+                    out_shape, dtype, qk=_qk, pv=_pv, return_lse=False):
     """Shared block loop.  qf: (B,Hkv,G,Sq,hd) f32; kv_blocks yields (j,
     k_j (B,Hkv,bk,hd), v_j (B,Hkv,bk,hdv)) in f32, zero-padded past ``sk``
     keys; qk(qf, k_j) gives the scaled scores, pv(p, v_j) the products with
     V.  A row with no live key takes the softmax of equal -1e30 scores: the
-    mean of V over the ``sk`` keys (padding weighs nothing)."""
+    mean of V over the ``sk`` keys (padding weighs nothing).
+
+    With ``return_lse`` also lse = m + log l per query row, (B, Hq, Sq) f32:
+    the backward's residual (-1e30 for a row with no live key)."""
     B, Hkv, G, Sq, _ = qf.shape
     m = l = acc = None
     for j, k_j, v_j in kv_blocks:
@@ -106,18 +109,23 @@ def _online_softmax(qf, kv_blocks, qpos, bk, sk, kv_len, causal, window,
         acc = acc * alpha[..., None] + pv(p, v_j)
         m = m_new
     l_safe = torch.where(l == 0.0, torch.ones_like(l), l)
-    return (acc / l_safe[..., None]).reshape(out_shape).to(dtype)
+    out = (acc / l_safe[..., None]).reshape(out_shape).to(dtype)
+    if not return_lse:
+        return out
+    return out, (m + torch.log(l_safe)).reshape(B, Hkv * G, Sq)
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           *, causal: bool = False, window: int = 0,
                           q_offset: int = 0, scale: Optional[float] = None,
                           kv_len: Optional[int] = None,
-                          block_k: int = 512) -> torch.Tensor:
+                          block_k: int = 512, return_lse: bool = False):
     """GQA flash attention: q (B,Hq,Sq,hd), k (B,Hkv,Sk,hd), v (B,Hkv,Sk,hdv)
-    -> (B,Hq,Sq,hdv).  Keys at or past ``kv_len`` are masked."""
+    -> (B,Hq,Sq,hdv), and with ``return_lse`` the rows' m + log l
+    (B,Hq,Sq) f32.  Keys at or past ``kv_len`` are masked."""
     return _flash(q, k, v, causal=causal, window=window, q_offset=q_offset,
-                  scale=scale, kv_len=kv_len, block_k=block_k)
+                  scale=scale, kv_len=kv_len, block_k=block_k,
+                  return_lse=return_lse)
 
 
 def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -132,7 +140,7 @@ def flash_attention_split(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _flash(q, k, v, *, causal=False, window=0, q_offset=0, scale=None,
-           kv_len=None, block_k=512, products=None):
+           kv_len=None, block_k=512, products=None, return_lse=False):
     B, Hq, Sq, hd = q.shape
     Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
     G = Hq // Hkv
@@ -148,9 +156,11 @@ def _flash(q, k, v, *, causal=False, window=0, q_offset=0, scale=None,
                v[:, :, j * bk:(j + 1) * bk].float()) for j in range(nkb))
     if products is None:
         return _online_softmax(qf * scale, blocks, qpos, bk, Sk, kv_len,
-                               causal, window, (B, Hq, Sq, hdv), q.dtype)
+                               causal, window, (B, Hq, Sq, hdv), q.dtype,
+                               return_lse=return_lse)
     return _online_softmax(qf, blocks, qpos, bk, Sk, kv_len, causal, window,
-                           (B, Hq, Sq, hdv), q.dtype, *products(scale))
+                           (B, Hq, Sq, hdv), q.dtype, *products(scale),
+                           return_lse=return_lse)
 
 
 def live_kv_tiles(r0: int, r1: int, Sq: int, *, sk: int, kv_len: int,
@@ -223,16 +233,17 @@ def stream_attention_plain(q: torch.Tensor, x_kv: torch.Tensor,
                            q_offset: int = 0, scale: Optional[float] = None,
                            norm_eps: float = 1e-6,
                            kv_len: Optional[int] = None,
-                           block_k: int = 512) -> torch.Tensor:
+                           block_k: int = 512, return_lse: bool = False):
     """TILE_STREAM: K/V tiles generated from x_kv inside the block loop
     (never at full length), fed straight into the online softmax.
 
     q (B,Hq,Sq,hd), x_kv (B,Sk,D), wk/wv (D,Hkv,hd), sin/cos (Sk,hd//2),
-    k_gamma (hd,) -> (B,Hq,Sq,hd)."""
+    k_gamma (hd,) -> (B,Hq,Sq,hd), and with ``return_lse`` the rows'
+    m + log l (B,Hq,Sq) f32."""
     return _stream(q, x_kv, wk, wv, sin=sin, cos=cos, k_gamma=k_gamma,
                    causal=causal, window=window, q_offset=q_offset,
                    scale=scale, norm_eps=norm_eps, kv_len=kv_len,
-                   block_k=block_k)
+                   block_k=block_k, return_lse=return_lse)
 
 
 def stream_attention_split(q: torch.Tensor, x_kv: torch.Tensor,
@@ -248,9 +259,27 @@ def stream_attention_split(q: torch.Tensor, x_kv: torch.Tensor,
                                                           scale), **kw)
 
 
+def _gen_tile(x_j, wkf, wvf, k_gamma, sin_j, cos_j, norm_eps):
+    """One K/V tile from x_j (B, bk, D) f32 and f32 weights (D, Hkv, hd):
+    projection, qk-norm (``k_gamma``), rotate-half RoPE (``sin_j``/``cos_j``
+    (bk, hd//2)) -> k_j, v_j (B, Hkv, bk, hd) f32 (flash_vjp.py:222)."""
+    k_j = torch.einsum("btd,dhe->bthe", x_j, wkf)
+    v_j = torch.einsum("btd,dhe->bthe", x_j, wvf)
+    if k_gamma is not None:
+        var = (k_j * k_j).mean(dim=-1, keepdim=True)
+        k_j = k_j * torch.rsqrt(var + norm_eps) * k_gamma.float()
+    if sin_j is not None:
+        half = k_j.shape[-1] // 2
+        s_ = sin_j.float()[None, :, None]
+        c_ = cos_j.float()[None, :, None]
+        k1, k2 = k_j[..., :half], k_j[..., half:]
+        k_j = torch.cat([k1 * c_ - k2 * s_, k2 * c_ + k1 * s_], dim=-1)
+    return k_j.transpose(1, 2), v_j.transpose(1, 2)
+
+
 def _stream(q, x_kv, wk, wv, *, sin=None, cos=None, k_gamma=None,
             causal=False, window=0, q_offset=0, scale=None, norm_eps=1e-6,
-            kv_len=None, block_k=512, products=None):
+            kv_len=None, block_k=512, products=None, return_lse=False):
     B, Hq, Sq, hd = q.shape
     Sk, D = x_kv.shape[1], x_kv.shape[2]
     Hkv = wk.shape[1]
@@ -266,28 +295,171 @@ def _stream(q, x_kv, wk, wv, *, sin=None, cos=None, k_gamma=None,
     qf = q.float().reshape(B, Hkv, G, Sq, hd)
     qpos = torch.arange(Sq, device=q.device) + q_offset
     wkf, wvf = wk.float(), wv.float()
-    half = hd // 2
 
     def gen(j):
-        x_j = x_kv[:, j * bk:(j + 1) * bk].float()
-        k_j = torch.einsum("btd,dhe->bthe", x_j, wkf)
-        v_j = torch.einsum("btd,dhe->bthe", x_j, wvf)
-        if k_gamma is not None:
-            var = (k_j * k_j).mean(dim=-1, keepdim=True)
-            k_j = k_j * torch.rsqrt(var + norm_eps) * k_gamma.float()
-        if sin is not None:
-            s_ = sin[j * bk:(j + 1) * bk].float()[None, :, None]
-            c_ = cos[j * bk:(j + 1) * bk].float()[None, :, None]
-            k1, k2 = k_j[..., :half], k_j[..., half:]
-            k_j = torch.cat([k1 * c_ - k2 * s_, k2 * c_ + k1 * s_], dim=-1)
-        return j, k_j.transpose(1, 2), v_j.transpose(1, 2)
+        rows = slice(j * bk, (j + 1) * bk)
+        return (j, *_gen_tile(x_kv[:, rows].float(), wkf, wvf, k_gamma,
+                              None if sin is None else sin[rows],
+                              None if cos is None else cos[rows], norm_eps))
 
     blocks = (gen(j) for j in range(nkb))
     if products is None:
         return _online_softmax(qf * scale, blocks, qpos, bk, Sk, kv_len,
-                               causal, window, (B, Hq, Sq, hd), q.dtype)
+                               causal, window, (B, Hq, Sq, hd), q.dtype,
+                               return_lse=return_lse)
     return _online_softmax(qf, blocks, qpos, bk, Sk, kv_len, causal, window,
-                           (B, Hq, Sq, hd), q.dtype, *products(scale))
+                           (B, Hq, Sq, hd), q.dtype, *products(scale),
+                           return_lse=return_lse)
+
+
+# ---------------------------------------------------------------------------
+# Backward of flash and stream attention (flash_vjp.py:114, :267)
+# ---------------------------------------------------------------------------
+
+#: lse at or below this marks a row with no live key (its lse is -1e30).
+DEAD_LSE = -1e29
+
+
+def _tile_grads(qf, dof, lse, delta, k_j, v_j, kpos, qpos, sk, kv_len,
+                causal, window, scale):
+    """One kv tile of the two-pass flash backward: (dq_j, dk_j, dv_j) in
+    f32 from qf/dof (B,Hkv,G,Sq,hd/hdv), lse/delta (B,Hkv,G,Sq) and the
+    tile's k_j/v_j (B,Hkv,bk,hd/hdv).  P = exp(S*scale - lse) on live
+    pairs, 0 on masked ones.  A row with no live key (lse -1e30) had the
+    mean of V over the ``sk`` keys as its output: its P is 1/sk on those
+    keys and no score gets a gradient."""
+    mask = _mask(qpos, kpos, kv_len, causal, window)        # (Sq, bk)
+    s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k_j) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]),
+                    torch.zeros_like(s))
+    dead = (lse <= DEAD_LSE)[..., None]
+    mean = (kpos < sk).to(p.dtype) / max(sk, 1)
+    p = torch.where(dead, mean.expand_as(p), p)
+    dv_j = torch.einsum("bhgqk,bhgqd->bhkd", p, dof)
+    dp = torch.einsum("bhgqd,bhkd->bhgqk", dof, v_j)
+    ds = torch.where(mask & ~dead, p * (dp - delta[..., None]) * scale,
+                     torch.zeros_like(p))
+    dq_j = torch.einsum("bhgqk,bhkd->bhgqd", ds, k_j)
+    dk_j = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+    return dq_j, dk_j, dv_j
+
+
+def _bwd_rows(q, out, lse, dout, Hkv):
+    """qf, dof (B,Hkv,G,Sq,·) f32, lse and delta = rowsum(dO*O)
+    (B,Hkv,G,Sq) f32."""
+    B, Hq, Sq, hd = q.shape
+    G, hdv = Hq // Hkv, dout.shape[-1]
+    qf = q.float().reshape(B, Hkv, G, Sq, hd)
+    dof = dout.float().reshape(B, Hkv, G, Sq, hdv)
+    delta = (dof * out.float().reshape(B, Hkv, G, Sq, hdv)).sum(-1)
+    return qf, dof, lse.float().reshape(B, Hkv, G, Sq), delta
+
+
+def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              causal: bool = False, window: int = 0,
+                              q_offset: int = 0,
+                              scale: Optional[float] = None,
+                              kv_len: Optional[int] = None,
+                              block_k: int = 512
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Two-pass flash backward (flash_vjp.py:114), blocked by ``block_k``:
+    from the forward's inputs, its output and lse (B,Hq,Sq) f32, and dout,
+    the gradients (dq, dk, dv) in the inputs' dtypes; dk and dv sum over
+    the G query heads of each kv head."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kv_len = Sk if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    bk = max(min(block_k, Sk), 1)
+    kp, _ = _pad_axis(k, 2, bk)
+    vp, _ = _pad_axis(v, 2, bk)
+    qf, dof, lsef, delta = _bwd_rows(q, out, lse, dout, Hkv)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for j in range(kp.shape[2] // bk):
+        rows = slice(j * bk, (j + 1) * bk)
+        kpos = j * bk + torch.arange(bk, device=q.device)
+        dq_j, dk_j, dv_j = _tile_grads(
+            qf, dof, lsef, delta, kp[:, :, rows].float(),
+            vp[:, :, rows].float(), kpos, qpos, Sk, kv_len, causal, window,
+            scale)
+        dq += dq_j
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    dk = torch.cat(dks, 2)[:, :, :Sk] if dks else torch.zeros_like(k.float())
+    dv = torch.cat(dvs, 2)[:, :, :Sk] if dvs else torch.zeros_like(v.float())
+    return (dq.reshape(B, Hq, Sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def stream_attention_bwd_plain(q: torch.Tensor, x_kv: torch.Tensor,
+                               wk: torch.Tensor, wv: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor,
+                               dout: torch.Tensor, *,
+                               sin: Optional[torch.Tensor] = None,
+                               cos: Optional[torch.Tensor] = None,
+                               k_gamma: Optional[torch.Tensor] = None,
+                               causal: bool = False, window: int = 0,
+                               q_offset: int = 0,
+                               scale: Optional[float] = None,
+                               norm_eps: float = 1e-6,
+                               kv_len: Optional[int] = None,
+                               block_k: int = 512):
+    """TILE_STREAM backward (flash_vjp.py:267), blocked by ``block_k``: each
+    K/V tile is generated again from x_kv, its dK/dV computed as in the
+    flash backward, and the generator's vector-Jacobian product (autograd
+    of ``_gen_tile``, as ``jax.vjp`` there) gives the tile's dx_kv and its
+    share of dW_K, dW_V and dγ.  Returns (dq, dx_kv, dwk, dwv, dγ or
+    None) in the inputs' dtypes."""
+    B, Hq, Sq, hd = q.shape
+    Sk, D = x_kv.shape[1], x_kv.shape[2]
+    Hkv = wk.shape[1]
+    kv_len = Sk if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    bk = max(min(block_k, Sk), 1)
+    xp, _ = _pad_axis(x_kv, 1, bk)
+    if sin is not None:
+        sin, _ = _pad_axis(sin, 0, bk)
+        cos, _ = _pad_axis(cos, 0, bk)
+    qf, dof, lsef, delta = _bwd_rows(q, out, lse, dout, Hkv)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    wkf = wk.detach().float().requires_grad_()
+    wvf = wv.detach().float().requires_grad_()
+    gf = (None if k_gamma is None
+          else k_gamma.detach().float().requires_grad_())
+    dq = torch.zeros_like(qf)
+    dwk, dwv = torch.zeros_like(wkf), torch.zeros_like(wvf)
+    dg = None if gf is None else torch.zeros_like(gf)
+    dxs = []
+    for j in range(xp.shape[1] // bk):
+        rows = slice(j * bk, (j + 1) * bk)
+        x_j = xp[:, rows].detach().float().requires_grad_()
+        with torch.enable_grad():
+            k_j, v_j = _gen_tile(x_j, wkf, wvf, gf,
+                                 None if sin is None else sin[rows],
+                                 None if cos is None else cos[rows],
+                                 norm_eps)
+        kpos = j * bk + torch.arange(bk, device=q.device)
+        dq_j, dk_j, dv_j = _tile_grads(
+            qf, dof, lsef, delta, k_j.detach(), v_j.detach(), kpos, qpos,
+            Sk, kv_len, causal, window, scale)
+        dq += dq_j
+        inputs = [x_j, wkf, wvf] + ([] if gf is None else [gf])
+        grads = torch.autograd.grad((k_j, v_j), inputs, (dk_j, dv_j))
+        dxs.append(grads[0])
+        dwk += grads[1]
+        dwv += grads[2]
+        if gf is not None:
+            dg += grads[3]
+    dx = torch.cat(dxs, 1)[:, :Sk] if dxs else torch.zeros_like(
+        x_kv.float())
+    return (dq.reshape(B, Hq, Sq, hd).to(q.dtype), dx.to(x_kv.dtype),
+            dwk.to(wk.dtype), dwv.to(wv.dtype),
+            None if dg is None else dg.to(k_gamma.dtype))
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -20,7 +20,7 @@ MAX_HEAD_DIM = 128
 
 def _lib():
     fn = _build.load("flash_attention").flash_attention_launch
-    fn.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_F] + [_I] * 4 + [_P]
+    fn.argtypes = [_P, _P, _P, _P] + [_I] * 8 + [_F] + [_I] * 4 + [_P, _P]
     fn.restype = _I
     return fn
 
@@ -43,17 +43,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, window: int = 0, q_offset: int = 0,
                     scale: Optional[float] = None,
                     kv_len: Optional[int] = None,
-                    block_k: int = 256) -> torch.Tensor:
+                    block_k: int = 256, return_lse: bool = False):
     """q (B, Hq, Sq, hd), k (B, Hkv, Sk, hd), v (B, Hkv, Sk, hdv)
     -> (B, Hq, Sq, hdv) in q's dtype.  Keys at or past ``kv_len`` (default
-    Sk) are masked.
+    Sk) are masked.  With ``return_lse`` also each query row's m + log l
+    (B, Hq, Sq) f32, the residual of the backward (``flash_vjp``).
 
     CPU tensors take the plain version, blocked by ``block_k``; CUDA tensors
     launch the kernel, whose kv tile is fixed at 64 keys."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale,
-                                     kv_len=kv_len, block_k=block_k)
+                                     kv_len=kv_len, block_k=block_k,
+                                     return_lse=return_lse)
     code = _build.check_cuda("flash_attention", q=q, k=k, v=v)
     B, Hq, Sq, hd = q.shape
     Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
@@ -69,13 +71,16 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"flash_attention: kv_len {kv_len} outside [0, {Sk}]")
     scale = hd ** -0.5 if scale is None else scale
     out = torch.empty((B, Hq, Sq, hdv), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel():
         _build.raise_on("flash_attention", _lib()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
             B, Hq, Hkv, Sq, Sk, hd, hdv, scale, int(causal), window,
-            q_offset, kv_len, _build.stream_ptr(q.device)))
+            q_offset, kv_len, None if lse is None else lse.data_ptr(),
+            _build.stream_ptr(q.device)))
         flash_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0

@@ -12,6 +12,13 @@ versions.  Padding helpers are not needed here: the kernels mask ragged
 edges themselves, and the plain versions pad on their own
 (``blocked._pad_axis``).  Eager PyTorch materializes every NON_STREAM
 intermediate without an ``optimization_barrier``.
+
+Under autograd (an input that requires grad, grad mode on) the attention
+entry points go through the autograd Functions of ``flash_vjp`` (the
+forward kernels then also emit lse, and the backward kernels run), and
+``projection`` through ``ProjectionFn``; NON_STREAM stays plain PyTorch,
+which autograd differentiates.  Without grad they launch exactly what the
+serving paths launch.
 """
 from __future__ import annotations
 
@@ -24,6 +31,8 @@ from repro_torch.core.types import ExecutionMode
 from repro_torch.kernels import ref
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_vjp import (FlashAttentionFn,
+                                           StreamAttentionFn, needs_grad)
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.stream_attention import stream_attention
 from repro_torch.kernels.tile_gemm import tile_gemm
@@ -35,9 +44,13 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          q_offset: int = 0,
                          block_k: int = 256) -> torch.Tensor:
     """GQA attention: q (B,Hq,Sq,hd), k/v (B,Hkv,Sk,hd) -> (B,Hq,Sq,hd)."""
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(),
-                           causal=causal, window=window, q_offset=q_offset,
-                           block_k=runtime.get("block_k", block_k))
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    block_k = runtime.get("block_k", block_k)
+    if needs_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal, window, q_offset,
+                                      block_k)
+    return flash_attention(q, k, v, causal=causal, window=window,
+                           q_offset=q_offset, block_k=block_k)
 
 
 def streaming_attention(q: torch.Tensor, x_kv: torch.Tensor,
@@ -49,17 +62,44 @@ def streaming_attention(q: torch.Tensor, x_kv: torch.Tensor,
                         q_offset: int = 0, norm_eps: float = 1e-6,
                         block_k: int = 256) -> torch.Tensor:
     """TILE_STREAM fused K/V generation + attention (stream_attention.py)."""
+    q, x_kv = q.contiguous(), x_kv.contiguous()
+    wk, wv = wk.to(q.dtype).contiguous(), wv.to(q.dtype).contiguous()
+    block_k = runtime.get("block_k", block_k)
+    if needs_grad(q, x_kv, wk, wv, k_gamma):
+        return StreamAttentionFn.apply(q, x_kv, wk, wv, k_gamma, sin, cos,
+                                       causal, window, q_offset, norm_eps,
+                                       block_k)
     return stream_attention(
-        q.contiguous(), x_kv.contiguous(), wk.to(q.dtype).contiguous(),
-        wv.to(q.dtype).contiguous(), sin=sin, cos=cos, k_gamma=k_gamma,
-        causal=causal, window=window, q_offset=q_offset, norm_eps=norm_eps,
-        block_k=runtime.get("block_k", block_k))
+        q, x_kv, wk, wv, sin=sin, cos=cos, k_gamma=k_gamma, causal=causal,
+        window=window, q_offset=q_offset, norm_eps=norm_eps,
+        block_k=block_k)
+
+
+class ProjectionFn(torch.autograd.Function):
+    """x (M, K) @ w (K, N) through ``tile_gemm``.  The backward products
+    dX = dY W^T and dW = X^T dY are ``torch.matmul``: the JAX training path
+    computes them as XLA dots outside any Pallas kernel (its loss runs with
+    ``use_pallas=False``, train/loop.py:36)."""
+
+    @staticmethod
+    def forward(ctx, x, w):
+        ctx.save_for_backward(x, w)
+        return tile_gemm(x, w)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w = ctx.saved_tensors
+        dx = dy @ w.t() if ctx.needs_input_grad[0] else None
+        dw = x.t() @ dy if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def projection(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """(..., K) @ (K, N) with f32 accumulation, output in x's dtype."""
     lead, K = x.shape[:-1], x.shape[-1]
-    out = tile_gemm(x.reshape(-1, K).contiguous(), w.to(x.dtype).contiguous())
+    x2, w2 = x.reshape(-1, K).contiguous(), w.to(x.dtype).contiguous()
+    out = (ProjectionFn.apply(x2, w2) if needs_grad(x2, w2)
+           else tile_gemm(x2, w2))
     return out.reshape(*lead, w.shape[1])
 
 

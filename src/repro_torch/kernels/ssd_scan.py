@@ -60,7 +60,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     (y (B, S, H, P) in x's dtype, final state (B, H, P, N) f32).
 
     CPU tensors take the plain version, chunked by ``chunk``; CUDA tensors
-    launch the kernel, which masks the ragged last chunk itself."""
+    launch the kernel, which masks the ragged last chunk itself.  It has no
+    backward yet: an input that requires grad under autograd raises."""
+    _build.refuse_grad("ssd_scan", "18", x, dt, a, b, c)
     if x.device.type == "cpu":
         return ssd_chunked_plain(x, dt, a, b, c, chunk=chunk)
     code = _build.check_cuda("ssd_scan", x=x, b=b, c=c)

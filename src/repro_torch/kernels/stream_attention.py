@@ -20,7 +20,7 @@ MAX_HEAD_DIM = 128
 
 def _lib():
     fn = _build.load("stream_attention").stream_attention_launch
-    fn.argtypes = [_P] * 8 + [_I] * 8 + [_F] + [_I] * 6 + [_F, _P]
+    fn.argtypes = [_P] * 8 + [_I] * 8 + [_F] + [_I] * 6 + [_F, _P, _P]
     fn.restype = _I
     return fn
 
@@ -54,10 +54,12 @@ def stream_attention(q: torch.Tensor, x_kv: torch.Tensor, wk: torch.Tensor,
                      causal: bool = False, window: int = 0,
                      q_offset: int = 0, scale: Optional[float] = None,
                      norm_eps: float = 1e-6, kv_len: Optional[int] = None,
-                     block_k: int = 256) -> torch.Tensor:
+                     block_k: int = 256, return_lse: bool = False):
     """q (B, Hq, Sq, hd) pre-projected; x_kv (B, Sk, D); wk/wv (D, Hkv, hd);
     sin/cos (Sk, hd//2) RoPE tables for the keys or None; k_gamma (hd,)
-    qk-norm gain of K or None -> (B, Hq, Sq, hd) in q's dtype.
+    qk-norm gain of K or None -> (B, Hq, Sq, hd) in q's dtype.  With
+    ``return_lse`` also each query row's m + log l (B, Hq, Sq) f32, the
+    residual of the backward (``flash_vjp``).
 
     CPU tensors take the plain version, blocked by ``block_k``; CUDA tensors
     launch the kernel, whose kv tile is fixed at 64 keys."""
@@ -65,7 +67,8 @@ def stream_attention(q: torch.Tensor, x_kv: torch.Tensor, wk: torch.Tensor,
         return stream_attention_plain(
             q, x_kv, wk, wv, sin=sin, cos=cos, k_gamma=k_gamma,
             causal=causal, window=window, q_offset=q_offset, scale=scale,
-            norm_eps=norm_eps, kv_len=kv_len, block_k=block_k)
+            norm_eps=norm_eps, kv_len=kv_len, block_k=block_k,
+            return_lse=return_lse)
     code = _build.check_cuda("stream_attention", q=q, x_kv=x_kv, wk=wk,
                              wv=wv)
     B, Hq, Sq, hd = q.shape
@@ -105,15 +108,17 @@ def stream_attention(q: torch.Tensor, x_kv: torch.Tensor, wk: torch.Tensor,
         return None if t is None else t.data_ptr()
 
     out = torch.empty((B, Hq, Sq, hd), dtype=q.dtype, device=q.device)
+    lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+           if return_lse else None)
     if out.numel():
         _build.raise_on("stream_attention", _lib()(
             q.data_ptr(), x_kv.data_ptr(), wk.data_ptr(), wv.data_ptr(),
             ptr(sin), ptr(cos), ptr(k_gamma), out.data_ptr(), code,
             B, Hq, Hkv, Sq, Sk, D, hd, scale, int(causal), window, q_offset,
             kv_len, int(sin is not None), int(k_gamma is not None),
-            norm_eps, _build.stream_ptr(q.device)))
+            norm_eps, ptr(lse), _build.stream_ptr(q.device)))
         stream_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 stream_attention.launches = 0

@@ -23,7 +23,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 
 def param(t: torch.Tensor) -> nn.Parameter:
-    """A parameter of the inference-only port (no gradient)."""
+    """A parameter, created without gradient: the serving paths never need
+    one, and the train loop switches them on (``requires_grad_(True)``)."""
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -24,10 +24,18 @@ Sliding-window attention (hybrid only) keeps a ring of ``W = min(max_len,
 window)`` slots: absolute position p lives in slot p % W.  ``decode_step``
 updates the cache's buffers in place.
 
+Training (dense family): ``Transformer.hidden`` is the forward with
+autograd, each layer optionally recomputed in the backward
+(``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX
+``_scan_stack``); ``loss_fn`` is next-token cross-entropy through
+``chunked_xent`` (transformer.py:177-214).  The serving entry points keep
+``torch.no_grad()``.
+
 Not ported yet, and refused with ``NotImplementedError``: MoE (with its
 dense-prefix stack), VLM M-RoPE, the ring cache of dense sliding-window
 models, MLA, biases, and serving on a mesh (ROADMAP Queue 1 items 6, 7,
-10).
+10); training the SSM and hybrid families (item 18: ``ssd_scan`` has no
+backward yet).
 """
 from __future__ import annotations
 
@@ -35,6 +43,7 @@ from typing import Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import runtime
 from repro_torch.core.types import AttnKind, ExecutionMode, Family, ModelConfig
@@ -74,6 +83,15 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: biases and M-RoPE are not ported yet "
             f"(ROADMAP Queue 1 item 6)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise for the families whose training is not ported yet."""
+    check_supported(cfg)
+    if cfg.family != Family.DENSE:
+        raise NotImplementedError(
+            f"{cfg.name}: training the {cfg.family.value} family needs the "
+            f"ssd_scan backward, not ported yet (ROADMAP Queue 1 item 18)")
 
 
 def _window(cfg: ModelConfig) -> int:
@@ -269,17 +287,30 @@ class Transformer(nn.Module):
             return None, None
         return rope_tables_for(self.cfg, seq_len, device=self.device)
 
-    @torch.no_grad()
-    def forward_hidden(self, batch: Dict[str, torch.Tensor], *,
-                       mode: Optional[ExecutionMode] = None) -> torch.Tensor:
-        """``forward`` up to (but excluding) the unembed projection."""
+    def hidden(self, batch: Dict[str, torch.Tensor], *,
+               mode: Optional[ExecutionMode] = None,
+               remat: bool = False) -> torch.Tensor:
+        """``forward`` up to the unembed, recorded by autograd where grad
+        mode is on (the training path; transformer.py:151).  ``remat``
+        keeps only each layer's input and recomputes the layer in the
+        backward (its kernels then launch twice a step)."""
         cfg = self.cfg
         mode = mode or cfg.execution_mode
         x = embed_lookup(self.embed, batch["tokens"])
         sin, cos = self._rope(x.shape[1])
         for p in self.layers:
-            x = _layer_apply(p, cfg, x, sin=sin, cos=cos, mode=mode)
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(_layer_apply, p, cfg, x, sin=sin, cos=cos,
+                               mode=mode, use_reentrant=False)
+            else:
+                x = _layer_apply(p, cfg, x, sin=sin, cos=cos, mode=mode)
         return rms_norm(self.final_norm, x, eps=cfg.norm_eps)
+
+    @torch.no_grad()
+    def forward_hidden(self, batch: Dict[str, torch.Tensor], *,
+                       mode: Optional[ExecutionMode] = None) -> torch.Tensor:
+        """``forward`` up to (but excluding) the unembed projection."""
+        return self.hidden(batch, mode=mode)
 
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor], *,
@@ -362,3 +393,45 @@ class Transformer(nn.Module):
         x = rms_norm(self.final_norm, x, eps=cfg.norm_eps)
         cache["len"] = S
         return unembed(self.embed, x, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# Training: the loss (transformer.py:177-214)
+# ---------------------------------------------------------------------------
+
+def _chunk_nll(embed: Embedding, cfg: ModelConfig, h: torch.Tensor,
+               labels: torch.Tensor) -> torch.Tensor:
+    """Summed negative log-likelihood of one sequence chunk; labels -1 are
+    masked."""
+    logits = unembed(embed, h, cfg)
+    valid = labels >= 0
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    return (nll * valid).sum()
+
+
+def chunked_xent(model: Transformer, hidden: torch.Tensor,
+                 labels: torch.Tensor, *, chunk: int = 512) -> torch.Tensor:
+    """Cross-entropy with the unembed computed per sequence chunk of
+    ``chunk`` positions (the whole sequence when it does not divide).  Each
+    chunk's f32 logits are recomputed in the backward, so the (B, S, vocab)
+    logits never exist at once, not even as saved residuals."""
+    B, S, _ = hidden.shape
+    c = min(chunk, S)
+    if S % c:
+        c = S
+    total = hidden.new_zeros((), dtype=torch.float32)
+    for i in range(0, S, c):
+        args = (model.embed, model.cfg, hidden[:, i:i + c], labels[:, i:i + c])
+        total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else _chunk_nll(*args))
+    return total / max(int((labels >= 0).sum()), 1)
+
+
+def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor], *,
+            mode: Optional[ExecutionMode] = None,
+            remat: bool = True) -> torch.Tensor:
+    """Next-token cross-entropy of ``batch`` ({"tokens", "labels"} (B, S));
+    labels == -1 are masked."""
+    hidden = model.hidden(batch, mode=mode, remat=remat)
+    return chunked_xent(model, hidden, batch["labels"])

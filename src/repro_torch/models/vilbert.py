@@ -8,7 +8,11 @@ the other modality's activations: the cross-forwarding case), then
 self-attention, then the FFN.  DTPU pruning runs between co-TRM blocks: each
 stream keeps the tokens the other stream attends to most.  The vision
 frontend is a stub: region embeddings arrive precomputed (B, S_x, D_x).
-Structure and order are those of vilbert.py:147-211.
+Structure and order are those of vilbert.py:147-211.  ``logits`` is the
+forward recorded by autograd (remat of the text-only layers and of each
+co-TRM block as the JAX ``pre_step``/``co_body``), and ``loss_fn`` the VQA
+cross-entropy (vilbert.py:214); the pruning's token choice is not
+differentiated, its gather is.
 """
 from __future__ import annotations
 
@@ -16,6 +20,7 @@ from typing import Dict, Optional, Union
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import pruning as P
 from repro_torch.core import runtime
@@ -99,6 +104,23 @@ def _stream_block(p: StreamBlock, cfg: ModelConfig, x_own: torch.Tensor,
     return x_own + mlp_forward(p.mlp, h3)
 
 
+def _text_layer(p: TextLayer, cfg: ModelConfig, y: torch.Tensor,
+                mode: ExecutionMode) -> torch.Tensor:
+    """One text-only encoder layer (the JAX ``pre_body``)."""
+    h = layer_norm(p.ln1, y, eps=cfg.norm_eps)
+    y = y + _attn(p.attn, cfg, h, h, mode)
+    h2 = layer_norm(p.ln2, y, eps=cfg.norm_eps)
+    return y + mlp_forward(p.mlp, h2)
+
+
+def _co_block(px: StreamBlock, py: StreamBlock, cfg: ModelConfig,
+              x: torch.Tensor, y: torch.Tensor, mode: ExecutionMode):
+    """One co-TRM block, both streams from the block's inputs (the JAX
+    ``co_body``)."""
+    return (_stream_block(px, cfg, x, y, mode),
+            _stream_block(py, cfg, y, x, mode))
+
+
 def _dtpu_cross_scores(p: StreamBlock, x: torch.Tensor, y: torch.Tensor,
                        stride: int = 8) -> torch.Tensor:
     """Rank y's tokens by the attention mass x's queries pay them."""
@@ -148,7 +170,14 @@ class ViLBERT(nn.Module):
         embeddings, "tokens": (B, S_y) text ids}.  Returns the final vision
         and language streams (B, n_x, D_x), (B, n_y, D_y) and the per-block
         kept-token counts ((n_x, n_y), ...)."""
+        return self._encode(batch, mode=mode)
+
+    def _encode(self, batch: Dict[str, torch.Tensor], *,
+                mode: Optional[ExecutionMode] = None, remat: bool = False):
+        """``encode`` as autograd records it; ``remat`` recomputes each
+        text-only layer and each co-TRM block in the backward."""
         cfg = self.cfg
+        remat = remat and torch.is_grad_enabled()
         mode = ExecutionMode(mode or cfg.execution_mode)
         dt = torch_dtype(cfg.dtype)
         x = torch.matmul(batch["regions"].to(dt), self.vis_proj.to(dt))
@@ -156,10 +185,8 @@ class ViLBERT(nn.Module):
         y = y + self.text_pos[:y.shape[1]].to(y.dtype)[None]
 
         for lp in self.text_pre:
-            h = layer_norm(lp.ln1, y, eps=cfg.norm_eps)
-            y = y + _attn(lp.attn, cfg, h, h, mode)
-            h2 = layer_norm(lp.ln2, y, eps=cfg.norm_eps)
-            y = y + mlp_forward(lp.mlp, h2)
+            y = (checkpoint(_text_layer, lp, cfg, y, mode, use_reentrant=False)
+                 if remat else _text_layer(lp, cfg, y, mode))
 
         # Co-TRM blocks with DTPU pruning between blocks (static keep plan).
         n_co = cfg.num_coattn_layers
@@ -170,15 +197,19 @@ class ViLBERT(nn.Module):
             else (y.shape[1],) * n_co
         counts = []
         for i, (px, py) in enumerate(zip(self.co_x, self.co_y)):
+            # the token choice is not differentiated; the gather is
             if on and plan_x[i] < x.shape[1]:
-                sx = _dtpu_cross_scores(py, y, x)     # X tokens scored by Y
+                with torch.no_grad():
+                    sx = _dtpu_cross_scores(py, y, x)   # X tokens scored by Y
                 x, _, _ = P.prune_stream(x, sx, plan_x[i])
             if on and plan_y[i] < y.shape[1]:
-                sy = _dtpu_cross_scores(px, x, y)     # Y tokens scored by X
+                with torch.no_grad():
+                    sy = _dtpu_cross_scores(px, x, y)   # Y tokens scored by X
                 y, _, _ = P.prune_stream(y, sy, plan_y[i])
             counts.append((x.shape[1], y.shape[1]))
-            x, y = (_stream_block(px, cfg, x, y, mode),
-                    _stream_block(py, cfg, y, x, mode))
+            x, y = (checkpoint(_co_block, px, py, cfg, x, y, mode,
+                               use_reentrant=False)
+                    if remat else _co_block(px, py, cfg, x, y, mode))
         return x, y, tuple(counts)
 
     @torch.no_grad()
@@ -187,10 +218,26 @@ class ViLBERT(nn.Module):
                 return_token_counts: bool = False):
         """VQA logits (B, 3129) in f32 from ``encode``'s two streams (and
         the per-block kept-token counts with ``return_token_counts``)."""
-        x, y, counts = self.encode(batch, mode=mode)
-        hx = torch.tanh(torch.matmul(x.mean(dim=1), self.pool_x.to(x.dtype)))
-        hy = torch.tanh(torch.matmul(y.mean(dim=1), self.pool_y.to(y.dtype)))
-        logits = torch.matmul(hx * hy, self.vqa_head.to(hx.dtype)).float()
+        logits, counts = self.logits(batch, mode=mode)
         if return_token_counts:
             return logits, counts
         return logits
+
+    def logits(self, batch: Dict[str, torch.Tensor], *,
+               mode: Optional[ExecutionMode] = None, remat: bool = False):
+        """``forward`` as autograd records it: (logits, kept counts)."""
+        x, y, counts = self._encode(batch, mode=mode, remat=remat)
+        hx = torch.tanh(torch.matmul(x.mean(dim=1), self.pool_x.to(x.dtype)))
+        hy = torch.tanh(torch.matmul(y.mean(dim=1), self.pool_y.to(y.dtype)))
+        return torch.matmul(hx * hy, self.vqa_head.to(hx.dtype)).float(), \
+            counts
+
+
+def loss_fn(model: ViLBERT, batch: Dict[str, torch.Tensor], *,
+            mode: Optional[ExecutionMode] = None,
+            remat: bool = False) -> torch.Tensor:
+    """VQA answer cross-entropy (vilbert.py:214): batch {"regions",
+    "tokens", "answers" (B,)}."""
+    logits, _ = model.logits(batch, mode=mode, remat=remat)
+    logp = torch.log_softmax(logits, dim=-1)
+    return -torch.gather(logp, 1, batch["answers"].long()[:, None]).mean()

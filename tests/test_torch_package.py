@@ -94,3 +94,61 @@ def test_chip_smoke_fails_without_a_gpu(tmp_path):
     shutil.copy(ROOT / "chip_smoke.py", alone)
     res = _python(str(alone), cwd=tmp_path, pythonpath=None)
     assert res.returncode != 0 and '"ok"' not in res.stdout
+
+
+def test_training_modules_import_no_jax_and_no_repro():
+    code = (
+        "import sys\n"
+        "import repro_torch.train.loop, repro_torch.train.checkpoint\n"
+        "import repro_torch.launch.train, repro_torch.data.pipeline\n"
+        "import repro_torch.kernels.flash_vjp\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    res = _python("-c", code)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD []" in res.stdout
+
+
+def test_training_entry_points_raise_without_a_gpu_or_a_named_device():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+    from repro_torch.core.types import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch import train as launcher
+    from repro_torch.train import loop
+    cfg = get_config("qwen3-32b", smoke=True)
+    shape = ShapeConfig("t", 8, 2, "train")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        loop.train(cfg, shape, SyntheticLM(cfg, shape),
+                   loop.TrainConfig(steps=1))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launcher.main(["--arch", "qwen3-32b", "--smoke", "--steps", "1"])
+
+
+def _decode_inputs():
+    from repro_torch.kernels.decode_attention import decode_attention
+    q = torch.randn(1, 2, 1, 8, requires_grad=True)
+    kv = torch.randn(1, 1, 4, 8)
+    return lambda: decode_attention(q, kv, kv, 4)
+
+
+def _ssd_inputs():
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x = torch.randn(1, 8, 2, 4, requires_grad=True)
+    return lambda: ssd_scan(x, torch.rand(1, 8, 2), -torch.rand(2),
+                            torch.randn(1, 8, 4), torch.randn(1, 8, 4),
+                            chunk=4)
+
+
+@pytest.mark.parametrize("make", [_decode_inputs, _ssd_inputs],
+                         ids=["decode_attention", "ssd_scan"])
+def test_kernels_without_a_backward_raise_under_grad(make):
+    """No detached result: an input that requires grad raises, naming the
+    ROADMAP item; under no_grad the same call runs."""
+    call = make()
+    with pytest.raises(NotImplementedError, match="item 18"):
+        call()
+    with torch.no_grad():
+        call()
