@@ -1047,8 +1047,8 @@ def device_ms(fn, reps: int = 20, tries: int = 3):
     """(device time per call in ms, kernel launches per call, {kernel: ms
     per call}) of fn() under torch.profiler, after a warm-up outside the
     trace: the kernels' own time, without the host's share of a call.  A
-    trace that recorded no device activity (the profiler now and then
-    drops a session's) is taken again, up to ``tries`` times."""
+    trace that gives no device time (the profiler now and then drops a
+    session's kernels) is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -1058,21 +1058,18 @@ def device_ms(fn, reps: int = 20, tries: int = 3):
             for _ in range(reps):
                 fn()
             torch.cuda.synchronize()
-        if any(e.device_type == torch.autograd.DeviceType.CUDA and e.count
-               for e in prof.key_averages()):
-            break
-    else:
-        fail(f"torch.profiler recorded no device activity in {tries} traces")
-    # Per kernel: its mean time a launch times its launches a call, the
-    # count rounded, so that an event the trace drops changes neither.
-    per_call = {e.key: (e.self_device_time_total / e.count / 1e3,
-                        round(e.count / reps))
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.count}
-    return (sum(ms * n for ms, n in per_call.values()),
-            sum(n for _, n in per_call.values()),
-            {k: ms * n for k, (ms, n) in per_call.items() if n})
+        # Per kernel: its mean time a launch times its launches a call, the
+        # count rounded, so that an event the trace drops changes neither.
+        per_call = {e.key: (e.self_device_time_total / e.count / 1e3,
+                            round(e.count / reps))
+                    for e in prof.key_averages()
+                    if e.device_type == torch.autograd.DeviceType.CUDA
+                    and e.count}
+        total = sum(ms * n for ms, n in per_call.values())
+        if total > 0:
+            return (total, sum(n for _, n in per_call.values()),
+                    {k: ms * n for k, (ms, n) in per_call.items() if n})
+    fail(f"torch.profiler gave no device time in {tries} traces")
 
 
 def kernel_name(key: str) -> str:
