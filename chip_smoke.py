@@ -707,9 +707,12 @@ def check_flash_bwd(gen, report):
                     return torch.autograd.grad(ref_out, (qr, kr, vr), do,
                                                retain_graph=True)
 
+                dev, _, parts = device_ms(run)
+                say(f"    {name} {key} device time by kernel: "
+                    + ", ".join(f"{kernel_name(k)} {v:.3f} ms"
+                                for k, v in parts.items()))
                 report[name] = dict(
-                    max_abs_err=err, ms=time_ms(run),
-                    device_ms=device_ms(run)[0],
+                    max_abs_err=err, ms=time_ms(run), device_ms=dev,
                     plain_ms=time_ms(lambda: blocked.flash_attention_bwd_plain(
                         q, k, v, out, lse, do, **kw)),
                     library_ms=time_ms(library),
@@ -799,9 +802,12 @@ def check_stream_bwd(gen, report):
                     return (dk2 @ wk2.t() + dv2 @ wv2.t(), x2.t() @ dk2,
                             x2.t() @ dv2)
 
+                dev, _, parts = device_ms(run, reps=3)
+                say(f"    {name} {key} device time by kernel: "
+                    + ", ".join(f"{kernel_name(k)} {v:.3f} ms"
+                                for k, v in parts.items()))
                 report[name] = dict(
-                    max_abs_err=err, ms=time_ms(run),
-                    device_ms=device_ms(run, reps=3)[0],
+                    max_abs_err=err, ms=time_ms(run), device_ms=dev,
                     plain_ms=time_ms(lambda: blocked.stream_attention_bwd_plain(
                         q, x, wk, wv, out, lse, do, **kw)),
                     library_ms=time_ms(library),
@@ -2051,10 +2057,11 @@ def train_launches(cfg, mode: ExecutionMode) -> dict:
     return want
 
 
-def profiled_step(model, cfg, mode, batch, state) -> str:
+def profiled_step(model, cfg, mode, batch, state) -> tuple:
     """One more train step, timed in parts by CUDA events (forward + loss,
     backward, optimizer) and under torch.profiler (the device's busy share
-    of the step)."""
+    of the step): (its report, how many parameters got a non-zero
+    gradient, how many there are)."""
     from torch.profiler import ProfilerActivity, profile
     mod = registry.model_module(cfg)
     params = {k: p for k, p in model.named_parameters()}
@@ -2073,13 +2080,18 @@ def profiled_step(model, cfg, mode, batch, state) -> str:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     live = sum(int(bool(g.any())) for g in grads)
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    kernels = sorted(((e.self_device_time_total / 1e3, e.key)
+                      for e in prof.key_averages()
+                      if e.device_type == torch.autograd.DeviceType.CUDA),
+                     reverse=True)
+    busy = sum(t for t, _ in kernels)
+    top = ", ".join(f"{kernel_name(k)} {t:.1f} ms" for t, k in kernels[:5])
     fwd, bwd, opt = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
     return (f"forward + loss {fwd:.1f} ms, backward {bwd:.1f} ms, optimizer "
             f"{opt:.1f} ms on the stream; device busy {busy:.1f} ms of "
-            f"{wall:.1f} ms wall ({100 * busy / wall:.0f}%); {live} of "
-            f"{len(grads)} parameters have a non-zero gradient")
+            f"{wall:.1f} ms wall ({100 * busy / wall:.0f}%); top: {top}; "
+            f"{live} of {len(grads)} parameters have a non-zero gradient",
+            live, len(grads))
 
 
 def training(smi: str, launches: dict) -> None:
@@ -2127,8 +2139,14 @@ def training(smi: str, launches: dict) -> None:
                 f"parameters) {mode.value}, B = {B}, S = {S}: step "
                 f"{step_ms:.1f} ms mean of steps 2-{steps}, {rate}, peak "
                 f"memory {peak:.2f} GiB, launches a step {want} [{smi}]")
-            say(f"    profiled step: "
-                f"{profiled_step(model, cfg, mode, batch, state)} [{smi}]")
+            text, live, n = profiled_step(model, cfg, mode, batch, state)
+            say(f"    profiled step: {text} [{smi}]")
+            # vilbert at random weights: its streams reach ~1e6, the
+            # pooler's tanh is flat, and only the VQA head gets a gradient
+            # (see check_loss); the decoder's loss reaches every parameter
+            if cfg.family != Family.CROSSMODAL and live != n:
+                fail(f"train {arch} {mode.value}: {n - live} of {n} "
+                     f"parameters got no gradient")
             del model, state, batch, params, step
             free()
 

@@ -42,22 +42,21 @@ ARCHS = tuple(_MODULES)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig
-                ) -> Dict[str, Tuple[Tuple[int, ...], str]]:
-    """{name: (shape, dtype name)} of one global batch (registry.py:116):
-    the token batch (with labels, or for the crossmodal family the vision
-    regions and VQA answers, when ``shape.kind`` is "train"); a decode
-    shape has one token per row."""
+                ) -> Dict[str, Tuple[int, ...]]:
+    """{name: shape} of one global batch (registry.py:116): the token batch
+    (with labels, or for the crossmodal family the vision regions and VQA
+    answers, when ``shape.kind`` is "train"); a decode shape has one token
+    per row."""
     B = shape.global_batch
     S = 1 if shape.is_decode else shape.seq_len
     if cfg.family == Family.CROSSMODAL:
-        specs = {"regions": ((B, shape.seq_len, cfg.d_model), cfg.dtype),
-                 "tokens": ((B, shape.seq_len), "int32")}
+        specs = {"regions": (B, shape.seq_len, cfg.d_model),
+                 "tokens": (B, shape.seq_len)}
         if shape.kind == "train":
-            specs["answers"] = ((B,), "int32")
+            specs["answers"] = (B,)
         return specs
-    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID):
-        model_module(cfg)        # raises for the families not ported
-    specs = {"tokens": ((B, S), "int32")}
+    model_module(cfg)            # raises for the families not ported
+    specs = {"tokens": (B, S)}
     if shape.kind == "train":
-        specs["labels"] = ((B, S), "int32")
+        specs["labels"] = (B, S)
     return specs

@@ -131,11 +131,16 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
+def needs_grad(*tensors) -> bool:
+    """Whether autograd records an op on these tensors."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def refuse_grad(kernel: str, item: str, *tensors) -> None:
     """Raise if autograd would need a gradient through ``kernel``, which has
     no backward yet: its result would be silently detached."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in tensors):
+    if needs_grad(*tensors):
         raise NotImplementedError(
             f"{kernel}: no backward is ported yet (ROADMAP Queue 1 "
             f"item {item}); call it under torch.no_grad()")

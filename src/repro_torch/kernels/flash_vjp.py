@@ -198,9 +198,3 @@ class StreamAttentionFn(torch.autograd.Function):
             q, x_kv, wk, wv, out, lse, dout.contiguous(), sin=sin, cos=cos,
             k_gamma=k_gamma, **ctx.kw)
         return (dq, dx, dwk, dwv, dg) + (None,) * 7
-
-
-def needs_grad(*tensors) -> bool:
-    """Whether autograd records an op on these tensors."""
-    return torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in tensors)

@@ -29,10 +29,10 @@ import torch
 from repro_torch.core import runtime
 from repro_torch.core.types import ExecutionMode
 from repro_torch.kernels import ref
+from repro_torch.kernels._build import needs_grad
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_vjp import (FlashAttentionFn,
-                                           StreamAttentionFn, needs_grad)
+from repro_torch.kernels.flash_vjp import FlashAttentionFn, StreamAttentionFn
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.stream_attention import stream_attention
 from repro_torch.kernels.tile_gemm import tile_gemm

@@ -47,7 +47,6 @@ def parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     ap.add_argument("--corpus", default=None,
                     help="path to a local text corpus (default: synthetic)")
     ap.add_argument("--lr", type=float, default=3e-4)
-    ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None,
                     help="the device to train on (default: the card)")
     return ap.parse_args(argv)
@@ -69,11 +68,11 @@ def main(argv: Optional[List[str]] = None) -> dict:
         shape = dataclasses.replace(
             shape, global_batch=args.global_batch or shape.global_batch,
             seq_len=args.seq_len or shape.seq_len)
-    source = (TextCorpus(cfg, shape, args.corpus, seed=args.seed)
-              if args.corpus else SyntheticLM(cfg, shape, seed=args.seed))
+    source = (TextCorpus(cfg, shape, args.corpus) if args.corpus
+              else SyntheticLM(cfg, shape))
     tcfg = L.TrainConfig(
         steps=args.steps, checkpoint_dir=args.checkpoint_dir,
-        checkpoint_every=args.checkpoint_every, seed=args.seed,
+        checkpoint_every=args.checkpoint_every,
         mode=ExecutionMode(args.mode) if args.mode else None,
         microbatches=args.microbatches, log_every=1,
         opt=OPT.OptimizerConfig(learning_rate=args.lr,

@@ -32,17 +32,14 @@ _SEP = "|"          # path separator inside npz keys ('/' is not npz-safe)
 HOST_ID = 0
 
 
+def _path(prefix: str, key) -> str:
+    return f"{prefix}{_SEP}{key}" if prefix else str(key)
+
+
 def _flatten(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
     if isinstance(tree, dict):
-        out = []
-        for k in sorted(tree):
-            out += _flatten(tree[k], f"{prefix}{_SEP}{k}" if prefix else str(k))
-        return out
-    if isinstance(tree, (tuple, list)):
-        out = []
-        for i, v in enumerate(tree):
-            out += _flatten(v, f"{prefix}{_SEP}{i}" if prefix else str(i))
-        return out
+        return [leaf for k in sorted(tree)
+                for leaf in _flatten(tree[k], _path(prefix, k))]
     return [(prefix, tree)]
 
 
@@ -150,13 +147,8 @@ class Checkpointer:
 
         def rebuild(tree, prefix=""):
             if isinstance(tree, dict):
-                return {k: rebuild(v, f"{prefix}{_SEP}{k}" if prefix
-                                   else str(k)) for k, v in tree.items()}
-            if isinstance(tree, (tuple, list)):
-                vals = [rebuild(v, f"{prefix}{_SEP}{i}" if prefix else str(i))
-                        for i, v in enumerate(tree)]
-                return type(tree)(*vals) if hasattr(tree, "_fields") \
-                    else type(tree)(vals)
+                return {k: rebuild(v, _path(prefix, k))
+                        for k, v in tree.items()}
             if prefix not in meta:
                 raise KeyError(f"checkpoint missing leaf {prefix!r}")
             arr, dtype = arrays[prefix], meta[prefix]["dtype"]

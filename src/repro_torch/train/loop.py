@@ -34,7 +34,6 @@ class TrainConfig:
     seed: int = 0
     microbatches: int = 1
     mode: Optional[ExecutionMode] = None
-    remat: bool = True
     opt: OPT.OptimizerConfig = dataclasses.field(
         default_factory=OPT.OptimizerConfig)
 
@@ -78,7 +77,7 @@ def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
             "item 13 (multi-GPU)")
     device = runtime.resolve_device(device)
     hooks = hooks or {}
-    del shape            # the source's batches carry it
+    specs = registry.input_specs(cfg, shape)
     model = build_model(cfg, device, tcfg.seed)
     params = {k: p for k, p in model.named_parameters()}
     opt_state = OPT.init(params)
@@ -95,12 +94,16 @@ def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
             start_step = latest
 
     step_fn = ST.make_train_step(cfg, tcfg.opt, mode=tcfg.mode,
-                                 remat=tcfg.remat,
                                  microbatches=tcfg.microbatches)
     metrics_hist = []
     t_last = time.time()
     for step in range(start_step, tcfg.steps):
-        batch = to_device(source.batch(step), cfg, device)
+        batch = source.batch(step)
+        got = {k: tuple(v.shape) for k, v in batch.items()}
+        if got != specs:
+            raise ValueError(f"train: the source's batch {got} does not fit "
+                             f"{shape.name} ({specs})")
+        batch = to_device(batch, cfg, device)
         model, opt_state, metrics = step_fn(model, opt_state, batch)
         if (step + 1) % tcfg.log_every == 0 or step == tcfg.steps - 1:
             m = dict(metrics)

@@ -324,3 +324,16 @@ def test_train_refuses_a_mesh_and_untrainable_families():
     ssm = registry.get_config("mamba2-780m", smoke=True)
     with pytest.raises(NotImplementedError, match="item 18"):
         L.build_model(ssm, torch.device("cpu"), 0)
+
+
+def test_train_refuses_batches_that_do_not_fit_the_shape():
+    cfg = registry.get_config("qwen3-32b", smoke=True)
+    other = ShapeConfig("other", seq_len=32, global_batch=4, kind="train")
+    with pytest.raises(ValueError, match="does not fit"):
+        L.train(cfg, SHAPE, SyntheticLM(cfg, other), L.TrainConfig(steps=1),
+                device="cpu")
+    assert registry.input_specs(cfg, SHAPE) == {"tokens": (4, 64),
+                                                "labels": (4, 64)}
+    vil = registry.get_config("vilbert-base", smoke=True)
+    assert registry.input_specs(vil, SHAPE) == {
+        "regions": (4, 64, vil.d_model), "tokens": (4, 64), "answers": (4,)}
