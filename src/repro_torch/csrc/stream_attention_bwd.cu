@@ -9,7 +9,9 @@
 // whole sequence, so the cross-forwarding dataflow carries into the
 // gradient.
 //
-// Three launches, f32 arithmetic on the SIMT core of attention_bwd.cuh:
+// Three launches, f32 arithmetic on the SIMT core of attention_bwd.cuh,
+// except that the K/V generation of bf16 inputs runs on the tensor cores
+// (mma.sync, exact bf16 products summed in f32: generate_tc):
 //   delta_kernel   delta = rowsum(dO * O)
 //   dkvgen_kernel  one block per (kv tile j of 64 keys, batch) reads
 //                  x_kv[b, 64j : 64j + 64, :D] and, for each kv head in
@@ -25,7 +27,10 @@
 //   dq_kernel      one block per (64 query rows, query head, batch)
 //                  generates K_j and V_j of its kv head for each live tile
 //                  and accumulates dQ.
+#include <type_traits>
+
 #include "attention_bwd.cuh"
+#include "warp_mma.cuh"
 
 namespace repro {
 namespace bwd {
@@ -37,16 +42,117 @@ struct Side {
   const float *sin_t, *cos_t, *k_gamma;   // (Sk, hd/2), (Sk, hd/2), (hd,)
   int D, use_rope, use_knorm;
   float eps;
+  int vec;   // x_kv and W load as 16-byte vectors (D, hd % 8 == 0, aligned)
 };
 
-// K_j (before qk-norm and RoPE) into t.k_s and V_j into t.v_s, from
-// x_kv[b, 64j : 64j + 64] and kv head kvh of wk/wv, through the staging
-// buffers xs (64 x (DC + 1)), wks and wvs (DC x HDT).
+// generate()'s bf16 route: the same products on the tensor cores
+// (mma.sync m16n8k16, bf16 x bf16 into f32 accumulators).  x_kv and W are
+// bf16, so every product is exact and only the order of the f32 sums
+// differs from the SIMT route.  The chunks of x (64 x DC) and W (DC x
+// HDT) are staged as bf16 in the same buffers, rows padded by 8 values
+// so that ldmatrix's eight row addresses fall in distinct banks.  Warp w
+// computes rows 16 (w % 4) .. + 16 and the column half w / 4 of K and V.
+template <int HDT>
+__device__ void generate_tc(Tiles<HDT>& t, const wm::bf16* __restrict__ x,
+                            const wm::bf16* __restrict__ wk,
+                            const wm::bf16* __restrict__ wv,
+                            const AttnShape& sh, const Side& sd, int b,
+                            int kvh, int j, void* xs_buf, void* wks_buf,
+                            void* wvs_buf) {
+  const int D = sd.D;
+  constexpr int XS = DC + 8, WS = HDT + 8, NT8 = HDT / 16;
+  constexpr int HS = Smem<HDT>::HS;
+  static_assert(NT8 % 2 == 0, "n tiles are loaded in pairs");
+  wm::bf16* xs = static_cast<wm::bf16*>(xs_buf);
+  wm::bf16* wks = static_cast<wm::bf16*>(wks_buf);
+  wm::bf16* wvs = static_cast<wm::bf16*>(wvs_buf);
+  const int warp = t.tid / 32, lane = t.tid % 32;
+  const int r0 = 16 * (warp % 4), c0 = (warp / 4) * (HDT / 2);
+  float ka[NT8][4], va[NT8][4];
+#pragma unroll
+  for (int n = 0; n < NT8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) ka[n][e] = va[n][e] = 0.f;
+  const wm::bf16* xb = x + (size_t)b * sh.Sk * D;
+  const wm::bf16 zero = __float2bfloat16(0.f);
+  for (int d0 = 0; d0 < D; d0 += DC) {
+    __syncthreads();   // the staging buffers are free
+    if (sd.vec) {      // 8 values a load; D and hd are multiples of 8
+      const uint4 z4 = make_uint4(0, 0, 0, 0);
+      for (int idx = t.tid; idx < 64 * (DC / 8); idx += NT) {
+        const int c = idx / (DC / 8), dd = idx % (DC / 8) * 8;
+        const int kpos = j * BKV + c, d = d0 + dd;
+        *reinterpret_cast<uint4*>(xs + c * XS + dd) =
+            kpos < sh.Sk && d < D
+                ? *reinterpret_cast<const uint4*>(xb + (size_t)kpos * D + d)
+                : z4;
+      }
+      for (int idx = t.tid; idx < DC * (HDT / 8); idx += NT) {
+        const int dd = idx / (HDT / 8), e = idx % (HDT / 8) * 8, d = d0 + dd;
+        const bool in = d < D && e < sh.hd;
+        const size_t off = ((size_t)d * sh.Hkv + kvh) * sh.hd + e;
+        *reinterpret_cast<uint4*>(wks + dd * WS + e) =
+            in ? *reinterpret_cast<const uint4*>(wk + off) : z4;
+        *reinterpret_cast<uint4*>(wvs + dd * WS + e) =
+            in ? *reinterpret_cast<const uint4*>(wv + off) : z4;
+      }
+    } else {
+      for (int idx = t.tid; idx < 64 * DC; idx += NT) {
+        const int c = idx / DC, dd = idx % DC, kpos = j * BKV + c, d = d0 + dd;
+        xs[c * XS + dd] =
+            kpos < sh.Sk && d < D ? xb[(size_t)kpos * D + d] : zero;
+      }
+      for (int idx = t.tid; idx < DC * HDT; idx += NT) {
+        const int dd = idx / HDT, e = idx % HDT, d = d0 + dd;
+        const bool in = d < D && e < sh.hd;
+        const size_t off = ((size_t)d * sh.Hkv + kvh) * sh.hd + e;
+        wks[dd * WS + e] = in ? wk[off] : zero;
+        wvs[dd * WS + e] = in ? wv[off] : zero;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int ks = 0; ks < DC / 16; ++ks) {
+      // A: rows r0 + 0..15 of the x chunk; B: rows (k) ks*16 + 0..15 of
+      // the W chunks, two n tiles of 8 columns per ldmatrix.x4.trans
+      const int m = lane / 8, row = lane % 8 + (m % 2) * 8;
+      uint32_t a[4];
+      wm::ldsm_x4(a, xs + (r0 + row) * XS + ks * 16 + (m / 2) * 8);
+#pragma unroll
+      for (int n = 0; n < NT8; n += 2) {
+        const int off = (ks * 16 + row) * WS + c0 + (n + m / 2) * 8;
+        uint32_t bk[4], bv[4];
+        wm::ldsm_x4_trans(bk, wks + off);
+        wm::ldsm_x4_trans(bv, wvs + off);
+        wm::mma16816(ka[n], a, bk[0], bk[1]);
+        wm::mma16816(ka[n + 1], a, bk[2], bk[3]);
+        wm::mma16816(va[n], a, bv[0], bv[1]);
+        wm::mma16816(va[n + 1], a, bv[2], bv[3]);
+      }
+    }
+  }
+  const int g = lane / 4, tq = lane % 4;
+#pragma unroll
+  for (int n = 0; n < NT8; ++n) {
+    const int col = c0 + n * 8 + 2 * tq;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = r0 + g + 8 * h;
+      t.k_s[r * HS + col] = ka[n][2 * h];
+      t.k_s[r * HS + col + 1] = ka[n][2 * h + 1];
+      t.v_s[r * HS + col] = va[n][2 * h];
+      t.v_s[r * HS + col + 1] = va[n][2 * h + 1];
+    }
+  }
+}
+
+// generate()'s f32 route, SIMT.
 template <typename T, int HDT>
-__device__ void generate(Tiles<HDT>& t, const T* __restrict__ x,
-                         const T* __restrict__ wk, const T* __restrict__ wv,
-                         const AttnShape& sh, int D, int b, int kvh, int j,
-                         float* xs, float* wks, float* wvs) {
+__device__ void generate_simt(Tiles<HDT>& t, const T* __restrict__ x,
+                              const T* __restrict__ wk,
+                              const T* __restrict__ wv, const AttnShape& sh,
+                              int D, int b, int kvh, int j, float* xs,
+                              float* wks, float* wvs) {
   constexpr int CJ = Tiles<HDT>::CJ;
   float ka[4][CJ], va[4][CJ];
 #pragma unroll
@@ -96,6 +202,21 @@ __device__ void generate(Tiles<HDT>& t, const T* __restrict__ x,
       t.k_s[(t.ty + T16 * i) * HS + t.tx + T16 * c] = ka[i][c];
       t.v_s[(t.ty + T16 * i) * HS + t.tx + T16 * c] = va[i][c];
     }
+}
+
+// K_j (before qk-norm and RoPE) into t.k_s and V_j into t.v_s, from
+// x_kv[b, 64j : 64j + 64] and kv head kvh of wk/wv, through the staging
+// buffers xs (64 x (DC + 1)), wks and wvs (DC x HDT) of floats: the tensor
+// cores for bf16 inputs, SIMT f32 for f32 ones.
+template <typename T, int HDT>
+__device__ void generate(Tiles<HDT>& t, const T* __restrict__ x,
+                         const T* __restrict__ wk, const T* __restrict__ wv,
+                         const AttnShape& sh, const Side& sd, int b, int kvh,
+                         int j, float* xs, float* wks, float* wvs) {
+  if constexpr (std::is_same<T, wm::bf16>::value)
+    generate_tc(t, x, wk, wv, sh, sd, b, kvh, j, xs, wks, wvs);
+  else
+    generate_simt(t, x, wk, wv, sh, sd.D, b, kvh, j, xs, wks, wvs);
 }
 
 // qk-norm and RoPE of the generated K_j in t.k_s, one warp per key row, as
@@ -182,7 +303,7 @@ dkvgen_kernel(const T* __restrict__ q, const T* __restrict__ x,
   float dga = 0.f;                  // dγ[tid] of this tile, tid < hd
   for (int kvh = 0; kvh < sh.Hkv; ++kvh) {
     // generation stages in P, Q and dO, which are free until the walk
-    generate(t, x, wk, wv, sh, D, b, kvh, j, t.p_s, t.q_s, t.do_s);
+    generate(t, x, wk, wv, sh, sd, b, kvh, j, t.p_s, t.q_s, t.do_s);
     __syncthreads();
     finish_k(t, sh, sd, j, kpre_s, r_s);
     float dka[4][CJ], dva[4][CJ];
@@ -356,7 +477,7 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ x,
     for (int c = 0; c < CJ; ++c) dqa[i][c] = 0.f;
   for (int j = kv.lo; j < kv.hi; ++j) {
     __syncthreads();   // the previous tile's products are done
-    generate(t, x, wk, wv, sh, sd.D, b, kvh, j, xs, wks, wvs);
+    generate(t, x, wk, wv, sh, sd, b, kvh, j, xs, wks, wvs);
     __syncthreads();
     finish_k(t, sh, sd, j, nullptr, nullptr);
     __syncthreads();
@@ -443,8 +564,11 @@ extern "C" int stream_attention_bwd_launch(
     float eps, void* stream) {
   repro::AttnShape sh{B, Hq, Hkv, Sq, Sk, hd, hd, scale,
                       causal, window, q_offset, kv_len};
+  const bool aligned =
+      ((uintptr_t)x | (uintptr_t)wk | (uintptr_t)wv) % 16 == 0;
   repro::bwd::Side sd{(const float*)sin_t, (const float*)cos_t,
-                      (const float*)k_gamma, D, use_rope, use_knorm, eps};
+                      (const float*)k_gamma, D, use_rope, use_knorm, eps,
+                      D % 8 == 0 && hd % 8 == 0 && aligned};
   cudaStream_t s = (cudaStream_t)stream;
   if (dtype == 0)
     return repro::bwd::dispatch<float>(q, x, wk, wv, out, dout, lse, delta,
