@@ -79,8 +79,8 @@ caught:
      counters equal what the path must launch (each forward twice, each
      attention backward once, no decode attention or SSD scan); step
      time, samples or tokens per second, peak memory, and one profiled
-     step (forward, backward and optimizer time on the stream, the
-     device's busy share);
+     step (device time against wall time of its forward, backward and
+     optimizer, the busy share, the top kernels);
  11. f32 gradient checks, vilbert-base at full width with one text-only
      layer and one co-TRM block (N = 1024; the gradient of its two final
      streams against random weights) and qwen3-32b at 2 layers (S = 1024;
@@ -2058,39 +2058,46 @@ def train_launches(cfg, mode: ExecutionMode) -> dict:
 
 
 def profiled_step(model, cfg, mode, batch, state) -> tuple:
-    """One more train step, timed in parts by CUDA events (forward + loss,
-    backward, optimizer) and under torch.profiler (the device's busy share
-    of the step): (its report, how many parameters got a non-zero
-    gradient, how many there are)."""
+    """One more train step with each part (forward + loss, backward,
+    optimizer) under its own torch.profiler trace: each part's device time
+    against its wall time, the step's busy share and top kernels.  Returns
+    (the report, how many parameters got a non-zero gradient, how many
+    there are)."""
     from torch.profiler import ProfilerActivity, profile
     mod = registry.model_module(cfg)
     params = {k: p for k, p in model.named_parameters()}
-    ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        ev[0].record()
-        loss = mod.loss_fn(model, batch, mode=mode, remat=True)
-        ev[1].record()
-        grads = torch.autograd.grad(loss, list(params.values()))
-        ev[2].record()
-        OPT.apply(TRAIN_OPT, params, dict(zip(params, grads)), state)
-        ev[3].record()
+    out, parts, kernels = {}, [], defaultdict(float)
+
+    def traced(name, fn):
         torch.cuda.synchronize()
-        wall = (time.perf_counter() - t0) * 1e3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            out[name] = fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        dev = 0.0
+        for e in prof.key_averages():
+            if e.device_type == torch.autograd.DeviceType.CUDA:
+                kernels[e.key] += e.self_device_time_total / 1e3
+                dev += e.self_device_time_total / 1e3
+        parts.append((name, dev, wall))
+
+    traced("forward + loss",
+           lambda: mod.loss_fn(model, batch, mode=mode, remat=True))
+    traced("backward", lambda: torch.autograd.grad(
+        out["forward + loss"], list(params.values())))
+    grads = out["backward"]
+    traced("optimizer", lambda: OPT.apply(
+        TRAIN_OPT, params, dict(zip(params, grads)), state))
     live = sum(int(bool(g.any())) for g in grads)
-    kernels = sorted(((e.self_device_time_total / 1e3, e.key)
-                      for e in prof.key_averages()
-                      if e.device_type == torch.autograd.DeviceType.CUDA),
-                     reverse=True)
-    busy = sum(t for t, _ in kernels)
-    top = ", ".join(f"{kernel_name(k)} {t:.1f} ms" for t, k in kernels[:5])
-    fwd, bwd, opt = (ev[i].elapsed_time(ev[i + 1]) for i in range(3))
-    return (f"forward + loss {fwd:.1f} ms, backward {bwd:.1f} ms, optimizer "
-            f"{opt:.1f} ms on the stream; device busy {busy:.1f} ms of "
-            f"{wall:.1f} ms wall ({100 * busy / wall:.0f}%); top: {top}; "
-            f"{live} of {len(grads)} parameters have a non-zero gradient",
+    busy, wall = sum(d for _, d, _ in parts), sum(w for _, _, w in parts)
+    top = ", ".join(f"{kernel_name(k)} {t:.1f} ms" for k, t in sorted(
+        kernels.items(), key=lambda kt: -kt[1])[:5])
+    split = ", ".join(f"{n} {d:.1f} of {w:.1f} ms" for n, d, w in parts)
+    return (f"device time of wall time: {split}; busy {busy:.1f} of "
+            f"{wall:.1f} ms ({100 * busy / wall:.0f}%); top: {top}; {live} of "
+            f"{len(grads)} parameters have a non-zero gradient",
             live, len(grads))
 
 
