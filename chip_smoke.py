@@ -1054,7 +1054,7 @@ def device_ms(fn, reps: int = 20, tries: int = 3):
     per call}) of fn() under torch.profiler, after a warm-up outside the
     trace: the kernels' own time, without the host's share of a call.  A
     trace that gives no device time (the profiler now and then drops a
-    session's kernels) is taken again, up to ``tries`` times."""
+    trace's kernels) is taken again, up to ``tries`` times."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
