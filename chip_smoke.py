@@ -612,20 +612,27 @@ STREAM_BWD_CASES = [
     (1, 8, 2, 130, 700, 128, 256, True, 8, True, True, 600),
 ]
 # The training path's attention shapes (phase 10): vilbert-base at B = 2,
-# N = 4096 (the text-only layers and the first co-TRM block; later blocks
-# see the pruned counts); qwen3-32b at B = 1, S = 4096, causal GQA, whose
-# TILE_STREAM layers resolve to flash (2 Hkv hd = 2048 < d 5120).
+# N = 4096 in the text-only layers and the first co-TRM block, and at the
+# kept counts of DTPU pruning in the later blocks (EXPECTED_COUNTS: 2816,
+# 2048, 1408; both streams keep the same count, so flash's co-attention has
+# the shape of the self-attention of its query stream); qwen3-32b at B = 1,
+# S = 4096, causal GQA, whose TILE_STREAM layers resolve to flash
+# (2 Hkv hd = 2048 < d 5120).
+PRUNED = sorted({n for pair in EXPECTED_COUNTS[1:] for n in pair},
+                reverse=True)
 MAIN_FLASH_BWD = {  # name: (B, Hq, Hkv, Sq, Sk, hd, causal)
     "vision self 4096": (2, 8, 8, 4096, 4096, 128, False),
     "text self 4096": (2, 12, 12, 4096, 4096, 64, False),
+    **{f"vision self/co {n}": (2, 8, 8, n, n, 128, False) for n in PRUNED},
+    **{f"text self/co {n}": (2, 12, 12, n, n, 64, False) for n in PRUNED},
     "qwen3-32b train 4096": (1, 64, 8, 4096, 4096, 128, True),
 }
 MAIN_STREAM_BWD = {  # name: (B, H, Sq, Sk, hd, D)
-    "vision self 4096": (2, 8, 4096, 4096, 128, 1024),
-    "text self 4096": (2, 12, 4096, 4096, 64, 768),
-    "vision co 4096": (2, 8, 4096, 4096, 128, 768),
-    "text co 4096": (2, 12, 4096, 4096, 64, 1024),
-}
+    f"{stream} {n}": (2, H, n, n, hd, D) for n in (4096, *PRUNED)
+    for stream, H, hd, D in (("vision self", 8, 128, 1024),
+                             ("text self", 12, 64, 768),
+                             ("vision co", 8, 128, 768),
+                             ("text co", 12, 64, 1024))}
 BWD_TIMED = {"flash_attention_bwd": "vision self 4096",
              "stream_attention_bwd": "vision self 4096"}
 
@@ -2150,12 +2157,45 @@ def training(smi: str, launches: dict) -> None:
             say(f"    profiled step: {text} [{smi}]")
             # vilbert at random weights: its streams reach ~1e6, the
             # pooler's tanh is flat, and only the VQA head gets a gradient
-            # (see check_loss); the decoder's loss reaches every parameter
-            if cfg.family != Family.CROSSMODAL and live != n:
+            # (see check_loss): its encoder step differentiates the
+            # streams; the decoder's loss reaches every parameter
+            if cfg.family == Family.CROSSMODAL:
+                text = encoder_step(model, cfg, mode, batch, launches, want)
+                say(f"    {text} [{smi}]")
+            elif live != n:
                 fail(f"train {arch} {mode.value}: {n - live} of {n} "
                      f"parameters got no gradient")
             del model, state, batch, params, step
             free()
+
+
+def encoder_step(model, cfg, mode, batch, launches: dict, want: dict) -> str:
+    """One more backward of vilbert, through check_loss's projection of the
+    final streams, whose gradient reaches the encoder: the backward kernels
+    run on non-zero upstream gradients at every training shape.  Gates the
+    launches (those of a train step) and that every attention parameter of
+    the text-only layers and the co-TRM blocks gets a finite, non-zero
+    gradient."""
+    what = f"train {cfg.name} {mode.value} encoder step"
+    reset_counts()
+    t0 = time.perf_counter()
+    grads = grads_of(model, cfg, batch, mode)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    got = tally(launches)
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+    check_routes(what, tile_gemm.routes, "wgmma")
+    attn = {k: g for k, g in grads.items() if "attn." in k}
+    dead = [k for k, g in attn.items() if g is None or not bool(g.any())
+            or not bool(g.float().isfinite().all())]
+    if dead:
+        fail(f"{what}: no finite, non-zero gradient for {dead}")
+    small = min(attn, key=lambda k: attn[k].float().abs().max().item())
+    return (f"encoder step (check_loss): {ms:.1f} ms, launches as a train "
+            f"step; all {len(attn)} attention parameters have a finite, "
+            f"non-zero gradient (smallest max |g| "
+            f"{attn[small].float().abs().max().item():.2e}, {small})")
 
 
 @contextlib.contextmanager
@@ -2181,7 +2221,8 @@ def plain_kernels():
 
 def check_loss(model, cfg, batch, mode) -> torch.Tensor:
     """What phase 11 differentiates: the decoder's training loss; for
-    vilbert the two final streams against fixed random weights.  Its VQA
+    vilbert (here and in phase 10's encoder step) the two final streams
+    against fixed random weights.  Its VQA
     loss's gradient stops at the pooler: with random weights the streams
     reach ~1e6 (each co-attention reads the other stream un-normed,
     vilbert.py:126), tanh is flat there, and only the VQA head gets a

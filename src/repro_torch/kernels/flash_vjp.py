@@ -3,8 +3,10 @@ of ``repro/kernels/flash_vjp.py``).
 
 The forward saves only its inputs, its output and lse = m + log l per
 query row (f32, (B, Hq, Sq)); the backward generates each K/V tile again,
-recomputes the probabilities from lse and accumulates the gradients, with
-O(Sq + tile) live memory:
+recomputes the probabilities from lse and accumulates the gradients.  It
+never holds the probabilities; the stream backward never holds K, V or
+their gradients for the sequence, but its f32 per-tile partials of dW_K
+and dW_V grow with it (see ``stream_attention_bwd``):
 
 * ``FlashAttentionFn``: q, k, v -> out, LAYER_STREAM's flash attention;
   dk and dv sum over the G query heads of each kv head (GQA).
@@ -103,7 +105,11 @@ def stream_attention_bwd(q: torch.Tensor, x_kv: torch.Tensor,
     """(dq, dx_kv, dwk, dwv, dγ or None) of ``stream_attention``.  CPU
     tensors take the plain version, blocked by ``block_k``; CUDA tensors
     launch the kernel, whose per-tile partials of dW_K, dW_V and dγ are
-    summed here over the tiles in a fixed order (bitwise reproducible)."""
+    summed here over the tiles in a fixed order (bitwise reproducible).
+    The partials of dW_K and of dW_V take B·ceil(Sk/64)·D·Hkv·hd·4 bytes
+    each: 537 MB each at vilbert-base's vision self-attention (B = 2,
+    Sk = 4096, D = 1024, 8 heads of 128), 1.34 GB each at qwen3-32b's
+    widths (B = 1, Sk = 4096, D = 5120, 8 kv heads of 128)."""
     kw = dict(sin=sin, cos=cos, k_gamma=k_gamma, causal=causal,
               window=window, q_offset=q_offset, scale=scale,
               norm_eps=norm_eps, kv_len=kv_len)

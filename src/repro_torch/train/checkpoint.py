@@ -1,8 +1,8 @@
 """Atomic, asynchronous checkpoints on one device (counterpart of
 ``repro/train/checkpoint.py``).
 
-* Atomic: a write goes to ``step_<N>.tmp/`` (the arrays in ``shard_00000.npz``,
-  a JSON manifest of paths, shapes and dtypes) and is renamed to
+* Atomic: a write goes to ``step_<N>.tmp/`` (the arrays in ``shard.npz``,
+  the paths, shapes and dtypes in ``manifest.json``) and is renamed to
   ``step_<N>/`` only after the manifest is fsynced, so a crash mid-write
   never damages the latest complete checkpoint; ``latest_step`` skips
   partial writes.
@@ -29,7 +29,6 @@ import numpy as np
 import torch
 
 _SEP = "|"          # path separator inside npz keys ('/' is not npz-safe)
-HOST_ID = 0
 
 
 def _path(prefix: str, key) -> str:
@@ -69,19 +68,22 @@ class Checkpointer:
 
     # ------------------------------ save ------------------------------
 
-    def save(self, step: int, tree: Any, *, blocking: bool = True) -> None:
-        """Copy to host, then write (on a thread unless ``blocking``)."""
+    def save(self, step: int, tree: Any) -> None:
+        """Copy to host, then write."""
         self.wait()                      # one write in flight at a time
-        host = [(path, *_to_host(leaf)) for path, leaf in _flatten(tree)]
-        if blocking:
-            self._write(step, host)
-        else:
-            self._thread = threading.Thread(
-                target=self._write_guard, args=(step, host), daemon=True)
-            self._thread.start()
+        self._write(step, self._host(tree))
 
     def save_async(self, step: int, tree: Any) -> None:
-        self.save(step, tree, blocking=False)
+        """Copy to host on this thread, then write on a background one."""
+        self.wait()
+        self._thread = threading.Thread(
+            target=self._write_guard, args=(step, self._host(tree)),
+            daemon=True)
+        self._thread.start()
+
+    @staticmethod
+    def _host(tree: Any) -> list:
+        return [(path, *_to_host(leaf)) for path, leaf in _flatten(tree)]
 
     def wait(self) -> None:
         if self._thread is not None:
@@ -104,10 +106,9 @@ class Checkpointer:
         manifest = {"step": step, "time": time.time(), "leaves": [
             {"path": path, "shape": list(arr.shape), "dtype": dtype}
             for path, arr, dtype in host]}
-        np.savez(os.path.join(tmp, f"shard_{HOST_ID:05d}.npz"),
+        np.savez(os.path.join(tmp, "shard.npz"),
                  **{path: arr for path, arr, _ in host})
-        with open(os.path.join(tmp, f"manifest_{HOST_ID:05d}.json"),
-                  "w") as f:
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()
             os.fsync(f.fileno())
@@ -140,9 +141,9 @@ class Checkpointer:
         ``target`` are overwritten in place (on their device) and returned;
         number leaves come back as Python numbers."""
         d = os.path.join(self.dir, f"step_{step:08d}")
-        with open(os.path.join(d, f"manifest_{HOST_ID:05d}.json")) as f:
+        with open(os.path.join(d, "manifest.json")) as f:
             meta = {leaf["path"]: leaf for leaf in json.load(f)["leaves"]}
-        with np.load(os.path.join(d, f"shard_{HOST_ID:05d}.npz")) as z:
+        with np.load(os.path.join(d, "shard.npz")) as z:
             arrays = {k: z[k] for k in z.files}
 
         def rebuild(tree, prefix=""):

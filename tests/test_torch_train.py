@@ -41,11 +41,11 @@ def _close(got, want, tol):
 
 
 def _close_scaled(name, got, want, tol):
-    """max |got - want| <= tol * max(max |want|, 1): a tensor's gradients
-    sum many f32 terms, in another order in each package, so their error
-    scales with the tensor's largest value."""
+    """max |got - want| <= tol * max |want|: a tensor's gradients sum many
+    f32 terms, in another order in each package, so their error scales
+    with the tensor's largest value."""
     got, want = (np.asarray(t, np.float32) for t in (got, want))
-    err = np.abs(got - want).max() / max(np.abs(want).max(), 1.0)
+    err = np.abs(got - want).max() / max(np.abs(want).max(), 1e-30)
     assert err <= tol, f"{name}: max |diff| {err:.2e} of max |value|"
 
 
@@ -121,8 +121,9 @@ def _models(arch):
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("arch", ["qwen3-32b", "vilbert-base"])
 def test_train_step_matches_jax(arch, mode):
-    """Loss (1e-5) and gradients (2e-4 of each tensor's largest value) of
-    one step, then the parameters after ``make_train_step``'s update
+    """Loss (1e-5) and gradients (2e-4 of each tensor's largest value; the
+    JAX gradient of every attention parameter is non-zero) of one step,
+    then the parameters after ``make_train_step``'s update
     (2e-4), against the JAX step."""
     jcfg, cfg, jmod, params, conv = _models(arch)
     shape = ShapeConfig("t", 32, 2, "train")
@@ -143,6 +144,9 @@ def test_train_step_matches_jax(arch, mode):
     _close(loss.item(), float(loss_j), 1e-5)
     want = dict(conv(jax.tree.map(np.asarray, grads_j), cfg,
                      device="cpu").named_parameters())
+    # the loss reaches every attention layer, so the limit bites there
+    attn = [n for n in want if "attn." in n]
+    assert attn and all(bool(want[n].any()) for n in attn)
     for (name, g) in zip(named, grads):
         _close_scaled(name, g.detach(), want[name].detach(), 2e-4)
 
