@@ -17,11 +17,13 @@ split's values, and its simt route (f32) skips the last tile of each W
 chunk; the SSD scan's tc route (bf16) drops the carry between chunks in
 its state-passing stage, or writes no y for the last chunk, and its simt
 route (f32) drops the carry of the state from one chunk to the next; the
-flash backward's dK/dV kernel skips the last query tile of each head, its
-dQ kernel the last live kv tile; the stream backward's dK/dV kernel drops
-the rotation terms of the RoPE backward, or the second term of the
-qk-norm backward (those two only at the test cases: the main shapes,
-vilbert-base's, have neither RoPE nor qk-norm).
+backward kernels, on both routes (tc in bf16, simt in f32): the dK/dV
+kernel skips the last query tile of each head, the flash dQ kernel the
+last live kv tile, the stream dK/dV kernel drops the rotation terms of the
+RoPE backward, or the second term of the qk-norm backward (those two only
+at the test cases: the main shapes, vilbert-base's, have neither RoPE nor
+qk-norm); and on the tc route the dQ products leave out dS's lo half, or
+the stream dQ kernel skips the tile forwarded once around its cluster.
 chip_smoke's check of that kernel then runs on the copy, in a
 subprocess, in the dtype of the faulty route, once at the kernel test
 cases and once at the main path's shapes (the GEMM's faults once more at
@@ -64,9 +66,9 @@ FAULTS = {
                          SKIP_LAST_LIVE_TILE, STREAM),
     # every sub-step reads buf[0], the block's own tile, not the forwarded one
     "stream_attention_own_tile": (
-        "stream_attention", "stream_attention.cu",
-        ("const uint32_t tile = base + (s % 2) * L::TILE;",
-         "const uint32_t tile = base;"), STREAM),
+        "stream_attention", "stream_tc.cuh",
+        ("const uint32_t tile = bufs + (s % 2) * TILE;",
+         "const uint32_t tile = bufs;"), STREAM),
     # the GEMM's routes: mma skips its last K chunk, wgmma's consumers their
     # last k-step, splitk's reduction its last split
     "tile_gemm_mma": ("tile_gemm", "tile_gemm.cu",
@@ -118,7 +120,42 @@ FAULTS = {
     "ssd_scan_simt": ("ssd_scan", "ssd_scan.cu",
                       ("st[n * PS + p] = fmaf(decay, st[n * PS + p], acc[j]);",
                        "st[n * PS + p] = acc[j];"), SSD),
-    # the backward kernels: flash dK/dV skips each head's last query tile,
+    # the backward kernels' tc route (bf16): dK/dV skips each head's last
+    # query tile (the span rule both its producer and consumers read), flash
+    # dQ its last live kv tile; the stream dK/dV drops the rotation terms of
+    # the RoPE backward, or the second term of the qk-norm backward; dQ
+    # leaves out the lo half of dS; the stream dQ skips the tile forwarded
+    # once around its cluster (every round's sub-step 1)
+    "flash_attention_bwd_tc_dkv": (
+        "flash_attention_bwd", "attention_bwd_tc.cuh",
+        ("  return j >= kv.lo && j < kv.hi;",
+         "  return j >= kv.lo && j < kv.hi && q0 + bwd::BQ < sh.Sq;"),
+        FLASH_BWD),
+    "flash_attention_bwd_tc_dq": (
+        "flash_attention_bwd", "flash_attention_bwd.cu", SKIP_LAST_LIVE_TILE,
+        FLASH_BWD),
+    "stream_attention_bwd_tc_rope": (
+        "stream_attention_bwd", "stream_attention_bwd.cu",
+        ("          dk[a] = g1 * cs + g2 * sn;\n"
+         "          dk[c] = g2 * cs - g1 * sn;",
+         "          dk[a] = g1 * cs;\n"
+         "          dk[c] = g2 * cs;"), STREAM_BWD),
+    "stream_attention_bwd_tc_norm": (
+        "stream_attention_bwd", "stream_attention_bwd.cu",
+        ("dk[x] = r[h] * gm * dk[x] - r[h] * r[h] * r[h] * kp * dot[h] / HD;",
+         "dk[x] = r[h] * gm * dk[x];"), STREAM_BWD),
+    "flash_attention_bwd_tc_ds_lo": (
+        "flash_attention_bwd", "attention_bwd_tc.cuh",
+        ("    mma_rm(dq, d_lo, k_hi);\n", ""), FLASH_BWD),
+    "stream_attention_bwd_tc_forwarded": (
+        "stream_attention_bwd", "stream_attention_bwd.cu",
+        ("      rows.tile(sh, j, tile, tile + PART, tile + 2 * PART, "
+         "tile + 3 * PART, dos);",
+         "      if ((j - kv.lo) % cluster_size() != (cluster_rank() + "
+         "cluster_size() - 1) % cluster_size())\n"
+         "        rows.tile(sh, j, tile, tile + PART, tile + 2 * PART, "
+         "tile + 3 * PART, dos);"), STREAM_BWD),
+    # the simt route (f32): flash dK/dV skips each head's last query tile,
     # flash dQ its last live kv tile; stream dK/dV drops the rotation terms
     # of the RoPE backward, or the second term of the qk-norm backward
     "flash_attention_bwd_dkv": (
@@ -141,11 +178,14 @@ FAULTS = {
          "kr[e] = r * sd.k_gamma[e] * kr[e];"), STREAM_BWD),
 }
 # Faults checked at the test cases only (the main shapes do not reach them).
-CASES_ONLY = ("stream_attention_bwd_rope", "stream_attention_bwd_norm")
+CASES_ONLY = ("stream_attention_bwd_rope", "stream_attention_bwd_norm",
+              "stream_attention_bwd_tc_rope", "stream_attention_bwd_tc_norm")
 # Kernel -> the name prefixes of main shapes it is also checked at alone.
 MAIN_SUBSETS = {"tile_gemm": ("hymba",)}
 # Faults in an f32 route: their runs check f32, the others bf16.
-F32_FAULTS = ("decode_attention_simt", "ssd_scan_simt")
+F32_FAULTS = ("decode_attention_simt", "ssd_scan_simt",
+              "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
+              "stream_attention_bwd_rope", "stream_attention_bwd_norm")
 # Run inside the faulty copy: chip_smoke's bf16 check of one kernel, at
 # its test cases only ("cases"), at the main path's shapes only ("main"),
 # or at the main shapes whose names start with the part.

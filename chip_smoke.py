@@ -667,8 +667,114 @@ def flash_bwd_flops(B, H, Sq, Sk, hd, hdv, causal=False, window=0,
     return 2 * B * H * pairs * (3 * hd + 2 * hdv)
 
 
+def stream_bwd_flops(B, Hq, Hkv, Sq, Sk, hd, D, causal=False, window=0,
+                     q_offset=0) -> int:
+    """The attention backward's products over the live pairs plus K and V
+    generated from x_kv (2 products) and their gradients (dx: 2, dW: 2)."""
+    return (flash_bwd_flops(B, Hq, Sq, Sk, hd, hd, causal=causal,
+                            window=window, q_offset=q_offset)
+            + 6 * 2 * B * Sk * D * Hkv * hd)
+
+
+@contextlib.contextmanager
+def simt_route():
+    """The backward wrappers with their route rule replaced by "simt": the
+    parent's kernels (the first port's, kept as the simt route), for timing
+    in turns.  Their launches are taken back out of the counters."""
+    fns = (flash_attention_bwd, stream_attention_bwd)
+    saved = (flash_vjp.flash_bwd_route, flash_vjp.stream_bwd_route,
+             [(fn.launches, dict(fn.routes)) for fn in fns])
+    flash_vjp.flash_bwd_route = flash_vjp.stream_bwd_route = \
+        lambda *shape: "simt"
+    try:
+        yield
+    finally:
+        flash_vjp.flash_bwd_route, flash_vjp.stream_bwd_route, counters = saved
+        for fn, (n, routes) in zip(fns, counters):
+            fn.launches, fn.routes = n, routes
+
+
+def check_bwd_route(name: str, case: str, fn, run, want: str) -> tuple:
+    """run() through the wrapper ``fn``, which must take route ``want``."""
+    before = dict(fn.routes)
+    got = run()
+    if fn.routes[want] != before[want] + 1:
+        fail(f"{name} {case}: took route {dict(fn.routes)} (before "
+             f"{before}), expected {want}")
+    return got
+
+
+def time_bwd(name: str, key: str, run, flops: int) -> dict:
+    """The tc route against the simt route (the parent's kernels) in turns
+    at one main shape, bf16, each also by its device time per kernel; at
+    the timed shape (BWD_TIMED) the tc route must be the faster."""
+    def parent():
+        with simt_route():
+            return run()
+
+    ms, parent_ms, t = in_turns(parent, run)
+    # a trace that lost launches (the profiler drops some) is taken again
+    for _ in range(3):
+        dev, _, parts = device_ms(run, reps=5)
+        parent_dev, _, parent_parts = device_ms(parent, reps=3)
+        if dev > ms / 2 and parent_dev > parent_ms / 2:
+            break
+    else:
+        fail(f"{name} {key}: the profiler's device time ({dev:.3f}, simt "
+             f"{parent_dev:.3f} ms) lost launches in three traces")
+
+    def by_kernel(p):
+        return ", ".join(f"{kernel_name(k)} {v:.3f}" for k, v in p.items())
+
+    say(f"    timed {key}: tc {ms:.3f} ms ({t[1]:.3f}, {t[2]:.3f}), "
+        f"device {dev:.3f} [{by_kernel(parts)}]; simt {parent_ms:.3f} ms "
+        f"({t[0]:.3f}, {t[3]:.3f}), device {parent_dev:.3f} "
+        f"[{by_kernel(parent_parts)}]; tc {parent_ms / ms:.1f}x faster, "
+        f"{flops / dev / 1e9:.1f} TFLOP/s of the function")
+    if key == BWD_TIMED[name] and not ms < parent_ms:
+        fail(f"{name} {key}: the tc route ({ms:.3f} ms) is not faster than "
+             f"the simt route ({parent_ms:.3f} ms)")
+    return dict(name=key, ms=ms, device_ms=dev, parent_ms=parent_ms,
+                parent_device_ms=parent_dev,
+                kernels={kernel_name(k): v for k, v in parts.items()},
+                parent_kernels={kernel_name(k): v
+                                for k, v in parent_parts.items()})
+
+
+def check_bwd_rules():
+    """The libraries' route rules and the stream backward's slots against
+    their Python mirrors (blocked.flash_bwd_route, stream_bwd_route,
+    stream_bwd_slots) at every case and training shape."""
+    for dt in DTYPES:
+        code = _build.DTYPE_CODES[dt]
+        shapes = {(hd, hdv) for *_, hd, hdv, _, _, _ in FLASH_BWD_CASES} | {
+            (v[5], v[5]) for v in MAIN_FLASH_BWD.values()}
+        for hd, hdv in shapes:
+            got = flash_vjp.library_route("flash", code, hd, hdv)
+            if got != blocked.flash_bwd_route(dt, hd, hdv):
+                fail(f"flash_attention_bwd route of {dt} {(hd, hdv)}: "
+                     f"library {got}, blocked {blocked.flash_bwd_route(dt, hd, hdv)}")
+        shapes = {(c[1], c[2], c[4], c[5], c[6]) for c in STREAM_BWD_CASES} | {
+            (v[1], v[1], v[3], v[4], v[5]) for v in MAIN_STREAM_BWD.values()}
+        for Hq, Hkv, Sk, hd, D in shapes:
+            route = blocked.stream_bwd_route(dt, hd, D, Hkv)
+            got = flash_vjp.library_route("stream", code, hd, D, Hkv)
+            if got != route:
+                fail(f"stream_attention_bwd route of {dt} {(Hkv, hd, D)}: "
+                     f"library {got}, blocked {route}")
+            for B in (1, 2):
+                lib = flash_vjp.stream_slots(route, B, Sk, Hkv, hd)
+                if lib != blocked.stream_bwd_slots(route, B, Sk, Hkv, hd):
+                    fail(f"stream_attention_bwd slots of {route} "
+                         f"{(B, Sk, Hkv, hd)}: library {lib}, blocked "
+                         f"{blocked.stream_bwd_slots(route, B, Sk, Hkv, hd)}")
+    say("  backward routes and slots: the libraries' rules equal blocked's "
+        "at every case and training shape")
+
+
 def check_flash_bwd(gen, report):
     name = "flash_attention_bwd"
+    shapes = []
     for dt in DTYPES:
         cases = [(c, False) for c in FLASH_BWD_CASES] + [
             ((B, H, Hkv, Sq, Sk, hd, hd, causal, 0, None), key)
@@ -691,21 +797,22 @@ def check_flash_bwd(gen, report):
             def run():
                 return flash_attention_bwd(q, k, v, out, lse, do, **kw)
 
-            got = run()
+            route = blocked.flash_bwd_route(dt, hd, hdv)
+            got = check_bwd_route(name, case, flash_attention_bwd, run, route)
             err = compare_grads(name, case, got, blocked.flash_attention_bwd_plain(
                 q, k, v, out, lse, do, **kw))
             check_deterministic(name, case, run, got)
-            line = (f"  {name} {str(dt)[6:]} {key or 'case'} "
-                    f"{(B, Hq, Hkv, Sq, Sk, hd, hdv)} causal={causal} "
-                    f"window={window} kv_len={kv_len}: max|err| {err:.2e}, "
-                    f"bitwise deterministic")
-            if key and dt == torch.bfloat16:
-                ms = time_ms(run)
-                flops = flash_bwd_flops(B, Hq, Sq, Sk, hd, hdv, **{
-                    k_: kw[k_] for k_ in ("causal", "window", "q_offset")})
-                line += f"; {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s"
-            say(line)
-            if key == BWD_TIMED[name] and dt == torch.bfloat16:
+            say(f"  {name} {str(dt)[6:]} {key or 'case'} "
+                f"{(B, Hq, Hkv, Sq, Sk, hd, hdv)} causal={causal} "
+                f"window={window} kv_len={kv_len}, {route} route: max|err| "
+                f"{err:.2e}, bitwise deterministic")
+            if not (key and dt == torch.bfloat16):
+                continue
+            flops = flash_bwd_flops(B, Hq, Sq, Sk, hd, hdv, **{
+                k_: kw[k_] for k_ in ("causal", "window", "q_offset")})
+            shapes.append(dict(time_bwd(name, key, run, flops),
+                               max_abs_err=err))
+            if key == BWD_TIMED[name]:
                 e = q.element_size()
                 qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
                 ref_out = F.scaled_dot_product_attention(qr, kr, vr)
@@ -714,34 +821,23 @@ def check_flash_bwd(gen, report):
                     return torch.autograd.grad(ref_out, (qr, kr, vr), do,
                                                retain_graph=True)
 
-                dev, _, parts = device_ms(run)
-                say(f"    {name} {key} device time by kernel: "
-                    + ", ".join(f"{kernel_name(k)} {v:.3f} ms"
-                                for k, v in parts.items()))
                 report[name] = dict(
-                    max_abs_err=err, ms=time_ms(run), device_ms=dev,
+                    shapes[-1],
                     plain_ms=time_ms(lambda: blocked.flash_attention_bwd_plain(
                         q, k, v, out, lse, do, **kw)),
                     library_ms=time_ms(library),
                     shape=f"q/k/v/dO {(B, Hq, Sq, hd)} bf16 (SDPA's backward "
                           f"as the library call)",
-                    flops=flash_bwd_flops(B, Hq, Sq, Sk, hd, hdv),
+                    flops=flops,
                     bytes=(4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * e
                     + 4 * lse.numel(), dtype=dt)
                 del ref_out
-
-
-def stream_bwd_flops(B, Hq, Hkv, Sq, Sk, hd, D, causal=False, window=0,
-                     q_offset=0) -> int:
-    """The attention backward's products over the live pairs plus K and V
-    generated from x_kv (2 products) and their gradients (dx: 2, dW: 2)."""
-    return (flash_bwd_flops(B, Hq, Sq, Sk, hd, hd, causal=causal,
-                            window=window, q_offset=q_offset)
-            + 6 * 2 * B * Sk * D * Hkv * hd)
+    report.setdefault(name, {})["shapes"] = shapes
 
 
 def check_stream_bwd(gen, report):
     name = "stream_attention_bwd"
+    shapes = []
     for dt in DTYPES:
         cases = [(c, False) for c in STREAM_BWD_CASES] + [
             ((B, H, H, Sq, Sk, hd, D, False, 0, False, False, None), key)
@@ -771,22 +867,34 @@ def check_stream_bwd(gen, report):
             def run():
                 return stream_attention_bwd(q, x, wk, wv, out, lse, do, **kw)
 
-            got = run()
+            route = blocked.stream_bwd_route(dt, hd, D, Hkv)
+            got = check_bwd_route(name, case, stream_attention_bwd, run,
+                                  route)
             err = compare_grads(name, case, got,
                                 blocked.stream_attention_bwd_plain(
                                     q, x, wk, wv, out, lse, do, **kw))
             check_deterministic(name, case, run, got)
-            line = (f"  {name} {str(dt)[6:]} {key or 'case'} "
-                    f"{(B, Hq, Hkv, Sq, Sk, hd, D)} causal={causal} "
-                    f"window={window} rope={rope} knorm={knorm} "
-                    f"kv_len={kv_len}: max|err| {err:.2e}, bitwise "
-                    f"deterministic")
-            if key and dt == torch.bfloat16:
-                ms = time_ms(run)
-                flops = stream_bwd_flops(B, Hq, Hkv, Sq, Sk, hd, D)
-                line += f"; {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s"
-            say(line)
-            if key == BWD_TIMED[name] and dt == torch.bfloat16:
+            say(f"  {name} {str(dt)[6:]} {key or 'case'} "
+                f"{(B, Hq, Hkv, Sq, Sk, hd, D)} causal={causal} "
+                f"window={window} rope={rope} knorm={knorm} "
+                f"kv_len={kv_len}, {route} route: max|err| {err:.2e}, "
+                f"bitwise deterministic")
+            if not (key and dt == torch.bfloat16):
+                continue
+            flops = stream_bwd_flops(B, Hq, Hkv, Sq, Sk, hd, D)
+            G = Hq // Hkv
+            scratch = {r: blocked.stream_bwd_scratch_bytes(r, B, Sk, D, Hkv,
+                                                           hd)
+                       for r in blocked.BWD_ROUTES}
+            regen = {"tc": flash_vjp.regeneration(G, Sq),
+                     "simt": -(-G * Sq // 64)}
+            shapes.append(dict(time_bwd(name, key, run, flops),
+                               max_abs_err=err, dw_scratch_bytes=scratch,
+                               regeneration=regen))
+            say(f"    {key}: dW_K, dW_V scratch {scratch['tc']:,} bytes "
+                f"each (simt {scratch['simt']:,}); dQ K/V regeneration "
+                f"x{regen['tc']} (simt x{regen['simt']})")
+            if key == BWD_TIMED[name]:
                 e = q.element_size()
                 x2 = x.reshape(B * Sk, D)
                 wk2, wv2 = wk.reshape(D, Hkv * hd), wv.reshape(D, Hkv * hd)
@@ -809,23 +917,20 @@ def check_stream_bwd(gen, report):
                     return (dk2 @ wk2.t() + dv2 @ wv2.t(), x2.t() @ dk2,
                             x2.t() @ dv2)
 
-                dev, _, parts = device_ms(run, reps=3)
-                say(f"    {name} {key} device time by kernel: "
-                    + ", ".join(f"{kernel_name(k)} {v:.3f} ms"
-                                for k, v in parts.items()))
                 report[name] = dict(
-                    max_abs_err=err, ms=time_ms(run), device_ms=dev,
+                    shapes[-1],
                     plain_ms=time_ms(lambda: blocked.stream_attention_bwd_plain(
                         q, x, wk, wv, out, lse, do, **kw)),
                     library_ms=time_ms(library),
                     shape=f"q/dO {(B, Hq, Sq, hd)}, x_kv {(B, Sk, D)} bf16 "
                           f"(library: matmul K/V generation, SDPA's "
                           f"backward, the dx/dW matmuls)",
-                    flops=stream_bwd_flops(B, Hq, Hkv, Sq, Sk, hd, D),
+                    flops=flops,
                     bytes=(4 * q.numel() + 2 * x.numel() + 2 * wk.numel()
                            + 2 * wv.numel()) * e + 4 * lse.numel(),
                     dtype=dt)
                 del ref_out
+    report.setdefault(name, {})["shapes"] = shapes
 
 
 def check_gemm_rules():
@@ -1321,7 +1426,9 @@ def check_ssd(gen, report):
 
 # Kernels whose wrappers count launches per route as well.
 ROUTED = {"tile_gemm": tile_gemm, "decode_attention": decode_attention,
-          "ssd_scan": ssd_scan}
+          "ssd_scan": ssd_scan, "flash_attention_bwd": flash_attention_bwd,
+          "stream_attention_bwd": stream_attention_bwd}
+BWD = ("flash_attention_bwd", "stream_attention_bwd")
 
 
 def reset_counts() -> None:
@@ -1343,6 +1450,16 @@ def check_kernel_routes(what: str, routes: dict, got: dict) -> None:
         if routes[name] != {"simt": 0, "tc": got[name]}:
             fail(f"{what}: {name} routes {routes[name]}; every one of its "
                  f"{got[name]} launches must take the tc route")
+
+
+def check_bwd_routes(what: str, want: str) -> None:
+    """Fail unless every launch of the backward kernels since the last
+    reset_counts() took route ``want`` (bf16 training: tc; f32: simt)."""
+    for name in BWD:
+        fn = ROUTED[name]
+        if fn.routes != {**dict.fromkeys(fn.routes, 0), want: fn.launches}:
+            fail(f"{what}: {name} routes {fn.routes}; every one of its "
+                 f"{fn.launches} launches must take the {want} route")
 
 
 def tally(launches: dict) -> dict:
@@ -2133,6 +2250,8 @@ def training(smi: str, launches: dict) -> None:
                          f"{got}, expected {want}")
                 check_routes(f"train {arch} {mode.value}", tile_gemm.routes,
                              "wgmma")
+                check_bwd_routes(f"train {arch} {mode.value} step {i + 1}",
+                                 "tc")
                 if not (math.isfinite(m["loss"])
                         and math.isfinite(m["grad_norm"])):
                     fail(f"train {arch} {mode.value} step {i + 1}: loss "
@@ -2186,6 +2305,7 @@ def encoder_step(model, cfg, mode, batch, launches: dict, want: dict) -> str:
     if got != want:
         fail(f"{what}: launches {got}, expected {want}")
     check_routes(what, tile_gemm.routes, "wgmma")
+    check_bwd_routes(what, "tc")
     attn = {k: g for k, g in grads.items() if "attn." in k}
     dead = [k for k, g in attn.items() if g is None or not bool(g.any())
             or not bool(g.float().isfinite().all())]
@@ -2275,6 +2395,7 @@ def training_checks(smi: str) -> None:
             if got != want:
                 fail(f"f32 {arch} {mode.value}: launches {got}, expected "
                      f"{want}")
+            check_bwd_routes(f"f32 {arch} {mode.value}", "simt")
             with plain_kernels():
                 reset_counts()
                 plain = grads_of(model, cfg, batch, mode)
@@ -2309,12 +2430,13 @@ def training_checks(smi: str) -> None:
 
 def tensor_core_sass() -> str:
     """How many HGMMA (wgmma) instructions the SASS of each attention
-    library holds, from the toolkit's cuobjdump."""
+    library (forward and backward) holds, from the toolkit's cuobjdump."""
     tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
     if not Path(tool).exists():
         return "cuobjdump not in the toolkit: SASS not read"
     found = []
-    for name in ("flash_attention", "stream_attention"):
+    for name in ("flash_attention", "stream_attention",
+                 "flash_attention_bwd", "stream_attention_bwd"):
         sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
                               capture_output=True, text=True,
                               timeout=300).stdout
@@ -2353,6 +2475,16 @@ def main() -> None:
         f"(cudaOccupancyMaxActiveClusters, hd 128), K/V regeneration "
         f"x{regeneration(G, Sq)}")
 
+    rows, cluster, dq_res, dkv_res = flash_vjp.stream_config(G, Sq)
+    C = blocked.stream_bwd_cluster(8, 128)
+    say(f"  stream_attention_bwd tc: dQ kernel {rows} query rows per block, "
+        f"clusters of {cluster} at {TIMED['stream_attention']}, {dq_res} "
+        f"such clusters resident at once, K/V regeneration "
+        f"x{flash_vjp.regeneration(G, Sq)} (simt x{-(-G * Sq // 64)}); "
+        f"dK/dV kernel in clusters of {C} over the kv heads, {dkv_res} "
+        f"resident at once (hd 128), dW slots {blocked.stream_bwd_slots('tc', 2, Sq, 8, 128)[0]} "
+        f"of 2 x {Sq} keys")
+
     say("== phase 3: kernels against their plain versions")
     gen = torch.Generator(device="cuda").manual_seed(0)
     report = {}
@@ -2361,6 +2493,7 @@ def main() -> None:
     check_gemm(gen, report)
     check_decode(gen, report)
     check_ssd(gen, report)
+    check_bwd_rules()
     check_flash_bwd(gen, report)
     check_stream_bwd(gen, report)
 
@@ -2409,6 +2542,13 @@ def main() -> None:
             f"{s['ms']:.4f} ms, parent {s['parent_ms']:.4f} ms, matmul "
             f"{s['library_ms']:.4f} ms, bound {s['bound_ms']:.4f} ms "
             f"({s['bound_by']})")
+    for name in BWD:
+        for s in report[name]["shapes"]:
+            extra = "".join(f", {k} {v}" for k, v in s.items()
+                            if k in ("dw_scratch_bytes", "regeneration"))
+            say(f"  {name} {s['name']}: tc {s['ms']:.3f} ms (device "
+                f"{s['device_ms']:.3f}), simt {s['parent_ms']:.3f} ms (device "
+                f"{s['parent_device_ms']:.3f}){extra}")
     for name in ("decode_attention", "ssd_scan"):
         for s in report[name]["shapes"]:
             lib = (f", SDPA {s['library_ms']:.4f} ms (device "
@@ -2445,7 +2585,9 @@ def main() -> None:
     say(json.dumps({"kernels": rows, "tile_gemm_shapes": gemm_shapes,
                     "decode_attention_shapes":
                         report["decode_attention"]["shapes"],
-                    "ssd_scan_shapes": report["ssd_scan"]["shapes"]}))
+                    "ssd_scan_shapes": report["ssd_scan"]["shapes"],
+                    **{f"{name}_shapes": report[name]["shapes"]
+                       for name in BWD}}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -236,10 +236,39 @@ int launch_delta(const void* out, const void* dout, float* delta, int rows,
   return (int)cudaGetLastError();
 }
 
+// cudaFuncSetAttribute once per kernel instantiation and device (`done`:
+// a bit per device, static at the call site).
 template <typename Kernel>
-int set_smem(Kernel kernel, size_t bytes) {
-  return (int)cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+int set_smem(Kernel kernel, size_t bytes, unsigned long long& done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess || (done >> dev & 1ull)) return (int)err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)bytes);
+  if (err == cudaSuccess) done |= 1ull << dev;
+  return (int)err;
+}
+
+// Fixed-order sum of `nslots` partials of n floats each: out[i] = ((s_0 +
+// s_1) + s_2) + ..., one thread per element.
+__global__ void reduce_slots(const float* __restrict__ slots,
+                             float* __restrict__ out, long long n, int nslots) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    float s = slots[i];
+    for (int k = 1; k < nslots; ++k) s += slots[(long long)k * n + i];
+    out[i] = s;
+  }
+}
+
+inline int launch_reduce(const float* slots, float* out, long long n,
+                         int nslots, cudaStream_t stream) {
+  if (n <= 0) return 0;
+  const long long blocks = (n + 255) / 256;
+  reduce_slots<<<(int)(blocks < 4096 ? blocks : 4096), 256, 0, stream>>>(
+      slots, out, n, nslots);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace bwd

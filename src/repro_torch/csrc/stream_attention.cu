@@ -210,7 +210,7 @@ int dispatch(const void* q, const void* x, const void* wk, const void* wv,
 
 }  // namespace repro
 
-#include "attention_tc.cuh"
+#include "stream_tc.cuh"
 
 namespace repro {
 namespace tc {
@@ -218,7 +218,6 @@ namespace tc {
 // Stages of the generation ring: 4 at hd <= 64, 2 at hd 128 (the budget).
 template <int HDP>
 constexpr int stream_stages() { return HDP <= 64 ? 4 : 2; }
-constexpr int MAX_CLUSTER = 8;
 
 template <int HDP>
 struct StreamSmem {
@@ -231,104 +230,6 @@ struct StreamSmem {
   static constexpr int BARS = RING + STAGES * STAGE;
   static constexpr int BYTES = BARS + (2 * STAGES + 2) * 8 + 1024;
 };
-
-struct StreamSide {
-  const float *sin_t, *cos_t, *k_gamma;
-  int D, use_rope, use_knorm;
-  float eps;
-};
-
-// Generate this block's tile j (warpgroup 0: K, 1: V) into buf[0].
-template <int HD, int HDP>
-__device__ void generate(int j, int wg, uint32_t base, uint32_t full,
-                         uint32_t empty, int& it, const AttnShape& sh,
-                         const StreamSide& sd) {
-  using L = StreamSmem<HDP>;
-  float g[HDP / 2];
-#pragma unroll
-  for (int i = 0; i < HDP / 2; ++i) g[i] = 0.f;
-  const int nch = (sd.D + 63) / 64;
-  for (int ci = 0; ci < nch; ++ci, ++it) {
-    const int st = it % L::STAGES, ph = (it / L::STAGES) & 1;
-    const uint32_t xs = base + L::RING + st * L::STAGE;
-    const uint32_t ws = xs + L::X_BYTES + wg * L::PART;
-    mbar_wait(full + 8 * st, ph);
-    fence_regs(g);
-    wgmma_fence();
-#pragma unroll
-    for (int ks = 0; ks < 4; ++ks)
-      wgmma_ss<1>(g, desc_kmajor(xs + ks * 32), desc_mnmajor(ws + ks * 2048), 1);
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(g);
-    mbar_arrive(empty + 8 * st);
-  }
-  const int lane = threadIdx.x % 32, w = (threadIdx.x / 32) % 4, t = lane % 4;
-  if (wg == 0 && sd.use_knorm) {               // qk-RMSNorm of K, f32
-    float ss[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < HDP / 8; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) ss[h] += g[4 * i + 2 * h + e] * g[4 * i + 2 * h + e];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      ss[h] += __shfl_xor_sync(0xffffffff, ss[h], 1);
-      ss[h] += __shfl_xor_sync(0xffffffff, ss[h], 2);
-      ss[h] = rsqrtf(ss[h] / HD + sd.eps);
-    }
-#pragma unroll
-    for (int i = 0; i < HDP / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = 8 * i + 2 * t + e;
-        const float gm = col < HD ? sd.k_gamma[col] : 0.f;
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-          g[4 * i + 2 * h + e] = g[4 * i + 2 * h + e] * ss[h] * gm;
-      }
-  }
-  if (wg == 0 && sd.use_rope) {                // rotate-half RoPE of K, f32
-    constexpr int HALF = HD / 2, NB = HALF / 8;
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int kpos = j * BK + w * 16 + lane / 4 + 8 * h;
-#pragma unroll
-      for (int i = 0; i < NB; ++i)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          const int col = 8 * i + 2 * t + e;
-          float sn = 0.f, cs = 0.f;
-          if (kpos < sh.Sk) {
-            sn = sd.sin_t[(size_t)kpos * HALF + col];
-            cs = sd.cos_t[(size_t)kpos * HALF + col];
-          }
-          const float k1 = g[4 * i + 2 * h + e], k2 = g[4 * (i + NB) + 2 * h + e];
-          g[4 * i + 2 * h + e] = k1 * cs - k2 * sn;
-          g[4 * (i + NB) + 2 * h + e] = k2 * cs + k1 * sn;
-        }
-    }
-  }
-  // split into bf16 hi/lo, in the swizzled layout TMA would give
-  const uint32_t hi = base + 2 * wg * L::PART, lo = hi + L::PART;
-#pragma unroll
-  for (int i = 0; i < HDP / 8; ++i)
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const int row = w * 16 + lane / 4 + 8 * h, col = 8 * i + 2 * t;
-      const float a = g[4 * i + 2 * h], b = g[4 * i + 2 * h + 1];
-      const float ah = __bfloat162float(__float2bfloat16_rn(a));
-      const float bh = __bfloat162float(__float2bfloat16_rn(b));
-      const uint32_t off = swz(row, col);
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(hi + off), "r"(pack_bf16(ah, bh))
-                   : "memory");
-      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(lo + off),
-                   "r"(pack_bf16(a - ah, b - bh))
-                   : "memory");
-    }
-  fence_proxy_async();
-}
 
 template <int HD>
 __global__ void __launch_bounds__(THREADS, 1)
@@ -365,86 +266,21 @@ stream_tc_kernel(const __grid_constant__ CUtensorMap xmap,
 
   if (threadIdx.x >= CONSUMERS) {             // producer warpgroup
     setmaxnreg_dec<40>();
-    const bool lead = threadIdx.x == CONSUMERS;
-    // The block's loads in order: the D chunks of its tile j0 + rank, for
-    // every round that has one.  A chunk is issued only once the chunk a
-    // ring before it is one that this round's generation consumes: at most
-    // STAGES chunks past the end of the round, so that the wait for a free
-    // stage never outlasts the round (the consumers free the stages of
-    // later rounds only after this round's cluster barriers).
-    const int nch = (sd.D + 63) / 64;
-    int next_j0 = kv.lo, next_d0 = 0, issued = 0, through = 0;
-    for (int j0 = kv.lo; j0 < kv.hi; j0 += C) {
-      if (j0 + rank < kv.hi) through += nch;   // chunks up to this round's end
-      while (lead && issued < through + L::STAGES) {
-        while (next_j0 < kv.hi && next_j0 + rank >= kv.hi) next_j0 += C;
-        if (next_j0 >= kv.hi) break;
-        const int st = issued % L::STAGES, ph = (issued / L::STAGES) & 1;
-        if (issued >= L::STAGES) mbar_wait(empty + 8 * st, ph ^ 1);
-        const uint32_t xs = base + L::RING + st * L::STAGE;
-        const uint32_t wks = xs + L::X_BYTES, wvs = wks + L::PART;
-        mbar_expect_tx(full + 8 * st, L::STAGE);
-        tma_load_3d(xs, &xmap, full + 8 * st, next_d0, (next_j0 + rank) * BK, b);
-        for (int c = 0; c < HDP / 64; ++c) {
-          tma_load_3d(wks + c * BOX_BYTES, &wkmap, full + 8 * st, 64 * c, kvh, next_d0);
-          tma_load_3d(wvs + c * BOX_BYTES, &wvmap, full + 8 * st, 64 * c, kvh, next_d0);
-        }
-        ++issued;
-        next_d0 += 64;
-        if (next_d0 >= sd.D) {
-          next_d0 = 0;
-          next_j0 += C;
-        }
-      }
-      __syncwarp();
-      cluster_sync();                         // buf[0] holds the own tile
-      for (int s = 0; s < C; ++s) {
-        if (lead && s + 1 < C) {              // forward buf[s % 2] to the right
-          const int right = (rank + 1) % C, nb = (s + 1) % 2;
-          mbar_expect_tx(arrived + 8 * nb, L::TILE);
-          bulk_push(map_to_rank(base + nb * L::TILE, right),
-                    base + (s % 2) * L::TILE, L::TILE,
-                    map_to_rank(arrived + 8 * nb, right));
-        }
-        __syncwarp();
-        cluster_sync();
-      }
-    }
+    produce_rounds<HDP>(kv, b, kvh, sd.D, base, base + L::RING, L::STAGES,
+                        L::STAGE, full, empty, arrived, &xmap, &wkmap, &wvmap);
   } else {                                    // consumer warpgroups
     setmaxnreg_inc<232>();
     const int wg = threadIdx.x / 128;
     TcRows<HDP, HDP> rows;
     rows.init(q, sh, b, kvh, t0 + 64 * wg);
-    int it = 0, phases = 0;   // bit b: parity of buf[b]'s next arrival
-    for (int j0 = kv.lo; j0 < kv.hi; j0 += C) {
-      if (j0 + rank < kv.hi)
-        generate<HD, HDP>(j0 + rank, wg, base, full, empty, it, sh, sd);
-      cluster_sync();                         // buf[0] holds the own tile
-      for (int s = 0; s < C; ++s) {
-        // sub-step s: the tile of rank - s, forwarded s times to the right
-        const int j = j0 + (rank - s + C) % C;
-        const uint32_t tile = base + (s % 2) * L::TILE;
-        if (j < kv.hi)
-          rows.template tile<true>(sh, j, tile, tile + L::PART,
-                                   tile + 2 * L::PART, tile + 3 * L::PART);
-        if (s + 1 < C) {                      // the next tile has landed
-          const int nb = (s + 1) % 2;
-          mbar_wait_cluster(arrived + 8 * nb, (phases >> nb) & 1);
-          phases ^= 1 << nb;
-        }
-        cluster_sync();
-      }
-    }
+    Ring ring{base + L::RING, full, empty, L::STAGES, L::STAGE, 0};
+    consume_rounds<HD, HDP>(kv, wg, base, arrived, ring, sh, sd,
+                            [&](int j, uint32_t tile) {
+      rows.template tile<true>(sh, j, tile, tile + L::PART,
+                               tile + 2 * L::PART, tile + 3 * L::PART);
+    });
     rows.store(out, sh, b);
   }
-}
-
-// Cluster size for a row-tile count: MAX_CLUSTER, or the least power of
-// two that covers the row tiles.
-inline int cluster_for(int row_tiles) {
-  int c = 1;
-  while (c < MAX_CLUSTER && c < row_tiles) c *= 2;
-  return c;
 }
 
 template <int HD>
@@ -468,20 +304,9 @@ int launch(const void* q, const void* x, const void* wk, const void* wv,
   if (e != cudaSuccess) return (int)e;
   const int G = sh.Hq / sh.Hkv, row_tiles = (G * sh.Sq + ROWS - 1) / ROWS;
   const int C = cluster_for(row_tiles);
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3((row_tiles + C - 1) / C * C, sh.Hkv, sh.B);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = L::BYTES;
-  cfg.stream = stream;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = C;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  e = cudaLaunchKernelEx(&cfg, kernel, xmap, wkmap, wvmap, (const bf16*)q,
-                         (bf16*)out, sh, sd);
+  e = launch_cluster(kernel, dim3((row_tiles + C - 1) / C * C, sh.Hkv, sh.B),
+                     C, L::BYTES, stream, xmap, wkmap, wvmap, (const bf16*)q,
+                     (bf16*)out, sh, sd);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
 }
@@ -503,29 +328,6 @@ inline int dispatch(const void* q, const void* x, const void* wk, const void* wv
     case 96: return launch<96>(q, x, wk, wv, sd, out, sh, stream);
     default: return launch<128>(q, x, wk, wv, sd, out, sh, stream);
   }
-}
-
-// Clusters of the hd-128 kernel that fit on the card at once.
-inline int max_active_clusters(int cluster) {
-  using L = StreamSmem<128>;
-  auto kernel = stream_tc_kernel<128>;
-  if (cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           L::BYTES) != cudaSuccess)
-    return -1;
-  cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(cluster * 16);
-  cfg.blockDim = dim3(THREADS);
-  cfg.dynamicSmemBytes = L::BYTES;
-  cudaLaunchAttribute attr[1];
-  attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = cluster;
-  attr[0].val.clusterDim.y = 1;
-  attr[0].val.clusterDim.z = 1;
-  cfg.attrs = attr;
-  cfg.numAttrs = 1;
-  int n = -1;
-  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) return -1;
-  return n;
 }
 
 }  // namespace tc
@@ -568,6 +370,8 @@ extern "C" int stream_attention_config(int nrows, int* rows, int* cluster,
   *rows = repro::tc::ROWS;
   *cluster = repro::tc::cluster_for((nrows + repro::tc::ROWS - 1) /
                                     repro::tc::ROWS);
-  *max_clusters = repro::tc::max_active_clusters(repro::tc::MAX_CLUSTER);
+  *max_clusters = repro::tc::max_clusters(repro::tc::stream_tc_kernel<128>,
+                                          repro::tc::MAX_CLUSTER,
+                                          repro::tc::StreamSmem<128>::BYTES);
   return 0;
 }

@@ -60,24 +60,34 @@ def _split_products(rounding: str, round_kv: bool, scale: float):
     """The (qk, pv) products of the tensor-core kernels' operands: P (and
     with ``round_kv`` K and V) enter as [hi, lo] ("split", leaving out
     lo x lo) or as [bf16(t)] ("bf16"); the scores are (Q K^T) * scale."""
-    if rounding not in ("split", "bf16"):
-        raise ValueError(f"rounding {rounding!r}: 'split' or 'bf16'")
-
-    def ops(t):
-        return list(split_bf16(t)) if rounding == "split" \
-            else [t.bfloat16().float()]
-
-    def products(a_ops, b_ops, dot):
-        return sum(dot(a, b) for i, a in enumerate(a_ops)
-                   for j, b in enumerate(b_ops) if i + j < 2)
+    ops = _operands(rounding)
 
     def qk(qf, k_j):
-        return products([qf], ops(k_j) if round_kv else [k_j], _qk) * scale
+        return _split_sum("bhgqd,bhkd->bhgqk", [qf],
+                          ops(k_j) if round_kv else [k_j]) * scale
 
     def pv(p, v_j):
-        return products(ops(p), ops(v_j) if round_kv else [v_j], _pv)
+        return _split_sum("bhgqk,bhkd->bhgqd", ops(p),
+                          ops(v_j) if round_kv else [v_j])
 
     return qk, pv
+
+
+def _operands(rounding: str):
+    """The tensor-core kernels' operands for an f32 tensor: [hi, lo]
+    ("split") or [bf16(t)] ("bf16", what bf16 operands alone give)."""
+    if rounding not in ("split", "bf16"):
+        raise ValueError(f"rounding {rounding!r}: 'split' or 'bf16'")
+    if rounding == "split":
+        return lambda t: list(split_bf16(t))
+    return lambda t: [t.bfloat16().float()]
+
+
+def _split_sum(eq, a_ops, b_ops):
+    """Σ einsum(eq, a_i, b_j) over the operand pairs with i + j < 2 (the
+    kernels leave out lo x lo)."""
+    return sum(torch.einsum(eq, a, b) for i, a in enumerate(a_ops)
+               for j, b in enumerate(b_ops) if i + j < 2)
 
 
 def _online_softmax(qf, kv_blocks, qpos, bk, sk, kv_len, causal, window,
@@ -265,6 +275,12 @@ def _gen_tile(x_j, wkf, wvf, k_gamma, sin_j, cos_j, norm_eps):
     (bk, hd//2)) -> k_j, v_j (B, Hkv, bk, hd) f32 (flash_vjp.py:222)."""
     k_j = torch.einsum("btd,dhe->bthe", x_j, wkf)
     v_j = torch.einsum("btd,dhe->bthe", x_j, wvf)
+    k_j = _norm_rope(k_j, k_gamma, sin_j, cos_j, norm_eps)
+    return k_j.transpose(1, 2), v_j.transpose(1, 2)
+
+
+def _norm_rope(k_j, k_gamma, sin_j, cos_j, norm_eps):
+    """qk-norm and rotate-half RoPE of generated keys (B, bk, Hkv, hd)."""
     if k_gamma is not None:
         var = (k_j * k_j).mean(dim=-1, keepdim=True)
         k_j = k_j * torch.rsqrt(var + norm_eps) * k_gamma.float()
@@ -274,7 +290,7 @@ def _gen_tile(x_j, wkf, wvf, k_gamma, sin_j, cos_j, norm_eps):
         c_ = cos_j.float()[None, :, None]
         k1, k2 = k_j[..., :half], k_j[..., half:]
         k_j = torch.cat([k1 * c_ - k2 * s_, k2 * c_ + k1 * s_], dim=-1)
-    return k_j.transpose(1, 2), v_j.transpose(1, 2)
+    return k_j
 
 
 def _stream(q, x_kv, wk, wv, *, sin=None, cos=None, k_gamma=None,
@@ -321,13 +337,21 @@ DEAD_LSE = -1e29
 
 
 def _tile_grads(qf, dof, lse, delta, k_j, v_j, kpos, qpos, sk, kv_len,
-                causal, window, scale):
+                causal, window, scale, ops=None, split_kv=False):
     """One kv tile of the two-pass flash backward: (dq_j, dk_j, dv_j) in
     f32 from qf/dof (B,Hkv,G,Sq,hd/hdv), lse/delta (B,Hkv,G,Sq) and the
     tile's k_j/v_j (B,Hkv,bk,hd/hdv).  P = exp(S*scale - lse) on live
     pairs, 0 on masked ones.  A row with no live key (lse -1e30) had the
     mean of V over the ``sk`` keys as its output: its P is 1/sk on those
-    keys and no score gets a gradient."""
+    keys and no score gets a gradient.
+
+    With ``ops`` (see ``_operands``) the products take the tensor-core
+    route's operands: P and dS as ops(P), ops(dS), and with ``split_kv``
+    K and V as ops(K), ops(V) (the stream kernel's generated tiles)."""
+    if ops is not None:
+        return _tile_grads_split(qf, dof, lse, delta, k_j, v_j, kpos, qpos,
+                                 sk, kv_len, causal, window, scale, ops,
+                                 split_kv)
     mask = _mask(qpos, kpos, kv_len, causal, window)        # (Sq, bk)
     s = torch.einsum("bhgqd,bhkd->bhgqk", qf, k_j) * scale
     p = torch.where(mask, torch.exp(s - lse[..., None]),
@@ -341,6 +365,25 @@ def _tile_grads(qf, dof, lse, delta, k_j, v_j, kpos, qpos, sk, kv_len,
                      torch.zeros_like(p))
     dq_j = torch.einsum("bhgqk,bhkd->bhgqd", ds, k_j)
     dk_j = torch.einsum("bhgqk,bhgqd->bhkd", ds, qf)
+    return dq_j, dk_j, dv_j
+
+
+def _tile_grads_split(qf, dof, lse, delta, k_j, v_j, kpos, qpos, sk, kv_len,
+                      causal, window, scale, ops, split_kv):
+    kops = ops(k_j) if split_kv else [k_j]
+    vops = ops(v_j) if split_kv else [v_j]
+    mask = _mask(qpos, kpos, kv_len, causal, window)
+    s = _split_sum("bhgqd,bhkd->bhgqk", [qf], kops) * scale
+    p = torch.where(mask, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    dead = (lse <= DEAD_LSE)[..., None]
+    mean = (kpos < sk).to(p.dtype) / max(sk, 1)
+    p = torch.where(dead, mean.expand_as(p), p)
+    dp = _split_sum("bhgqd,bhkd->bhgqk", [dof], vops)
+    ds = torch.where(mask & ~dead, p * (dp - delta[..., None]) * scale,
+                     torch.zeros_like(p))
+    dv_j = _split_sum("bhgqk,bhgqd->bhkd", ops(p), [dof])
+    dk_j = _split_sum("bhgqk,bhgqd->bhkd", ops(ds), [qf])
+    dq_j = _split_sum("bhgqk,bhkd->bhgqd", ops(ds), kops)
     return dq_j, dk_j, dv_j
 
 
@@ -387,6 +430,46 @@ def flash_attention_bwd_plain(q: torch.Tensor, k: torch.Tensor,
             qf, dof, lsef, delta, kp[:, :, rows].float(),
             vp[:, :, rows].float(), kpos, qpos, Sk, kv_len, causal, window,
             scale)
+        dq += dq_j
+        dks.append(dk_j)
+        dvs.append(dv_j)
+    dk = torch.cat(dks, 2)[:, :, :Sk] if dks else torch.zeros_like(k.float())
+    dv = torch.cat(dvs, 2)[:, :, :Sk] if dvs else torch.zeros_like(v.float())
+    return (dq.reshape(B, Hq, Sq, hd).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def flash_attention_bwd_split(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, out: torch.Tensor,
+                              lse: torch.Tensor, dout: torch.Tensor, *,
+                              rounding: str = "split", causal: bool = False,
+                              window: int = 0, q_offset: int = 0,
+                              scale: Optional[float] = None,
+                              kv_len: Optional[int] = None
+                              ) -> Tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """``flash_attention_bwd_plain`` with the tc route's operands, in kv
+    tiles of 64 keys: P (in dV = P^T dO) and dS (in dK = dS^T Q and
+    dQ = dS K) enter as hi + lo ("split") or as bf16 alone ("bf16"); Q, K,
+    V and dO are the bf16 inputs."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    kv_len = Sk if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    bk, ops = BWD_BK, _operands(rounding)
+    kp, _ = _pad_axis(k, 2, bk)
+    vp, _ = _pad_axis(v, 2, bk)
+    qf, dof, lsef, delta = _bwd_rows(q, out, lse, dout, Hkv)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    dq = torch.zeros_like(qf)
+    dks, dvs = [], []
+    for j in range(kp.shape[2] // bk):
+        rows = slice(j * bk, (j + 1) * bk)
+        kpos = j * bk + torch.arange(bk, device=q.device)
+        dq_j, dk_j, dv_j = _tile_grads(
+            qf, dof, lsef, delta, kp[:, :, rows].float(),
+            vp[:, :, rows].float(), kpos, qpos, Sk, kv_len, causal, window,
+            scale, ops=ops)
         dq += dq_j
         dks.append(dk_j)
         dvs.append(dv_j)
@@ -460,6 +543,153 @@ def stream_attention_bwd_plain(q: torch.Tensor, x_kv: torch.Tensor,
     return (dq.reshape(B, Hq, Sq, hd).to(q.dtype), dx.to(x_kv.dtype),
             dwk.to(wk.dtype), dwv.to(wv.dtype),
             None if dg is None else dg.to(k_gamma.dtype))
+
+
+def stream_attention_bwd_split(q: torch.Tensor, x_kv: torch.Tensor,
+                               wk: torch.Tensor, wv: torch.Tensor,
+                               out: torch.Tensor, lse: torch.Tensor,
+                               dout: torch.Tensor, *, rounding: str = "split",
+                               sin: Optional[torch.Tensor] = None,
+                               cos: Optional[torch.Tensor] = None,
+                               k_gamma: Optional[torch.Tensor] = None,
+                               causal: bool = False, window: int = 0,
+                               q_offset: int = 0,
+                               scale: Optional[float] = None,
+                               norm_eps: float = 1e-6,
+                               kv_len: Optional[int] = None):
+    """``stream_attention_bwd_plain`` with the tc route's operands and its
+    order of the dW sums, in kv tiles of 64 keys.  The generated K and V,
+    P and dS enter the attention products as hi + lo ("split") or as bf16
+    alone ("bf16"), and so do dK before the norm and dV in dx = dK W_K^T +
+    dV W_V^T and dW = x^T dK; x and W are the bf16 inputs.  Each tile's
+    dW partial goes to the slot of its batch row and tile group
+    (``stream_bwd_slots``: tiles g, g + NG, ... in order), and the slots
+    are summed in order (``reduce_in_order``), as the kernels do."""
+    B, Hq, Sq, hd = q.shape
+    Sk, D = x_kv.shape[1], x_kv.shape[2]
+    Hkv = wk.shape[1]
+    kv_len = Sk if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    bk, ops = BWD_BK, _operands(rounding)
+    xp, _ = _pad_axis(x_kv, 1, bk)
+    if sin is not None:
+        sin, _ = _pad_axis(sin, 0, bk)
+        cos, _ = _pad_axis(cos, 0, bk)
+    qf, dof, lsef, delta = _bwd_rows(q, out, lse, dout, Hkv)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    wkf, wvf = wk.float(), wv.float()
+    gf = (None if k_gamma is None
+          else k_gamma.detach().float().requires_grad_())
+    ntiles = xp.shape[1] // bk
+    _, _, _, groups = stream_bwd_slots("tc", B, Sk, Hkv, hd)
+    dq = torch.zeros_like(qf)
+    dw_slots = torch.zeros((2, B, max(groups, 1), D, Hkv, hd),
+                           device=q.device)
+    dg = None if gf is None else torch.zeros_like(gf)
+    dxs = []
+    for j in range(ntiles):
+        rows = slice(j * bk, (j + 1) * bk)
+        x_j = xp[:, rows].float()
+        k_pre = torch.einsum("btd,dhe->bthe", x_j, wkf).requires_grad_()
+        v_j = torch.einsum("btd,dhe->bthe", x_j, wvf)
+        with torch.enable_grad():
+            k_n = _norm_rope(k_pre, gf, None if sin is None else sin[rows],
+                             None if cos is None else cos[rows], norm_eps)
+        kpos = j * bk + torch.arange(bk, device=q.device)
+        dq_j, dk_j, dv_j = _tile_grads(
+            qf, dof, lsef, delta, k_n.detach().transpose(1, 2),
+            v_j.transpose(1, 2), kpos, qpos, Sk, kv_len, causal, window,
+            scale, ops=ops, split_kv=True)
+        dq += dq_j
+        grads = torch.autograd.grad(
+            k_n, [k_pre] + ([] if gf is None else [gf]),
+            dk_j.transpose(1, 2))
+        if gf is not None:
+            dg += grads[1]
+        dkp, dvt = grads[0], dv_j.transpose(1, 2)   # (B, bk, Hkv, hd)
+        dxs.append(sum(torch.einsum("bthe,dhe->btd", a, wkf)
+                       for a in ops(dkp))
+                   + sum(torch.einsum("bthe,dhe->btd", a, wvf)
+                         for a in ops(dvt)))
+        g = j % groups
+        dw_slots[0, :, g] += sum(torch.einsum("btd,bthe->bdhe", x_j, a)
+                                 for a in ops(dkp))
+        dw_slots[1, :, g] += sum(torch.einsum("btd,bthe->bdhe", x_j, a)
+                                 for a in ops(dvt))
+    dx = torch.cat(dxs, 1)[:, :Sk] if dxs else torch.zeros_like(
+        x_kv.float())
+    dwk = reduce_in_order(dw_slots[0].reshape(-1, D, Hkv, hd))
+    dwv = reduce_in_order(dw_slots[1].reshape(-1, D, Hkv, hd))
+    return (dq.reshape(B, Hq, Sq, hd).to(q.dtype), dx.to(x_kv.dtype),
+            dwk.to(wk.dtype), dwv.to(wv.dtype),
+            None if dg is None else dg.to(k_gamma.dtype))
+
+
+# The backward kernels' routes (csrc/{flash,stream}_attention_bwd.cu, which
+# export their rules as flash_attention_bwd_route, stream_attention_bwd_route
+# and stream_attention_bwd_slots): "tc" (wgmma/TMA, bf16) and "simt" (f32,
+# and shapes TMA cannot read).
+BWD_ROUTES = ("simt", "tc")
+BWD_BK = 64               # keys per kv tile of both routes
+BWD_MAX_CLUSTER = 8       # tc: most blocks of a cluster
+STREAM_BWD_GROUPS = 16    # tc: most tile groups (dW slots per batch row)
+
+
+def flash_bwd_route(dtype: torch.dtype, hd: int, hdv: int) -> str:
+    """The flash backward's route for 16-byte aligned tensors: "tc" for
+    bf16 with hd and hdv multiples of 8 up to 128 (the widths the
+    forward's tc core takes), else "simt"."""
+    ok = (dtype == torch.bfloat16 and hd % 8 == 0 and hdv % 8 == 0
+          and hd <= 128 and hdv <= 128)
+    return "tc" if ok else "simt"
+
+
+def stream_bwd_cluster(Hkv: int, hd: int) -> int:
+    """The tc dK/dV kernel's cluster over kv heads: the largest C <= 8
+    dividing Hkv with Hkv / C heads a block and (Hkv / C) * HDP <= 128
+    (HDP: hd padded to 64 or 128); 0 if none."""
+    hdp = 64 if hd <= 64 else 128
+    return next((c for c in range(BWD_MAX_CLUSTER, 0, -1)
+                 if Hkv % c == 0 and Hkv // c * hdp <= 128), 0)
+
+
+def stream_bwd_route(dtype: torch.dtype, hd: int, D: int, Hkv: int) -> str:
+    """The stream backward's route for 16-byte aligned tensors: "tc" for
+    bf16 with hd in (32, 64, 96, 128) (the forward's tc kernel), D a
+    multiple of 8 and a cluster over the kv heads, else "simt"."""
+    ok = (dtype == torch.bfloat16 and hd in (32, 64, 96, 128) and D % 8 == 0
+          and stream_bwd_cluster(Hkv, hd) > 0)
+    return "tc" if ok else "simt"
+
+
+def stream_bwd_slots(route: str, B: int, Sk: int, Hkv: int, hd: int
+                     ) -> Tuple[int, int, int, int]:
+    """(dW slots, dγ slots, cluster, tile groups) of a route: tc sums each
+    block's tiles g, g + NG, ... into its slot (NG = min(tiles, 16) tile
+    groups a batch row, a dγ slot per block of the cluster); simt writes a
+    slot per kv tile.  Either way the slots are summed in order."""
+    tiles = -(-Sk // BWD_BK)
+    if route == "tc":
+        cluster, groups = stream_bwd_cluster(Hkv, hd), min(tiles,
+                                                           STREAM_BWD_GROUPS)
+    else:
+        cluster, groups = 1, tiles
+    return B * groups, B * groups * cluster, cluster, groups
+
+
+def stream_bwd_scratch_bytes(route: str, B: int, Sk: int, D: int, Hkv: int,
+                             hd: int) -> int:
+    """Bytes of the f32 dW_K and dW_V slots (each) of a route."""
+    return stream_bwd_slots(route, B, Sk, Hkv, hd)[0] * D * Hkv * hd * 4
+
+
+def reduce_in_order(slots: torch.Tensor) -> torch.Tensor:
+    """Σ over the first axis in slot order, ((s_0 + s_1) + s_2) + ..., as
+    the kernels' reduce_slots sums their partials."""
+    out = slots[0].clone()
+    for s in slots[1:]:
+        out += s
+    return out
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

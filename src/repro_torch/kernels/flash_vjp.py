@@ -5,8 +5,9 @@ The forward saves only its inputs, its output and lse = m + log l per
 query row (f32, (B, Hq, Sq)); the backward generates each K/V tile again,
 recomputes the probabilities from lse and accumulates the gradients.  It
 never holds the probabilities; the stream backward never holds K, V or
-their gradients for the sequence, but its f32 per-tile partials of dW_K
-and dW_V grow with it (see ``stream_attention_bwd``):
+their gradients for the sequence, and its f32 partials of dW_K and dW_V
+take at most 16 slots a batch row on the tc route (one a kv tile on
+simt; see ``stream_attention_bwd``):
 
 * ``FlashAttentionFn``: q, k, v -> out, LAYER_STREAM's flash attention;
   dk and dv sum over the G query heads of each kv head (GQA).
@@ -16,8 +17,12 @@ and dW_V grow with it (see ``stream_attention_bwd``):
   dataflow carries into the gradient.  sin/cos are constants.
 
 CUDA tensors launch the backward kernels ``csrc/flash_attention_bwd.cu``
-and ``csrc/stream_attention_bwd.cu``; CPU tensors take their plain
-versions ``blocked.flash_attention_bwd_plain`` and
+and ``csrc/stream_attention_bwd.cu``, each with two routes: ``tc`` (bf16,
+wgmma/TMA, ``csrc/attention_bwd_tc.cuh``; the rule
+``blocked.flash_bwd_route`` / ``stream_bwd_route`` and 16-byte aligned
+tensors) and ``simt`` (every other call: f32 SIMT, the first port's
+kernels); ``.routes`` counts the launches of each.  CPU tensors take the
+plain versions ``blocked.flash_attention_bwd_plain`` and
 ``blocked.stream_attention_bwd_plain``.
 
 A row with no live key: the forward gives it the mean of V over the Sk
@@ -29,18 +34,83 @@ such rows.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.blocked import (flash_attention_bwd_plain,
-                                         stream_attention_bwd_plain)
+from repro_torch.kernels.blocked import (BWD_ROUTES, flash_attention_bwd_plain,
+                                         flash_bwd_route,
+                                         stream_attention_bwd_plain,
+                                         stream_bwd_route)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.stream_attention import stream_attention
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-BK = 64   # keys per kv tile of the backward kernels
+
+
+def _fn(lib: str, name: str, argtypes):
+    fn = getattr(_build.load(lib), name)
+    fn.argtypes, fn.restype = argtypes, _I
+    return fn
+
+
+@functools.lru_cache(maxsize=1)
+def _flash_lib():
+    return _fn("flash_attention_bwd", "flash_attention_bwd_launch",
+               [_P] * 10 + [_I] * 9 + [_F] + [_I] * 4 + [_P])
+
+
+@functools.lru_cache(maxsize=1)
+def _stream_lib():
+    return _fn("stream_attention_bwd", "stream_attention_bwd_launch",
+               [_P] * 19 + [_I] * 9 + [_F] + [_I] * 6 + [_F, _P])
+
+
+@functools.lru_cache(maxsize=1024)
+def stream_slots(route: str, B: int, Sk: int, Hkv: int, hd: int
+                 ) -> Tuple[int, int, int, int]:
+    """The library's (dW slots, dγ slots, cluster, tile groups) of a route
+    (``blocked.stream_bwd_slots`` mirrors it)."""
+    out = [_I() for _ in range(4)]
+    _fn("stream_attention_bwd", "stream_attention_bwd_slots",
+        [_I] * 5 + [ctypes.POINTER(_I)] * 4)(
+        BWD_ROUTES.index(route), B, Sk, Hkv, hd, *map(ctypes.byref, out))
+    return tuple(o.value for o in out)
+
+
+@functools.lru_cache(maxsize=1024)
+def library_route(kernel: str, *shape: int) -> str:
+    """The library's route rule for 16-byte aligned tensors: kernel
+    "flash" with (dtype code, hd, hdv) or "stream" with (dtype code, hd, D,
+    Hkv)."""
+    name = f"{kernel}_attention_bwd"
+    return BWD_ROUTES[_fn(name, f"{name}_route", [_I] * len(shape))(*shape)]
+
+
+def stream_config(G: int, Sq: int) -> Tuple[int, int, int, int]:
+    """(query rows per block, cluster size of the dQ kernel for the G*Sq
+    flattened query rows of a kv head, and the clusters of 8 blocks at
+    hd 128 resident at once of the dQ and of the dK/dV kernel) of the
+    stream backward's tc route, read from its library."""
+    out = [_I() for _ in range(4)]
+    _fn("stream_attention_bwd", "stream_attention_bwd_config",
+        [_I] + [ctypes.POINTER(_I)] * 4)(G * Sq, *map(ctypes.byref, out))
+    return tuple(o.value for o in out)
+
+
+def regeneration(G: int, Sq: int) -> int:
+    """How many times the tc route's dQ kernel generates each K/V tile of a
+    kv head: once per cluster of consecutive blocks over the G*Sq rows
+    (the SIMT route: once per 64 query rows of each query head)."""
+    rows, cluster, _, _ = stream_config(G, Sq)
+    row_tiles = -(-G * Sq // rows)
+    return -(-row_tiles // cluster)
+
+
+def _aligned(*tensors) -> bool:
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def _check_lse(kernel: str, lse: torch.Tensor, q: torch.Tensor) -> None:
@@ -60,7 +130,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` from its inputs, output, lse and
     dout.  CPU tensors take the plain version, blocked by ``block_k``;
-    CUDA tensors launch the kernel (kv tiles of 64 keys)."""
+    CUDA tensors launch the kernel (kv tiles of 64 keys) on its route."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
               kv_len=kv_len)
     if q.device.type == "cpu":
@@ -73,22 +143,23 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
     kv_len = Sk if kv_len is None else kv_len
     scale = hd ** -0.5 if scale is None else scale
+    route = ("tc" if flash_bwd_route(q.dtype, hd, hdv) == "tc"
+             and _aligned(q, k, v, dout) else "simt")
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
-    fn = _build.load("flash_attention_bwd").flash_attention_bwd_launch
-    fn.argtypes = [_P] * 10 + [_I] * 8 + [_F] + [_I] * 4 + [_P]
-    fn.restype = _I
-    _build.raise_on("flash_attention_bwd", fn(
+    _build.raise_on(f"flash_attention_bwd ({route} route)", _flash_lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), code, B, Hq, Hkv, Sq, Sk, hd, hdv,
-        scale, int(causal), window, q_offset, kv_len,
+        dk.data_ptr(), dv.data_ptr(), BWD_ROUTES.index(route), code, B, Hq,
+        Hkv, Sq, Sk, hd, hdv, scale, int(causal), window, q_offset, kv_len,
         _build.stream_ptr(q.device)))
     flash_attention_bwd.launches += 1
+    flash_attention_bwd.routes[route] += 1
     return dq, dk, dv
 
 
 flash_attention_bwd.launches = 0
+flash_attention_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)
 
 
 def stream_attention_bwd(q: torch.Tensor, x_kv: torch.Tensor,
@@ -104,12 +175,14 @@ def stream_attention_bwd(q: torch.Tensor, x_kv: torch.Tensor,
                          kv_len: Optional[int] = None, block_k: int = 256):
     """(dq, dx_kv, dwk, dwv, dγ or None) of ``stream_attention``.  CPU
     tensors take the plain version, blocked by ``block_k``; CUDA tensors
-    launch the kernel, whose per-tile partials of dW_K, dW_V and dγ are
-    summed here over the tiles in a fixed order (bitwise reproducible).
-    The partials of dW_K and of dW_V take B·ceil(Sk/64)·D·Hkv·hd·4 bytes
-    each: 537 MB each at vilbert-base's vision self-attention (B = 2,
-    Sk = 4096, D = 1024, 8 heads of 128), 1.34 GB each at qwen3-32b's
-    widths (B = 1, Sk = 4096, D = 5120, 8 kv heads of 128)."""
+    launch the kernel on its route, which sums its f32 partials of dW_K,
+    dW_V and dγ in a fixed order itself (bitwise reproducible).  Its
+    scratch (``blocked.stream_bwd_scratch_bytes``) holds B·NG slots of
+    D·Hkv·hd f32 each for dW_K and for dW_V: tc NG = min(ceil(Sk/64), 16),
+    134 MB each at vilbert-base's vision self-attention (B = 2, Sk = 4096,
+    D = 1024, 8 heads of 128) and 336 MB each at qwen3-32b's widths
+    (B = 1, Sk = 4096, D = 5120, 8 kv heads of 128); simt NG = ceil(Sk/64),
+    537 MB and 1.34 GB."""
     kw = dict(sin=sin, cos=cos, k_gamma=k_gamma, causal=causal,
               window=window, q_offset=q_offset, scale=scale,
               norm_eps=norm_eps, kv_len=kv_len)
@@ -127,36 +200,40 @@ def stream_attention_bwd(q: torch.Tensor, x_kv: torch.Tensor,
     if sin is not None:
         sin, cos = sin.float().contiguous(), cos.float().contiguous()
     gamma = None if k_gamma is None else k_gamma.float().contiguous()
+    route = ("tc" if stream_bwd_route(q.dtype, hd, D, Hkv) == "tc"
+             and _aligned(q, x_kv, wk, wv, dout) else "simt")
+    n_dw, n_dg, _, _ = stream_slots(route, B, Sk, Hkv, hd)
     f32 = dict(dtype=torch.float32, device=q.device)
-    tiles = B * -(-Sk // BK)
     dq = torch.empty_like(q)
     delta = torch.empty_like(lse)
     dx = torch.empty((B, Sk, D), **f32)
-    dwk = torch.empty((tiles, D, Hkv, hd), **f32)
-    dwv = torch.empty((tiles, D, Hkv, hd), **f32)
-    dg = torch.empty((tiles, hd) if gamma is not None else (1,), **f32)
+    dwk_s, dwv_s = (torch.empty((max(n_dw, 1), D, Hkv, hd), **f32)
+                    for _ in range(2))
+    dg_s = torch.empty((max(n_dg, 1), hd), **f32)
+    dwk, dwv = (torch.empty((D, Hkv, hd), **f32) for _ in range(2))
+    dg = torch.empty((hd,), **f32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    fn = _build.load("stream_attention_bwd").stream_attention_bwd_launch
-    fn.argtypes = [_P] * 16 + [_I] * 8 + [_F] + [_I] * 6 + [_F, _P]
-    fn.restype = _I
-    _build.raise_on("stream_attention_bwd", fn(
+    _build.raise_on(f"stream_attention_bwd ({route} route)", _stream_lib()(
         q.data_ptr(), x_kv.data_ptr(), wk.data_ptr(), wv.data_ptr(),
         ptr(sin), ptr(cos), ptr(gamma), out.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dx.data_ptr(),
-        dwk.data_ptr(), dwv.data_ptr(), dg.data_ptr(), code, B, Hq, Hkv, Sq,
-        Sk, D, hd, scale, int(causal), window, q_offset, kv_len,
+        dwk_s.data_ptr(), dwv_s.data_ptr(), dg_s.data_ptr(), dwk.data_ptr(),
+        dwv.data_ptr(), dg.data_ptr(), BWD_ROUTES.index(route), code, B, Hq,
+        Hkv, Sq, Sk, D, hd, scale, int(causal), window, q_offset, kv_len,
         int(sin is not None), int(gamma is not None), norm_eps,
         _build.stream_ptr(q.device)))
     stream_attention_bwd.launches += 1
-    dgamma = None if gamma is None else dg.sum(0).to(k_gamma.dtype)
-    return (dq, dx.to(x_kv.dtype), dwk.sum(0).to(wk.dtype),
-            dwv.sum(0).to(wv.dtype), dgamma)
+    stream_attention_bwd.routes[route] += 1
+    dgamma = None if gamma is None else dg.to(k_gamma.dtype)
+    return (dq, dx.to(x_kv.dtype), dwk.to(wk.dtype), dwv.to(wv.dtype),
+            dgamma)
 
 
 stream_attention_bwd.launches = 0
+stream_attention_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)
 
 
 class FlashAttentionFn(torch.autograd.Function):

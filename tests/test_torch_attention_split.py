@@ -8,8 +8,14 @@ the plain mirror of that rounding (``blocked.flash_attention_split``,
 the f32 plain versions at a main-path shape, show that rounding those
 operands to bf16 alone would not hold it, and check the kernels' live-tile
 rule (``blocked.live_kv_tiles``) against the full loop, with the rows that
-have no live key at all.  The test marked ``cuda`` reads the stream
-kernel's cluster policy from its CUDA library and skips without a card.
+have no live key at all.  The same holds for the backward kernels'
+tensor-core route (csrc/attention_bwd_tc.cuh): its mirrors
+``blocked.flash_attention_bwd_split`` and ``stream_attention_bwd_split``
+(P, dS, and in the stream kernel the generated K and V and dK, dV in the
+dx and dW products, as hi + lo) hold the bf16 limit where bf16 operands
+alone do not; its route rules, its dW slots and their fixed-order sum are
+checked too.  The tests marked ``cuda`` read the stream kernels' cluster
+policy from their CUDA libraries and skip without a card.
 """
 import numpy as np
 import pytest
@@ -208,3 +214,150 @@ def test_regeneration_factor(card, G, Sq, want):
     from repro_torch.kernels.stream_attention import regeneration
     assert regeneration(G, Sq) == want
 
+
+
+# ---- the backward kernels' tensor-core route ----
+
+def _bwd_run(kernel, rounding):
+    """(split mirror, plain) gradients at one head of vilbert-base's vision
+    stream (hd 128) cut to 1024 tokens (flash), and with RoPE and the
+    qk-norm over D = 512 (stream); bf16 inputs, the forward's lse."""
+    rng = np.random.default_rng(5)
+    S, hd = 1024, 128
+    q, k, v, do = (_bf16(rng, 1, 1, S, hd) for _ in range(4))
+    if kernel == "flash":
+        out, lse = blocked.flash_attention_plain(q, k, v, return_lse=True)
+        return (blocked.flash_attention_bwd_split(q, k, v, out, lse, do,
+                                                  rounding=rounding),
+                blocked.flash_attention_bwd_plain(q, k, v, out, lse, do))
+    D = 512
+    x = _bf16(rng, 1, S, D)
+    wk, wv = (_bf16(rng, D, 1, hd, scale=D ** -0.5) for _ in range(2))
+    sin, cos = ref.rope_tables(S, hd)
+    kw = dict(sin=sin, cos=cos, k_gamma=torch.from_numpy(
+        (rng.standard_normal(hd) * 0.1 + 1).astype(np.float32)))
+    out, lse = blocked.stream_attention_plain(q, x, wk, wv, return_lse=True,
+                                              **kw)
+    return (blocked.stream_attention_bwd_split(q, x, wk, wv, out, lse, do,
+                                               rounding=rounding, **kw),
+            blocked.stream_attention_bwd_plain(q, x, wk, wv, out, lse, do,
+                                               **kw))
+
+
+@pytest.mark.parametrize("kernel", ["flash", "stream"])
+def test_backward_split_operands_hold_the_bf16_limit(kernel):
+    """Every gradient of the tc route's mirror is within one bf16 ulp of the
+    f32 plain backward's."""
+    got, want = _bwd_run(kernel, "split")
+    for g, w in zip(got, want):
+        if w is not None:
+            assert g.shape == w.shape and g.dtype == w.dtype
+            assert worst(g, w) <= 1.0
+
+
+@pytest.mark.parametrize("kernel", ["flash", "stream"])
+def test_backward_bf16_operands_alone_break_the_limit(kernel):
+    """Without the lo halves (P and dS, and for the stream kernel K, V,
+    dK and dV, rounded to bf16) the gradients miss the limit."""
+    got, want = _bwd_run(kernel, "bf16")
+    assert max(worst(g, w) for g, w in zip(got, want) if w is not None) > 1.0
+
+
+@pytest.mark.parametrize("dtype, hd, hdv, route", [
+    (torch.bfloat16, 128, 128, "tc"), (torch.bfloat16, 64, 64, "tc"),
+    (torch.bfloat16, 96, 32, "tc"), (torch.bfloat16, 36, 64, "simt"),
+    (torch.bfloat16, 128, 256, "simt"), (torch.float32, 128, 128, "simt"),
+])
+def test_flash_backward_route_rule(dtype, hd, hdv, route):
+    assert blocked.flash_bwd_route(dtype, hd, hdv) == route
+
+
+@pytest.mark.parametrize("dtype, hd, D, Hkv, route, cluster", [
+    (torch.bfloat16, 128, 1024, 8, "tc", 8),    # vilbert vision
+    (torch.bfloat16, 64, 768, 12, "tc", 6),     # vilbert text: 2 heads a block
+    (torch.bfloat16, 128, 5120, 8, "tc", 8),    # qwen3-32b's widths
+    (torch.bfloat16, 128, 768, 12, "simt", 0),  # no cluster of 1 head a block
+    (torch.bfloat16, 96, 100, 1, "simt", 1),    # D not a multiple of 8
+    (torch.bfloat16, 48, 256, 2, "simt", 2),    # a width the forward lacks
+    (torch.float32, 128, 1024, 8, "simt", 8),
+])
+def test_stream_backward_route_rule(dtype, hd, D, Hkv, route, cluster):
+    assert blocked.stream_bwd_route(dtype, hd, D, Hkv) == route
+    assert blocked.stream_bwd_cluster(Hkv, hd) == cluster
+
+
+@pytest.mark.parametrize("B, Sk, D, Hkv, hd, tc_bytes, simt_bytes", [
+    (2, 4096, 1024, 8, 128, 134_217_728, 536_870_912),   # vision self 4096
+    (1, 4096, 5120, 8, 128, 335_544_320, 1_342_177_280), # qwen3-32b widths
+    (2, 1408, 1024, 8, 128, 134_217_728, 184_549_376),   # pruned: 22 tiles
+    (2, 640, 768, 12, 64, 47_185_920, 47_185_920),       # 10 tiles
+])
+def test_stream_backward_dw_slots_do_not_grow_with_sk(B, Sk, D, Hkv, hd,
+                                                      tc_bytes, simt_bytes):
+    """tc: B * min(ceil(Sk / 64), 16) f32 slots of dW_K and of dW_V;
+    simt: one a kv tile."""
+    assert blocked.stream_bwd_scratch_bytes("tc", B, Sk, D, Hkv, hd) \
+        == tc_bytes
+    assert blocked.stream_bwd_scratch_bytes("simt", B, Sk, D, Hkv, hd) \
+        == simt_bytes
+    dw, dg, cluster, groups = blocked.stream_bwd_slots("tc", B, Sk, Hkv, hd)
+    assert (dw, dg) == (B * groups, B * groups * cluster)
+
+
+def test_slots_are_summed_in_order():
+    """reduce_in_order is ((s_0 + s_1) + s_2) + ..., bitwise, and its
+    result depends on the order (f32 sums are not associative)."""
+    rng = np.random.default_rng(6)
+    slots = torch.from_numpy(
+        (rng.standard_normal((32, 4096)) * 10.0 ** rng.integers(
+            -3, 4, (32, 1))).astype(np.float32))
+    want = slots[0].clone()
+    for s in slots[1:]:
+        want = want + s
+    assert torch.equal(blocked.reduce_in_order(slots), want)
+    assert not torch.equal(blocked.reduce_in_order(slots.flip(0)), want)
+
+
+def test_stream_backward_dw_is_the_ordered_sum_of_tile_partials():
+    """The mirror's dW_K equals the partials of its tiles, x_j^T dK_pre,j
+    (the hi + lo split of dK_pre), added into the slot of tile group
+    j % NG in tile order and the slots summed in order: the order the tc
+    kernels use, with more tiles than groups."""
+    rng = np.random.default_rng(7)
+    B, S, D, hd = 2, 1100, 64, 32      # 18 tiles over 16 groups
+    q, do = (_bf16(rng, B, 1, S, hd) for _ in range(2))
+    x = _bf16(rng, B, S, D)
+    wk, wv = (_bf16(rng, D, 1, hd, scale=D ** -0.5) for _ in range(2))
+    out, lse = blocked.stream_attention_plain(q, x, wk, wv, return_lse=True)
+    got = blocked.stream_attention_bwd_split(q, x, wk, wv, out, lse, do)
+    dw_slots, _, _, groups = blocked.stream_bwd_slots("tc", B, S, 1, hd)
+    assert groups == 16 and dw_slots == 32
+    # the tile partials again, from autograd of the generator
+    qf, dof, lsef, delta = blocked._bwd_rows(q, out, lse, do, 1)
+    slots = torch.zeros((B, groups, D, 1, hd))
+    xp, _ = blocked._pad_axis(x, 1, 64)
+    for j in range(xp.shape[1] // 64):
+        x_j = xp[:, j * 64:(j + 1) * 64].float()
+        k_j = torch.einsum("btd,dhe->bthe", x_j, wk.float())
+        v_j = torch.einsum("btd,dhe->bthe", x_j, wv.float())
+        kpos = j * 64 + torch.arange(64)
+        _, dk_j, _ = blocked._tile_grads(
+            qf, dof, lsef, delta, k_j.transpose(1, 2), v_j.transpose(1, 2),
+            kpos, torch.arange(S), S, S, False, 0, hd ** -0.5,
+            ops=blocked._operands("split"), split_kv=True)
+        dkt = dk_j.transpose(1, 2)
+        slots[:, j % groups] += sum(torch.einsum("btd,bthe->bdhe", x_j, a)
+                                    for a in blocked.split_bf16(dkt))
+    want = blocked.reduce_in_order(slots.reshape(-1, D, 1, hd))
+    assert torch.equal(got[2], want.to(wk.dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("G, Sq, want", [
+    (1, 4096, 4),     # vilbert-base at N = 4096, against 64 per 64 rows
+    (1, 1408, 2),
+    (8, 256, 2),
+])
+def test_backward_regeneration_factor(card, G, Sq, want):
+    from repro_torch.kernels.flash_vjp import regeneration
+    assert regeneration(G, Sq) == want
