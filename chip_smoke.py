@@ -20,8 +20,14 @@ caught:
      three); kernel, plain, library-call times and the card's bound at
      each kernel's timed main-path shape; flash's time and TFLOP/s at each
      of its main shapes (vilbert, qwen3-32b's causal GQA prefill,
-     hymba-1.5b's windowed prefill), the stream kernel's K/V regeneration
-     factor; tile_gemm: its library's route and split rules against their
+     hymba-1.5b's windowed prefill, and phases 12-14's: vilbert-large's
+     hd-64 streams, whisper-base's encoder, prompt and cross-attention,
+     qwen2-vl-2b's causal GQA 12/2 at 4096 and 2048), the stream kernel's
+     K/V regeneration factor and its main shapes (vilbert-large's, and
+     whisper-base's encoder self-attention and cross-attention over 1500
+     encoder states with 4 and with 1 query row per kv head, timed at the
+     decode shape against its bound and matmul K/V + SDPA, regeneration
+     1); tile_gemm: its library's route and split rules against their
      Python mirrors, each case and main shape (vilbert-base's, qwen3-32b's
      and hymba-1.5b's MLPs) on its intended route (and bf16 wgmma ones
      also through the mma route, the first port's kernel, which the
@@ -88,11 +94,34 @@ caught:
      kernel replaced by its plain version on the card) and the three
      modes against each other, max |difference| over max |value| per
      parameter;
- 12. one JSON line of per-kernel numbers, with the routes of tile_gemm,
-     decode attention and the SSD scan over the main paths and their timed
-     shapes ("tile_gemm_shapes", "decode_attention_shapes",
-     "ssd_scan_shapes");
- 13. the last line: {"ok": true, "device": {...}}.
+ 12. vilbert-large (24 layers, 12 co-TRM blocks, both streams 1024 wide
+     with 16 heads of 64) as phase 4: bf16, B = 2, N = 4096, three modes,
+     kept counts (4096 x 3, 2816 x 3, 2048 x 3, 1408 x 3) and launch
+     gates; then the modes in f32 at N = 1024 with one text-only layer and
+     one co-TRM block;
+ 13. whisper-base (6 + 6 layers, d 512) at full width and depth, bf16:
+     B = 4 clips of 1500 frames from the data pipeline and a 4-token
+     prompt; encode and prefill in each mode, then 60 greedy decode steps
+     (self-attention on decode attention's tc route over a plain 65-slot
+     cache, cross-attention on the stream kernel with one query row per
+     kv head), the launches of every call gated exactly; encode, prefill
+     and decode-step times, a profiled decode step and encode; then f32 at
+     2 + 2 layers: prefill(S) + a decode step against the teacher-forced
+     decoder at S + 1, and the modes against each other, within 1e-4;
+ 14. qwen2-vl-2b (28 layers, GQA 12/2, M-RoPE) at full width and depth,
+     bf16: the forward at S = 4096 over a text + image-grid position
+     layout in each mode (flash and wgmma GEMMs only, the three bitwise
+     equal) against the same forward with every kernel's plain version on
+     the card; served by the paged-KV Engine (4 slots, five requests of
+     256-2048 prompt tokens, 32 new tokens each) with phase 5's gates; f32
+     at 2 layers: M-RoPE with equal streams against the 1-D RoPE forward
+     and batched against per-slot decode, within 1e-4;
+ 15. one JSON line of per-kernel numbers, with the routes of tile_gemm,
+     decode attention and the SSD scan over the main paths (phases 4-5,
+     7-8, 10, 12-14) and their timed shapes ("tile_gemm_shapes",
+     "decode_attention_shapes", "ssd_scan_shapes",
+     "stream_attention_shapes");
+ 16. the last line: {"ok": true, "device": {...}}.
 
 Bound of a kernel call: the larger of its FLOPs over the H100 SXM peak of
 its input type (989 TFLOP/s bf16, 67 TFLOP/s f32) and the bytes it must
@@ -139,6 +168,7 @@ from repro_torch.kernels.stream_attention import (  # noqa: E402
 from repro_torch.kernels import tile_gemm as tile_gemm_lib  # noqa: E402
 from repro_torch.kernels.tile_gemm import (  # noqa: E402
     route_of, splits_of, tile_gemm)
+from repro_torch.models.encdec import EncDec  # noqa: E402
 from repro_torch.models.ssm import SSM  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.vilbert import ViLBERT  # noqa: E402
@@ -194,6 +224,9 @@ TOL = {"flash_attention": {torch.float32: (2e-4, 2e-4),
 MODE_TOL = 1e-4
 EXPECTED_COUNTS = ((4096, 4096), (2816, 2816), (2816, 2816),
                    (2048, 2048), (1408, 1408), (1408, 1408))
+# vilbert-large's 12 co-TRM blocks at N = 4096 (core.pruning.keep_plan)
+EXPECTED_COUNTS_LARGE = tuple((n, n) for n in (4096,) * 3 + (2816,) * 3
+                              + (2048,) * 3 + (1408,) * 3)
 KERNELS = {
     "stream_attention": (stream_attention,
                          "src/repro/kernels/stream_attention.py:167"),
@@ -315,6 +348,11 @@ STREAM_CASES = [
     # rows with no live key (see no_live_key)
     (1, 2, 1, 300, 300, 64, 128, False, 32, True, False, 100),
     (1, 8, 2, 130, 700, 128, 256, True, 8, True, True, 600),
+    # whisper-base's cross-attention: one query row per kv head (decode)
+    # and a 4-token prompt, over 1500 encoder states (a ragged last tile)
+    (4, 8, 8, 1, 1500, 64, 512, False, 0, False, False, None),
+    (4, 8, 8, 4, 1500, 64, 512, False, 0, False, False, None),
+    (2, 8, 8, 1, 1500, 64, 512, False, 0, False, False, 1499),
 ]
 M_SMALL = blocked.GEMM_M_SMALL
 GEMM_CASES = [(256, 128, 192), (512, 384, 256), (128, 256, 128),
@@ -341,13 +379,40 @@ MAIN_FLASH = {  # name: (B, Hq, Hkv, Sq, Sk, hd, causal, window)
     "qwen3-32b prefill 1024": (1, 64, 8, 1024, 1024, 128, True, 0),
     "hymba-1.5b prefill 3000": (1, 25, 5, 3000, 3000, 64, True, 1024),
 }
+# Phases 12-14: vilbert-large's streams (16 heads of 64, both 1024 wide;
+# LAYER_STREAM, at N = 4096 and at its kept counts), whisper-base (B = 4:
+# the encoder in LAYER_STREAM, the decoder's causal prompt self-attention
+# in every mode, its cross-attention over the 1500 encoder states in
+# LAYER_STREAM) and qwen2-vl-2b (GQA 12/2, hd 128, causal: the M-RoPE
+# forward at 4096 and the served prefills).
+MAIN_FLASH.update({
+    f"vilbert-large self {n}": (2, 16, 16, n, n, 64, False, 0)
+    for n in (4096, 2816, 2048, 1408)})
+MAIN_FLASH.update({
+    "whisper encoder 1500": (4, 8, 8, 1500, 1500, 64, False, 0),
+    "whisper prompt self 4": (4, 8, 8, 4, 4, 64, True, 0),
+    "whisper cross 4": (4, 8, 8, 4, 1500, 64, False, 0),
+    "qwen2-vl forward 4096": (1, 12, 2, 4096, 4096, 128, True, 0),
+    "qwen2-vl prefill 2048": (1, 12, 2, 2048, 2048, 128, True, 0),
+})
 MAIN_STREAM = {  # name: (B, H, Sq, Sk, hd, D)
     "vision self 4096": (2, 8, 4096, 4096, 128, 1024),
     "text self 4096": (2, 12, 4096, 4096, 64, 768),
     "vision co 4096": (2, 8, 4096, 4096, 128, 768),
     "text co 4096": (2, 12, 4096, 4096, 64, 1024),
     "text co 1408": (2, 12, 1408, 1408, 64, 1024),
+    # vilbert-large: self- and co-attention of both streams share a shape
+    "vilbert-large 4096": (2, 16, 4096, 4096, 64, 1024),
+    "vilbert-large 2816": (2, 16, 2816, 2816, 64, 1024),
+    "vilbert-large 1408": (2, 16, 1408, 1408, 64, 1024),
+    # whisper-base, B = 4: encoder self-attention, the prompt's and one
+    # decode step's cross-attention (one query row per kv head)
+    "whisper encoder self 1500": (4, 8, 1500, 1500, 64, 512),
+    "whisper cross 4": (4, 8, 4, 1500, 64, 512),
+    "whisper cross decode": (4, 8, 1, 1500, 64, 512),
 }
+# The stream kernel is also timed at whisper's decode shape (Sq = 1).
+STREAM_TIMED = ("whisper cross decode",)
 MAIN_GEMM = {  # name: (M, K, N)
     "text mlp up": (8192, 768, 3072),
     "text mlp down": (8192, 3072, 768),
@@ -367,6 +432,16 @@ MAMBA2_REQUESTS = [(0, 2048, 32, 0), (1, 2048, 32, 0), (2, 1000, 32, 0),
                    (3, 4000, 16, 1), (4, 512, 32, 2)]
 HYMBA_REQUESTS = [(0, 3000, 32, 0), (1, 1500, 32, 0), (2, 2048, 32, 1),
                   (3, 512, 32, 2)]
+# Phase 14's requests (qwen2-vl-2b): r1/r2 share a bucket, r3 and r4
+# arrive while the others decode; the cache holds 2080 positions.
+QWEN2VL_REQUESTS = [(0, 2048, 32, 0), (1, 1024, 32, 0), (2, 1024, 32, 0),
+                    (3, 256, 32, 1), (4, 512, 32, 3)]
+QWEN2VL_MAX_LEN = 2080
+# Phase 13 (whisper-base): B = 4 clips of 1500 frames, a 4-token prompt,
+# 60 greedy decode steps; the self-attention cache holds 65 positions (a
+# second kv tile of one key).
+WHISPER_B, WHISPER_PROMPT, WHISPER_STEPS = 4, 4, 60
+WHISPER_MAX_LEN = WHISPER_PROMPT + WHISPER_STEPS + 1
 # Phase 8's MLP projections (hymba-1.5b: d_model 1600, d_ff 5504): gate/up
 # (M, 1600, 5504) and down (M, 5504, 1600) at its prompt lengths and its
 # per-slot decode (M = 1).
@@ -376,6 +451,29 @@ MAIN_GEMM.update({
                      ("decode", (1,)))
     for m in ms
     for proj, k, n in (("up", 1600, 5504), ("down", 5504, 1600))})
+# Phases 12-14's MLPs: vilbert-large (both streams 1024 <-> 4096, M = 2 x
+# each kept count), whisper-base (512 <-> 2048: the encoder's M = 4 x 1500,
+# the prompt's 4 x 4, a decode step's 4) and qwen2-vl-2b (gate/up 1536 ->
+# 8960, down 8960 -> 1536: the forward's 4096, the served prompts, decode
+# buckets of 1 to 4).
+MAIN_GEMM.update({
+    f"vilbert-large M={2 * n} mlp {proj}": (2 * n, k, m)
+    for n in (4096, 2816, 2048, 1408)
+    for proj, k, m in (("up", 1024, 4096), ("down", 4096, 1024))})
+MAIN_GEMM.update({
+    f"whisper {what} M={m} mlp {proj}": (m, k, n)
+    for what, m in (("encode", WHISPER_B * 1500),
+                    ("prefill", WHISPER_B * WHISPER_PROMPT),
+                    ("decode", WHISPER_B))
+    for proj, k, n in (("up", 512, 2048), ("down", 2048, 512))})
+MAIN_GEMM.update({
+    f"qwen2-vl {what} M={m} mlp {proj}": (m, k, n)
+    for what, ms in (("forward", (4096,)),
+                     ("prefill",
+                      sorted({p for _, p, _, _ in QWEN2VL_REQUESTS})),
+                     ("decode", (1, 2, 3, 4)))
+    for m in ms
+    for proj, k, n in (("up", 1536, 8960), ("down", 8960, 1536))})
 # B, S, H, P, N, chunk: the JAX package's test_ssd_kernel_interpret cases
 # (the last one ragged), then every prefill of phases 7 (mamba2-780m: H 48,
 # P 64, N 128) and 8 (hymba-1.5b: H 25, P 128, N 16), chunk 256.
@@ -509,6 +607,7 @@ def live_pairs(Sq: int, Sk: int, causal: bool = False, window: int = 0,
 
 def check_stream(gen, report):
     name = "stream_attention"
+    shapes = []
     for dt in DTYPES:
         for (B, Hq, Hkv, Sq, Sk, hd, D, causal, window, rope, knorm,
              kv_len) in STREAM_CASES:
@@ -554,19 +653,10 @@ def check_stream(gen, report):
             say(f"  {name} {str(dt)[6:]} main path {case}: max|err| "
                 f"{err:.2e}; allocated beyond the output: "
                 f"{extra - got.numel() * got.element_size()} bytes")
+            if dt == torch.bfloat16 and case in STREAM_TIMED:
+                shapes.append(time_stream(case, q, x, wk, wv, err))
             if dt == torch.bfloat16 and case == TIMED[name]:
-                e = q.element_size()
-                flops = 4 * B * H * Sq * Sk * hd + 4 * B * Sk * D * H * hd
-                nbytes = (2 * q.numel() + x.numel() + wk.numel()
-                          + wv.numel()) * e
-
-                def library():
-                    k = (x.reshape(B * Sk, D) @ wk.reshape(D, H * hd)) \
-                        .view(B, Sk, H, hd).transpose(1, 2)
-                    v = (x.reshape(B * Sk, D) @ wv.reshape(D, H * hd)) \
-                        .view(B, Sk, H, hd).transpose(1, 2)
-                    return F.scaled_dot_product_attention(q, k, v)
-
+                flops, nbytes = stream_work(q, x, wk, wv)
                 report[name] = dict(
                     max_abs_err=err,
                     ms=time_ms(lambda: stream_attention(q, x, wk, wv)),
@@ -574,10 +664,62 @@ def check_stream(gen, report):
                         lambda: stream_attention(q, x, wk, wv))[0],
                     plain_ms=time_ms(
                         lambda: blocked.stream_attention_plain(q, x, wk, wv)),
-                    library_ms=time_ms(library),
+                    library_ms=time_ms(lambda: stream_library(q, x, wk, wv)),
                     shape=f"q {(B, H, Sq, hd)}, x_kv {(B, Sk, D)} bf16",
                     flops=flops, bytes=nbytes, dtype=dt,
                     regeneration=regeneration(1, Sq))
+    report[name]["shapes"] = shapes
+
+
+def stream_work(q, x, wk, wv):
+    """(FLOPs, bytes) of one stream_attention call of MHA q (B, H, Sq, hd)
+    over x_kv (B, Sk, D): the K/V generation and the attention, each input
+    read once and the output written once."""
+    B, H, Sq, hd = q.shape
+    Sk, D = x.shape[1:]
+    flops = 4 * B * H * Sq * Sk * hd + 4 * B * Sk * D * H * hd
+    nbytes = (2 * q.numel() + x.numel() + wk.numel()
+              + wv.numel()) * q.element_size()
+    return flops, nbytes
+
+
+def stream_library(q, x, wk, wv):
+    """The same function by library calls: K/V by matmul, then SDPA."""
+    B, H, _, hd = q.shape
+    Sk, D = x.shape[1:]
+    k = (x.reshape(B * Sk, D) @ wk.reshape(D, H * hd)) \
+        .view(B, Sk, H, hd).transpose(1, 2)
+    v = (x.reshape(B * Sk, D) @ wv.reshape(D, H * hd)) \
+        .view(B, Sk, H, hd).transpose(1, 2)
+    return F.scaled_dot_product_attention(q, k, v)
+
+
+def time_stream(case, q, x, wk, wv, err):
+    """The kernel against its plain version and the library calls at one
+    main shape, bf16, by CUDA events and by the profiler's device time;
+    each K/V tile must be generated once (regeneration 1).  Its launches
+    are not counted."""
+    Sq = q.shape[2]
+    if regeneration(1, Sq) != 1:
+        fail(f"stream_attention {case}: K/V regeneration "
+             f"x{regeneration(1, Sq)}, expected 1")
+    n0 = stream_attention.launches
+    flops, nbytes = stream_work(q, x, wk, wv)
+    ms = time_ms(lambda: stream_attention(q, x, wk, wv))
+    dev, kernels, _ = device_ms(lambda: stream_attention(q, x, wk, wv))
+    plain_ms = time_ms(lambda: blocked.stream_attention_plain(q, x, wk, wv))
+    lib_ms = time_ms(lambda: stream_library(q, x, wk, wv))
+    lib_dev = device_ms(lambda: stream_library(q, x, wk, wv))[0]
+    stream_attention.launches = n0
+    b_ms, b_by = bound(flops, nbytes, q.dtype)
+    say(f"    timed {case}: kernel {ms:.4f} ms, device {dev:.4f} ms in "
+        f"{kernels:g} launch; plain {plain_ms:.4f} ms; matmul K/V + SDPA "
+        f"{lib_ms:.4f} ms (device {lib_dev:.4f}); bound {b_ms:.4f} ms "
+        f"({b_by}): device {dev / b_ms:.1f}x bound; K/V regeneration x1")
+    return dict(name=case, max_abs_err=err, ms=ms, device_ms=dev,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev, bound_ms=b_ms, bound_by=b_by,
+                flops=flops, bytes=nbytes, regeneration=1)
 
 
 # ---------------------------------------------------------------------------
@@ -1080,6 +1222,13 @@ MAIN_DECODE = {
     "qwen3-32b bucket of 1": (1, 64, 8, 2048, 128, 1537),
     "hymba-1.5b bucket of 1": (1, 25, 5, 1024, 64, 700),
     "hymba-1.5b bucket of 1, full ring": (1, 25, 5, 1024, 64, 1024),
+    # phase 13: whisper-base's plain (B, 8, 65, 64) cache, MHA; phase 14:
+    # qwen2-vl-2b's GQA 12/2 buckets over 2080 positions
+    "whisper bucket of 4": (4, 8, 8, WHISPER_MAX_LEN, 64, 34),
+    "whisper bucket of 4, last step": (4, 8, 8, WHISPER_MAX_LEN, 64,
+                                       WHISPER_MAX_LEN - 1),
+    "qwen2-vl bucket of 2": (2, 12, 2, QWEN2VL_MAX_LEN, 128, 1040),
+    "qwen2-vl bucket of 1": (1, 12, 2, QWEN2VL_MAX_LEN, 128, 2079),
 }
 # decode attention is also timed at these, against the parent's kernel and
 # SDPA in turns, with each one's device time from the profiler.
@@ -1523,15 +1672,22 @@ def stream_gaps(got, want) -> tuple:
                  for g, w in zip(got, want))
 
 
-def main_path(launches: dict) -> None:
-    cfg = get_config("vilbert-base")
+def main_path(launches: dict, smi: str, arch: str = "vilbert-base",
+              expected: tuple = EXPECTED_COUNTS,
+              f32_cut: dict = None) -> None:
+    """``arch``'s VQA forward in bf16 (B = 2, N = 4096) in the three
+    modes, with its kept counts (``expected``) and launch gates; then the
+    three modes in f32 at N = 1024, B = 1, at ``f32_cut``'s depth (full
+    depth without one)."""
+    cfg = get_config(arch)
     gen = torch.Generator(device="cuda").manual_seed(0)
     t0 = time.perf_counter()
     model = ViLBERT(cfg, device="cuda", generator=gen)
     batch = make_batch(cfg, 2, 4096, gen)
     torch.cuda.synchronize()
-    say(f"  vilbert-base bf16 built in "
-        f"{(time.perf_counter() - t0) * 1e3:.1f} ms")
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"  {arch} bf16, {n_params / 1e6:.1f} M parameters, built in "
+        f"{(time.perf_counter() - t0) * 1e3:.1f} ms [{smi}]")
     logits, streams = {}, {}
     for mode in ExecutionMode:
         model(batch, mode=mode)                      # warm-up
@@ -1542,24 +1698,24 @@ def main_path(launches: dict) -> None:
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
         got = tally(launches)
-        say(f"  {mode.value}: wall {wall:.1f} ms, launches {got}, "
+        say(f"  {mode.value}: wall {wall:.1f} ms [{smi}], launches {got}, "
             f"tile_gemm routes {tile_gemm.routes}, kept {kept}")
         if out.shape != (2, 3129) or not torch.isfinite(out).all():
             fail(f"{mode.value}: logits {tuple(out.shape)} not finite "
                  f"(2, 3129)")
-        if kept != EXPECTED_COUNTS:
-            fail(f"{mode.value}: kept counts {kept} != {EXPECTED_COUNTS}")
-        check_routes(f"vilbert {mode.value}", tile_gemm.routes, "wgmma")
+        if kept != expected:
+            fail(f"{arch} {mode.value}: kept counts {kept} != {expected}")
+        check_routes(f"{arch} {mode.value}", tile_gemm.routes, "wgmma")
         want_stream = mode == ExecutionMode.TILE_STREAM
         want_flash = mode == ExecutionMode.LAYER_STREAM
         if (got["stream_attention"] > 0) != want_stream \
                 or (got["flash_attention"] > 0) != want_flash:
-            fail(f"{mode.value}: attention launches {got} do not fit "
-                 f"the mode")
+            fail(f"{arch} {mode.value}: attention launches {got} do not "
+                 f"fit the mode")
         logits[mode] = out
         streams[mode] = model.encode(batch, mode=mode)[:2]
         say(f"    {mode.value} profile: "
-            f"{device_breakdown(model, batch, mode)}")
+            f"{device_breakdown(model, batch, mode)} [{smi}]")
     for mode in (ExecutionMode.LAYER_STREAM, ExecutionMode.TILE_STREAM):
         gap = (logits[mode] - logits[ExecutionMode.NON_STREAM]).abs().max()
         say(f"  bf16 {mode.value} vs non_stream: max |logit gap| "
@@ -1568,7 +1724,10 @@ def main_path(launches: dict) -> None:
             f" (not gated: a DTPU top-k may flip in bf16)")
     del model, batch, logits, streams
 
-    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32")
+    free()
+
+    cfg32 = dataclasses.replace(cfg, dtype="float32", param_dtype="float32",
+                                **(f32_cut or {}))
     gen = torch.Generator(device="cuda").manual_seed(1)
     model = ViLBERT(cfg32, device="cuda", generator=gen)
     batch = make_batch(cfg32, 1, 1024, gen)
@@ -1576,11 +1735,13 @@ def main_path(launches: dict) -> None:
     base = outs[ExecutionMode.NON_STREAM]
     for mode, (x, y, kept) in outs.items():
         gaps = stream_gaps((x, y), base[:2])
-        say(f"  f32 N=1024 {mode.value}: relative stream gaps to non_stream "
-            f"{gaps} (tol {MODE_TOL}), kept {kept}")
+        say(f"  f32 N=1024, {cfg32.num_layers} layers, "
+            f"{cfg32.num_coattn_layers} co-TRM blocks, {mode.value}: "
+            f"relative stream gaps to non_stream {gaps} (tol {MODE_TOL}), "
+            f"kept {kept}")
         if kept != base[2] or max(gaps) > MODE_TOL \
                 or not (torch.isfinite(x).all() and torch.isfinite(y).all()):
-            fail(f"f32 modes disagree: {mode.value} gaps {gaps}")
+            fail(f"{arch} f32 modes disagree: {mode.value} gaps {gaps}")
 
 
 # ---------------------------------------------------------------------------
@@ -1755,8 +1916,12 @@ def serve(cfg, model, fresh, *, keep_logits=False, profile_call=None,
     return eng, probe, tokens
 
 
-def qwen3_serving(smi: str, launches: dict) -> None:
-    cfg = get_config("qwen3-32b")
+def dense_serving(arch: str, spec, max_len: int, smi: str,
+                  launches: dict) -> None:
+    """Serve ``spec`` on the dense (or VLM) decoder ``arch`` at full width
+    and depth, bf16, random weights (CUDA generator, seed 0),
+    Engine(slots=4, max_len, page_size=64): paged K/V, batched decode."""
+    cfg = get_config(arch)
     free()
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device="cuda").manual_seed(0)
@@ -1764,17 +1929,17 @@ def qwen3_serving(smi: str, launches: dict) -> None:
     model = Transformer(cfg, device="cuda", generator=gen)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    say(f"  qwen3-32b bf16, {n_params / 1e9:.2f} B parameters, built in "
+    say(f"  {arch} bf16, {n_params / 1e9:.2f} B parameters, built in "
         f"{time.perf_counter() - t0:.1f} s; allocated "
         f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB [{smi}]")
-    fresh = make_requests(cfg, SERVE_REQUESTS, gen)
+    fresh = make_requests(cfg, spec, gen)
     reset_counts()
     t0 = time.perf_counter()
-    eng, probe, _ = serve(cfg, model, fresh, slots=4, max_len=2048,
+    eng, probe, _ = serve(cfg, model, fresh, slots=4, max_len=max_len,
                           page_size=64, profile_call=2)
     wall = time.perf_counter() - t0
     got, routes = counts(), route_counts()
-    check_kernel_routes("qwen3-32b", routes, got)
+    check_kernel_routes(arch, routes, got)
     profile = profile_step(probe.decode_fn, *probe.saved)
     probe.saved = None
     first = fresh()[0]
@@ -1786,14 +1951,14 @@ def qwen3_serving(smi: str, launches: dict) -> None:
         f"decode_batches {eng.decode_batches}; launches {got}; tile_gemm "
         f"routes: prefill {dict(probe.routes['prefill'])}, decode "
         f"{dict(probe.routes['decode'])}")
-    check_routes("qwen3-32b prefill", probe.routes["prefill"], "wgmma")
-    check_routes("qwen3-32b decode", probe.routes["decode"], "splitk")
+    check_routes(f"{arch} prefill", probe.routes["prefill"], "wgmma")
+    check_routes(f"{arch} decode", probe.routes["decode"], "splitk")
     if eng.decode_batches >= eng.decode_calls:
-        fail("qwen3-32b: batched decode did not batch")
+        fail(f"{arch}: batched decode did not batch")
     if got["flash_attention"] == 0 or got["tile_gemm"] == 0 \
             or got["stream_attention"] != 0 \
             or got["decode_attention"] != cfg.num_layers * eng.decode_batches:
-        fail(f"qwen3-32b: launches {got} do not fit the path (decode "
+        fail(f"{arch}: launches {got} do not fit the path (decode "
              f"attention {cfg.num_layers} x {eng.decode_batches} batches)")
     say(f"  peak device memory {torch.cuda.max_memory_allocated() / 2 ** 30:.1f}"
         f" GiB [{smi}]")
@@ -1845,8 +2010,12 @@ def _token_gaps(label, got, want, logits_of) -> int:
     return agree
 
 
-def serving_checks(smi: str) -> None:
-    cfg = dataclasses.replace(get_config("qwen3-32b"), num_layers=2,
+def serving_checks(smi: str, arch: str = "qwen3-32b",
+                   modes: bool = True) -> None:
+    """f32 at ``arch``'s full width, 2 layers, on CHECK_REQUESTS: batched
+    against per-slot decode, and with ``modes`` the NON/LAYER/TILE
+    prefills against each other."""
+    cfg = dataclasses.replace(get_config(arch), num_layers=2,
                               dtype="float32", param_dtype="float32")
     free()
     gen = torch.Generator(device="cuda").manual_seed(1)
@@ -1864,7 +2033,7 @@ def serving_checks(smi: str) -> None:
     eng_b, dec_b, tok_b, pre_b = runs[True]
     _, dec_s, tok_s, pre_s = runs[False]
     if eng_b.decode_batches >= eng_b.decode_calls:
-        fail("f32 checks: batched decode did not batch")
+        fail(f"{arch} f32 checks: batched decode did not batch")
     worst = 0.0
     for rid in tok_s:
         for t, (a, b) in enumerate(zip(dec_b[rid], dec_s[rid])):
@@ -1874,14 +2043,17 @@ def serving_checks(smi: str) -> None:
     agree = _token_gaps(
         "batched vs per-slot", tok_b, tok_s,
         lambda rid, t: pre_s[rid] if t == 0 else dec_s[rid][t - 1][:V])
-    say(f"  f32 batched vs per-slot decode: max relative logit gap "
+    say(f"  {arch} f32 batched vs per-slot decode: max relative logit gap "
         f"{worst:.2e} (tol {SERVE_TOL}); greedy tokens agree "
         f"{agree}/{sum(map(len, tok_s.values()))}; decode_batches "
         f"{eng_b.decode_batches} < decode_calls {eng_b.decode_calls}")
     if worst > SERVE_TOL:
-        fail(f"f32 batched vs per-slot decode logits differ by {worst:.2e}")
+        fail(f"{arch} f32 batched vs per-slot decode logits differ by "
+             f"{worst:.2e}")
+    if not modes:
+        return
 
-    modes = {}
+    by_mode = {}
     for mode in ExecutionMode:
         reset_counts()
         eng, probe, tokens = serve(
@@ -1890,11 +2062,11 @@ def serving_checks(smi: str) -> None:
         got = counts()
         if (got["stream_attention"] > 0) != (mode == ExecutionMode.TILE_STREAM):
             fail(f"f32 {mode.value}: launches {got} do not fit the mode")
-        modes[mode] = (tokens, {rid: lg[0, :V]
+        by_mode[mode] = (tokens, {rid: lg[0, :V]
                                 for rid, _, _, lg in probe.prefills},
                        probe.decode_logits(eng))
-    base_tok, base_pre, base_dec = modes[ExecutionMode.NON_STREAM]
-    for mode, (tokens, pre, _) in modes.items():
+    base_tok, base_pre, base_dec = by_mode[ExecutionMode.NON_STREAM]
+    for mode, (tokens, pre, _) in by_mode.items():
         gap = max(_rel(pre[rid], base_pre[rid]) for rid in base_pre)
         agree = _token_gaps(
             f"{mode.value} vs non_stream", tokens, base_tok,
@@ -2320,18 +2492,23 @@ def encoder_step(model, cfg, mode, batch, launches: dict, want: dict) -> str:
 
 @contextlib.contextmanager
 def plain_kernels():
-    """The training path's kernels replaced by their plain versions on the
-    card (phase 11's plain path): forward and backward attention and the
-    projection's forward.  No kernel launches in it."""
-    saved = {(flash_vjp, n): getattr(flash_vjp, n)
-             for n in ("flash_attention", "stream_attention",
-                       "flash_attention_bwd", "stream_attention_bwd")}
-    saved[(ops, "tile_gemm")] = ops.tile_gemm
-    flash_vjp.flash_attention = blocked.flash_attention_plain
-    flash_vjp.stream_attention = blocked.stream_attention_plain
-    flash_vjp.flash_attention_bwd = blocked.flash_attention_bwd_plain
-    flash_vjp.stream_attention_bwd = blocked.stream_attention_bwd_plain
-    ops.tile_gemm = ref.ref_tile_gemm
+    """Every kernel replaced by its plain version on the card: the training
+    path's forward and backward attention (phase 11's plain path), the
+    serving path's attention and decode attention (phase 14), and the
+    projection.  No kernel launches in it."""
+    plain = {(flash_vjp, "flash_attention"): blocked.flash_attention_plain,
+             (flash_vjp, "stream_attention"): blocked.stream_attention_plain,
+             (flash_vjp, "flash_attention_bwd"):
+                 blocked.flash_attention_bwd_plain,
+             (flash_vjp, "stream_attention_bwd"):
+                 blocked.stream_attention_bwd_plain,
+             (ops, "flash_attention"): blocked.flash_attention_plain,
+             (ops, "stream_attention"): blocked.stream_attention_plain,
+             (ops, "decode_attention"): blocked.decode_attention_plain,
+             (ops, "tile_gemm"): ref.ref_tile_gemm}
+    saved = {key: getattr(*key) for key in plain}
+    for (mod, n), fn in plain.items():
+        setattr(mod, n, fn)
     try:
         yield
     finally:
@@ -2428,6 +2605,282 @@ def training_checks(smi: str) -> None:
         free()
 
 
+# ---------------------------------------------------------------------------
+# Phases 13 and 14: whisper-base and qwen2-vl-2b
+# ---------------------------------------------------------------------------
+
+def resolved(cfg, mode: ExecutionMode) -> ExecutionMode:
+    """The planner's mode for an attention layer of ``cfg`` whose K/V come
+    from activations of width d_model."""
+    return resolve_layer_mode(mode, d_kv=cfg.d_model,
+                              num_kv_heads=cfg.num_kv_heads,
+                              head_dim=cfg.head_dim)
+
+
+def whisper_launches(cfg, mode: ExecutionMode, what: str) -> dict:
+    """The launches of one whisper ``encode``, ``prefill`` or
+    ``decode_step``: attention under the resolved mode launches flash
+    (LAYER_STREAM), stream (TILE_STREAM) or nothing (NON_STREAM); the
+    prompt's causal self-attention is flash in every mode; a decode step's
+    self-attention is decode attention and its cross-attention the
+    resolved TILE_STREAM; two MLP projections a layer."""
+    want = dict.fromkeys(KERNELS, 0)
+    kernel = {ExecutionMode.LAYER_STREAM: "flash_attention",
+              ExecutionMode.TILE_STREAM: "stream_attention"}
+
+    def attend(n, m):
+        if resolved(cfg, m) in kernel:
+            want[kernel[resolved(cfg, m)]] += n
+
+    enc, dec = cfg.num_encoder_layers, cfg.num_layers
+    if what in ("encode", "prefill"):
+        attend(enc, mode)
+        want["tile_gemm"] += 2 * enc
+    if what == "prefill":
+        want["flash_attention"] += dec
+        attend(dec, mode)
+        want["tile_gemm"] += 2 * dec
+    if what == "decode":
+        want["decode_attention"] += dec
+        attend(dec, ExecutionMode.TILE_STREAM)
+        want["tile_gemm"] += 2 * dec
+    return want
+
+
+def check_call(what: str, launches: dict, want: dict, gemm_route: str
+               ) -> None:
+    """Tally one call's launches and fail unless they equal ``want``,
+    every tile_gemm launch took ``gemm_route`` and every decode attention
+    launch the tc route."""
+    got = tally(launches)
+    if got != want:
+        fail(f"{what}: launches {got}, expected {want}")
+    if tile_gemm.routes != {**dict.fromkeys(tile_gemm.routes, 0),
+                            gemm_route: want["tile_gemm"]}:
+        fail(f"{what}: tile_gemm routes {tile_gemm.routes}; all "
+             f"{want['tile_gemm']} must take the {gemm_route} route")
+    check_kernel_routes(what, route_counts(), got)
+
+
+def whisper_inputs(cfg, B: int, S: int, seed: int):
+    """B clips of frames and S prompt tokens from the data pipeline."""
+    data = SyntheticLM(cfg, ShapeConfig("whisper", S, B, "prefill"),
+                       seed=seed).batch(0)
+    return {"frames": torch.from_numpy(data["frames"]).cuda(),
+            "tokens": torch.from_numpy(data["tokens"]).long().cuda()}
+
+
+def whisper_path(smi: str, launches: dict) -> None:
+    """whisper-base at full width and depth, bf16: encode and prefill of
+    B = 4 clips with a 4-token prompt in each mode, then WHISPER_STEPS
+    greedy decode steps, every call's launches gated exactly."""
+    cfg = get_config("whisper-base")
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t0 = time.perf_counter()
+    model = EncDec(cfg, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"  whisper-base bf16, {n_params / 1e6:.1f} M parameters (the "
+        f"32768-row position table included), built in "
+        f"{time.perf_counter() - t0:.1f} s [{smi}]")
+    batch = whisper_inputs(cfg, WHISPER_B, WHISPER_PROMPT, seed=0)
+    V, tokens = cfg.vocab_size, {}
+    for mode in ExecutionMode:
+        model.prefill(batch, WHISPER_MAX_LEN, mode=mode)      # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        enc = model.encode(batch["frames"], mode=mode)
+        torch.cuda.synchronize()
+        enc_ms = (time.perf_counter() - t0) * 1e3
+        check_call(f"whisper encode {mode.value}", launches,
+                   whisper_launches(cfg, mode, "encode"), "wgmma")
+        if enc.shape != (WHISPER_B, cfg.encoder_seq, cfg.d_model) \
+                or not torch.isfinite(enc).all():
+            fail(f"whisper encode {mode.value}: {tuple(enc.shape)} states, "
+                 f"or not finite")
+        reset_counts()
+        t0 = time.perf_counter()
+        logits, cache = model.prefill(batch, WHISPER_MAX_LEN, mode=mode)
+        torch.cuda.synchronize()
+        pre_ms = (time.perf_counter() - t0) * 1e3
+        check_call(f"whisper prefill {mode.value}", launches,
+                   whisper_launches(cfg, mode, "prefill"), "wgmma")
+        if not torch.isfinite(logits).all():
+            fail(f"whisper prefill {mode.value}: non-finite logits")
+        tok = torch.argmax(logits[:, -1, :V], dim=-1)[:, None]
+        out, step_ms, saved = [tok], [], None
+        for step in range(WHISPER_STEPS):
+            if step == 1:
+                saved = (_clone(cache), tok.clone())
+            reset_counts()
+            t0 = time.perf_counter()
+            logits, cache = model.decode_step(cache, tok)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            check_call(f"whisper decode step {step} ({mode.value} prefill)",
+                       launches, whisper_launches(cfg, mode, "decode"),
+                       "splitk")
+            if logits.shape[:2] != (WHISPER_B, 1) \
+                    or not torch.isfinite(logits).all():
+                fail(f"whisper decode step {step}: logits "
+                     f"{tuple(logits.shape)} or not finite")
+            tok = torch.argmax(logits[:, 0, :V], dim=-1)[:, None]
+            out.append(tok)
+        tokens[mode] = torch.cat(out, dim=1)
+        if not ((tokens[mode] >= 0) & (tokens[mode] < V)).all():
+            fail(f"whisper {mode.value}: a token outside [0, {V})")
+        say(f"  {mode.value}: encode {enc_ms:.2f} ms, prefill (encode "
+            f"included) {pre_ms:.2f} ms, decode step mean "
+            f"{np.mean(step_ms):.2f} ms, min {min(step_ms):.2f} ms over "
+            f"{WHISPER_STEPS} steps, B = {WHISPER_B} [{smi}]")
+        if mode == ExecutionMode.TILE_STREAM:
+            say(f"    profiled decode step (cache len "
+                f"{WHISPER_PROMPT + 1}): "
+                f"{profile_call(model.decode_step, *saved)} [{smi}]")
+            say(f"    profiled encode: "
+                f"{profile_call(model.encode, batch['frames'], mode=mode)} "
+                f"[{smi}]")
+    base = tokens[ExecutionMode.NON_STREAM]
+    agree = {m.value: int((t == base).sum()) for m, t in tokens.items()}
+    say(f"  {WHISPER_STEPS + 1} greedy tokens per clip; agreement with "
+        f"non_stream {agree} of {base.numel()} (not gated: bf16 near ties)"
+        f"; peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB [{smi}]")
+
+
+def whisper_checks(smi: str) -> None:
+    """f32 at whisper-base's full width, 2 encoder and 2 decoder layers:
+    prefill(S) then one decode step against the teacher-forced decoder at
+    S + 1 (tests/test_archs.py:49-73), and the modes against each other."""
+    cfg = dataclasses.replace(get_config("whisper-base"), num_layers=2,
+                              num_encoder_layers=2, dtype="float32",
+                              param_dtype="float32")
+    free()
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = EncDec(cfg, device="cuda", generator=gen)
+    S, V = 16, cfg.vocab_size
+    batch = whisper_inputs(cfg, 2, S + 1, seed=1)
+    prompt = {"frames": batch["frames"], "tokens": batch["tokens"][:, :S]}
+    full = {}
+    for mode in ExecutionMode:
+        full[mode] = model(batch, mode=mode)[..., :V]
+        logits, cache = model.prefill(prompt, S + 5, mode=mode)
+        step, _ = model.decode_step(cache, batch["tokens"][:, S:S + 1])
+        gaps = (_rel(logits[..., :V], full[mode][:, :S]),
+                _rel(step[:, 0, :V], full[mode][:, S]))
+        mode_gap = _rel(full[mode], full[ExecutionMode.NON_STREAM])
+        say(f"  f32 {mode.value}: prefill({S}) and decode step against "
+            f"decode_train({S + 1}), relative gaps {gaps[0]:.2e}, "
+            f"{gaps[1]:.2e}; forward against non_stream {mode_gap:.2e} "
+            f"(tol {SERVE_TOL})")
+        if max(gaps + (mode_gap,)) > SERVE_TOL:
+            fail(f"whisper f32 {mode.value}: gaps {gaps}, against "
+                 f"non_stream {mode_gap:.2e}")
+
+
+#: qwen2-vl-2b's forward: 512 text tokens, a 48 x 64 grid of image
+#: patches, 512 text tokens (S = 4096).
+QWEN2VL_LAYOUT = (512, 48, 64, 512)
+
+
+def grid_positions(text: int, grid_h: int, grid_w: int, after: int
+                   ) -> torch.Tensor:
+    """(3, 1, S) t/h/w position streams as Qwen2-VL assigns them: text
+    tokens with all three equal, an image grid with t constant, h the row
+    and w the column (offset by the text before it), then text from the
+    next free position."""
+    t = list(range(text))
+    h, w = list(t), list(t)
+    for r in range(grid_h):
+        for c in range(grid_w):
+            t.append(text)
+            h.append(text + r)
+            w.append(text + c)
+    nxt = text + max(grid_h, grid_w)
+    tail = list(range(nxt, nxt + after))
+    return torch.tensor([t + tail, h + tail, w + tail],
+                        device="cuda")[:, None]
+
+
+def qwen2vl_forward(smi: str, launches: dict) -> None:
+    """qwen2-vl-2b's M-RoPE forward at full width and depth, bf16, B = 1,
+    S = 4096: flash in every mode (the three logits bitwise equal), three
+    MLP projections a layer on wgmma, nothing else; against the same
+    forward with every kernel's plain version on the card."""
+    cfg = get_config("qwen2-vl-2b")
+    free()
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    positions = grid_positions(*QWEN2VL_LAYOUT)
+    S = positions.shape[-1]
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, S),
+                                     generator=gen, device="cuda"),
+             "positions": positions}
+    L = cfg.num_layers
+    want = {**dict.fromkeys(KERNELS, 0), "flash_attention": L,
+            "tile_gemm": 3 * L}
+    model(batch)                                          # warm-up
+    first = None
+    for mode in ExecutionMode:
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        logits = model(batch, mode=mode)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        check_call(f"qwen2-vl forward {mode.value}", launches, want, "wgmma")
+        if not torch.isfinite(logits).all():
+            fail(f"qwen2-vl forward {mode.value}: non-finite logits")
+        if first is None:
+            first = logits
+        elif not torch.equal(logits, first):
+            fail(f"qwen2-vl forward {mode.value}: the M-RoPE path must not "
+                 f"depend on the mode")
+        say(f"  forward {mode.value}, S = {S} (text {QWEN2VL_LAYOUT[0]}, "
+            f"image grid {QWEN2VL_LAYOUT[1]} x {QWEN2VL_LAYOUT[2]}, text "
+            f"{QWEN2VL_LAYOUT[3]}): {ms:.1f} ms wall [{smi}]")
+        del logits
+    say(f"    profile: {device_breakdown(model, batch, None)} [{smi}]")
+    with plain_kernels():
+        reset_counts()
+        plain = model(batch)
+        if any(counts().values()):
+            fail(f"qwen2-vl: the plain forward launched {counts()}")
+    V = cfg.vocab_size
+    gap, limit = _rel(first[..., :V], plain[..., :V]), 2 ** -7 * L ** 0.5
+    agree = (first[0, :, :V].argmax(-1) == plain[0, :, :V].argmax(-1)).float()
+    say(f"  kernel against plain forward: max relative logit gap {gap:.2e} "
+        f"(limit {limit:.2e}: one bf16 rounding, 2^-7, per layer's "
+        f"attention output, independent across the {L} layers); greedy "
+        f"tokens agree at {agree.mean().item() * 100:.2f}% of positions")
+    if not gap <= limit:
+        fail(f"qwen2-vl: kernel and plain forwards differ by {gap:.2e}")
+    del first, plain, model
+    free()
+
+    # f32, 2 layers: equal streams give the 1-D RoPE forward; an image grid
+    # does not.
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32",
+                                param_dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    model = Transformer(cfg32, device="cuda", generator=gen)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                           device="cuda")
+    one_d = model({"tokens": tokens}, mode=ExecutionMode.LAYER_STREAM)
+    equal = torch.arange(1024, device="cuda")[None, None].expand(3, 1, -1)
+    eq_gap = _rel(model({"tokens": tokens, "positions": equal}), one_d)
+    grid = grid_positions(256, 16, 32, 256)
+    grid_gap = _rel(model({"tokens": tokens, "positions": grid}), one_d)
+    say(f"  f32, 2 layers, S = 1024: M-RoPE with equal streams against the "
+        f"1-D RoPE forward {eq_gap:.2e} (tol {SERVE_TOL}); with an image "
+        f"grid {grid_gap:.2e} (must differ)")
+    if eq_gap > SERVE_TOL or grid_gap <= 10 * SERVE_TOL:
+        fail(f"qwen2-vl f32: M-RoPE gaps {eq_gap:.2e}, {grid_gap:.2e}")
+
+
 def tensor_core_sass() -> str:
     """How many HGMMA (wgmma) instructions the SASS of each attention
     library (forward and backward) holds, from the toolkit's cuobjdump."""
@@ -2501,11 +2954,11 @@ def main() -> None:
     launches = {name: 0 for name in KERNELS}
     for name, fn in ROUTED.items():
         launches[f"{name} routes"] = dict.fromkeys(fn.routes, 0)
-    main_path(launches)
+    main_path(launches, smi)
     free()
 
     say("== phase 5: main path, qwen3-32b served (paged KV, batched decode)")
-    qwen3_serving(smi, launches)
+    dense_serving("qwen3-32b", SERVE_REQUESTS, 2048, smi, launches)
     free()
 
     say("== phase 6: serving checks in f32, qwen3-32b widths, 2 layers")
@@ -2533,6 +2986,26 @@ def main() -> None:
         "gradients, modes against each other")
     training_checks(smi)
     say(f"phases 1-11 took {time.perf_counter() - start:.1f} s")
+    free()
+
+    say("== phase 12: vilbert-large, the paper's second model, bf16")
+    main_path(launches, smi, "vilbert-large", EXPECTED_COUNTS_LARGE,
+              {"num_layers": 2, "num_coattn_layers": 1})
+    free()
+
+    say("== phase 13: whisper-base (encoder-decoder), bf16, then f32 checks")
+    whisper_path(smi, launches)
+    whisper_checks(smi)
+    free()
+
+    say("== phase 14: qwen2-vl-2b (M-RoPE): forward, Engine serving, f32 "
+        "checks")
+    qwen2vl_forward(smi, launches)
+    dense_serving("qwen2-vl-2b", QWEN2VL_REQUESTS, QWEN2VL_MAX_LEN, smi,
+                  launches)
+    free()
+    serving_checks(smi, "qwen2-vl-2b", modes=False)
+    say(f"phases 1-14 took {time.perf_counter() - start:.1f} s")
 
     rows, gemm_shapes = [], report["tile_gemm"]["shapes"]
     for name in ROUTED:
@@ -2549,6 +3022,12 @@ def main() -> None:
             say(f"  {name} {s['name']}: tc {s['ms']:.3f} ms (device "
                 f"{s['device_ms']:.3f}), simt {s['parent_ms']:.3f} ms (device "
                 f"{s['parent_device_ms']:.3f}){extra}")
+    for s in report["stream_attention"]["shapes"]:
+        say(f"  stream_attention {s['name']}: kernel {s['ms']:.4f} ms "
+            f"(device {s['device_ms']:.4f}), plain {s['plain_ms']:.4f} ms, "
+            f"matmul K/V + SDPA {s['library_ms']:.4f} ms (device "
+            f"{s['library_device_ms']:.4f}), bound {s['bound_ms']:.4f} ms "
+            f"({s['bound_by']})")
     for name in ("decode_attention", "ssd_scan"):
         for s in report[name]["shapes"]:
             lib = (f", SDPA {s['library_ms']:.4f} ms (device "
@@ -2586,6 +3065,8 @@ def main() -> None:
                     "decode_attention_shapes":
                         report["decode_attention"]["shapes"],
                     "ssd_scan_shapes": report["ssd_scan"]["shapes"],
+                    "stream_attention_shapes":
+                        report["stream_attention"]["shapes"],
                     **{f"{name}_shapes": report[name]["shapes"]
                        for name in BWD}}))
     say(json.dumps({"ok": True, "device": {

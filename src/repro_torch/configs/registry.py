@@ -3,15 +3,17 @@ model module that runs each family (counterpart of
 ``repro/configs/registry.py``)."""
 from __future__ import annotations
 
-from repro_torch.configs import (hymba_1_5b, mamba2_780m, qwen3_32b,
-                                 starcoder2_7b, vilbert_base)
+from repro_torch.configs import (hymba_1_5b, mamba2_780m, qwen2_vl_2b,
+                                 qwen3_32b, starcoder2_7b, vilbert_base,
+                                 vilbert_large, whisper_base)
 from typing import Dict, Tuple
 
 from repro_torch.core.types import Family, ModelConfig, ShapeConfig
 
-_MODULES = {"vilbert-base": vilbert_base, "qwen3-32b": qwen3_32b,
-            "starcoder2-7b": starcoder2_7b, "mamba2-780m": mamba2_780m,
-            "hymba-1.5b": hymba_1_5b}
+_MODULES = {"vilbert-base": vilbert_base, "vilbert-large": vilbert_large,
+            "qwen3-32b": qwen3_32b, "starcoder2-7b": starcoder2_7b,
+            "mamba2-780m": mamba2_780m, "hymba-1.5b": hymba_1_5b,
+            "whisper-base": whisper_base, "qwen2-vl-2b": qwen2_vl_2b}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -26,16 +28,19 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
 
 
 def model_module(cfg: ModelConfig):
-    """The module whose model runs ``cfg``'s family."""
+    """The module whose model runs ``cfg``'s family (registry.py:98)."""
+    if cfg.family == Family.ENCDEC:
+        from repro_torch.models import encdec
+        return encdec
     if cfg.family == Family.CROSSMODAL:
         from repro_torch.models import vilbert
         return vilbert
-    if cfg.family in (Family.DENSE, Family.SSM, Family.HYBRID):
+    if cfg.family in (Family.DENSE, Family.SSM, Family.HYBRID, Family.VLM):
         from repro_torch.models import transformer
         return transformer
     raise NotImplementedError(
         f"{cfg.name}: family {cfg.family.value} is not ported yet "
-        f"(ROADMAP Queue 1 items 6, 10)")
+        f"(ROADMAP Queue 1 item 6)")
 
 
 ARCHS = tuple(_MODULES)
@@ -44,9 +49,11 @@ ARCHS = tuple(_MODULES)
 def input_specs(cfg: ModelConfig, shape: ShapeConfig
                 ) -> Dict[str, Tuple[int, ...]]:
     """{name: shape} of one global batch (registry.py:116): the token batch
-    (with labels, or for the crossmodal family the vision regions and VQA
-    answers, when ``shape.kind`` is "train"); a decode shape has one token
-    per row."""
+    (with labels when ``shape.kind`` is "train"); a decode shape has one
+    token per row.  The encoder-decoder family adds the stub frontend's
+    frames (B, encoder_seq, d_model), a VLM's prefill or train batch its
+    M-RoPE position streams (3, B, S), and the crossmodal family has the
+    vision regions and, to train, VQA answers instead of labels."""
     B = shape.global_batch
     S = 1 if shape.is_decode else shape.seq_len
     if cfg.family == Family.CROSSMODAL:
@@ -57,6 +64,10 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
         return specs
     model_module(cfg)            # raises for the families not ported
     specs = {"tokens": (B, S)}
+    if cfg.family == Family.ENCDEC:
+        specs = {"frames": (B, cfg.encoder_seq, cfg.d_model), **specs}
     if shape.kind == "train":
         specs["labels"] = (B, S)
+    if cfg.family == Family.VLM and not shape.is_decode:
+        specs["positions"] = (3, B, S)
     return specs

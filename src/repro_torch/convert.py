@@ -3,9 +3,9 @@
 The port's modules name their parameters after the JAX tree's keys, so a
 tree flattens to the module's ``state_dict`` names.  The layer stacks that
 the JAX init builds with ``vmap`` (a leading layer axis) become
-``ModuleList`` entries.  ``vilbert_from_jax`` and ``transformer_from_jax``
-load a ``repro.models.vilbert.init`` and a ``repro.models.transformer.init``
-tree.
+``ModuleList`` entries.  ``vilbert_from_jax``, ``transformer_from_jax``
+and ``encdec_from_jax`` load a ``repro.models.vilbert.init``, a
+``repro.models.transformer.init`` and a ``repro.models.encdec.init`` tree.
 """
 from __future__ import annotations
 
@@ -16,6 +16,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.types import ModelConfig
+from repro_torch.models.encdec import EncDec
 from repro_torch.models.transformer import Transformer
 from repro_torch.models.vilbert import ViLBERT
 
@@ -77,11 +78,24 @@ def transformer_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
                          device: Optional[Union[str, torch.device]] = None
                          ) -> Transformer:
     """A ``Transformer`` holding the weights of a
-    ``repro.models.transformer.init`` tree (dense, SSM or hybrid family)
+    ``repro.models.transformer.init`` tree (dense, VLM, SSM or hybrid
+    family)
     whose leaves were turned into numpy arrays; the stacked ``layers``
     axis becomes ``Transformer.layers``.  Every leaf (an SSM mixer's
     ``ssm.*``, a hybrid layer's ``mix_beta``) must have its parameter, with
     its shape."""
     model = Transformer(cfg, device=device)
     _load(model, params_np, ("layers",))
+    return model
+
+
+def encdec_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
+                    device: Optional[Union[str, torch.device]] = None
+                    ) -> EncDec:
+    """An ``EncDec`` holding the weights of a ``repro.models.encdec.init``
+    tree whose leaves were turned into numpy arrays; the stacked
+    ``enc_layers`` and ``dec_layers`` axes become its ``ModuleList``s.
+    Every leaf must have its parameter, with its shape."""
+    model = EncDec(cfg, device=device)
+    _load(model, params_np, ("enc_layers", "dec_layers"))
     return model

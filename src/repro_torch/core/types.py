@@ -1,8 +1,8 @@
 """Configuration types (counterpart of ``repro/core/types.py``).
 
 Only what the ported slices read is copied: the enums, ``PruningConfig``,
-the fields of ``ModelConfig`` that the decoder (dense, SSM, hybrid) and
-crossmodal paths and the planner use, and the shape cells
+the fields of ``ModelConfig`` that the decoder (dense, SSM, hybrid, VLM),
+encoder-decoder and crossmodal paths and the planner use, and the shape cells
 (``ShapeConfig``/``SHAPES``).
 Values and defaults are the JAX package's.
 """
@@ -88,6 +88,9 @@ class ModelConfig:
     ssm_chunk: int = 256
     ssm_expand: int = 2
     conv_kernel: int = 4
+    # --- enc-dec (whisper) ---
+    num_encoder_layers: int = 0
+    encoder_seq: int = 1500    # whisper frame positions after conv stub
     # --- crossmodal (vilbert) ---
     num_coattn_layers: int = 0
     d_model_y: int = 0        # second-stream width (text stream)

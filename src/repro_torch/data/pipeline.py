@@ -6,7 +6,9 @@ Every batch is a pure function of ``(seed, step)``, so a restart from a
 checkpoint resumes the stream exactly.  Sources:
 
 * ``SyntheticLM``: a Zipf-distributed token stream (crossmodal configs get
-  the stub vision regions and VQA answers instead of labels);
+  the stub vision regions and VQA answers instead of labels, the
+  encoder-decoder the stub frontend's frames, a VLM three equal position
+  streams);
 * ``TextCorpus``: byte-level tokens of local files packed into rows.
 
 ``ShardedLoader`` wraps a source with host sharding (each host keeps its
@@ -48,9 +50,9 @@ class SyntheticLM:
                                   (3, B, S))
             out["positions"] = np.ascontiguousarray(pos)
         if self.cfg.family == Family.ENCDEC:
-            raise NotImplementedError(
-                f"{self.cfg.name}: encoder-decoder data needs the encdec "
-                f"model (ROADMAP Queue 1 item 11)")
+            out["frames"] = rng.standard_normal(
+                (B, self.cfg.encoder_seq, self.cfg.d_model)).astype(
+                    np.float32) * 0.1
         if self.cfg.family == Family.CROSSMODAL:
             out = {"regions": rng.standard_normal(
                        (B, S, self.cfg.d_model)).astype(np.float32) * 0.1,

@@ -131,6 +131,23 @@ def rope_tables_for(cfg: ModelConfig, seq_len: int, offset: int = 0,
                            theta=cfg.rope_theta, offset=offset, device=device)
 
 
+def mrope_tables(cfg: ModelConfig, positions: torch.Tensor,
+                 head_dim: Optional[int] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """positions: (3, B, S) t/h/w position streams (text: all equal) ->
+    sin/cos (B, S, hd//2) f32 (layers.py:103): section s of the frequency
+    bands reads position stream s (M-RoPE, arXiv:2409.12191)."""
+    half = (head_dim or cfg.head_dim) // 2
+    freqs = 1.0 / (cfg.rope_theta
+                   ** (torch.arange(half, dtype=torch.float32,
+                                    device=positions.device) / half))
+    idx = [s for s, n in enumerate(cfg.mrope_sections or (half,))
+           for _ in range(n)][:half]
+    pos_sel = positions[torch.tensor(idx, device=positions.device)]
+    ang = pos_sel.movedim(0, -1).to(torch.float32) * freqs   # (B, S, half)
+    return torch.sin(ang), torch.cos(ang)
+
+
 def apply_rope_bsd(x: torch.Tensor, sin: torch.Tensor,
                    cos: torch.Tensor) -> torch.Tensor:
     """x: (B, H, S, hd); sin/cos: (S, hd//2) or (B, S, hd//2)."""
@@ -206,6 +223,24 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         mode, q, x_kv, p.wk, p.wv, sin=sin, cos=cos,
         k_gamma=getattr(p, "k_gamma", None), causal=causal, window=window,
         q_offset=q_offset, norm_eps=cfg.norm_eps)
+    return torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
+
+
+def attention_forward_mrope(p: Attention, cfg: ModelConfig, x: torch.Tensor,
+                            *, sin_b: torch.Tensor, cos_b: torch.Tensor,
+                            causal: bool = True) -> torch.Tensor:
+    """qwen2-vl's attention sublayer on pre-normed x with batch-dependent
+    M-RoPE tables (B, S, hd//2) (layers.py:217): Q and K are roped outside
+    any kernel and attention runs through ``ops.multi_head_attention``,
+    the flash kernel, whatever the execution mode, as in the JAX function
+    (which takes a ``mode`` and does not read it).  The stream kernel
+    takes only (Sk, hd//2) tables."""
+    q = torch.einsum("bsd,dhe->bhse", x, p.wq.to(x.dtype))
+    k = torch.einsum("bsd,dhe->bhse", x, p.wk.to(x.dtype))
+    v = torch.einsum("bsd,dhe->bhse", x, p.wv.to(x.dtype))
+    q = apply_rope_bsd(q, sin_b, cos_b)
+    k = apply_rope_bsd(k, sin_b, cos_b)
+    out = ops.multi_head_attention(q, k, v, causal=causal)
     return torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
 
 

@@ -1,6 +1,6 @@
-"""Decoder-only transformer, dense, SSM and hybrid families (counterpart
-of ``repro/models/transformer.py``): forward, single-pass prefill that
-fills the cache, and one-token decode steps.
+"""Decoder-only transformer, dense, VLM, SSM and hybrid families
+(counterpart of ``repro/models/transformer.py``): forward, single-pass
+prefill that fills the cache, and one-token decode steps.
 
 Layers loop in Python (the JAX package scans stacked parameters).  Every
 prefill attention layer dispatches under its planner-resolved mode
@@ -11,7 +11,12 @@ runs through ``layers.attention_decode``,
 kernel.  SSM mixers (``models.ssm``) run the ``ssd_scan`` kernel at
 prefill and a plain recurrence at decode; a hybrid layer (hymba) runs
 attention and the SSM side by side on the same normed input and mixes
-them by ``softmax(mix_beta)``.
+them by ``softmax(mix_beta)``.  A VLM (qwen2-vl) forward given
+``batch["positions"]`` (3, B, S) ropes Q and K with M-RoPE tables
+(``layers.mrope_tables``) and attends through the flash kernel in every
+mode (``layers.attention_forward_mrope``); its prefill and decode take the
+dense family's 1-D RoPE path, as the JAX ones do (they never read the
+positions).
 
 The cache is the JAX tree with a Python int for the position, ``{"layers":
 tree, "len": int}``, every leaf stacked over layers:
@@ -32,10 +37,10 @@ autograd, each layer optionally recomputed in the backward
 ``torch.no_grad()``.
 
 Not ported yet, and refused with ``NotImplementedError``: MoE (with its
-dense-prefix stack), VLM M-RoPE, the ring cache of dense sliding-window
-models, MLA, biases, and serving on a mesh (ROADMAP Queue 1 items 6, 7,
-10); training the SSM and hybrid families (item 18: ``ssd_scan`` has no
-backward yet).
+dense-prefix stack), the ring cache of dense sliding-window models, MLA,
+biases, and serving on a mesh (ROADMAP Queue 1 items 6, 7, 10); training
+the SSM, hybrid and VLM families (item 18: ``ssd_scan`` has no backward
+yet).
 """
 from __future__ import annotations
 
@@ -50,9 +55,11 @@ from repro_torch.core.types import AttnKind, ExecutionMode, Family, ModelConfig
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
                                        apply_rope_bsd, attention_decode,
-                                       attention_forward, embed_lookup,
-                                       mlp_forward, param, rms_norm,
-                                       rope_tables_for, torch_dtype, unembed)
+                                       attention_forward,
+                                       attention_forward_mrope, embed_lookup,
+                                       mlp_forward, mrope_tables, param,
+                                       rms_norm, rope_tables_for,
+                                       torch_dtype, unembed)
 from repro_torch.models.ssm import (SSM, ssm_decode, ssm_forward,
                                     ssm_init_cache)
 
@@ -60,13 +67,18 @@ Cache = Dict[str, object]
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the parts of the JAX transformer the port does not run."""
-    if cfg.family not in (Family.DENSE, Family.SSM, Family.HYBRID):
-        item = {Family.MOE: "6 (MoE)", Family.VLM: "6 (VLM, M-RoPE)"
-                }.get(cfg.family, "6")
+    """Raise for the parts of the JAX transformer the port does not run,
+    and for the families that another model module runs."""
+    other = {Family.ENCDEC: "models.encdec", Family.CROSSMODAL:
+             "models.vilbert"}.get(cfg.family)
+    if other:
         raise NotImplementedError(
-            f"{cfg.name}: family {cfg.family.value} is not ported yet "
-            f"(ROADMAP Queue 1 item {item})")
+            f"{cfg.name}: the {cfg.family.value} family runs in {other}, "
+            f"not in the decoder Transformer")
+    if cfg.family == Family.MOE:
+        raise NotImplementedError(
+            f"{cfg.name}: family moe is not ported yet (ROADMAP Queue 1 "
+            f"item 6)")
     if cfg.family == Family.SSM:
         return
     if cfg.attn_kind == AttnKind.SLIDING and cfg.family != Family.HYBRID:
@@ -79,10 +91,10 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {cfg.attn_kind.value} attention is not ported yet "
             f"(ROADMAP Queue 1 item {item})")
-    if cfg.use_bias or cfg.mrope_sections:
+    if cfg.use_bias:
         raise NotImplementedError(
-            f"{cfg.name}: biases and M-RoPE are not ported yet "
-            f"(ROADMAP Queue 1 item 6)")
+            f"{cfg.name}: biases are not ported yet (ROADMAP Queue 1 "
+            f"item 6)")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -90,8 +102,8 @@ def check_trainable(cfg: ModelConfig) -> None:
     check_supported(cfg)
     if cfg.family != Family.DENSE:
         raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family.value} family needs the "
-            f"ssd_scan backward, not ported yet (ROADMAP Queue 1 item 18)")
+            f"{cfg.name}: training the {cfg.family.value} family is not "
+            f"ported yet (ROADMAP Queue 1 item 18)")
 
 
 def _window(cfg: ModelConfig) -> int:
@@ -130,12 +142,17 @@ def _mix(p: Block, x: torch.Tensor, attn_out: torch.Tensor,
 
 
 def _layer_apply(p: Block, cfg: ModelConfig, x: torch.Tensor, *, sin, cos,
-                 mode: Optional[ExecutionMode]) -> torch.Tensor:
+                 mode: Optional[ExecutionMode],
+                 mrope_tabs=None) -> torch.Tensor:
     h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
     if cfg.family == Family.SSM:
         return x + ssm_forward(p.ssm, cfg, h)
-    attn_out = attention_forward(p.attn, cfg, h, sin=sin, cos=cos,
-                                 causal=True, mode=mode)
+    if mrope_tabs is not None:
+        attn_out = attention_forward_mrope(p.attn, cfg, h, sin_b=mrope_tabs[0],
+                                           cos_b=mrope_tabs[1], causal=True)
+    else:
+        attn_out = attention_forward(p.attn, cfg, h, sin=sin, cos=cos,
+                                     causal=True, mode=mode)
     x = _mix(p, x, attn_out, ssm_forward(p.ssm, cfg, h)
              if cfg.family == Family.HYBRID else None)
     h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
@@ -293,17 +310,25 @@ class Transformer(nn.Module):
         """``forward`` up to the unembed, recorded by autograd where grad
         mode is on (the training path; transformer.py:151).  ``remat``
         keeps only each layer's input and recomputes the layer in the
-        backward (its kernels then launch twice a step)."""
+        backward (its kernels then launch twice a step).  A VLM batch
+        with "positions" (3, B, S) takes M-RoPE tables
+        (transformer.py:160-163)."""
         cfg = self.cfg
         mode = mode or cfg.execution_mode
         x = embed_lookup(self.embed, batch["tokens"])
-        sin, cos = self._rope(x.shape[1])
+        sin = cos = mrope_tabs = None
+        if (cfg.family == Family.VLM and cfg.mrope_sections
+                and "positions" in batch):
+            mrope_tabs = mrope_tables(cfg, batch["positions"])
+        else:
+            sin, cos = self._rope(x.shape[1])
+        kw = dict(sin=sin, cos=cos, mode=mode, mrope_tabs=mrope_tabs)
         for p in self.layers:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(_layer_apply, p, cfg, x, sin=sin, cos=cos,
-                               mode=mode, use_reentrant=False)
+                x = checkpoint(_layer_apply, p, cfg, x, use_reentrant=False,
+                               **kw)
             else:
-                x = _layer_apply(p, cfg, x, sin=sin, cos=cos, mode=mode)
+                x = _layer_apply(p, cfg, x, **kw)
         return rms_norm(self.final_norm, x, eps=cfg.norm_eps)
 
     @torch.no_grad()
@@ -315,8 +340,9 @@ class Transformer(nn.Module):
     @torch.no_grad()
     def forward(self, batch: Dict[str, torch.Tensor], *,
                 mode: Optional[ExecutionMode] = None) -> torch.Tensor:
-        """batch: {"tokens": (B, S)} -> logits
-        (B, S, vocab padded to 128) in f32."""
+        """batch: {"tokens": (B, S)} and, for a VLM, optionally
+        {"positions": (3, B, S)} -> logits (B, S, vocab padded to 128) in
+        f32."""
         return unembed(self.embed, self.forward_hidden(batch, mode=mode),
                        self.cfg)
 

@@ -42,6 +42,10 @@ def build_model(cfg: ModelConfig, device: torch.device, seed: int):
     """The model of ``cfg`` with weights drawn from ``seed`` on ``device``,
     its parameters requiring grad."""
     mod = registry.model_module(cfg)
+    if cfg.family == Family.ENCDEC:
+        raise NotImplementedError(
+            f"{cfg.name}: training the encdec family is not ported yet "
+            f"(ROADMAP Queue 1 item 18)")
     if cfg.family == Family.CROSSMODAL:
         cls = mod.ViLBERT
     else:

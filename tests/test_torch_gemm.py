@@ -74,13 +74,22 @@ def _mlp(name):
 # Each main path's GEMM rows: prefill (and vilbert's forward) M, decode M.
 # vilbert: B = 2 times every kept-token count; qwen3-32b: its prompt
 # lengths, decode buckets of 1..4 slots; hymba-1.5b: its prompt lengths,
-# per-slot decode.
+# per-slot decode; whisper-base: B = 4 times the encoder's 1500 frames and
+# the 4-token prompt, decode B = 4; qwen2-vl-2b: the 4096-token forward,
+# its prompt lengths, decode buckets of 1..4 slots.
 MAIN_PATHS = {
     "vilbert-base": ({2 * n for pair in chip_smoke.EXPECTED_COUNTS
                       for n in pair}, set()),
     "qwen3-32b": ({p for _, p, _, _ in chip_smoke.SERVE_REQUESTS},
                   {1, 2, 3, 4}),
     "hymba-1.5b": ({p for _, p, _, _ in chip_smoke.HYMBA_REQUESTS}, {1}),
+    "vilbert-large": ({2 * n for pair in chip_smoke.EXPECTED_COUNTS_LARGE
+                       for n in pair}, set()),
+    "whisper-base": ({chip_smoke.WHISPER_B * 1500,
+                      chip_smoke.WHISPER_B * chip_smoke.WHISPER_PROMPT},
+                     {chip_smoke.WHISPER_B}),
+    "qwen2-vl-2b": ({4096} | {p for _, p, _, _ in chip_smoke.QWEN2VL_REQUESTS},
+                    {1, 2, 3, 4}),
 }
 
 

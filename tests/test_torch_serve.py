@@ -31,7 +31,7 @@ from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.kv_cache import PagedKVCache, shape_buckets
 from repro_torch.serve.schedule import ServeRequest, build_schedule
 
-ARCHS = ["starcoder2-7b", "qwen3-32b"]
+ARCHS = ["starcoder2-7b", "qwen3-32b", "qwen2-vl-2b"]
 
 
 # ---------------------------------------------------------------------------
@@ -40,7 +40,8 @@ ARCHS = ["starcoder2-7b", "qwen3-32b"]
 
 @pytest.mark.parametrize("arch,smoke", [("qwen3-32b", False),
                                         ("qwen3-32b", True),
-                                        ("starcoder2-7b", True)])
+                                        ("starcoder2-7b", True),
+                                        ("qwen2-vl-2b", False)])
 @pytest.mark.parametrize("kw", [
     {}, {"seq_len": 1536}, {"shape": "prefill_32k"},
     {"mode": "non_stream", "force_mode": True},
@@ -62,7 +63,9 @@ def test_plan_model_to_dict_equals_jax(arch, smoke, kw):
 
 
 @pytest.mark.parametrize("arch,smoke", [("qwen3-32b", False),
-                                        ("qwen3-32b", True)])
+                                        ("qwen3-32b", True),
+                                        ("qwen2-vl-2b", False),
+                                        ("whisper-base", False)])
 @pytest.mark.parametrize("ctx", [(1025, 1025, 1025, 1537), 9, (4, 7, 4)])
 def test_plan_decode_step_to_dict_equals_jax(arch, smoke, ctx):
     got = plan_decode_step(get_config(arch, smoke), ctx)

@@ -330,6 +330,13 @@ def test_train_refuses_a_mesh_and_untrainable_families():
         L.build_model(ssm, torch.device("cpu"), 0)
 
 
+@pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-2b"])
+def test_build_model_refuses_the_serving_only_families(arch):
+    with pytest.raises(NotImplementedError, match="item 18"):
+        L.build_model(registry.get_config(arch, smoke=True),
+                      torch.device("cpu"), 0)
+
+
 def test_train_refuses_batches_that_do_not_fit_the_shape():
     cfg = registry.get_config("qwen3-32b", smoke=True)
     other = ShapeConfig("other", seq_len=32, global_batch=4, kind="train")

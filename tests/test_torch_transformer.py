@@ -2,7 +2,11 @@
 qwen3-smoke and starcoder2-smoke (f32): JAX parameters converted with
 ``convert.transformer_from_jax``, the same numpy tokens; prefill under the
 planner's plan and two decode steps give logits within 1e-4 and caches
-within 1e-4; a heterogeneous plan runs each layer under its own mode."""
+within 1e-4; a heterogeneous plan runs each layer under its own mode.
+qwen2vl-smoke (VLM): M-RoPE tables within 1e-6 and the forward within
+1e-4 of the JAX package's, with equal t/h/w position streams (the JAX
+data pipeline's) and with an image grid whose streams differ; prefill and
+decode on the 1-D RoPE path, as in JAX."""
 import dataclasses
 
 import jax
@@ -177,7 +181,7 @@ def test_own_init_has_jax_shapes_and_scales(model):
 
 @pytest.mark.parametrize("change,item", [
     (dict(family=Family.MOE), "item 6"),
-    (dict(family=Family.VLM), "item 6"),
+    (dict(family=Family.ENCDEC), "models.encdec"),
     (dict(attn_kind=AttnKind.SLIDING), "paged ring pool"),
     (dict(attn_kind=AttnKind.MLA), "item 10"),
     (dict(use_bias=True), "item 6"),
@@ -239,3 +243,162 @@ def test_unembed_in_bf16_accumulates_in_f32(model):
     assert got.dtype == torch.float32
     want = torch.matmul(x.float(), emb.unembed.float())
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+# ---------------------------------------------------------------------------
+# VLM (qwen2-vl): M-RoPE
+# ---------------------------------------------------------------------------
+
+def grid_positions(batch, text, grid_h, grid_w, after):
+    """(3, B, S) t/h/w streams as Qwen2-VL assigns them: ``text`` tokens
+    (all three equal), an image of grid_h x grid_w patches (t constant, h
+    the row, w the column, all offset by the text before it), then
+    ``after`` text tokens from the next free position."""
+    t = list(range(text))
+    h, w = list(t), list(t)
+    for r in range(grid_h):
+        for c in range(grid_w):
+            t.append(text)
+            h.append(text + r)
+            w.append(text + c)
+    nxt = text + max(grid_h, grid_w)
+    tail = list(range(nxt, nxt + after))
+    pos = np.array([t + tail, h + tail, w + tail], np.int32)
+    return np.broadcast_to(pos[:, None], (3, batch, pos.shape[1])).copy()
+
+
+VLM_S = 3 + 4 * 5 + 4          # 3 text, a 4 x 5 image grid, 4 text
+
+
+@pytest.fixture(scope="module")
+def vlm():
+    cfg = get_config("qwen2-vl-2b", smoke=True)
+    jcfg = jregistry.get_config("qwen2-vl-2b", smoke=True)
+    params = jT.init(jax.random.PRNGKey(0), jcfg)
+    port = transformer_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                device="cpu")
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, VLM_S))
+    equal = np.broadcast_to(np.arange(VLM_S, dtype=np.int32)[None, None],
+                            (3, 2, VLM_S)).copy()
+    positions = {"equal": equal,
+                 "grid": grid_positions(2, 3, 4, 5, 4)}
+    return cfg, jcfg, params, port, tokens, positions
+
+
+@pytest.mark.parametrize("kind", ["equal", "grid"])
+def test_mrope_tables_match_jax(vlm, kind):
+    cfg, jcfg, _, _, _, positions = vlm
+    pos = positions[kind]
+    s, c = L.mrope_tables(cfg, torch.from_numpy(pos))
+    js, jc = jL.mrope_tables(jcfg, jnp.asarray(pos))
+    assert s.shape == (2, VLM_S, cfg.head_dim // 2)
+    _close(s, js, 1e-6)
+    _close(c, jc, 1e-6)
+    full = get_config("qwen2-vl-2b")
+    pos = grid_positions(1, 40, 32, 48, 100)
+    s, c = L.mrope_tables(full, torch.from_numpy(pos))
+    js, jc = jL.mrope_tables(jregistry.get_config("qwen2-vl-2b"),
+                             jnp.asarray(pos))
+    _close(s, js, 1e-5)
+    _close(c, jc, 1e-5)
+
+
+def test_mrope_bands_read_their_streams(vlm):
+    """Band j of the tables reads stream s(j) (t for the first section, h
+    for the second, w for the third): equal streams give the 1-D tables,
+    an image grid does not."""
+    cfg, _, _, _, _, positions = vlm
+    s, c = L.mrope_tables(cfg, torch.from_numpy(positions["equal"]))
+    s1, c1 = L.rope_tables_for(cfg, VLM_S)
+    _close(s, s1[None].expand(2, -1, -1), 1e-6)
+    _close(c, c1[None].expand(2, -1, -1), 1e-6)
+    pos = positions["grid"]
+    s, _ = L.mrope_tables(cfg, torch.from_numpy(pos))
+    half = cfg.head_dim // 2
+    freqs = 1.0 / cfg.rope_theta ** (np.arange(half, dtype=np.float32) / half)
+    lo = 0
+    for stream, n in enumerate(cfg.mrope_sections):
+        band = slice(lo, lo + n)
+        want = np.sin(pos[stream].astype(np.float32)[..., None]
+                      * freqs[band])
+        _close(s[..., band], want, 1e-6)
+        lo += n
+    assert not np.allclose(s.numpy(), s1[None].numpy().repeat(2, 0))
+
+
+@pytest.mark.parametrize("kind", ["equal", "grid"])
+@pytest.mark.parametrize("mode", list(ExecutionMode))
+def test_vlm_forward_matches_jax(vlm, kind, mode):
+    _, jcfg, params, port, tokens, positions = vlm
+    pos = positions[kind]
+    want = jT.forward(params, jcfg, {"tokens": jnp.asarray(tokens, jnp.int32),
+                                     "positions": jnp.asarray(pos)},
+                      mode=JMode(mode.value))
+    got = port({"tokens": torch.as_tensor(tokens),
+                "positions": torch.from_numpy(pos)}, mode=mode)
+    assert got.shape == want.shape and got.dtype == torch.float32
+    _close(got, want)
+
+
+def test_vlm_attention_is_flash_in_every_mode(vlm, monkeypatch):
+    """With M-RoPE tables every mode attends through
+    ``ops.multi_head_attention`` and never through the mode dispatch (the
+    stream kernel takes only (Sk, hd/2) tables); without positions the
+    forward dispatches by mode."""
+    cfg, _, _, port, tokens, positions = vlm
+    flash, by_mode = [], []
+    real_mha, real_mode = ops.multi_head_attention, ops.attention_by_mode
+
+    def mha(*args, **kw):
+        flash.append(1)
+        return real_mha(*args, **kw)
+
+    def dispatch(mode, *args, **kw):
+        by_mode.append(mode)
+        return real_mode(mode, *args, **kw)
+
+    monkeypatch.setattr(ops, "multi_head_attention", mha)
+    monkeypatch.setattr(ops, "attention_by_mode", dispatch)
+    batch = {"tokens": torch.as_tensor(tokens),
+             "positions": torch.from_numpy(positions["grid"])}
+    for mode in ExecutionMode:
+        port(batch, mode=mode)
+    assert len(flash) == 3 * cfg.num_layers and by_mode == []
+    port({"tokens": batch["tokens"]}, mode=ExecutionMode.TILE_STREAM)
+    assert by_mode == [ExecutionMode.TILE_STREAM] * cfg.num_layers
+
+
+def test_vlm_prefill_and_decode_match_jax(vlm):
+    """Prefill and decode of a VLM take the 1-D RoPE path in both
+    packages (neither reads positions)."""
+    cfg, jcfg, params, port, tokens, _ = vlm
+    S = VLM_S - 2
+    plan, jplan = plan_model(cfg, seq_len=S), jplan_model(jcfg, seq_len=S)
+    assert plan.to_dict() == jplan.to_dict()
+    jlogits, jcache = jT.prefill(
+        params, jcfg, {"tokens": jnp.asarray(tokens[:, :S], jnp.int32)},
+        max_len=32, plan=jplan)
+    logits, cache = port.prefill({"tokens": torch.as_tensor(tokens[:, :S])},
+                                 32, plan=plan)
+    _close(logits, jlogits)
+    for t in range(S, VLM_S):
+        nxt = tokens[:, t:t + 1]
+        jlogits, jcache = jT.decode_step(params, jcfg, jcache,
+                                         jnp.asarray(nxt, jnp.int32))
+        logits, cache = port.decode_step(cache, torch.as_tensor(nxt))
+        _close(logits, jlogits)
+        for side in ("k", "v"):
+            _close(cache["layers"][side], jcache["layers"][side])
+    full = port({"tokens": torch.as_tensor(tokens)})
+    _close(logits[:, 0], full[:, -1])
+
+
+def test_vlm_convert_ties_the_embedding_and_training_is_refused(vlm):
+    cfg, _, params, port, _, _ = vlm
+    flat = port.state_dict()
+    assert "embed.unembed" not in flat
+    np.testing.assert_array_equal(flat["embed.embedding"].numpy(),
+                                  np.asarray(params["embed"]["embedding"]))
+    with pytest.raises(NotImplementedError, match="item 18"):
+        T.check_trainable(cfg)
+    assert model_module(cfg) is T

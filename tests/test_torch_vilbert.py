@@ -1,4 +1,5 @@
-"""The port's ViLBERT against ``repro.models.vilbert`` on vilbert-smoke:
+"""The port's ViLBERT against ``repro.models.vilbert`` on vilbert-smoke
+and vilbert-large-smoke:
 JAX parameters converted with ``convert.vilbert_from_jax``, the same numpy
 batch, logits within 1e-4 (f32) in each execution mode, equal kept-token
 counts and equal kept-token indices at every DTPU step; then the layer and
@@ -12,6 +13,7 @@ import pytest
 import torch
 
 from repro.configs import vilbert_base as jcfg
+from repro.configs import vilbert_large as jcfg_large
 from repro.core import pruning as jP
 from repro.core.types import ExecutionMode as JMode
 from repro.models import layers as jL
@@ -51,13 +53,26 @@ def _recording(monkeypatch, module):
     return seen
 
 
-@pytest.mark.parametrize("mode", list(ExecutionMode))
-def test_forward_matches_jax(smoke, mode, monkeypatch):
-    params, model, batch = smoke
+@pytest.fixture(scope="module")
+def large():
+    """vilbert-large-smoke: equal stream widths, three co-TRM blocks."""
+    cfg = get_config("vilbert-large", smoke=True)
+    params = jV.init(jax.random.PRNGKey(1), jcfg_large.SMOKE)
+    model = vilbert_from_jax(jax.tree.map(np.asarray, params), cfg,
+                             device="cpu")
+    rng = np.random.default_rng(1)
+    batch = {"regions": rng.standard_normal((2, 64, 64)).astype(np.float32),
+             "tokens": rng.integers(0, cfg.vocab_size, (2, 64))}
+    return params, model, batch
+
+
+def _forward_parity(monkeypatch, jsmoke, params, model, batch, mode):
+    """Logits within 1e-4 of the JAX forward, equal kept counts and equal
+    kept indices at every DTPU step; returns the kept counts."""
     jax_idx = _recording(monkeypatch, jP)
     port_idx = _recording(monkeypatch, P)
     want, want_counts = jV.forward(
-        params, jcfg.SMOKE, {k: jnp.asarray(v) for k, v in batch.items()},
+        params, jsmoke, {k: jnp.asarray(v) for k, v in batch.items()},
         mode=JMode(mode.value), use_pallas=False, return_token_counts=True)
     got, counts = model({"regions": T(batch["regions"]),
                          "tokens": T(batch["tokens"])},
@@ -65,10 +80,41 @@ def test_forward_matches_jax(smoke, mode, monkeypatch):
     assert got.shape == (2, 3129) and got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
                                rtol=1e-4)
-    assert counts == tuple(want_counts) == ((44, 44), (22, 22))
-    assert len(port_idx) == len(jax_idx) == 4    # X then Y, in both blocks
+    assert counts == tuple(want_counts)
+    # X then Y in every block that prunes
+    assert len(port_idx) == len(jax_idx) == 2 * len(counts)
     for a, b in zip(port_idx, jax_idx):
         np.testing.assert_array_equal(a, b)
+    return counts
+
+
+@pytest.mark.parametrize("mode", list(ExecutionMode))
+def test_forward_matches_jax(smoke, mode, monkeypatch):
+    counts = _forward_parity(monkeypatch, jcfg.SMOKE, *smoke, mode)
+    assert counts == ((44, 44), (22, 22))
+
+
+@pytest.mark.parametrize("mode", list(ExecutionMode))
+def test_large_forward_matches_jax(large, mode, monkeypatch):
+    counts = _forward_parity(monkeypatch, jcfg_large.SMOKE, *large, mode)
+    assert counts == ((44, 44), (32, 32), (22, 22))
+
+
+def test_large_config_and_convert(large):
+    """vilbert-large's published shape; every parameter of the JAX tree
+    lands in the port's model."""
+    cfg = get_config("vilbert-large")
+    assert (cfg.num_layers, cfg.num_coattn_layers, cfg.d_model,
+            cfg.d_model_y, cfg.num_heads, cfg.num_heads_y) == \
+        (24, 12, 1024, 1024, 16, 16)
+    assert P.keep_plan(cfg.pruning, 12, 4096) == \
+        jP.keep_plan(jcfg_large.CONFIG.pruning, 12, 4096) == \
+        (4096,) * 3 + (2816,) * 3 + (2048,) * 3 + (1408,) * 3
+    params, model, _ = large
+    assert len(model.text_pre) == 3 and len(model.co_x) == 3
+    np.testing.assert_array_equal(
+        model.state_dict()["co_x.2.self_attn.wq"].numpy(),
+        np.asarray(params["co_x"]["self_attn"]["wq"][2]))
 
 
 def test_convert_maps_every_parameter(smoke):
