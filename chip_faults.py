@@ -2,9 +2,10 @@
 """Check that chip_smoke.py's comparisons of kernel against plain version
 catch a wrong kernel.
 
-    python3 chip_faults.py
+    python3 chip_faults.py [fault ...]
 
-For each planted fault, a copy of chip_smoke.py and src/repro_torch/
+With fault labels (the keys of FAULTS), only those are planted.  For each
+planted fault, a copy of chip_smoke.py and src/repro_torch/
 under build/planted_faults/<fault>/ (git-ignored) gets one fault in a
 kernel's CUDA source: the attention kernels drop the last live kv tile
 of their range, the stream kernel also attends in every sub-step to its
@@ -23,7 +24,11 @@ last live kv tile, the stream dK/dV kernel drops the rotation terms of the
 RoPE backward, or the second term of the qk-norm backward (those two only
 at the test cases: the main shapes, vilbert-base's, have neither RoPE nor
 qk-norm); and on the tc route the dQ products leave out dS's lo half, or
-the stream dQ kernel skips the tile forwarded once around its cluster.
+the stream dQ kernel skips the tile forwarded once around its cluster;
+flash attention's wide route (MLA's 576/512 heads): the tensor-core
+kernel drops the last 64-column box of q/k from Q K^T (the roped part),
+or skips the rescale of the last 128 output columns; flash's SIMT kernel
+(f32, every width) drops the last 64-column chunk of q/k.
 chip_smoke's check of that kernel then runs on the copy, in a
 subprocess, in the dtype of the faulty route, once at the kernel test
 cases and once at the main path's shapes (the GEMM's faults once more at
@@ -62,6 +67,22 @@ STREAM_BWD = ("STREAM_BWD_CASES", "MAIN_STREAM_BWD", "check_stream_bwd")
 FAULTS = {
     "flash_attention": ("flash_attention", "flash_attention.cu",
                         SKIP_LAST_LIVE_TILE, FLASH),
+    # the wide route (MLA's widths): tc drops the last box of q/k (the
+    # roped columns) from Q K^T, or leaves the last 128 output columns
+    # unrescaled; the SIMT kernel (f32, every width) drops the last chunk
+    # of q/k
+    "flash_attention_wide_tc_rope": (
+        "flash_attention", "attention_wide.cuh",
+        ("for (int ks = 0; ks < WIDE_KSTEPS; ++ks)",
+         "for (int ks = 0; ks < WIDE_KSTEPS - 4; ++ks)"), FLASH),
+    "flash_attention_wide_tc_rescale": (
+        "flash_attention", "attention_wide.cuh",
+        ("      rescale(o[n], alpha);",
+         "      if (wg == 0 || n == 0) rescale(o[n], alpha);"), FLASH),
+    "flash_attention_simt": (
+        "flash_attention", "flash_attention.cu",
+        ("for (int d0 = 0; d0 < sh.hd; d0 += BK) {",
+         "for (int d0 = 0; d0 < sh.hd - BK; d0 += BK) {"), FLASH),
     "stream_attention": ("stream_attention", "stream_attention.cu",
                          SKIP_LAST_LIVE_TILE, STREAM),
     # every sub-step reads buf[0], the block's own tile, not the forwarded one
@@ -184,6 +205,7 @@ CASES_ONLY = ("stream_attention_bwd_rope", "stream_attention_bwd_norm",
 MAIN_SUBSETS = {"tile_gemm": ("hymba",)}
 # Faults in an f32 route: their runs check f32, the others bf16.
 F32_FAULTS = ("decode_attention_simt", "ssd_scan_simt",
+              "flash_attention_simt",
               "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
               "stream_attention_bwd_rope", "stream_attention_bwd_norm")
 # Run inside the faulty copy: chip_smoke's bf16 check of one kernel, at
@@ -233,9 +255,14 @@ def main() -> None:
     import torch
     if not torch.cuda.is_available():
         sys.exit("FAIL: no CUDA device: this check needs one NVIDIA card")
+    chosen = sys.argv[1:] or list(FAULTS)
+    unknown = sorted(set(chosen) - set(FAULTS))
+    if unknown:
+        sys.exit(f"FAIL: unknown faults {unknown}; known: {list(FAULTS)}")
     missed = []
     try:
-        for label, (kernel, source, (text, fault), names) in FAULTS.items():
+        for label in chosen:
+            kernel, source, (text, fault), names = FAULTS[label]
             copy = plant(label, source, text, fault)
             dtype = "float32" if label in F32_FAULTS else "bfloat16"
             runs = {part: (CHECK.format(names=names, part=part,

@@ -22,7 +22,11 @@ caught:
      of its main shapes (vilbert, qwen3-32b's causal GQA prefill,
      hymba-1.5b's windowed prefill, and phases 12-14's: vilbert-large's
      hd-64 streams, whisper-base's encoder, prompt and cross-attention,
-     qwen2-vl-2b's causal GQA 12/2 at 4096 and 2048), the stream kernel's
+     qwen2-vl-2b's causal GQA 12/2 at 4096 and 2048), its wide route at
+     MLA's latent widths (q/k 576, v 512, MQA; a ragged causal case and
+     deepseek-v3's prefill of 1024 tokens with 128 heads, timed against
+     its plain version, SDPA (with the backends that take it) and a
+     matmul-softmax-matmul chain), the stream kernel's
      K/V regeneration factor and its main shapes (vilbert-large's, and
      whisper-base's encoder self-attention and cross-attention over 1500
      encoder states with 4 and with 1 query row per kv head, timed at the
@@ -116,12 +120,28 @@ caught:
      256-2048 prompt tokens, 32 new tokens each) with phase 5's gates; f32
      at 2 layers: M-RoPE with equal streams against the 1-D RoPE forward
      and batched against per-slot decode, within 1e-4;
- 15. one JSON line of per-kernel numbers, with the routes of tile_gemm,
+ 15. grok-1-314b (MoE: 8 experts top-2, GQA 48/8) at full width, 4 of its
+     64 layers, bf16: the forward at S = 1024 in each mode (the resolved
+     attention per layer, exact launches), against the plain versions
+     (the tokens whose expert set differs printed); served by the paged
+     Engine (three requests of 256-1024 prompt tokens, 16 new tokens,
+     batched decode on decode attention's tc route) with exact launch
+     gates, TTFT, decode ms a call and profiled calls; then f32 at 2
+     layers within 1e-4: the modes, the kernels against their plain
+     versions (expert sets that differ and the smallest top-k gate margin
+     printed), and with moe_capacity=100 prefill + decode against a
+     longer prefill and a batched decode step against single ones;
+ 16. deepseek-v3-671b (MLA + 256 experts top-8 + a shared expert) at full
+     width, its 3 dense-prefix layers and 2 MoE layers, the same way:
+     MLA's latent attention on flash's wide route in every mode (the
+     modes bitwise equal), the latent cache served per slot, f32 checks
+     at 1 dense + 1 MoE layer;
+ 17. one JSON line of per-kernel numbers, with the routes of tile_gemm,
      decode attention and the SSD scan over the main paths (phases 4-5,
-     7-8, 10, 12-14) and their timed shapes ("tile_gemm_shapes",
+     7-8, 10, 12-16) and their timed shapes ("tile_gemm_shapes",
      "decode_attention_shapes", "ssd_scan_shapes",
-     "stream_attention_shapes");
- 16. the last line: {"ok": true, "device": {...}}.
+     "stream_attention_shapes", "flash_attention_shapes");
+ 18. the last line: {"ok": true, "device": {...}}.
 
 Bound of a kernel call: the larger of its FLOPs over the H100 SXM peak of
 its input type (989 TFLOP/s bf16, 67 TFLOP/s f32) and the bytes it must
@@ -153,7 +173,9 @@ import torch  # noqa: E402
 import torch.nn.functional as F  # noqa: E402
 
 from repro_torch.configs.registry import get_config  # noqa: E402
-from repro_torch.core.types import ExecutionMode, Family  # noqa: E402
+from repro_torch.core import runtime  # noqa: E402
+from repro_torch.core.types import (  # noqa: E402
+    AttnKind, ExecutionMode, Family)
 from repro_torch.kernels import _build, blocked, ops, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as decode_lib  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
@@ -168,6 +190,7 @@ from repro_torch.kernels.stream_attention import (  # noqa: E402
 from repro_torch.kernels import tile_gemm as tile_gemm_lib  # noqa: E402
 from repro_torch.kernels.tile_gemm import (  # noqa: E402
     route_of, splits_of, tile_gemm)
+from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.encdec import EncDec  # noqa: E402
 from repro_torch.models.ssm import SSM  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
@@ -324,6 +347,8 @@ FLASH_CASES = [
     (1, 2, 1, 300, 300, 64, 64, False, 32, 100),
     (2, 8, 2, 130, 700, 128, 128, True, 8, 600),
     (1, 2, 2, 64, 150, 32, 32, False, 0, 0),         # ... or every row
+    # MLA's latent widths (the wide route): MQA, ragged Sq != Sk, kv_len
+    (1, 16, 1, 200, 333, 576, 512, True, 0, 300),
 ]
 # B, Hq, Hkv, Sq, Sk, hd, D, causal, window, rope, knorm, kv_len
 STREAM_CASES = [
@@ -395,6 +420,25 @@ MAIN_FLASH.update({
     "qwen2-vl forward 4096": (1, 12, 2, 4096, 4096, 128, True, 0),
     "qwen2-vl prefill 2048": (1, 12, 2, 2048, 2048, 128, True, 0),
 })
+# Phases 15 and 16 (grok-1-314b, deepseek-v3-671b): the forward at
+# MOE_S tokens, then the Engine serves MOE_REQUESTS (rid, prompt length, new
+# tokens, arrival step): r0 and r1 share a bucket (grok-1's batched decode),
+# r2 arrives while they decode; the cache holds MOE_MAX_LEN positions.
+MOE_S = 1024
+MOE_REQUESTS = [(0, 1024, 16, 0), (1, 1024, 16, 0), (2, 256, 16, 1)]
+MOE_MAX_LEN = 1040
+MOE_PROMPTS = sorted({MOE_S} | {p for _, p, _, _ in MOE_REQUESTS})
+# grok-1's causal GQA 48/8 (hd 128) at its forward and served prompts
+MAIN_FLASH.update({f"grok-1 prefill {s}": (1, 48, 8, s, s, 128, True, 0)
+                   for s in MOE_PROMPTS})
+# Phase 16's MLA latent attention at deepseek-v3's forward and served
+# prompts: q (1, 128, S, 576), k (1, 1, S, 576), v (1, 1, S, 512), causal,
+# on the wide route; the 1024-token one (MLA_TIMED) is timed against SDPA
+# and a matmul-softmax-matmul chain.
+MAIN_FLASH_MLA = {  # name: (B, Hq, Hkv, Sq, Sk, hd, hdv, causal)
+    f"deepseek-v3 MLA prefill {s}": (1, 128, 1, s, s, 576, 512, True)
+    for s in MOE_PROMPTS}
+MLA_TIMED = ("deepseek-v3 MLA prefill 1024",)
 MAIN_STREAM = {  # name: (B, H, Sq, Sk, hd, D)
     "vision self 4096": (2, 8, 4096, 4096, 128, 1024),
     "text self 4096": (2, 12, 4096, 4096, 64, 768),
@@ -474,6 +518,16 @@ MAIN_GEMM.update({
                      ("decode", (1, 2, 3, 4)))
     for m in ms
     for proj, k, n in (("up", 1536, 8960), ("down", 8960, 1536))})
+# Phase 16's tile_gemm calls (deepseek-v3-671b, d_model 7168): the dense
+# prefix's MLP (gate/up 7168 -> 18432, down 18432 -> 7168) and the shared
+# expert's (7168 <-> 2048) at the forward's and served prompts' M and the
+# per-slot decode's M = 1.  grok-1 has neither.
+MAIN_GEMM.update({
+    f"deepseek-v3 {what} M={m} {mlp} {proj}": (m, k, n)
+    for what, ms in (("prefill", MOE_PROMPTS), ("decode", (1,)))
+    for m in ms
+    for mlp, f in (("mlp", 18432), ("shared expert", 2048))
+    for proj, k, n in (("up", 7168, f), ("down", f, 7168))})
 # B, S, H, P, N, chunk: the JAX package's test_ssd_kernel_interpret cases
 # (the last one ragged), then every prefill of phases 7 (mamba2-780m: H 48,
 # P 64, N 128) and 8 (hymba-1.5b: H 25, P 128, N 16), chunk 256.
@@ -573,13 +627,11 @@ def check_flash(gen, report):
             got = flash_attention(q, k, v, **kw)
             err = compare(name, f"{dt} {case}", got,
                           blocked.flash_attention_plain(q, k, v, **kw))
-            line = f"  {name} {str(dt)[6:]} main path {case}: max|err| {err:.2e}"
-            if dt == torch.bfloat16:
-                ms = time_ms(lambda: flash_attention(q, k, v, **kw))
-                flops = 4 * B * H * hd * live_pairs(Sq, Sk, **kw)
-                line += (f"; {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s "
-                         f"over the live keys")
-            say(line)
+            ms = time_ms(lambda: flash_attention(q, k, v, **kw))
+            flops = 4 * B * H * hd * live_pairs(Sq, Sk, **kw)
+            say(f"  {name} {str(dt)[6:]} main path {case}: max|err| "
+                f"{err:.2e}; {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s "
+                f"over the live keys")
             if dt == torch.bfloat16 and case == TIMED[name]:
                 e = q.element_size()
                 flops = 4 * B * H * Sq * Sk * hd
@@ -593,7 +645,100 @@ def check_flash(gen, report):
                     library_ms=time_ms(
                         lambda: F.scaled_dot_product_attention(q, k, v)),
                     shape=f"q/k/v {(B, H, Sq, hd)} bf16",
-                    flops=flops, bytes=nbytes, dtype=dt)
+                    flops=flops, bytes=nbytes, dtype=dt, shapes=[])
+        for case, (B, H, Hkv, Sq, Sk, hd, hdv, causal) in \
+                MAIN_FLASH_MLA.items():
+            q = randn(gen, B, H, Sq, hd, dtype=dt, scale=0.5)
+            k = randn(gen, B, Hkv, Sk, hd, dtype=dt, scale=0.5)
+            v = randn(gen, B, Hkv, Sk, hdv, dtype=dt, scale=0.5)
+            got = flash_attention(q, k, v, causal=causal)
+            err = compare(name, f"{dt} {case}", got,
+                          blocked.flash_attention_plain(q, k, v,
+                                                        causal=causal))
+            ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
+            flops = 2 * B * H * (hd + hdv) * live_pairs(
+                Sq, Sk, causal, 0, Sk - Sq if causal else 0)
+            say(f"  {name} {str(dt)[6:]} main path {case} "
+                f"{(B, H, Hkv, Sq, Sk, hd, hdv)} causal={causal}: max|err| "
+                f"{err:.2e}; {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s "
+                f"over the live keys")
+            if dt == torch.bfloat16 and case in MLA_TIMED:
+                report.setdefault(name, {"shapes": []})["shapes"].append(
+                    time_flash_mla(case, q, k, v, causal, err))
+
+
+def sdpa_gqa(q, k, v, causal: bool):
+    """SDPA with k/v broadcast to q's heads: an expanded view for one kv
+    head (MQA), copies otherwise."""
+    H, Hkv = q.shape[1], k.shape[1]
+    if Hkv == 1:
+        k, v = k.expand(-1, H, -1, -1), v.expand(-1, H, -1, -1)
+    else:
+        k, v = k.repeat_interleave(H // Hkv, 1), v.repeat_interleave(H // Hkv, 1)
+    return F.scaled_dot_product_attention(q, k, v, is_causal=causal)
+
+
+def sdpa_backends(q, k, v, causal: bool) -> list:
+    """The SDPA backends that accept the call, in the order PyTorch tries
+    them; the default call takes the first."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    ok = []
+    for b in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+              SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([b]):
+                sdpa_gqa(q, k, v, causal)
+            ok.append(b.name)
+        except RuntimeError:
+            pass
+    torch.cuda.synchronize()
+    return ok
+
+
+def attention_chain(q, k, v, causal: bool):
+    """matmul, softmax (f32), matmul: the unfused library chain."""
+    s = torch.matmul(q, k.transpose(-1, -2)).float() * q.shape[-1] ** -0.5
+    if causal:
+        Sq, Sk = s.shape[-2:]
+        s.masked_fill_(torch.ones(Sq, Sk, dtype=torch.bool, device=q.device)
+                       .triu(Sk - Sq + 1), float("-inf"))
+    return torch.matmul(torch.softmax(s, dim=-1).to(q.dtype), v)
+
+
+def time_flash_mla(case, q, k, v, causal, err):
+    """The wide route at MLA's shape, bf16: kernel (CUDA events) and device
+    (profiler) time, the plain version, SDPA (the backend it takes) and the
+    matmul-softmax-matmul chain, against the bound of the live (query, key)
+    pairs' FLOPs.  Its launches are not counted."""
+    B, H, Sq, hd = q.shape
+    Sk, hdv = k.shape[2], v.shape[3]
+    n0 = flash_attention.launches
+    fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
+    ms = time_ms(fn)
+    dev, kernels, per = device_ms(fn)
+    flash_attention.launches = n0
+    plain_ms = time_ms(lambda: blocked.flash_attention_plain(
+        q, k, v, causal=causal))
+    backends = sdpa_backends(q, k, v, causal)
+    lib_ms = time_ms(lambda: sdpa_gqa(q, k, v, causal))
+    lib_dev = device_ms(lambda: sdpa_gqa(q, k, v, causal))[0]
+    chain_ms = time_ms(lambda: attention_chain(q, k, v, causal))
+    pairs = live_pairs(Sq, Sk, causal, 0, Sk - Sq if causal else 0)
+    flops = 2 * B * H * pairs * (hd + hdv)
+    nbytes = (q.numel() + k.numel() + v.numel() + B * H * Sq * hdv) \
+        * q.element_size()
+    b_ms, b_by = bound(flops, nbytes, q.dtype)
+    say(f"    timed {case}: kernel {ms:.4f} ms, device {dev:.4f} ms in "
+        f"{kernels:g} launch ({', '.join(map(kernel_name, per))}), "
+        f"{flops / dev / 1e9:.1f} TFLOP/s; plain {plain_ms:.3f} ms; SDPA "
+        f"{lib_ms:.3f} ms (device {lib_dev:.3f}; backends that take it: "
+        f"{backends}); matmul-softmax-matmul {chain_ms:.3f} ms; bound "
+        f"{b_ms:.4f} ms ({b_by}): device {dev / b_ms:.1f}x bound")
+    return dict(name=case, max_abs_err=err, ms=ms, device_ms=dev,
+                plain_ms=plain_ms, library_ms=lib_ms,
+                library_device_ms=lib_dev, library_backends=backends,
+                chain_ms=chain_ms, bound_ms=b_ms, bound_by=b_by,
+                flops=flops, bytes=nbytes)
 
 
 def live_pairs(Sq: int, Sk: int, causal: bool = False, window: int = 0,
@@ -1229,6 +1374,10 @@ MAIN_DECODE = {
                                        WHISPER_MAX_LEN - 1),
     "qwen2-vl bucket of 2": (2, 12, 2, QWEN2VL_MAX_LEN, 128, 1040),
     "qwen2-vl bucket of 1": (1, 12, 2, QWEN2VL_MAX_LEN, 128, 2079),
+    # phase 15: grok-1-314b's GQA 48/8 buckets over MOE_MAX_LEN positions,
+    # r0 and r1 at their last step, r2 alone
+    "grok-1 bucket of 2": (2, 48, 8, MOE_MAX_LEN, 128, (1039, 1039)),
+    "grok-1 bucket of 1": (1, 48, 8, MOE_MAX_LEN, 128, 271),
 }
 # decode attention is also timed at these, against the parent's kernel and
 # SDPA in turns, with each one's device time from the profiler.
@@ -1310,25 +1459,27 @@ def parent_decode(q, k, v, lens):
     return out
 
 
-def device_ms(fn, reps: int = 20, tries: int = 3):
+def device_ms(fn, reps: int = 20, tries: int = 5):
     """(device time per call in ms, kernel launches per call, {kernel: ms
     per call}) of fn() under torch.profiler, after a warm-up outside the
     trace: the kernels' own time, without the host's share of a call.  A
     trace that gives no device time (the profiler now and then drops a
-    trace's kernels) is taken again, up to ``tries`` times."""
+    trace's kernels, three times in a row once at a 0.3 ms call) is taken
+    again, up to ``tries`` times, each twice as long as the last."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(tries):
+    for attempt in range(tries):
+        reps_now = reps << attempt
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
+            for _ in range(reps_now):
                 fn()
             torch.cuda.synchronize()
         # Per kernel: its mean time a launch times its launches a call, the
         # count rounded, so that an event the trace drops changes neither.
         per_call = {e.key: (e.self_device_time_total / e.count / 1e3,
-                            round(e.count / reps))
+                            round(e.count / reps_now))
                     for e in prof.key_averages()
                     if e.device_type == torch.autograd.DeviceType.CUDA
                     and e.count}
@@ -1336,6 +1487,8 @@ def device_ms(fn, reps: int = 20, tries: int = 3):
         if total > 0:
             return (total, sum(n for _, n in per_call.values()),
                     {k: ms * n for k, (ms, n) in per_call.items() if n})
+        say(f"    torch.profiler gave no device time in trace {attempt + 1} "
+            f"of {reps_now} calls")
     fail(f"torch.profiler gave no device time in {tries} traces")
 
 
@@ -2881,6 +3034,315 @@ def qwen2vl_forward(smi: str, launches: dict) -> None:
         fail(f"qwen2-vl f32: M-RoPE gaps {eq_gap:.2e}, {grid_gap:.2e}")
 
 
+# ---------------------------------------------------------------------------
+# Phases 15 and 16: the MoE family, grok-1-314b and deepseek-v3-671b
+# ---------------------------------------------------------------------------
+
+# Depth cuts on one H100 80 GB, widths unchanged: grok-1 runs 4 of its 64
+# layers in bf16 (21.3 B parameters, 42.6 GB), deepseek-v3 its 3
+# dense-prefix layers and 2 of its 58 MoE layers, mtp_proj kept (26.7 B,
+# 53.4 GB); the f32 checks run grok-1 at 2 layers and deepseek-v3 at 1
+# dense + 1 MoE layer (~45 and ~56 GB), the bf16 model freed first.
+MOE_CUTS = {"grok-1-314b": {"num_layers": 4},
+            "deepseek-v3-671b": {"num_layers": 5}}
+MOE_F32_CUTS = {"grok-1-314b": {"num_layers": 2},
+                "deepseek-v3-671b": {"num_layers": 2,
+                                     "first_dense_layers": 1}}
+MOE_CHECK_S = 256               # the f32 checks' prompt
+
+
+def moe_model(arch: str, dtype: str, cut: dict, seed: int):
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype,
+                              param_dtype=dtype, **cut)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return cfg, Transformer(cfg, device="cuda", generator=gen), gen
+
+
+def moe_gemms(cfg) -> int:
+    """tile_gemm launches of one forward or decode call: the dense
+    prefix's MLPs and the shared experts (the routed experts are batched
+    products outside any kernel, as in JAX)."""
+    per_mlp = 3 if cfg.act == "silu" else 2
+    n_dense = cfg.first_dense_layers
+    return (n_dense * per_mlp
+            + (cfg.num_layers - n_dense) * 3 * bool(cfg.num_shared_experts))
+
+
+def attention_kernel(cfg, mode: ExecutionMode, plan_mode=None):
+    """The kernel an attention layer of ``cfg`` launches under ``mode``
+    (resolved by the planner's rule) or under a plan's resolved
+    ``plan_mode``: MLA's latent attention is flash in every mode; a GQA
+    layer flash (LAYER_STREAM), stream (TILE_STREAM) or none."""
+    if cfg.attn_kind == AttnKind.MLA:
+        return "flash_attention"
+    return {ExecutionMode.LAYER_STREAM: "flash_attention",
+            ExecutionMode.TILE_STREAM: "stream_attention"}.get(
+                plan_mode or resolved(cfg, mode))
+
+
+def moe_forward_launches(cfg, mode: ExecutionMode) -> dict:
+    want = dict.fromkeys(KERNELS, 0)
+    kernel = attention_kernel(cfg, mode)
+    if kernel:
+        want[kernel] = cfg.num_layers
+    want["tile_gemm"] = moe_gemms(cfg)
+    return want
+
+
+@contextlib.contextmanager
+def record_routing():
+    """Every MoE layer's routing while active, a list of (each token's
+    expert set, sorted (T, K); the margin of its K-th gate over the
+    (K+1)-th (T,)) per call of ``layers.moe_route``."""
+    real, seen = model_layers.moe_route, []
+
+    def recording(p, cfg, xt, cap):
+        out = real(p, cfg, xt, cap)
+        K = cfg.experts_per_token
+        gates = torch.softmax(torch.einsum("gtd,de->gte", xt.float(),
+                                           p.router.float()), dim=-1)
+        top = torch.topk(gates, K + 1, dim=-1).values.reshape(-1, K + 1)
+        seen.append((out[2].reshape(-1, K).sort(-1).values,
+                     top[:, K - 1] - top[:, K]))
+        return out
+
+    model_layers.moe_route = recording
+    try:
+        yield seen
+    finally:
+        model_layers.moe_route = real
+
+
+def routing_gap(got, want) -> tuple:
+    """(tokens whose expert set differs, the smallest top-k gate margin of
+    ``want`` over all tokens, the smallest among the differing ones)."""
+    if len(got) != len(want):
+        fail(f"routing records of {len(got)} and {len(want)} MoE calls")
+    flips, low, low_flip = 0, math.inf, math.inf
+    for (eg, _), (ew, mw) in zip(got, want):
+        d = (eg != ew).any(-1)
+        flips += int(d.sum())
+        low = min(low, mw.min().item())
+        if d.any():
+            low_flip = min(low_flip, mw[d].min().item())
+    return flips, low, low_flip
+
+
+def moe_path(arch: str, smi: str, launches: dict) -> None:
+    """``arch`` (MoE family) at full width and MOE_CUTS' depth, bf16,
+    random weights (seed 0): the forward at S = MOE_S in each mode (the
+    resolved attention per layer, exact launches; deepseek's modes
+    bitwise equal: MLA is one path), against the plain versions (expert
+    sets that differ printed), then served by the Engine (grok-1: paged
+    K/V, batched decode on decode attention; deepseek-v3: the latent
+    cache, per-slot decode) with exact launch and route gates."""
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    cfg, model, gen = moe_model(arch, "bfloat16", MOE_CUTS[arch], seed=0)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    L, V = cfg.num_layers, cfg.vocab_size
+    say(f"  {arch} bf16, {L} of {get_config(arch).num_layers} layers at "
+        f"full width, {n_params / 1e9:.2f} B parameters, built in "
+        f"{time.perf_counter() - t0:.1f} s; allocated "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.1f} GiB [{smi}]")
+    batch = {"tokens": torch.randint(0, V, (1, MOE_S), generator=gen,
+                                     device="cuda")}
+    model(batch)                                          # warm-up
+    first, routes = None, {}
+    for mode in ExecutionMode:
+        torch.cuda.synchronize()
+        reset_counts()
+        with record_routing() as seen:
+            t0 = time.perf_counter()
+            logits = model(batch, mode=mode)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+        want = moe_forward_launches(cfg, mode)
+        check_call(f"{arch} forward {mode.value}", launches, want, "wgmma")
+        if logits.shape[:2] != (1, MOE_S) or not torch.isfinite(logits).all():
+            fail(f"{arch} forward {mode.value}: logits "
+                 f"{tuple(logits.shape)} or not finite")
+        routes[mode] = seen
+        say(f"  forward {mode.value}, S = {MOE_S}: {ms:.1f} ms wall, "
+            f"attention {attention_kernel(cfg, mode) or 'plain (NON)'} in "
+            f"each of the {L} layers, launches {want} [{smi}]")
+        if first is None:
+            first = logits
+        elif cfg.attn_kind == AttnKind.MLA and not torch.equal(logits, first):
+            fail(f"{arch} forward {mode.value}: MLA runs one path in every "
+                 f"mode; the logits must be bitwise equal")
+        else:
+            say(f"    against non_stream: max relative logit gap "
+                f"{_rel(logits[..., :V], first[..., :V]):.2e}, tokens whose "
+                f"expert set differs {routing_gap(seen, routes[ExecutionMode.NON_STREAM])[0]}"
+                f" (not gated in bf16)")
+        del logits
+    say(f"    profile (layer_stream): "
+        f"{device_breakdown(model, batch, ExecutionMode.LAYER_STREAM)} "
+        f"[{smi}]")
+    with plain_kernels(), record_routing() as seen:
+        reset_counts()
+        plain = model(batch, mode=ExecutionMode.LAYER_STREAM)
+        if any(counts().values()):
+            fail(f"{arch}: the plain forward launched {counts()}")
+    flips, low, low_flip = routing_gap(
+        seen, routes[ExecutionMode.LAYER_STREAM])
+    say(f"  kernel against plain forward (bf16, layer_stream): max relative "
+        f"logit gap {_rel(first[..., :V], plain[..., :V]):.2e}; tokens "
+        f"whose expert set differs {flips} of {MOE_S} x {L - cfg.first_dense_layers}"
+        f" MoE layers (smallest top-k gate margin {low:.2e}, among those "
+        f"{low_flip:.2e}; not gated in bf16)")
+    if not torch.isfinite(plain).all():
+        fail(f"{arch}: the plain forward is not finite")
+    del first, plain
+    free()
+
+    fresh = make_requests(cfg, MOE_REQUESTS, gen)
+    reset_counts()
+    t0 = time.perf_counter()
+    eng, probe, tokens = serve(cfg, model, fresh, slots=4,
+                               max_len=MOE_MAX_LEN, page_size=64,
+                               profile_call=2)
+    wall = time.perf_counter() - t0
+    got, kroutes = counts(), route_counts()
+    check_kernel_routes(arch, kroutes, got)
+    profile = profile_step(probe.decode_fn, *probe.saved)
+    probe.saved = None
+    first_req = fresh()[0]
+    prefill_profile = profile_call(probe.prefill_fn, first_req)
+    tally(launches)
+    paged = cfg.attn_kind != AttnKind.MLA
+    n_pre, n_dec = len(probe.prefills), eng.decode_batches
+    want = dict.fromkeys(KERNELS, 0)
+    for _, plen, _, _ in MOE_REQUESTS:
+        for lp in eng.plan_for(plen).layers:
+            kernel = attention_kernel(cfg, None, ExecutionMode(lp.mode.value))
+            if kernel:
+                want[kernel] += 1
+    want["decode_attention"] = L * n_dec if paged else 0
+    want["tile_gemm"] = moe_gemms(cfg) * (n_pre + n_dec)
+    st = eng.stats()
+    say(f"  served {st['requests']} requests in {wall:.1f} s wall, "
+        f"{st['steps']} steps; decode_calls {eng.decode_calls}, "
+        f"decode_batches {n_dec} ({'paged, batched' if paged else 'per-slot'}"
+        f"); launches {got} (expected {want}); per prefill: "
+        f"{want['flash_attention'] // n_pre} flash, "
+        f"{want['stream_attention'] // n_pre} stream, {moe_gemms(cfg)} "
+        f"tile_gemm; per decode call: "
+        f"{want['decode_attention'] // n_dec} decode attention, "
+        f"{moe_gemms(cfg)} tile_gemm; tile_gemm routes: prefill "
+        f"{dict(probe.routes['prefill'])}, decode "
+        f"{dict(probe.routes['decode'])}")
+    if got != want:
+        fail(f"{arch} serving: launches {got}, expected {want}")
+    if (eng._pool is not None) != paged \
+            or (n_dec < eng.decode_calls) != paged:
+        fail(f"{arch} serving: pool {eng._pool is not None}, decode_batches "
+             f"{n_dec} of {eng.decode_calls} calls; expected "
+             f"{'paged batched' if paged else 'per-slot'} decode")
+    if moe_gemms(cfg):
+        check_routes(f"{arch} prefill", probe.routes["prefill"], "wgmma")
+        check_routes(f"{arch} decode", probe.routes["decode"], "splitk")
+    for rid, toks in tokens.items():
+        if not all(0 <= t < V for t in toks):
+            fail(f"{arch}: r{rid} emitted a token outside [0, {V})")
+    say(f"  peak device memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.1f} GiB [{smi}]")
+    for rid, plen, ms, _ in probe.prefills:
+        say(f"  prefill r{rid}, {plen} tokens: {ms:.1f} ms [{smi}]")
+    ttft = st["wall"]["ttft"]
+    say(f"  wall TTFT p50 {ttft['p50'] * 1e3:.1f} ms, max "
+        f"{ttft['max'] * 1e3:.1f} ms [{smi}]")
+    by_b = defaultdict(list)
+    for b, ms, _ in probe.decodes:
+        by_b[b].append(ms)
+    for b in sorted(by_b):
+        say(f"  decode call, B = {b}: mean {np.mean(by_b[b]):.1f} ms, min "
+            f"{min(by_b[b]):.1f} ms over {len(by_b[b])} calls [{smi}]")
+    n_tok = sum(len(r.decoded) for r in eng.step_log
+                if r.decoded and not r.admitted)
+    say(f"  decode: {n_tok} tokens in {eng.decode_wall_s():.2f} s of "
+        f"pure-decode steps, {n_tok / eng.decode_wall_s():.1f} tokens/s "
+        f"[{smi}]")
+    say(f"  profiled decode call: {profile} [{smi}]")
+    say(f"  profiled prefill of r{first_req.rid}, {len(first_req.prompt)} "
+        f"tokens: {prefill_profile} [{smi}]")
+    del eng, probe, model
+    free()
+
+
+def _stack_caches(a, b):
+    """Two B = 1 caches of one length as one B = 2 cache."""
+    return {"layers": {k: torch.cat([a["layers"][k], b["layers"][k]], 1)
+                       for k in a["layers"]}, "len": a["len"]}
+
+
+def moe_checks(arch: str, smi: str) -> None:
+    """f32 at ``arch``'s full width and MOE_F32_CUTS' depth, within
+    SERVE_TOL: the modes against each other (deepseek: bitwise), the
+    kernels against their plain versions (with the expert sets that differ
+    and the smallest top-k gate margin, so that a routing flip can be told
+    from a fault), and, with nothing dropped (moe_capacity=100), prefill(S)
+    + a decode step against prefill(S + 1) and a batched decode step of two
+    requests against each one's own."""
+    free()
+    cfg, model, gen = moe_model(arch, "float32", MOE_F32_CUTS[arch], seed=1)
+    S, V = MOE_CHECK_S, cfg.vocab_size
+    tokens = torch.randint(0, V, (2, S + 1), generator=gen, device="cuda")
+    one = {"tokens": tokens[:1]}
+    outs, routes = {}, {}
+    for mode in ExecutionMode:
+        with record_routing() as seen:
+            outs[mode] = model(one, mode=mode)[..., :V]
+        routes[mode] = seen
+    base = outs[ExecutionMode.NON_STREAM]
+    for mode, out in outs.items():
+        gap = _rel(out, base)
+        flips = routing_gap(routes[mode], routes[ExecutionMode.NON_STREAM])
+        say(f"  f32 {cfg.num_layers} layers, S = {S + 1}, {mode.value} "
+            f"against non_stream: {gap:.2e} (tol {SERVE_TOL}), tokens whose "
+            f"expert set differs {flips[0]}")
+        if gap > SERVE_TOL or (cfg.attn_kind == AttnKind.MLA
+                               and not torch.equal(out, base)):
+            fail(f"{arch} f32 {mode.value}: modes differ by {gap:.2e}"
+                 + (" (MLA: must be bitwise equal)"
+                    if cfg.attn_kind == AttnKind.MLA else ""))
+    with plain_kernels(), record_routing() as seen:
+        plain = model(one, mode=ExecutionMode.LAYER_STREAM)[..., :V]
+    flips, low, low_flip = routing_gap(
+        seen, routes[ExecutionMode.LAYER_STREAM])
+    gap = _rel(outs[ExecutionMode.LAYER_STREAM], plain)
+    say(f"  f32 kernels against plain versions: {gap:.2e} (tol "
+        f"{SERVE_TOL}); tokens whose expert set differs {flips}, smallest "
+        f"top-k gate margin {low:.2e} (among those {low_flip:.2e})")
+    if gap > SERVE_TOL:
+        fail(f"{arch} f32 kernels against plain versions: {gap:.2e}, "
+             f"{flips} tokens routed otherwise")
+    del outs, plain
+    with runtime.flags(moe_capacity=100.0):
+        longer, _ = model.prefill({"tokens": tokens[:1]}, S + 8)
+        _, cache = model.prefill({"tokens": tokens[:1, :S]}, S + 8)
+        step, _ = model.decode_step(cache, tokens[:1, S:])
+        gap_pd = _rel(step[:, 0, :V], longer[:, -1, :V])
+        caches = [model.prefill({"tokens": tokens[i:i + 1, :S]}, S + 8)[1]
+                  for i in range(2)]
+        batched, _ = model.decode_step(
+            _stack_caches(*[_clone(c) for c in caches]), tokens[:, S:])
+        single = torch.cat([model.decode_step(c, tokens[i:i + 1, S:])[0]
+                            for i, c in enumerate(caches)])
+        gap_b = _rel(batched[:, 0, :V], single[:, 0, :V])
+    say(f"  f32, moe_capacity=100: prefill({S}) + decode step against "
+        f"prefill({S + 1}) {gap_pd:.2e}; a decode step of B = 2 against "
+        f"two of B = 1 {gap_b:.2e} (tol {SERVE_TOL})")
+    if gap_pd > SERVE_TOL or gap_b > SERVE_TOL:
+        fail(f"{arch} f32: prefill + decode {gap_pd:.2e}, batched "
+             f"{gap_b:.2e}")
+    del model
+    free()
+
+
 def tensor_core_sass() -> str:
     """How many HGMMA (wgmma) instructions the SASS of each attention
     library (forward and backward) holds, from the toolkit's cuobjdump."""
@@ -3006,6 +3468,18 @@ def main() -> None:
     free()
     serving_checks(smi, "qwen2-vl-2b", modes=False)
     say(f"phases 1-14 took {time.perf_counter() - start:.1f} s")
+    free()
+
+    say("== phase 15: grok-1-314b (MoE, 4 of 64 layers): forward, Engine "
+        "serving, f32 checks")
+    moe_path("grok-1-314b", smi, launches)
+    moe_checks("grok-1-314b", smi)
+
+    say("== phase 16: deepseek-v3-671b (MLA + MoE, 3 dense + 2 MoE "
+        "layers): forward, Engine serving, f32 checks")
+    moe_path("deepseek-v3-671b", smi, launches)
+    moe_checks("deepseek-v3-671b", smi)
+    say(f"phases 1-16 took {time.perf_counter() - start:.1f} s")
 
     rows, gemm_shapes = [], report["tile_gemm"]["shapes"]
     for name in ROUTED:
@@ -3022,6 +3496,13 @@ def main() -> None:
             say(f"  {name} {s['name']}: tc {s['ms']:.3f} ms (device "
                 f"{s['device_ms']:.3f}), simt {s['parent_ms']:.3f} ms (device "
                 f"{s['parent_device_ms']:.3f}){extra}")
+    for s in report["flash_attention"]["shapes"]:
+        say(f"  flash_attention {s['name']}: kernel {s['ms']:.4f} ms "
+            f"(device {s['device_ms']:.4f}), plain {s['plain_ms']:.3f} ms, "
+            f"SDPA {s['library_ms']:.3f} ms (device "
+            f"{s['library_device_ms']:.3f}, {s['library_backends']}), "
+            f"matmul-softmax-matmul {s['chain_ms']:.3f} ms, bound "
+            f"{s['bound_ms']:.4f} ms ({s['bound_by']})")
     for s in report["stream_attention"]["shapes"]:
         say(f"  stream_attention {s['name']}: kernel {s['ms']:.4f} ms "
             f"(device {s['device_ms']:.4f}), plain {s['plain_ms']:.4f} ms, "
@@ -3067,6 +3548,8 @@ def main() -> None:
                     "ssd_scan_shapes": report["ssd_scan"]["shapes"],
                     "stream_attention_shapes":
                         report["stream_attention"]["shapes"],
+                    "flash_attention_shapes":
+                        report["flash_attention"]["shapes"],
                     **{f"{name}_shapes": report[name]["shapes"]
                        for name in BWD}}))
     say(json.dumps({"ok": True, "device": {

@@ -3,9 +3,10 @@ model module that runs each family (counterpart of
 ``repro/configs/registry.py``)."""
 from __future__ import annotations
 
-from repro_torch.configs import (hymba_1_5b, mamba2_780m, qwen2_vl_2b,
-                                 qwen3_32b, starcoder2_7b, vilbert_base,
-                                 vilbert_large, whisper_base)
+from repro_torch.configs import (deepseek_v3_671b, grok1_314b, hymba_1_5b,
+                                 mamba2_780m, qwen2_vl_2b, qwen3_32b,
+                                 starcoder2_7b, vilbert_base, vilbert_large,
+                                 whisper_base)
 from typing import Dict, Tuple
 
 from repro_torch.core.types import Family, ModelConfig, ShapeConfig
@@ -13,7 +14,8 @@ from repro_torch.core.types import Family, ModelConfig, ShapeConfig
 _MODULES = {"vilbert-base": vilbert_base, "vilbert-large": vilbert_large,
             "qwen3-32b": qwen3_32b, "starcoder2-7b": starcoder2_7b,
             "mamba2-780m": mamba2_780m, "hymba-1.5b": hymba_1_5b,
-            "whisper-base": whisper_base, "qwen2-vl-2b": qwen2_vl_2b}
+            "whisper-base": whisper_base, "qwen2-vl-2b": qwen2_vl_2b,
+            "grok-1-314b": grok1_314b, "deepseek-v3-671b": deepseek_v3_671b}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -35,12 +37,8 @@ def model_module(cfg: ModelConfig):
     if cfg.family == Family.CROSSMODAL:
         from repro_torch.models import vilbert
         return vilbert
-    if cfg.family in (Family.DENSE, Family.SSM, Family.HYBRID, Family.VLM):
-        from repro_torch.models import transformer
-        return transformer
-    raise NotImplementedError(
-        f"{cfg.name}: family {cfg.family.value} is not ported yet "
-        f"(ROADMAP Queue 1 item 6)")
+    from repro_torch.models import transformer
+    return transformer
 
 
 ARCHS = tuple(_MODULES)
@@ -50,7 +48,8 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
                 ) -> Dict[str, Tuple[int, ...]]:
     """{name: shape} of one global batch (registry.py:116): the token batch
     (with labels when ``shape.kind`` is "train"); a decode shape has one
-    token per row.  The encoder-decoder family adds the stub frontend's
+    token per row (the MoE family's too, as the dense one's).  The
+    encoder-decoder family adds the stub frontend's
     frames (B, encoder_seq, d_model), a VLM's prefill or train batch its
     M-RoPE position streams (3, B, S), and the crossmodal family has the
     vision regions and, to train, VQA answers instead of labels."""
@@ -62,7 +61,6 @@ def input_specs(cfg: ModelConfig, shape: ShapeConfig
         if shape.kind == "train":
             specs["answers"] = (B,)
         return specs
-    model_module(cfg)            # raises for the families not ported
     specs = {"tokens": (B, S)}
     if cfg.family == Family.ENCDEC:
         specs = {"frames": (B, cfg.encoder_seq, cfg.d_model), **specs}

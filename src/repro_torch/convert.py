@@ -78,14 +78,15 @@ def transformer_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
                          device: Optional[Union[str, torch.device]] = None
                          ) -> Transformer:
     """A ``Transformer`` holding the weights of a
-    ``repro.models.transformer.init`` tree (dense, VLM, SSM or hybrid
-    family)
-    whose leaves were turned into numpy arrays; the stacked ``layers``
-    axis becomes ``Transformer.layers``.  Every leaf (an SSM mixer's
-    ``ssm.*``, a hybrid layer's ``mix_beta``) must have its parameter, with
-    its shape."""
+    ``repro.models.transformer.init`` tree (dense, MoE, VLM, SSM or hybrid
+    family) whose leaves were turned into numpy arrays; the stacked
+    ``layers`` axis (and the MoE family's ``dense_layers`` prefix) becomes
+    the ``ModuleList`` of that name.  Every leaf (an SSM mixer's ``ssm.*``,
+    a hybrid layer's ``mix_beta``, the expert stacks (E, d, f), a shared
+    expert, the MLA tree, ``mtp_proj``) must have its parameter, with its
+    shape."""
     model = Transformer(cfg, device=device)
-    _load(model, params_np, ("layers",))
+    _load(model, params_np, ("dense_layers", "layers"))
     return model
 
 

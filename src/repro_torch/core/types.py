@@ -1,9 +1,9 @@
 """Configuration types (counterpart of ``repro/core/types.py``).
 
 Only what the ported slices read is copied: the enums, ``PruningConfig``,
-the fields of ``ModelConfig`` that the decoder (dense, SSM, hybrid, VLM),
-encoder-decoder and crossmodal paths and the planner use, and the shape cells
-(``ShapeConfig``/``SHAPES``).
+the fields of ``ModelConfig`` that the decoder (dense, MoE, SSM, hybrid,
+VLM), encoder-decoder and crossmodal paths and the planner use, and the
+shape cells (``ShapeConfig``/``SHAPES``).
 Values and defaults are the JAX package's.
 """
 from __future__ import annotations
@@ -81,6 +81,20 @@ class ModelConfig:
     rope_theta: float = 10_000.0
     mrope_sections: Tuple[int, ...] = ()   # qwen2-vl M-RoPE (t, h, w) splits
     tie_embeddings: bool = False
+    # --- MoE ---
+    num_experts: int = 0
+    num_shared_experts: int = 0
+    experts_per_token: int = 0
+    moe_d_ff: int = 0          # expert hidden size
+    first_dense_layers: int = 0  # deepseek-v3: the first k layers are dense
+    # --- MLA (deepseek) ---
+    q_lora_rank: int = 0
+    kv_lora_rank: int = 0
+    qk_rope_head_dim: int = 64
+    qk_nope_head_dim: int = 128
+    v_head_dim: int = 128
+    # --- MTP (deepseek) ---
+    mtp_depth: int = 0
     # --- SSM (mamba2 / hymba) ---
     ssm_state: int = 0
     ssm_heads: int = 0

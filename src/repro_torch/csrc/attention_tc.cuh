@@ -1,6 +1,7 @@
 // Tensor-core attention core for bf16 inputs on sm_90a, shared by
 // flash_attention.cu and stream_attention.cu (their f32 route keeps the
-// SIMT core of attention_tile.cuh).
+// SIMT core of attention_tile.cuh); flash's wide route (attention_wide.cuh)
+// shares its online softmax and P split.
 //
 // A block has three warpgroups of 128 threads: two consumer warpgroups that
 // each own 64 query rows, taken from the flattened (G query heads x Sq) rows
@@ -99,6 +100,73 @@ __device__ __forceinline__ bool edge_tile(const AttnShape& sh, int j, int qmin,
          (sh.window > 0 && k0 <= qmax - sh.window);
 }
 
+// Scale, mask (on an edge tile) and the online-softmax update of kv tile j's
+// scores s (m64n64 accumulators: the thread's rows h = 0, 1 at query
+// positions qpos[h], columns 8i + 2t + {0, 1}): m and l take the tile, alpha
+// is the factor of the earlier sum and output, and s becomes P.
+__device__ __forceinline__ void online_softmax(const AttnShape& sh, int j,
+                                               int qmin, int qmax, int t,
+                                               const int (&qpos)[2],
+                                               float (&s)[32], float (&m)[2],
+                                               float (&l)[2],
+                                               float (&alpha)[2]) {
+  const bool mask = edge_tile(sh, j, qmin, qmax);
+  float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float v = s[4 * i + 2 * h + e] * sh.scale;
+        if (mask) {
+          int kpos = j * BK + 8 * i + 2 * t + e;
+          bool ok = kpos < sh.kv_len;
+          if (sh.causal) ok = ok && kpos <= qpos[h];
+          if (sh.window > 0) ok = ok && kpos > qpos[h] - sh.window;
+          v = ok ? v : NEG_INF;
+        }
+        s[4 * i + 2 * h + e] = v;
+        mx[h] = fmaxf(mx[h], v);
+      }
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffff, mx[h], 1));
+    mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffff, mx[h], 2));
+    float m_new = fmaxf(m[h], mx[h]);
+    alpha[h] = exp2f((m[h] - m_new) * LOG2E);
+    m[h] = m_new;
+    l[h] *= alpha[h];
+  }
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float p = exp2f((s[4 * i + 2 * h + e] - m[h]) * LOG2E);
+        s[4 * i + 2 * h + e] = p;
+        l[h] += p;
+      }
+}
+
+// P = P_hi + P_lo, re-packed from the accumulator layout of s to the A
+// operand layout of P V.
+__device__ __forceinline__ void split_p(const float (&s)[32],
+                                        uint32_t (&p_hi)[4][4],
+                                        uint32_t (&p_lo)[4][4]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      float a = s[8 * kk + 2 * c], b = s[8 * kk + 2 * c + 1];
+      float ah = __bfloat162float(__float2bfloat16_rn(a));
+      float bh = __bfloat162float(__float2bfloat16_rn(b));
+      p_hi[kk][c] = pack_bf16(ah, bh);
+      p_lo[kk][c] = pack_bf16(a - ah, b - bh);
+    }
+}
+
 // One consumer warpgroup's 64 query rows.  Thread (warp w, lane l) holds rows
 // w*16 + l/4 and that + 8 of the warpgroup, columns 8i + 2(l%4) + {0, 1}.
 template <int HDP, int HDVP>
@@ -169,45 +237,8 @@ struct TcRows {
     fence_regs(s);
     fence_regs(qa);
 
-    const bool mask = edge_tile(sh, j, qmin, qmax);
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float v = s[4 * i + 2 * h + e] * sh.scale;
-          if (mask) {
-            int kpos = j * BK + 8 * i + 2 * t + e;
-            bool ok = kpos < sh.kv_len;
-            if (sh.causal) ok = ok && kpos <= qpos[h];
-            if (sh.window > 0) ok = ok && kpos > qpos[h] - sh.window;
-            v = ok ? v : NEG_INF;
-          }
-          s[4 * i + 2 * h + e] = v;
-          mx[h] = fmaxf(mx[h], v);
-        }
     float alpha[2];
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffff, mx[h], 1));
-      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffff, mx[h], 2));
-      float m_new = fmaxf(m[h], mx[h]);
-      alpha[h] = exp2f((m[h] - m_new) * LOG2E);
-      m[h] = m_new;
-      l[h] *= alpha[h];
-    }
-#pragma unroll
-    for (int i = 0; i < 8; ++i)
-#pragma unroll
-      for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int e = 0; e < 2; ++e) {
-          float p = exp2f((s[4 * i + 2 * h + e] - m[h]) * LOG2E);
-          s[4 * i + 2 * h + e] = p;
-          l[h] += p;
-        }
+    online_softmax(sh, j, qmin, qmax, t, qpos, s, m, l, alpha);
 #pragma unroll
     for (int i = 0; i < HDVP / 8; ++i)
 #pragma unroll
@@ -215,18 +246,8 @@ struct TcRows {
         o[4 * i + 2 * h] *= alpha[h];
         o[4 * i + 2 * h + 1] *= alpha[h];
       }
-    // P = P_hi + P_lo, re-packed from the accumulator layout to the A layout
     uint32_t p_hi[4][4], p_lo[4][4];
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        float a = s[8 * kk + 2 * c], b = s[8 * kk + 2 * c + 1];
-        float ah = __bfloat162float(__float2bfloat16_rn(a));
-        float bh = __bfloat162float(__float2bfloat16_rn(b));
-        p_hi[kk][c] = pack_bf16(ah, bh);
-        p_lo[kk][c] = pack_bf16(a - ah, b - bh);
-      }
+    split_p(s, p_hi, p_lo);
     fence_regs(o);
     wgmma_fence();
 #pragma unroll

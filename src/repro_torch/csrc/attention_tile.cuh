@@ -1,8 +1,9 @@
-// SIMT f32 online-softmax attention core shared by flash_attention.cu and
-// stream_attention.cu: their route for f32 inputs, and for bf16 shapes
-// that the tensor-core core (attention_tc.cuh) does not take (hd, hdv or
-// x_kv's width not a multiple of 8, which TMA cannot read; a stream head
-// width other than 32, 64, 96 or 128).
+// SIMT f32 online-softmax attention core of stream_attention.cu: its route
+// for f32 inputs, and for bf16 shapes that the tensor-core core
+// (attention_tc.cuh) does not take (hd or x_kv's width not a multiple of
+// 8, which TMA cannot read; a head width other than 32, 64, 96 or 128).
+// Its helpers (AttnShape, the conversions, warp reductions,
+// launch_attention) also serve flash_attention.cu's SIMT kernel.
 //
 // A block of 256 threads owns ROWS query rows of one (batch, kv head): the
 // rows are a slice of the flattened (G query heads x Sq) row space of that

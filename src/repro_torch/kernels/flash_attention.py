@@ -15,7 +15,12 @@ from repro_torch.kernels import _build
 from repro_torch.kernels.blocked import flash_attention_plain
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-MAX_HEAD_DIM = 128
+#: The widest q/k and v heads the kernel takes: MLA's absorbed widths at
+#: deepseek-v3 (kv_lora_rank + qk_rope_head_dim = 576, kv_lora_rank = 512),
+#: bf16 on its wide route (``csrc/attention_wide.cuh``), f32 on its SIMT
+#: route.  bf16 heads up to 128 take the other tensor-core route.
+MAX_HEAD_DIM = 576
+MAX_V_HEAD_DIM = 512
 
 
 def _lib():
@@ -50,7 +55,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     (B, Hq, Sq) f32, the residual of the backward (``flash_vjp``).
 
     CPU tensors take the plain version, blocked by ``block_k``; CUDA tensors
-    launch the kernel, whose kv tile is fixed at 64 keys."""
+    launch the kernel, whose kv tile is fixed at 64 keys.  bf16 heads over
+    128 wide (up to q/k ``MAX_HEAD_DIM``, v ``MAX_V_HEAD_DIM``) take its
+    wide route."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset, scale=scale,
@@ -63,9 +70,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or Hq % Hkv):
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, k "
                          f"{tuple(k.shape)}, v {tuple(v.shape)} do not match")
-    if max(hd, hdv) > MAX_HEAD_DIM:
+    if hd > MAX_HEAD_DIM or hdv > MAX_V_HEAD_DIM:
         raise ValueError(f"flash_attention: head widths {hd}/{hdv} over "
-                         f"{MAX_HEAD_DIM}")
+                         f"{MAX_HEAD_DIM}/{MAX_V_HEAD_DIM}")
     kv_len = Sk if kv_len is None else kv_len
     if not 0 <= kv_len <= Sk:
         raise ValueError(f"flash_attention: kv_len {kv_len} outside [0, {Sk}]")

@@ -48,6 +48,8 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.stream_attention import stream_attention
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+#: The widest head (q/k and v) the backward kernels take.
+BWD_MAX_HEAD_DIM = 128
 
 
 def _fn(lib: str, name: str, argtypes):
@@ -253,6 +255,12 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
+        if max(q.shape[-1], v.shape[-1]) > BWD_MAX_HEAD_DIM:
+            raise NotImplementedError(
+                f"flash attention backward at head widths {q.shape[-1]}/"
+                f"{v.shape[-1]} (over {BWD_MAX_HEAD_DIM}: MLA's latent "
+                f"attention) is not ported yet: MoE and MLA training are "
+                f"ROADMAP Queue 1 item 18")
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), **ctx.kw)
         return dq, dk, dv, None, None, None, None

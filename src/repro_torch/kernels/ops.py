@@ -53,6 +53,27 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            q_offset=q_offset, block_k=block_k)
 
 
+def mla_latent_attention(q_cat: torch.Tensor, k_cat: torch.Tensor,
+                         c: torch.Tensor, *, causal: bool = True,
+                         block_k: int = 512) -> torch.Tensor:
+    """MLA's absorbed-form attention, MQA over the shared latent
+    (ops.py:134): q_cat (B, H, Sq, kvr + dr) pre-scaled queries, k_cat
+    (B, 1, Sk, kvr + dr), c (B, 1, Sk, kvr) the latent values -> the latent
+    context (B, H, Sq, kvr).  Flash attention at the unpadded widths with
+    scale dqk^-0.5, dqk = kvr + dr (the Pallas path pads the widths to 128
+    and passes the same scale): on CUDA tensors the kernel (bf16 on its
+    wide route, 576/512 at deepseek-v3), on CPU tensors its plain version
+    blocked by ``block_k``.  Under autograd it goes through
+    ``FlashAttentionFn``, whose default scale is the same and whose
+    backward refuses these widths (ROADMAP Queue 1 item 18)."""
+    q_cat, k_cat, c = q_cat.contiguous(), k_cat.contiguous(), c.contiguous()
+    block_k = runtime.get("block_k", block_k)
+    if needs_grad(q_cat, k_cat, c):
+        return FlashAttentionFn.apply(q_cat, k_cat, c, causal, 0, 0, block_k)
+    return flash_attention(q_cat, k_cat, c, causal=causal,
+                           scale=q_cat.shape[-1] ** -0.5, block_k=block_k)
+
+
 def streaming_attention(q: torch.Tensor, x_kv: torch.Tensor,
                         wk: torch.Tensor, wv: torch.Tensor, *,
                         sin: Optional[torch.Tensor] = None,

@@ -310,3 +310,120 @@ def mlp_forward(p: MLP, x: torch.Tensor) -> torch.Tensor:
         # jax.nn.gelu defaults to the tanh approximation.
         h = F.gelu(ops.projection(x, p.w_up), approximate="tanh")
     return ops.projection(h, p.w_down)
+
+
+# ---------------------------------------------------------------------------
+# MoE FFN: gather-based static-capacity dispatch (layers.py:316-412)
+# ---------------------------------------------------------------------------
+
+def _expert_stack(shape: Sequence[int], dtype: torch.dtype,
+                  generator: torch.Generator) -> torch.Tensor:
+    """An (E, ...) expert stack drawn as ``dense_init`` draws it, with
+    fan_in = E (the JAX init reads shape[0]), one expert at a time so that
+    no f32 copy of the whole stack exists (15 GB at deepseek-v3's
+    (256, 7168, 2048))."""
+    out = torch.empty(tuple(shape), dtype=dtype, device=generator.device)
+    for e in range(shape[0]):
+        out[e] = dense_init(shape[1:], dtype, generator=generator,
+                            scale=shape[0] ** -0.5)
+    return out
+
+
+class MoE(nn.Module):
+    """router (d, E) at scale 0.02; the experts' w_gate/w_up (E, d, f) and
+    w_down (E, f, d); with shared experts, ``shared``, an MLP of width
+    f x num_shared_experts (layers.py:316)."""
+
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+        super().__init__()
+        d, f, e = cfg.d_model, cfg.moe_d_ff or cfg.d_ff, cfg.num_experts
+        dt, g = torch_dtype(cfg.param_dtype), generator
+        self.router = param(dense_init((d, e), dt, generator=g, scale=0.02))
+        self.w_gate = param(_expert_stack((e, d, f), dt, g))
+        self.w_up = param(_expert_stack((e, d, f), dt, g))
+        self.w_down = param(_expert_stack((e, f, d), dt, g))
+        if cfg.num_shared_experts:
+            self.shared = MLP(cfg, d, f * cfg.num_shared_experts, g)
+
+
+def moe_capacity(tokens: int, cfg: ModelConfig,
+                 capacity_factor: float) -> int:
+    """Slots per expert for a group of ``tokens``: max(int(T·K/E·cf), 4),
+    padded to 4 and capped at T."""
+    cap = max(int(tokens * cfg.experts_per_token / cfg.num_experts
+                  * capacity_factor), 4)
+    return min(pad_to(cap, 4), tokens)
+
+
+def moe_route(p: MoE, cfg: ModelConfig, xt: torch.Tensor, cap: int
+              ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Routing of token groups xt (G, Tg, D): the f32 router's softmax, its
+    top-k renormalised, and each (token, k) pair's slot ``e·cap + pos``
+    (G, Tg, K), where pos counts the earlier pairs of the group that chose
+    expert e in (token, k) order; a pair past capacity is dropped and
+    gets slot E·cap.  Returns (slot, weights (G, Tg, K) f32, topi)."""
+    E, K = cfg.num_experts, cfg.experts_per_token
+    G, Tg, _ = xt.shape
+    logits = torch.einsum("gtd,de->gte", xt.float(), p.router.float())
+    gates = torch.softmax(logits, dim=-1)
+    topw, topi = torch.topk(gates, K, dim=-1)
+    topw = topw / topw.sum(-1, keepdim=True).clamp(min=1e-9)
+    flat_e = topi.reshape(G, Tg * K)
+    onehot = F.one_hot(flat_e, E).to(torch.int32)
+    before = torch.cumsum(onehot, dim=1) - onehot
+    pos = torch.gather(before, 2, flat_e[..., None])[..., 0]
+    slot = torch.where(pos < cap, flat_e * cap + pos,
+                       torch.full_like(pos, E * cap))
+    return slot.reshape(G, Tg, K), topw, topi
+
+
+def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
+                capacity_factor: Optional[float] = None) -> torch.Tensor:
+    """x: (B, S, D) -> (B, S, D) (layers.py:332): top-k routing with a
+    static capacity per expert, counted per token group
+    (``runtime.flags(moe_groups=G)`` when G divides B·S, else one group;
+    ``moe_capacity`` sets the factor, 1.25 by default).  Dispatch gathers
+    each expert's slots' tokens (zero rows for unused slots); the experts
+    are SiLU gate/up/down whatever ``cfg.act`` is, as batched products
+    (the JAX einsums, outside any kernel there too); the combine gathers
+    each token's K slot outputs, weighs each by its gate in x's dtype and
+    sums them in f32 in k order (deterministic: no scatter-add).  The
+    shared expert runs through ``mlp_forward`` (``tile_gemm``)."""
+    from repro_torch.core import runtime
+    if capacity_factor is None:
+        capacity_factor = runtime.get("moe_capacity", 1.25)
+    B, S, D = x.shape
+    E, K = cfg.num_experts, cfg.experts_per_token
+    groups = runtime.get("moe_groups", 1)
+    if (B * S) % groups:
+        groups = 1
+    Tg = B * S // groups
+    xt = x.reshape(groups, Tg, D)
+    cap = moe_capacity(Tg, cfg, capacity_factor)
+    slot, topw, _ = moe_route(p, cfg, xt, cap)
+    flat = slot.reshape(groups, Tg * K)
+    pairs = torch.arange(Tg * K, device=x.device).expand(groups, -1)
+    token_of_slot = torch.zeros((groups, E * cap + 1), dtype=torch.long,
+                                device=x.device)
+    token_of_slot.scatter_(1, flat, pairs // K)
+    used = torch.zeros((groups, E * cap + 1), dtype=x.dtype, device=x.device)
+    used.scatter_(1, flat, torch.ones_like(flat, dtype=x.dtype))
+    xe = torch.gather(xt, 1, token_of_slot[:, :E * cap, None].expand(-1, -1, D))
+    xe = (xe * used[:, :E * cap, None]).reshape(groups, E, cap, D)
+    xe = xe.transpose(0, 1).reshape(E, groups * cap, D)
+    g = torch.bmm(xe, p.w_gate.to(x.dtype))
+    u = torch.bmm(xe, p.w_up.to(x.dtype))
+    ye = torch.bmm(F.silu(g) * u, p.w_down.to(x.dtype))
+    ye = ye.reshape(E, groups, cap, D).transpose(0, 1).reshape(
+        groups, E * cap, D)
+    ye = torch.cat([ye, ye.new_zeros(groups, 1, D)], dim=1)   # dropped
+    parts = torch.gather(ye, 1, flat[..., None].expand(-1, -1, D))
+    parts = (parts.reshape(groups, Tg, K, D)
+             * topw.to(x.dtype)[..., None]).float()
+    y = parts[:, :, 0]
+    for k in range(1, K):
+        y = y + parts[:, :, k]
+    out = y.to(x.dtype).reshape(B, S, D)
+    if hasattr(p, "shared"):
+        out = out + mlp_forward(p.shared, x)
+    return out

@@ -1,4 +1,4 @@
-"""Decoder-only transformer, dense, VLM, SSM and hybrid families
+"""Decoder-only transformer, dense, MoE, VLM, SSM and hybrid families
 (counterpart of ``repro/models/transformer.py``): forward, single-pass
 prefill that fills the cache, and one-token decode steps.
 
@@ -11,7 +11,14 @@ runs through ``layers.attention_decode``,
 kernel.  SSM mixers (``models.ssm``) run the ``ssd_scan`` kernel at
 prefill and a plain recurrence at decode; a hybrid layer (hymba) runs
 attention and the SSM side by side on the same normed input and mixes
-them by ``softmax(mix_beta)``.  A VLM (qwen2-vl) forward given
+them by ``softmax(mix_beta)``.  The MoE family (grok-1, deepseek-v3)
+replaces the MLP by ``layers.moe_forward``; deepseek's first
+``first_dense_layers`` layers keep their MLP and live in ``dense_layers``
+(the JAX package's separate stack), the rest in ``layers``, and its
+``mtp_proj`` is drawn and carried unused, as in JAX.  MLA attention
+(``models.mla``) runs its absorbed latent form through the flash kernel
+at prefill, whatever the mode, and plain f32 decode; its RoPE tables are
+``qk_rope_head_dim`` wide.  A VLM (qwen2-vl) forward given
 ``batch["positions"]`` (3, B, S) ropes Q and K with M-RoPE tables
 (``layers.mrope_tables``) and attends through the flash kernel in every
 mode (``layers.attention_forward_mrope``); its prefill and decode take the
@@ -23,7 +30,10 @@ tree, "len": int}``, every leaf stacked over layers:
 
 * dense: ``{"k": (L, B, Hkv, W, hd), "v": ...}``;
 * SSM: ``{"conv": (L, B, K-1, d_inner+2N), "state": (L, B, H, P, N) f32}``;
-* hybrid: ``{"attn": {"k", "v"}, "ssm": {"conv", "state"}}``.
+* hybrid: ``{"attn": {"k", "v"}, "ssm": {"conv", "state"}}``;
+* MLA: ``{"c": (L, B, W, kv_lora_rank), "k_rope": (L, B, W, dr)}``.
+
+Layer i of the cache is model layer i: deepseek's dense prefix first.
 
 Sliding-window attention (hybrid only) keeps a ring of ``W = min(max_len,
 window)`` slots: absolute position p lives in slot p % W.  ``decode_step``
@@ -36,11 +46,11 @@ autograd, each layer optionally recomputed in the backward
 ``chunked_xent`` (transformer.py:177-214).  The serving entry points keep
 ``torch.no_grad()``.
 
-Not ported yet, and refused with ``NotImplementedError``: MoE (with its
-dense-prefix stack), the ring cache of dense sliding-window models, MLA,
-biases, and serving on a mesh (ROADMAP Queue 1 items 6, 7, 10); training
-the SSM, hybrid and VLM families (item 18: ``ssd_scan`` has no backward
-yet).
+Not ported yet, and refused with ``NotImplementedError``: the ring cache
+of dense sliding-window models, biases, and serving on a mesh (ROADMAP
+Queue 1 items 6, 7); training the SSM, hybrid, VLM and MoE families and
+MLA (item 18: ``ssd_scan`` has no backward, nor flash attention at MLA's
+widths).
 """
 from __future__ import annotations
 
@@ -53,13 +63,16 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import runtime
 from repro_torch.core.types import AttnKind, ExecutionMode, Family, ModelConfig
 from repro_torch.kernels import ops, ref
-from repro_torch.models.layers import (MLP, Attention, Embedding, RMSNorm,
-                                       apply_rope_bsd, attention_decode,
-                                       attention_forward,
-                                       attention_forward_mrope, embed_lookup,
-                                       mlp_forward, mrope_tables, param,
+from repro_torch.models.layers import (MLP, Attention, Embedding, MoE,
+                                       RMSNorm, apply_rope_bsd,
+                                       attention_decode, attention_forward,
+                                       attention_forward_mrope, dense_init,
+                                       embed_lookup, mlp_forward,
+                                       moe_forward, mrope_tables, param,
                                        rms_norm, rope_tables_for,
                                        torch_dtype, unembed)
+from repro_torch.models.mla import (MLA, _latent, mla_decode, mla_forward,
+                                    mla_init_cache)
 from repro_torch.models.ssm import (SSM, ssm_decode, ssm_forward,
                                     ssm_init_cache)
 
@@ -75,10 +88,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: the {cfg.family.value} family runs in {other}, "
             f"not in the decoder Transformer")
-    if cfg.family == Family.MOE:
-        raise NotImplementedError(
-            f"{cfg.name}: family moe is not ported yet (ROADMAP Queue 1 "
-            f"item 6)")
     if cfg.family == Family.SSM:
         return
     if cfg.attn_kind == AttnKind.SLIDING and cfg.family != Family.HYBRID:
@@ -86,11 +95,10 @@ def check_supported(cfg: ModelConfig) -> None:
             f"{cfg.name}: sliding-window attention of a dense model is not "
             f"ported yet: it needs a paged ring pool (ROADMAP Queue 1 "
             f"item 6)")
-    if cfg.attn_kind not in (AttnKind.FULL, AttnKind.SLIDING):
-        item = "10 (MLA)" if cfg.attn_kind == AttnKind.MLA else "6"
+    if cfg.attn_kind == AttnKind.NONE:
         raise NotImplementedError(
-            f"{cfg.name}: {cfg.attn_kind.value} attention is not ported yet "
-            f"(ROADMAP Queue 1 item {item})")
+            f"{cfg.name}: attention-free layers outside the SSM family are "
+            f"not ported yet (ROADMAP Queue 1 item 6)")
     if cfg.use_bias:
         raise NotImplementedError(
             f"{cfg.name}: biases are not ported yet (ROADMAP Queue 1 "
@@ -104,6 +112,11 @@ def check_trainable(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: training the {cfg.family.value} family is not "
             f"ported yet (ROADMAP Queue 1 item 18)")
+    if cfg.attn_kind == AttnKind.MLA:
+        raise NotImplementedError(
+            f"{cfg.name}: training MLA attention is not ported yet: its "
+            f"flash backward at the latent widths is ROADMAP Queue 1 "
+            f"item 18")
 
 
 def _window(cfg: ModelConfig) -> int:
@@ -112,22 +125,35 @@ def _window(cfg: ModelConfig) -> int:
 
 class Block(nn.Module):
     """One layer (transformer.py:30): ``norm1`` and ``ssm`` (SSM family);
-    ``norm1``, ``attn``, ``norm2`` and ``mlp`` (dense); a hybrid layer adds
-    ``ssm`` and the mixing logits ``mix_beta`` (2,) f32, ones."""
+    ``norm1``, ``attn`` (``MLA`` for MLA attention), ``norm2`` and ``mlp``
+    (dense), or ``moe`` in place of ``mlp`` (``moe=True``); a hybrid layer
+    adds ``ssm`` and the mixing logits ``mix_beta`` (2,) f32, ones."""
 
-    def __init__(self, cfg: ModelConfig, generator: torch.Generator):
+    def __init__(self, cfg: ModelConfig, generator: torch.Generator,
+                 moe: bool = False):
         super().__init__()
         dt, dev = torch_dtype(cfg.param_dtype), generator.device
         self.norm1 = RMSNorm(cfg.d_model, dt, dev)
         if cfg.family == Family.SSM:
             self.ssm = SSM(cfg, generator)
             return
-        self.attn = Attention(cfg, generator)
+        self.attn = (MLA(cfg, generator) if cfg.attn_kind == AttnKind.MLA
+                     else Attention(cfg, generator))
         if cfg.family == Family.HYBRID:
             self.ssm = SSM(cfg, generator)
             self.mix_beta = param(torch.ones(2, device=dev))
         self.norm2 = RMSNorm(cfg.d_model, dt, dev)
-        self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, generator)
+        if moe:
+            self.moe = MoE(cfg, generator)
+        else:
+            self.mlp = MLP(cfg, cfg.d_model, cfg.d_ff, generator)
+
+
+def _ffn(p: Block, cfg: ModelConfig, h2: torch.Tensor) -> torch.Tensor:
+    """The layer's MoE or MLP on the normed residual."""
+    if hasattr(p, "moe"):
+        return moe_forward(p.moe, cfg, h2)
+    return mlp_forward(p.mlp, h2)
 
 
 def _mix(p: Block, x: torch.Tensor, attn_out: torch.Tensor,
@@ -147,7 +173,9 @@ def _layer_apply(p: Block, cfg: ModelConfig, x: torch.Tensor, *, sin, cos,
     h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
     if cfg.family == Family.SSM:
         return x + ssm_forward(p.ssm, cfg, h)
-    if mrope_tabs is not None:
+    if cfg.attn_kind == AttnKind.MLA:
+        attn_out = mla_forward(p.attn, cfg, h, sin=sin, cos=cos, causal=True)
+    elif mrope_tabs is not None:
         attn_out = attention_forward_mrope(p.attn, cfg, h, sin_b=mrope_tabs[0],
                                            cos_b=mrope_tabs[1], causal=True)
     else:
@@ -156,7 +184,7 @@ def _layer_apply(p: Block, cfg: ModelConfig, x: torch.Tensor, *, sin, cos,
     x = _mix(p, x, attn_out, ssm_forward(p.ssm, cfg, h)
              if cfg.family == Family.HYBRID else None)
     h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
-    return x + mlp_forward(p.mlp, h2)
+    return x + _ffn(p, cfg, h2)
 
 
 def _decode_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
@@ -166,13 +194,16 @@ def _decode_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
     h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
     if cfg.family == Family.SSM:
         return x + ssm_decode(p.ssm, cfg, h, cache_l)
+    if cfg.attn_kind == AttnKind.MLA:
+        x = x + mla_decode(p.attn, cfg, h, {**cache_l, "len": pos})
+        return x + _ffn(p, cfg, rms_norm(p.norm2, x, eps=cfg.norm_eps))
     hybrid = cfg.family == Family.HYBRID
     kv = cache_l["attn"] if hybrid else cache_l
     out, _ = attention_decode(p.attn, cfg, h, {**kv, "len": pos}, lp)
     x = _mix(p, x, out, ssm_decode(p.ssm, cfg, h, cache_l["ssm"])
              if hybrid else None)
     h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
-    return x + mlp_forward(p.mlp, h2)
+    return x + _ffn(p, cfg, h2)
 
 
 def _layer_cache(tree, i: int):
@@ -215,6 +246,13 @@ def _prefill_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
     h = rms_norm(p.norm1, x, eps=cfg.norm_eps)
     if cfg.family == Family.SSM:
         return x + ssm_forward(p.ssm, cfg, h, cache_l)
+    if cfg.attn_kind == AttnKind.MLA:
+        c, k_rope = _latent(p.attn, cfg, h, sin, cos)
+        S = c.shape[1]
+        cache_l["c"][:, :S] = c.to(cache_l["c"].dtype)
+        cache_l["k_rope"][:, :S] = k_rope[:, 0].to(cache_l["k_rope"].dtype)
+        x = x + mla_forward(p.attn, cfg, h, sin=sin, cos=cos, causal=True)
+        return x + _ffn(p, cfg, rms_norm(p.norm2, x, eps=cfg.norm_eps))
     a, window = p.attn, _window(cfg)
     q = torch.einsum("bsd,dhe->bhse", h, a.wq.to(h.dtype))
     if cfg.use_qk_norm:
@@ -236,7 +274,7 @@ def _prefill_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
     x = _mix(p, x, attn_out, ssm_forward(p.ssm, cfg, h, cache_l["ssm"])
              if hybrid else None)
     h2 = rms_norm(p.norm2, x, eps=cfg.norm_eps)
-    return x + mlp_forward(p.mlp, h2)
+    return x + _ffn(p, cfg, h2)
 
 
 def _dispatch_segments(cfg: ModelConfig, plan, lo: int, hi: int
@@ -273,10 +311,12 @@ def _dispatch_segments(cfg: ModelConfig, plan, lo: int, hi: int
 
 
 class Transformer(nn.Module):
-    """Dense, SSM or hybrid decoder.  Weights are drawn from ``generator``
-    (seed 0 on the model's device by default) with the shapes and scales
-    of the JAX init; ``device`` defaults to the card and raises without
-    one."""
+    """Dense, MoE, SSM or hybrid decoder.  Weights are drawn from
+    ``generator`` (seed 0 on the model's device by default) with the
+    shapes and scales of the JAX init; ``device`` defaults to the card and
+    raises without one.  The MoE family's dense prefix is
+    ``dense_layers`` and its MoE layers ``layers``; ``blocks`` lists every
+    layer in model order."""
 
     def __init__(self, cfg: ModelConfig, *,
                  device: Optional[Union[str, torch.device]] = None,
@@ -290,19 +330,36 @@ class Transformer(nn.Module):
         self.embed = Embedding(cfg.vocab_size, cfg.d_model, dt, g,
                                unembed=not cfg.tie_embeddings)
         self.final_norm = RMSNorm(cfg.d_model, dt, g.device)
-        self.layers = nn.ModuleList(Block(cfg, g)
-                                    for _ in range(cfg.num_layers))
+        moe = cfg.family == Family.MOE
+        n_dense = cfg.first_dense_layers if moe else 0
+        if n_dense:
+            self.dense_layers = nn.ModuleList(Block(cfg, g)
+                                              for _ in range(n_dense))
+        self.layers = nn.ModuleList(Block(cfg, g, moe=moe)
+                                    for _ in range(cfg.num_layers - n_dense))
+        if cfg.mtp_depth:
+            self.mtp_proj = param(dense_init((2 * cfg.d_model, cfg.d_model),
+                                             dt, generator=g))
         self.to(device)
+
+    @property
+    def blocks(self) -> List[Block]:
+        """Every layer in model order (the dense prefix first)."""
+        return list(getattr(self, "dense_layers", ())) + list(self.layers)
 
     @property
     def device(self) -> torch.device:
         return self.embed.embedding.device
 
     def _rope(self, seq_len: int):
-        """RoPE tables, or (None, None) for attention-free models."""
-        if not self.cfg.num_heads or self.cfg.attn_kind == AttnKind.NONE:
+        """RoPE tables (``qk_rope_head_dim`` wide for MLA), or (None, None)
+        for attention-free models."""
+        cfg = self.cfg
+        if not cfg.num_heads or cfg.attn_kind == AttnKind.NONE:
             return None, None
-        return rope_tables_for(self.cfg, seq_len, device=self.device)
+        hd = (cfg.qk_rope_head_dim if cfg.attn_kind == AttnKind.MLA
+              else cfg.head_dim)
+        return rope_tables_for(cfg, seq_len, head_dim=hd, device=self.device)
 
     def hidden(self, batch: Dict[str, torch.Tensor], *,
                mode: Optional[ExecutionMode] = None,
@@ -323,7 +380,7 @@ class Transformer(nn.Module):
         else:
             sin, cos = self._rope(x.shape[1])
         kw = dict(sin=sin, cos=cos, mode=mode, mrope_tabs=mrope_tabs)
-        for p in self.layers:
+        for p in self.blocks:
             if remat and torch.is_grad_enabled():
                 x = checkpoint(_layer_apply, p, cfg, x, use_reentrant=False,
                                **kw)
@@ -355,6 +412,9 @@ class Transformer(nn.Module):
         if cfg.family == Family.SSM:
             return {"layers": ssm_init_cache(cfg, L, batch, dt, dev),
                     "len": 0}
+        if cfg.attn_kind == AttnKind.MLA:
+            return {"layers": mla_init_cache(cfg, L, batch, max_len, dt, dev),
+                    "len": 0}
         W = min(max_len, _window(cfg) or max_len)
         shape = (L, batch, cfg.num_kv_heads, W, cfg.head_dim)
         kv = {"k": torch.zeros(shape, dtype=dt, device=dev),
@@ -377,7 +437,7 @@ class Transformer(nn.Module):
         pos = int(cache["len"])
         lps = {} if plan is None else {lp.layer_index: lp
                                        for lp in plan.layers}
-        for i, p in enumerate(self.layers):
+        for i, p in enumerate(self.blocks):
             x = _decode_layer(p, cfg, x, _layer_cache(cache["layers"], i),
                               pos, lps.get(i))
         x = rms_norm(self.final_norm, x, eps=cfg.norm_eps)
@@ -411,9 +471,10 @@ class Transformer(nn.Module):
         cache = self.init_cache(B, max_len)
         x = embed_lookup(self.embed, tokens)
         sin, cos = self._rope(S)
+        blocks = self.blocks
         for a, b, lp in _dispatch_segments(cfg, plan, 0, cfg.num_layers):
             for i in range(a, b):
-                x = _prefill_layer(self.layers[i], cfg, x,
+                x = _prefill_layer(blocks[i], cfg, x,
                                    _layer_cache(cache["layers"], i),
                                    sin=sin, cos=cos, lp=lp)
         x = rms_norm(self.final_norm, x, eps=cfg.norm_eps)

@@ -14,6 +14,10 @@ advances).  The step timeline is the shared deterministic schedule
 (``serve.schedule.build_schedule``); each decode step compiles its
 ``DecodePlan`` (``plan.plan_decode_step``).
 
+MoE decoders are served as the dense ones: grok-1's ``{"k", "v"}`` cache
+is paged and decoded in buckets, deepseek-v3's latent MLA cache
+``{"c", "k_rope"}`` takes the per-slot path, as in the JAX engine.
+
 Differences from the JAX engine: it serves an ``nn.Module`` (the port's
 ``models.transformer.Transformer``) instead of a parameter tree, and
 calls its ``decode_step`` directly where the JAX engine jits it; serving

@@ -38,7 +38,9 @@ def test_import_leaves_no_jax_and_no_repro_module():
         "import chip_smoke\n"
         "import repro_torch.convert, repro_torch.kernels.ops\n"
         "import repro_torch.serve.engine, repro_torch.models.transformer\n"
-        "import repro_torch.plan\n"
+        "import repro_torch.plan, repro_torch.models.mla\n"
+        "import repro_torch.configs.grok1_314b\n"
+        "import repro_torch.configs.deepseek_v3_671b\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print('BAD', bad)\n"
@@ -69,6 +71,9 @@ def test_entry_points_raise_without_a_gpu_or_a_named_device():
         vilbert_from_jax({}, cfg)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Transformer(get_config("qwen3-32b", smoke=True))
+    for arch in ("grok-1-314b", "deepseek-v3-671b"):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            Transformer(get_config(arch, smoke=True))
     assert runtime.resolve_device("cpu").type == "cpu"
 
 

@@ -3,7 +3,10 @@ planner, schedule and metrics modules give what the JAX copies give; the
 paged pool round-trips exactly and frees its pages; the port's ``Engine``
 emits the JAX ``Engine``'s greedy tokens and ``stats()`` (under an injected
 clock) on the request mix of ``tests/test_batched_serve.py``, and batched
-decode emits what per-slot decode emits."""
+decode emits what per-slot decode emits.  The MoE family: grok1-smoke is
+served from the paged pool with batched decode, deepseekv3-smoke's latent
+cache takes the per-slot path, as in the JAX engine; both emit the JAX
+engine's tokens, step log and stats."""
 import dataclasses
 import itertools
 
@@ -41,7 +44,9 @@ ARCHS = ["starcoder2-7b", "qwen3-32b", "qwen2-vl-2b"]
 @pytest.mark.parametrize("arch,smoke", [("qwen3-32b", False),
                                         ("qwen3-32b", True),
                                         ("starcoder2-7b", True),
-                                        ("qwen2-vl-2b", False)])
+                                        ("qwen2-vl-2b", False),
+                                        ("grok-1-314b", False),
+                                        ("deepseek-v3-671b", False)])
 @pytest.mark.parametrize("kw", [
     {}, {"seq_len": 1536}, {"shape": "prefill_32k"},
     {"mode": "non_stream", "force_mode": True},
@@ -65,7 +70,9 @@ def test_plan_model_to_dict_equals_jax(arch, smoke, kw):
 @pytest.mark.parametrize("arch,smoke", [("qwen3-32b", False),
                                         ("qwen3-32b", True),
                                         ("qwen2-vl-2b", False),
-                                        ("whisper-base", False)])
+                                        ("whisper-base", False),
+                                        ("grok-1-314b", False),
+                                        ("deepseek-v3-671b", False)])
 @pytest.mark.parametrize("ctx", [(1025, 1025, 1025, 1537), 9, (4, 7, 4)])
 def test_plan_decode_step_to_dict_equals_jax(arch, smoke, ctx):
     got = plan_decode_step(get_config(arch, smoke), ctx)
@@ -223,18 +230,22 @@ def _run(engine, reqs):
     return {r.rid: list(r.out_tokens) for r in engine.run()}
 
 
-@pytest.fixture(scope="module", params=ARCHS)
-def served(request):
-    """One JAX Engine run per config (the JAX side is the slow one) and
-    the converted port model."""
-    cfg = get_config(request.param, smoke=True)
-    jcfg = jregistry.get_config(request.param, smoke=True)
+def _served(arch):
+    """One JAX Engine run of ``arch``'s smoke config (the JAX side is the
+    slow one) and the converted port model."""
+    cfg = get_config(arch, smoke=True)
+    jcfg = jregistry.get_config(arch, smoke=True)
     params = jT.init(jax.random.PRNGKey(0), jcfg)
     model = transformer_from_jax(jax.tree.map(np.asarray, params), cfg,
                                  device="cpu")
     jeng = jengine.Engine(jcfg, params, slots=3, max_len=32, clock=_clock())
     jtokens = _run(jeng, _requests(jengine.Request, jcfg))
     return cfg, model, jeng, jtokens
+
+
+@pytest.fixture(scope="module", params=ARCHS)
+def served(request):
+    return _served(request.param)
 
 
 def test_engine_matches_jax_engine(served):
@@ -273,6 +284,32 @@ def test_engine_pinned_and_forced_plans(served):
     assert _run(forced, _requests(Request, cfg)) == jtokens
     assert all(r.decode_plan.uniform_mode == ExecutionMode.LAYER_STREAM
                for r in forced.step_log if r.decoded)
+
+
+@pytest.fixture(scope="module", params=["grok-1-314b", "deepseek-v3-671b"])
+def served_moe(request):
+    return _served(request.param)
+
+
+def test_moe_engine_matches_jax_engine(served_moe):
+    cfg, model, jeng, jtokens = served_moe
+    eng = Engine(cfg, model, slots=3, max_len=32, clock=_clock())
+    tokens = _run(eng, _requests(Request, cfg))
+    assert tokens == jtokens
+    assert eng.stats() == jeng.stats()
+    assert [dataclasses.asdict(r) for r in eng.step_log] == \
+        [dataclasses.asdict(r) for r in jeng.step_log]
+    assert eng.decode_calls == jeng.decode_calls
+    paged = cfg.name.startswith("grok")
+    assert (eng._pool is not None) == paged
+    assert (eng.decode_batches < eng.decode_calls) == paged
+
+
+def test_moe_engine_per_slot_matches_jax_tokens(served_moe):
+    cfg, model, _, jtokens = served_moe
+    per_slot = Engine(cfg, model, slots=3, max_len=32, batch_decode=False)
+    assert _run(per_slot, _requests(Request, cfg)) == jtokens
+    assert per_slot.decode_batches == per_slot.decode_calls
 
 
 def test_engine_refuses_what_is_not_ported():

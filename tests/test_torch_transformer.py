@@ -6,7 +6,11 @@ within 1e-4; a heterogeneous plan runs each layer under its own mode.
 qwen2vl-smoke (VLM): M-RoPE tables within 1e-6 and the forward within
 1e-4 of the JAX package's, with equal t/h/w position streams (the JAX
 data pipeline's) and with an image grid whose streams differ; prefill and
-decode on the 1-D RoPE path, as in JAX."""
+decode on the 1-D RoPE path, as in JAX.  grok1-smoke and deepseekv3-smoke
+(the MoE family, deepseek with MLA and a dense prefix): the forward in
+each mode, prefill and decode steps (logits and caches) within 1e-4 of
+the JAX package's, and prefill + decode against the forward with nothing
+dropped (``moe_capacity=100``)."""
 import dataclasses
 
 import jax
@@ -22,6 +26,7 @@ from repro.models import transformer as jT
 from repro.plan import plan_model as jplan_model
 from repro_torch.configs.registry import get_config, model_module
 from repro_torch.convert import transformer_from_jax
+from repro_torch.core import runtime
 from repro_torch.core.types import AttnKind, ExecutionMode, Family
 from repro_torch.kernels import ops
 from repro_torch.models import layers as L
@@ -179,17 +184,24 @@ def test_own_init_has_jax_shapes_and_scales(model):
             assert 0.9 < ratio < 1.1, name
 
 
-@pytest.mark.parametrize("change,item", [
-    (dict(family=Family.MOE), "item 6"),
-    (dict(family=Family.ENCDEC), "models.encdec"),
-    (dict(attn_kind=AttnKind.SLIDING), "paged ring pool"),
-    (dict(attn_kind=AttnKind.MLA), "item 10"),
-    (dict(use_bias=True), "item 6"),
+@pytest.mark.parametrize("change,item,call", [
+    (dict(family=Family.MOE), "item 18", T.check_trainable),
+    (dict(family=Family.ENCDEC), "models.encdec", T.check_supported),
+    (dict(attn_kind=AttnKind.SLIDING), "paged ring pool", T.check_supported),
+    (dict(attn_kind=AttnKind.MLA), "item 18", T.check_trainable),
+    (dict(use_bias=True), "item 6", T.check_supported),
 ])
-def test_unported_variants_raise(change, item):
+def test_unported_variants_raise(change, item, call):
+    """What the port still refuses: MoE and MLA training (item 18), the
+    encoder-decoder family in this module, a dense model's sliding window
+    (h2o-danube3's ring pool), biases.  The decoder refuses at
+    construction what ``check_supported`` refuses."""
     cfg = dataclasses.replace(get_config("qwen3-32b", smoke=True), **change)
     with pytest.raises(NotImplementedError, match=item):
-        T.Transformer(cfg, device="cpu")
+        call(cfg)
+    if call is T.check_supported:
+        with pytest.raises(NotImplementedError, match=item):
+            T.Transformer(cfg, device="cpu")
 
 
 def test_registry_dispatches_families():
@@ -197,9 +209,8 @@ def test_registry_dispatches_families():
     assert model_module(get_config("vilbert-base")).__name__.endswith("vilbert")
     assert model_module(dataclasses.replace(get_config("qwen3-32b"),
                                             family=Family.SSM)) is T
-    with pytest.raises(NotImplementedError):
-        model_module(dataclasses.replace(get_config("qwen3-32b"),
-                                         family=Family.MOE))
+    assert model_module(get_config("grok-1-314b")) is T
+    assert model_module(get_config("deepseek-v3-671b")) is T
     with pytest.raises(NotImplementedError, match="smoke"):
         get_config("starcoder2-7b")
 
@@ -401,4 +412,105 @@ def test_vlm_convert_ties_the_embedding_and_training_is_refused(vlm):
                                   np.asarray(params["embed"]["embedding"]))
     with pytest.raises(NotImplementedError, match="item 18"):
         T.check_trainable(cfg)
+    mtp = T.Transformer(dataclasses.replace(cfg, mtp_depth=1), device="cpu")
+    assert mtp.mtp_proj.shape == (2 * cfg.d_model, cfg.d_model)
     assert model_module(cfg) is T
+
+
+# ---------------------------------------------------------------------------
+# The MoE family: grok1-smoke (GQA, every layer MoE) and deepseekv3-smoke
+# (MLA, a dense prefix layer, a shared expert, mtp_proj)
+# ---------------------------------------------------------------------------
+
+MOE_ARCHS = ["grok-1-314b", "deepseek-v3-671b"]
+
+
+@pytest.fixture(scope="module", params=MOE_ARCHS)
+def moe_model(request):
+    cfg = get_config(request.param, smoke=True)
+    jcfg = jregistry.get_config(request.param, smoke=True)
+    params = jT.init(jax.random.PRNGKey(0), jcfg)
+    port = transformer_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                device="cpu")
+    tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, (2, 21))
+    return cfg, jcfg, params, port, tokens
+
+
+@pytest.mark.parametrize("mode", list(ExecutionMode))
+def test_moe_family_forward_matches_jax(moe_model, mode):
+    _, jcfg, params, port, tokens = moe_model
+    want = jT.forward(params, jcfg, {"tokens": jnp.asarray(tokens, jnp.int32)},
+                      mode=JMode(mode.value))
+    _close(port({"tokens": torch.as_tensor(tokens)}, mode=mode), want)
+
+
+def test_moe_family_prefill_and_decode_match_jax(moe_model):
+    """Prefill under the planner's plan and two decode steps: logits and
+    every cache leaf ({"k", "v"} for grok, the latent {"c", "k_rope"} for
+    deepseek) within 1e-4, at the default MoE capacity."""
+    cfg, jcfg, params, port, tokens = moe_model
+    S = tokens.shape[1]
+    jlogits, jcache = jT.prefill(params, jcfg,
+                                 {"tokens": jnp.asarray(tokens, jnp.int32)},
+                                 max_len=32, plan=jplan_model(jcfg, seq_len=S))
+    logits, cache = port.prefill({"tokens": torch.as_tensor(tokens)}, 32,
+                                 plan=plan_model(cfg, seq_len=S))
+    _close(logits, jlogits)
+    assert set(cache["layers"]) == set(jcache["layers"])
+    rng = np.random.default_rng(3)
+    for _ in range(2):
+        nxt = rng.integers(0, cfg.vocab_size, (2, 1))
+        jlogits, jcache = jT.decode_step(params, jcfg, jcache,
+                                         jnp.asarray(nxt, jnp.int32))
+        logits, cache = port.decode_step(cache, torch.as_tensor(nxt))
+        _close(logits, jlogits)
+    for side, buf in cache["layers"].items():
+        assert buf.shape[0] == cfg.num_layers
+        _close(buf, jcache["layers"][side])
+    assert cache["len"] == int(jcache["len"]) == S + 2
+
+
+def test_moe_family_prefill_then_decode_equals_forward(moe_model):
+    """With nothing dropped (moe_capacity=100, as tests/test_archs.py):
+    prefill(S - 1) then one decode step gives the forward's last logits."""
+    cfg, _, _, port, tokens = moe_model
+    S = tokens.shape[1]
+    with runtime.flags(moe_capacity=100.0):
+        full = port({"tokens": torch.as_tensor(tokens)})
+        _, cache = port.prefill({"tokens": torch.as_tensor(tokens[:, :S - 1])},
+                                32)
+        step, _ = port.decode_step(cache, torch.as_tensor(tokens[:, S - 1:]))
+    _close(step[:, 0], full[:, -1])
+
+
+def test_moe_family_convert_and_own_init(moe_model):
+    """Every leaf of the JAX tree maps onto a parameter (deepseek: the
+    dense prefix, the expert stacks (E, d, f), the shared expert, the MLA
+    tree); the port's own init has the same names and shapes, and draws
+    mtp_proj (2d, d) when mtp_depth is set (deepseek-v3's full config;
+    its smoke config has none)."""
+    cfg, _, params, port, _ = moe_model
+    flat = port.state_dict()
+    if cfg.first_dense_layers:
+        assert len(port.dense_layers) == cfg.first_dense_layers
+        np.testing.assert_array_equal(
+            flat["dense_layers.0.attn.wkv_a"].numpy(),
+            np.asarray(params["dense_layers"]["attn"]["wkv_a"][0]))
+        np.testing.assert_array_equal(
+            flat["layers.0.moe.shared.w_down"].numpy(),
+            np.asarray(params["layers"]["moe"]["shared"]["w_down"][0]))
+    assert ("mtp_proj" in flat) == bool(cfg.mtp_depth)
+    assert len(port.blocks) == cfg.num_layers
+    np.testing.assert_array_equal(
+        flat["layers.0.moe.w_gate"].numpy(),
+        np.asarray(params["layers"]["moe"]["w_gate"][0]))
+    assert flat["layers.0.moe.w_down"].shape == (
+        cfg.num_experts, cfg.moe_d_ff, cfg.d_model)
+    own = T.Transformer(cfg, device="cpu",
+                        generator=torch.Generator().manual_seed(3))
+    assert {k: v.shape for k, v in own.state_dict().items()} == \
+        {k: v.shape for k, v in flat.items()}
+    with pytest.raises(NotImplementedError, match="item 18"):
+        T.check_trainable(cfg)
+    mtp = T.Transformer(dataclasses.replace(cfg, mtp_depth=1), device="cpu")
+    assert mtp.mtp_proj.shape == (2 * cfg.d_model, cfg.d_model)
