@@ -3,8 +3,9 @@ model module that runs each family (counterpart of
 ``repro/configs/registry.py``)."""
 from __future__ import annotations
 
-from repro_torch.configs import (deepseek_v3_671b, grok1_314b, hymba_1_5b,
-                                 mamba2_780m, qwen2_vl_2b, qwen3_32b,
+from repro_torch.configs import (deepseek_v3_671b, grok1_314b,
+                                 h2o_danube3_4b, hymba_1_5b, mamba2_780m,
+                                 minitron_4b, qwen2_vl_2b, qwen3_32b,
                                  starcoder2_7b, vilbert_base, vilbert_large,
                                  whisper_base)
 from typing import Dict, Tuple
@@ -15,7 +16,8 @@ _MODULES = {"vilbert-base": vilbert_base, "vilbert-large": vilbert_large,
             "qwen3-32b": qwen3_32b, "starcoder2-7b": starcoder2_7b,
             "mamba2-780m": mamba2_780m, "hymba-1.5b": hymba_1_5b,
             "whisper-base": whisper_base, "qwen2-vl-2b": qwen2_vl_2b,
-            "grok-1-314b": grok1_314b, "deepseek-v3-671b": deepseek_v3_671b}
+            "grok-1-314b": grok1_314b, "deepseek-v3-671b": deepseek_v3_671b,
+            "minitron-4b": minitron_4b, "h2o-danube3-4b": h2o_danube3_4b}
 
 
 def get_config(name: str, smoke: bool = False) -> ModelConfig:
@@ -24,8 +26,6 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
     if name not in _MODULES:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
     mod = _MODULES[name]
-    if not smoke and not hasattr(mod, "CONFIG"):
-        raise NotImplementedError(f"{name}: only its smoke config is ported")
     return mod.SMOKE if smoke else mod.CONFIG
 
 

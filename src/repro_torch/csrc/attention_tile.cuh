@@ -25,6 +25,8 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "launch_record.cuh"
+
 namespace repro {
 
 constexpr float NEG_INF = -1e30f;
@@ -241,6 +243,7 @@ int launch_attention(Kernel kernel, int rows, size_t smem_bytes,
   if (err != cudaSuccess) return (int)err;
   int G = sh.Hq / sh.Hkv;
   dim3 grid((G * sh.Sq + rows - 1) / rows, sh.Hkv, sh.B);
+  note_launch(0, grid, rows, BK);
   kernel<<<grid, THREADS, smem_bytes, stream>>>(args...);
   return (int)cudaGetLastError();
 }

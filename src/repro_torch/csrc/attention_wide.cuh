@@ -231,6 +231,7 @@ inline int launch_wide(const void* q, const void* k, const void* v, void* out,
   if (e != cudaSuccess) return (int)e;
   const int G = sh.Hq / sh.Hkv;
   dim3 grid((G * sh.Sq + WROWS - 1) / WROWS, sh.Hkv, sh.B);
+  note_launch(2, grid, WROWS, BK);
   flash_wide_tc_kernel<<<grid, THREADS, L::BYTES, stream>>>(
       qmap, kmap, vmap, (bf16*)out, sh);
   return (int)cudaGetLastError();

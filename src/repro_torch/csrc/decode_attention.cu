@@ -56,6 +56,7 @@
 #include <cuda_runtime.h>
 #include <stddef.h>
 
+#include "launch_record.cuh"
 #include "warp_mma.cuh"
 
 namespace {
@@ -403,6 +404,7 @@ int launch_tc(const void* q, const void* k, const void* v, const int* clen,
   if (err != cudaSuccess) return (int)err;
   const size_t smem = TcSmem<HDP>::bytes(stages);
   dim3 grid(sh.nsplit, sh.Hkv, sh.B);
+  repro::note_launch(1, grid, 1, BK);
   decode_tc<HDP><<<grid, TC_THREADS, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, clen, (bf16*)out, part,
       ticket, sh, stages);
@@ -614,6 +616,7 @@ int launch_simt(const void* q, const void* k, const void* v, const int* clen,
   float* part_l = part + rows;
   float* part_acc = part + 2 * rows;
   dim3 grid(sh.Hkv, sh.B, sh.nsplit);
+  repro::note_launch(0, grid, 1, BK);
   decode_partial<T, HDT><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, clen, (T*)out, part_m, part_l,
       part_acc, sh);
@@ -698,3 +701,6 @@ extern "C" int decode_attention_launch(const void* q, const void* k,
     return dispatch_simt<float>(q, k, v, cl, out, (float*)part, sh, s);
   return dispatch_simt<__nv_bfloat16>(q, k, v, cl, out, (float*)part, sh, s);
 }
+
+// The route, grid and tile of this library's latest launch (launch_record.cuh).
+extern "C" int decode_attention_last_launch(int* r) { return repro::read_launch(r); }

@@ -304,8 +304,9 @@ int launch(const void* q, const void* x, const void* wk, const void* wv,
   if (e != cudaSuccess) return (int)e;
   const int G = sh.Hq / sh.Hkv, row_tiles = (G * sh.Sq + ROWS - 1) / ROWS;
   const int C = cluster_for(row_tiles);
-  e = launch_cluster(kernel, dim3((row_tiles + C - 1) / C * C, sh.Hkv, sh.B),
-                     C, L::BYTES, stream, xmap, wkmap, wvmap, (const bf16*)q,
+  const dim3 grid((row_tiles + C - 1) / C * C, sh.Hkv, sh.B);
+  note_launch(1, grid, ROWS, BK);
+  e = launch_cluster(kernel, grid, C, L::BYTES, stream, xmap, wkmap, wvmap, (const bf16*)q,
                      (bf16*)out, sh, sd);
   if (e != cudaSuccess) return (int)e;
   return (int)cudaGetLastError();
@@ -375,3 +376,6 @@ extern "C" int stream_attention_config(int nrows, int* rows, int* cluster,
                                           repro::tc::StreamSmem<128>::BYTES);
   return 0;
 }
+
+// The route, grid and tile of this library's latest launch (launch_record.cuh).
+extern "C" int stream_attention_last_launch(int* r) { return repro::read_launch(r); }

@@ -41,6 +41,7 @@
 #include <type_traits>
 
 #include "hopper.cuh"
+#include "launch_record.cuh"
 
 namespace {
 
@@ -299,6 +300,7 @@ int launch_wgmma(const void* x, const void* w, void* out, int M, int N, int K,
   if (e != cudaSuccess) return (int)e;
   const int tiles = ((M + WBM - 1) / WBM) * ((N + WBN - 1) / WBN);
   const int grid = tiles < sm_count() ? tiles : sm_count();
+  note_launch(WGMMA, dim3(grid), WBM, WBN);
   gemm_wgmma<<<grid, WTHREADS, WSMEM, stream>>>(xmap, wmap, (bf16*)out, M, N, K);
   return (int)cudaGetLastError();
 }
@@ -469,6 +471,7 @@ int launch_splitk_mr(const void* x, const void* w, void* out, void* part,
     if (e != cudaSuccess) return (int)e;
   }
   dim3 grid((N + SLAB - 1) / SLAB, S);
+  note_launch(SPLITK, grid, M, SLAB);
   kernel<<<grid, SK_THREADS, smem, stream>>>(
       (const T*)x, (const T*)w, (T*)out, (float*)part, (int*)ticket, M, N, K,
       krows);
@@ -525,6 +528,7 @@ extern "C" int tile_gemm_launch(const void* x, const void* w, void* out,
     case SIMT: {
       if (dtype != 0) return (int)cudaErrorInvalidValue;
       dim3 grid((M + SBM - 1) / SBM, (N + SBN - 1) / SBN);
+      repro::note_launch(SIMT, grid, SBM, SBN);
       gemm_f32<<<grid, 256, 0, s>>>((const float*)x, (const float*)w,
                                     (float*)out, M, N, K);
       return (int)cudaGetLastError();
@@ -532,6 +536,7 @@ extern "C" int tile_gemm_launch(const void* x, const void* w, void* out,
     case MMA: {
       if (dtype != 1) return (int)cudaErrorInvalidValue;
       dim3 grid((M + TBM - 1) / TBM, (N + TBN - 1) / TBN);
+      repro::note_launch(MMA, grid, TBM, TBN);
       gemm_bf16<<<grid, 256, 0, s>>>((const __nv_bfloat16*)x,
                                      (const __nv_bfloat16*)w,
                                      (__nv_bfloat16*)out, M, N, K);
@@ -540,3 +545,6 @@ extern "C" int tile_gemm_launch(const void* x, const void* w, void* out,
   }
   return (int)cudaErrorInvalidValue;
 }
+
+// The route, grid and tile of this library's latest launch (launch_record.cuh).
+extern "C" int tile_gemm_last_launch(int* r) { return repro::read_launch(r); }

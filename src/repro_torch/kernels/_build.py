@@ -15,9 +15,10 @@ import hashlib
 import os
 import shutil
 import subprocess
+import sys
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 
@@ -149,3 +150,43 @@ def refuse_grad(kernel: str, item: str, *tensors) -> None:
 def raise_on(kernel: str, rc: int) -> None:
     if rc != 0:
         raise RuntimeError(f"{kernel}: launch failed with CUDA error {rc}")
+
+
+def replay_recorder(*tensors):
+    """The active ``sim.replay`` recorder for this kernel call, or None,
+    also when the replay module was never imported (looked up in
+    ``sys.modules``, so the common path costs one dict lookup; JAX
+    ``kernels/ops.py:43``)."""
+    replay = sys.modules.get("repro_torch.sim.replay")
+    if replay is None:
+        return None
+    return replay.recorder_for(*tensors)
+
+
+Geometry = Tuple[Tuple[int, int, int], int, int]
+
+
+def last_launch(name: str) -> Tuple[int, Geometry]:
+    """(route code, (grid, tile rows, tile columns)) of the latest launch of
+    library ``name``, as its host code noted it where it launched
+    (``csrc/launch_record.cuh``, read through ``<name>_last_launch``)."""
+    fn = getattr(load(name), f"{name}_last_launch")
+    r = (ctypes.c_int * 6)()
+    fn(r)
+    return r[0], ((r[1], r[2], r[3]), r[4], r[5])
+
+
+def launch_hook(kernel) -> Callable[[], Optional[Geometry]]:
+    """A ``KernelRecorder.measure`` hook for calls of the wrapper ``kernel``
+    (named after its library, counting its launches in ``.launches``):
+    after the timed calls it returns the geometry of the latest launch the
+    library made, or None where the calls launched nothing (CPU tensors
+    take the plain versions).  The library is read only then, so only
+    recorded calls pay for it."""
+    before = kernel.launches
+
+    def geometry() -> Optional[Geometry]:
+        if kernel.launches == before:
+            return None
+        return last_launch(kernel.__name__)[1]
+    return geometry

@@ -13,6 +13,14 @@ edges themselves, and the plain versions pad on their own
 (``blocked._pad_axis``).  Eager PyTorch materializes every NON_STREAM
 intermediate without an ``optimization_barrier``.
 
+Inside a ``sim.replay.recording()`` block, ``attention_by_plan``,
+``decode_attention_by_plan`` and ``batched_decode_attention_by_plan`` time
+each call and emit one op-level ``KernelTrace``: its grid and tiles are
+those the kernel's library noted at its latest launch
+(``_build.launch_hook``), or on the CPU and in NON_STREAM the JAX
+package's rule (``_pick_block``); bytes and FLOPs are the JAX package's
+formulas (``ops.py:247-269``).
+
 Under autograd (an input that requires grad, grad mode on) the attention
 entry points go through the autograd Functions of ``flash_vjp`` (the
 forward kernels then also emit lse, and the backward kernels run), and
@@ -22,6 +30,7 @@ serving paths launch.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -29,7 +38,8 @@ import torch
 from repro_torch.core import runtime
 from repro_torch.core.types import ExecutionMode
 from repro_torch.kernels import ref
-from repro_torch.kernels._build import needs_grad
+from repro_torch.kernels._build import (launch_hook, needs_grad,
+                                       replay_recorder)
 from repro_torch.kernels.decode_attention import decode_attention
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_vjp import FlashAttentionFn, StreamAttentionFn
@@ -37,6 +47,16 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.kernels.stream_attention import stream_attention
 from repro_torch.kernels.tile_gemm import tile_gemm
 from repro_torch.plan.heuristics import DEFAULT_BLOCK
+
+
+def _pick_block(seq: int, preferred: int) -> int:
+    """The JAX package's Pallas block for ``seq`` (ops.py:63): the largest
+    power of two <= ``preferred`` that keeps the padding sane.  Read only
+    for the grids of recorded traces."""
+    b = preferred
+    while b > 128 and seq % b and seq < b:
+        b //= 2
+    return max(min(b, preferred), 8 if seq < 128 else 128)
 
 
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -153,10 +173,31 @@ def attention_by_plan(layer_plan, q: torch.Tensor, x_kv: torch.Tensor,
     branches consume instead of projecting ``x_kv``; TILE_STREAM ignores it.
     """
     mode = ExecutionMode(getattr(layer_plan.mode, "value", layer_plan.mode))
-    return _attention_dispatch(
-        mode, q, x_kv, wk, wv, sin=sin, cos=cos, k_gamma=k_gamma,
-        causal=causal, window=window, q_offset=q_offset, norm_eps=norm_eps,
-        block_k=layer_plan.block_kv, kv=kv)
+    call = functools.partial(
+        _attention_dispatch, mode, q, x_kv, wk, wv, sin=sin, cos=cos,
+        k_gamma=k_gamma, causal=causal, window=window, q_offset=q_offset,
+        norm_eps=norm_eps, block_k=layer_plan.block_kv, kv=kv)
+    rec = replay_recorder(q, x_kv, wk, wv)
+    if rec is None:
+        return call()
+    from repro_torch.plan.heuristics import attn_hbm_bytes
+    B, Hq, Sq, hd = q.shape
+    Skv, d_kv = x_kv.shape[1], x_kv.shape[2]
+    Hkv = wk.shape[1]
+    bq = _pick_block(Sq, layer_plan.block_q)
+    bk = _pick_block(Skv, layer_plan.block_kv)
+    nbytes = B * attn_hbm_bytes(Sq, Skv, d_kv, Hq, Hkv, hd, mode,
+                                block_q=bq, bytes_per_el=q.element_size())
+    # QK^T + PV and the K/V generation (fused or materialized); Q arrives
+    # projected, so no Q-projection term.
+    flops = B * (4 * Hq * Sq * Skv * hd + 4 * Skv * d_kv * Hkv * hd)
+    kernel = {ExecutionMode.TILE_STREAM: stream_attention,
+              ExecutionMode.LAYER_STREAM: flash_attention}.get(mode)
+    return rec.measure(
+        call, op=layer_plan.name, kind="attention", mode=mode.value,
+        grid=(B, -(-Sq // bq), -(-Skv // bk)), block_q=bq, block_kv=bk,
+        hbm_bytes=nbytes, flops=flops, device=q.device,
+        launched=None if kernel is None else launch_hook(kernel))
 
 
 def attention_by_mode(mode: ExecutionMode, q: torch.Tensor,
@@ -209,6 +250,38 @@ def _attention_dispatch(mode: ExecutionMode, q: torch.Tensor,
                                 q_offset=q_offset, block_k=block_k)
 
 
+def decode_attention_by_plan(decode_layer_plan, q: torch.Tensor,
+                             k: torch.Tensor, v: torch.Tensor, *,
+                             window: int = 0,
+                             q_offset: int = 0) -> torch.Tensor:
+    """One decode-step attention of one slot under its ``DecodeLayerPlan``
+    (ops.py:271): q (B, Hq, 1, hd) against the cached k/v (B, Hkv, S, hd),
+    S the slot's attended length, through ``multi_head_attention`` (the
+    flash kernel on CUDA tensors) blocked by the plan's ``block_kv``.  The
+    serving path decodes through ``batched_decode_attention_by_plan``;
+    this entry records per-slot traces, as the JAX one does."""
+    call = functools.partial(
+        multi_head_attention, q, k, v, causal=False, window=window,
+        q_offset=q_offset, block_k=decode_layer_plan.block_kv)
+    rec = replay_recorder(q, k, v)
+    if rec is None:
+        return call()
+    from repro_torch.plan.heuristics import decode_attn_hbm_bytes
+    B, Hq, Sq, hd = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    bk = _pick_block(Skv, decode_layer_plan.block_kv)
+    mode = ExecutionMode(getattr(decode_layer_plan.mode, "value",
+                                 decode_layer_plan.mode))
+    nbytes = B * decode_attn_hbm_bytes(
+        Skv, Hq, Hkv, hd, mode, append=not decode_layer_plan.cross,
+        bytes_per_el=q.element_size())
+    return rec.measure(
+        call, op=decode_layer_plan.name, kind="decode", mode=mode.value,
+        grid=(B, 1, -(-Skv // bk)), block_q=Sq, block_kv=bk,
+        hbm_bytes=nbytes, flops=B * 4 * Hq * Sq * Skv * hd,
+        device=q.device, launched=launch_hook(flash_attention))
+
+
 def batched_decode_attention_by_plan(decode_layer_plan, q: torch.Tensor,
                                      k: torch.Tensor, v: torch.Tensor,
                                      cache_len, *,
@@ -219,12 +292,37 @@ def batched_decode_attention_by_plan(decode_layer_plan, q: torch.Tensor,
     caches; ``cache_len`` () or (B,) valid entries per row.  CUDA tensors
     launch the ``decode_attention`` kernel; CPU tensors take its plain
     version, blocked by the plan's ``block_kv`` (``DEFAULT_BLOCK`` without
-    a plan; ``runtime.flags(block_k=...)`` overrides both).  The JAX
-    package's per-slot ``decode_attention_by_plan`` (ops.py:271, flash
-    attention over one slot's K/V) has no counterpart: a bucket of one is
-    the per-slot call."""
+    a plan; ``runtime.flags(block_k=...)`` overrides both).
+
+    Under a recording, and given a plan, the call emits one op-level
+    ``KernelTrace`` of kind "decode" whose bytes and FLOPs are summed over
+    the plan's per-slot ``seq_kv``, which must have one entry per row, as
+    in JAX (ops.py:343-362)."""
     block = (DEFAULT_BLOCK if decode_layer_plan is None
              else decode_layer_plan.block_kv)
-    return decode_attention(
-        q.contiguous(), k.contiguous(), v.contiguous(), cache_len,
-        window=window, block_k=runtime.get("block_k", block))
+    call = functools.partial(
+        decode_attention, q.contiguous(), k.contiguous(), v.contiguous(),
+        cache_len, window=window, block_k=runtime.get("block_k", block))
+    rec = (None if decode_layer_plan is None
+           else replay_recorder(q, k, v))
+    if rec is None:
+        return call()
+    from repro_torch.plan.heuristics import decode_attn_hbm_bytes
+    B, Hq, Sq, hd = q.shape
+    Hkv, W = k.shape[1], k.shape[2]
+    bk = _pick_block(W, decode_layer_plan.block_kv)
+    seq_kv = decode_layer_plan.seq_kv
+    if len(seq_kv) != B:
+        raise ValueError(
+            f"bucket batch {B} != plan slots {len(seq_kv)} for "
+            f"{decode_layer_plan.name}")
+    mode = ExecutionMode(getattr(decode_layer_plan.mode, "value",
+                                 decode_layer_plan.mode))
+    nbytes = sum(decode_attn_hbm_bytes(
+        kv, Hq, Hkv, hd, mode, append=not decode_layer_plan.cross,
+        bytes_per_el=q.element_size()) for kv in seq_kv)
+    return rec.measure(
+        call, op=decode_layer_plan.name, kind="decode", mode=mode.value,
+        grid=(B, 1, -(-W // bk)), block_q=Sq, block_kv=bk,
+        hbm_bytes=nbytes, flops=sum(4 * Hq * Sq * kv * hd for kv in seq_kv),
+        device=q.device, launched=launch_hook(decode_attention))

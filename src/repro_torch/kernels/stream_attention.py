@@ -3,10 +3,17 @@ core (counterpart of ``repro/kernels/stream_attention.py``).
 
 CUDA kernel: ``csrc/stream_attention.cu``; K and V exist only in its shared
 memory.  Plain version: ``blocked.stream_attention_plain``.
+
+Inside a ``sim.replay`` recording a launch on the card is timed and
+recorded as a kernel-level ``KernelTrace`` (JAX
+``stream_attention.py:191-196``) with the grid and tile the library notes
+where it launches (``_build.launch_hook``); the plain version, like the
+JAX package's jnp path, records nothing.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -110,15 +117,34 @@ def stream_attention(q: torch.Tensor, x_kv: torch.Tensor, wk: torch.Tensor,
     out = torch.empty((B, Hq, Sq, hd), dtype=q.dtype, device=q.device)
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
-    if out.numel():
-        _build.raise_on("stream_attention", _lib()(
-            q.data_ptr(), x_kv.data_ptr(), wk.data_ptr(), wv.data_ptr(),
+    if not out.numel():
+        return (out, lse) if return_lse else out
+    args = (q.data_ptr(), x_kv.data_ptr(), wk.data_ptr(), wv.data_ptr(),
             ptr(sin), ptr(cos), ptr(k_gamma), out.data_ptr(), code,
             B, Hq, Hkv, Sq, Sk, D, hd, scale, int(causal), window, q_offset,
             kv_len, int(sin is not None), int(k_gamma is not None),
-            norm_eps, ptr(lse), _build.stream_ptr(q.device)))
-        stream_attention.launches += 1
+            norm_eps, ptr(lse), _build.stream_ptr(q.device))
+    rec = _build.replay_recorder(q, x_kv, wk, wv)
+    if rec is None:
+        _launch(args)
+    else:
+        # JAX's byte count: q in and out once, x_kv streamed once per
+        # block of min(256, Sq) query rows, the weights once.
+        nqb = -(-Sq // min(256, Sq))
+        rec.measure(
+            functools.partial(_launch, args),
+            op=rec.current_label("stream_attention"), kind="attention",
+            mode="tile_stream",
+            hbm_bytes=(2 * q.numel() + nqb * x_kv.numel() + wk.numel()
+                       + wv.numel()) * q.element_size(),
+            flops=B * (4 * Hq * Sq * Sk * hd + 4 * Sk * D * Hkv * hd),
+            device=q.device, launched=_build.launch_hook(stream_attention))
     return (out, lse) if return_lse else out
+
+
+def _launch(args: tuple) -> None:
+    _build.raise_on("stream_attention", _lib()(*args))
+    stream_attention.launches += 1
 
 
 stream_attention.launches = 0

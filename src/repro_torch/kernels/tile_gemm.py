@@ -4,7 +4,13 @@
 CUDA kernel: ``csrc/tile_gemm.cu``, four routes picked by shape (the
 library's ``tile_gemm_route``; ``blocked.gemm_route`` mirrors it): splitk
 (M <= 8, the decode weight stream), wgmma (bf16 prefill), mma (other bf16
-shapes, and x or w not 16-byte aligned), simt (other f32 shapes).  Plain version: ``blocked.tile_gemm_plain``.
+shapes, and x or w not 16-byte aligned), simt (other f32 shapes).  Plain
+version: ``blocked.tile_gemm_plain``.
+
+Inside a ``sim.replay`` recording a launch on the card is timed and
+recorded as a kernel-level ``KernelTrace`` (JAX ``tile_gemm.py:70-74``)
+with the grid and tile the library notes where it launches
+(``_build.launch_hook``); the plain version records nothing.
 """
 from __future__ import annotations
 
@@ -84,14 +90,27 @@ def tile_gemm(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
             part = torch.empty(S * M * N, dtype=torch.float32,
                                device=x.device)
         ticket = _tickets(x.device, stream, -(-N // GEMM_SLAB))
-    _build.raise_on(f"tile_gemm ({route} route)", _lib()(
-        x.data_ptr(), w.data_ptr(), out.data_ptr(), code,
-        GEMM_ROUTES.index(route), M, N, K,
-        None if part is None else part.data_ptr(),
-        None if ticket is None else ticket.data_ptr(), stream))
+    args = (x.data_ptr(), w.data_ptr(), out.data_ptr(), code,
+            GEMM_ROUTES.index(route), M, N, K,
+            None if part is None else part.data_ptr(),
+            None if ticket is None else ticket.data_ptr(), stream)
+    rec = _build.replay_recorder(x, w)
+    if rec is None:
+        _launch(route, args)
+        return out
+    rec.measure(
+        functools.partial(_launch, route, args),
+        op=rec.current_label("tile_gemm"), kind="gemm",
+        hbm_bytes=(M * K + K * N + M * N) * x.element_size(),
+        flops=2 * M * K * N, device=x.device,
+        launched=_build.launch_hook(tile_gemm))
+    return out
+
+
+def _launch(route: str, args: tuple) -> None:
+    _build.raise_on(f"tile_gemm ({route} route)", _lib()(*args))
     tile_gemm.launches += 1
     tile_gemm.routes[route] += 1
-    return out
 
 
 tile_gemm.launches = 0

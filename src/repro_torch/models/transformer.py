@@ -35,9 +35,14 @@ tree, "len": int}``, every leaf stacked over layers:
 
 Layer i of the cache is model layer i: deepseek's dense prefix first.
 
-Sliding-window attention (hybrid only) keeps a ring of ``W = min(max_len,
-window)`` slots: absolute position p lives in slot p % W.  ``decode_step``
-updates the cache's buffers in place.
+Sliding-window attention (dense, as h2o-danube3, or hybrid) keeps a ring
+of ``W = min(max_len, window)`` slots: absolute position p lives in slot
+p % W.  ``decode_step`` updates the cache's buffers in place.  A config's
+``use_bias`` is read by no model code, as in the JAX package.
+
+Under an active ``sim.replay`` recording, a planned prefill runs one
+dispatch segment per layer, so that each layer's ``KernelTrace`` carries
+its own plan op's name (transformer.py:524-536).
 
 Training (dense family): ``Transformer.hidden`` is the forward with
 autograd, each layer optionally recomputed in the backward
@@ -46,14 +51,14 @@ autograd, each layer optionally recomputed in the backward
 ``chunked_xent`` (transformer.py:177-214).  The serving entry points keep
 ``torch.no_grad()``.
 
-Not ported yet, and refused with ``NotImplementedError``: the ring cache
-of dense sliding-window models, biases, and serving on a mesh (ROADMAP
-Queue 1 items 6, 7); training the SSM, hybrid, VLM and MoE families and
-MLA (item 18: ``ssd_scan`` has no backward, nor flash attention at MLA's
-widths).
+Not ported yet, and refused with ``NotImplementedError``: serving on a
+mesh (ROADMAP Queue 1 item 7); training the SSM, hybrid, VLM and MoE
+families and MLA (item 18: ``ssd_scan`` has no backward, nor flash
+attention at MLA's widths).
 """
 from __future__ import annotations
 
+import sys
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
@@ -81,7 +86,8 @@ Cache = Dict[str, object]
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the parts of the JAX transformer the port does not run,
-    and for the families that another model module runs."""
+    and for the families that another model module runs.  ``use_bias`` is
+    accepted and ignored: no model code of the JAX package reads it."""
     other = {Family.ENCDEC: "models.encdec", Family.CROSSMODAL:
              "models.vilbert"}.get(cfg.family)
     if other:
@@ -90,19 +96,10 @@ def check_supported(cfg: ModelConfig) -> None:
             f"not in the decoder Transformer")
     if cfg.family == Family.SSM:
         return
-    if cfg.attn_kind == AttnKind.SLIDING and cfg.family != Family.HYBRID:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention of a dense model is not "
-            f"ported yet: it needs a paged ring pool (ROADMAP Queue 1 "
-            f"item 6)")
     if cfg.attn_kind == AttnKind.NONE:
         raise NotImplementedError(
             f"{cfg.name}: attention-free layers outside the SSM family are "
-            f"not ported yet (ROADMAP Queue 1 item 6)")
-    if cfg.use_bias:
-        raise NotImplementedError(
-            f"{cfg.name}: biases are not ported yet (ROADMAP Queue 1 "
-            f"item 6)")
+            f"not ported: no registry arch has them")
 
 
 def check_trainable(cfg: ModelConfig) -> None:
@@ -277,19 +274,25 @@ def _prefill_layer(p: Block, cfg: ModelConfig, x: torch.Tensor,
     return x + _ffn(p, cfg, h2)
 
 
-def _dispatch_segments(cfg: ModelConfig, plan, lo: int, hi: int
+def _dispatch_segments(cfg: ModelConfig, plan, lo: int, hi: int,
+                       per_layer: bool = False
                        ) -> List[Tuple[int, int, object]]:
     """Maximal runs ``[a, b)`` of layers in ``[lo, hi)`` that share one
     dispatch decision (mode + block tiling), each with a representative
     ``LayerPlan`` (transformer.py:444).  A uniform or absent plan gives
     one segment; a heterogeneous plan splits at mode boundaries, so no
-    layer runs under another layer's mode."""
+    layer runs under another layer's mode.  ``per_layer`` gives one
+    segment per layer, each with its own ``LayerPlan``: under an active
+    ``sim.replay`` recording each layer's trace then carries its own op
+    name."""
     if plan is None:
         return [(lo, hi, None)]
     reps = []
     for i in range(lo, hi):
         lps = [lp for lp in plan.layers if lp.layer_index == i]
         reps.append(lps[0] if lps else None)
+    if per_layer:
+        return [(lo + i, lo + i + 1, reps[i]) for i in range(hi - lo)]
 
     def key(lp):
         return (lp.mode, lp.block_q, lp.block_kv)
@@ -472,7 +475,10 @@ class Transformer(nn.Module):
         x = embed_lookup(self.embed, tokens)
         sin, cos = self._rope(S)
         blocks = self.blocks
-        for a, b, lp in _dispatch_segments(cfg, plan, 0, cfg.num_layers):
+        replay = sys.modules.get("repro_torch.sim.replay")
+        per_layer = replay is not None and replay.active_recorder() is not None
+        for a, b, lp in _dispatch_segments(cfg, plan, 0, cfg.num_layers,
+                                           per_layer=per_layer):
             for i in range(a, b):
                 x = _prefill_layer(blocks[i], cfg, x,
                                    _layer_cache(cache["layers"], i),

@@ -1,32 +1,56 @@
 """``plan_decode_step``: the decode-side half of the compile→plan API
-(copy of ``repro/plan/decode.py``).
+(DESIGN.md §11).
 
-A ``DecodePlan`` compiles one serving step whose active slots attend KV
-caches of different lengths: per attention layer the resolved execution
-mode, the per-slot KV length the layer attends over after DTPU pruning,
-and the predicted HBM bytes and CIM rewrite cycles of the step.  The
-port's ``serve.engine.Engine`` compiles one per decode step, as the JAX
-engine does.  Left out, as in ``planner.py``: the record/replay hooks
-(``trace`` stays, always None) and ``plan_decode_buckets``.
+A prefill ``ExecutionPlan`` describes one *shape*; serving traffic is a
+timeline of *steps*, each advancing a set of slots whose KV caches have
+different lengths.  ``plan_decode_step`` compiles one such step into a
+``DecodePlan``: per attention layer, the resolved execution mode (the same
+TBR-CIM hybrid/normal reconfiguration decision the prefill planner makes),
+the per-slot KV length the layer actually attends over after DTPU pruning
+(``PruningConfig.kept_tokens`` — the ``LayerPlan.keep_tokens`` decision,
+now *load-bearing*: it shrinks ``seq_kv`` layer by layer), and the
+predicted HBM bytes + CIM rewrite cycles for the step.
+
+Like ``ExecutionPlan``, one ``DecodePlan`` object drives the port's paths:
+
+* ``kernels.ops.decode_attention_by_plan`` and
+  ``batched_decode_attention_by_plan`` — the decode attention kernel
+  (records ``KernelTrace``s under ``sim.replay``), and
+* ``serve.Engine``                       — the live engine, which compiles
+  one per decode step from its active slots' cache lengths.
+  (``sim.simulate_serve``, the serving-timeline simulator, is not ported:
+  ROADMAP Queue 1 item 7.)
+
+Plans serialize (``to_json``) alongside ``ExecutionPlan`` with the same
+versioned-dict discipline, traces included.
+
+Copy of ``repro/plan/decode.py``: the same code, its imports pointed at the
+port's copies (``repro_torch``).  The port's kernels record traces through
+``repro_torch.kernels.ops`` and ``repro_torch.sim.replay``.
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Dict, List, Mapping, Optional, Sequence, Tuple, Union
+from typing import (Dict, Iterable, List, Mapping, Optional, Sequence,
+                    Tuple, TYPE_CHECKING, Union)
 
-from repro_torch.configs.hardware import HardwareConfig
 from repro_torch.core.types import (AttnKind, ExecutionMode, Family,
                                     ModelConfig, pad_to)
+from repro_torch.configs.hardware import HW_PRESETS, HardwareConfig
 from repro_torch.plan.heuristics import (DEFAULT_BLOCK, decode_attn_hbm_bytes,
                                          decode_rewrite_cycles,
                                          resolve_layer_mode)
-from repro_torch.plan.planner import (GemmPlan, _decode_record,
-                                      _encode_record, resolve_hw)
+from repro_torch.plan.planner import GemmPlan, resolve_hw
+
+if TYPE_CHECKING:                                    # pragma: no cover
+    from repro_torch.sim.replay import KernelTrace
 
 DECODE_PLAN_VERSION = 1
 
-#: suffix distinguishing decode-step ops from their prefill counterparts.
+#: suffix distinguishing decode-step ops from their prefill counterparts,
+#: so a prefill ``KernelTrace`` can never attach to a decode op (and vice
+#: versa) by name collision.
 DECODE_SUFFIX = ".decode"
 
 
@@ -35,22 +59,40 @@ class DecodeLayerPlan:
     """The resolved decision record for one attention layer of one decode
     step, across all active slots."""
 
-    op_index: int
-    layer_index: int
+    op_index: int          # position in the lowered op stream
+    layer_index: int       # model layer this op belongs to
     name: str              # prefill op tag + ``.decode`` (e.g. "l3_self.decode")
-    mode: ExecutionMode
-    seq_kv: Tuple[int, ...]  # per-slot KV length attended (post-pruning,
-                             # post window clamp, incl. the new token)
+    mode: ExecutionMode    # resolved macro mode for this step's layer
+    seq_kv: Tuple[int, ...]  # per-slot KV length *attended* (post-pruning,
+                             # post window clamp, incl. the new token); the
+                             # unpruned lengths live on DecodePlan.context
     d_q: int
     d_kv: int
     heads: int
     kv_heads: int
     head_dim: int
     cross: bool            # static KV (enc-dec cross-attn: no append)
-    block_kv: int
+    block_kv: int          # kv-tile edge the rewrite schedule iterates with
     hbm_bytes: int         # predicted streamed HBM bytes, summed over slots
     rewrite_cycles: int    # predicted CIM write-port cycles, summed
-    trace: None = None     # recorded kernel timing: not ported, always None
+    trace: Optional["KernelTrace"] = None   # recorded decode kernel timing
+
+    @property
+    def kv_width(self) -> int:
+        return 2 * self.kv_heads * self.head_dim
+
+    @property
+    def keep_tokens(self) -> Tuple[int, ...]:
+        """Per-slot kept KV tokens — ``seq_kv`` IS the DTPU prune decision
+        (named to echo ``LayerPlan.keep_tokens``)."""
+        return self.seq_kv
+
+    def attach_trace(self, trace: Optional["KernelTrace"]
+                     ) -> "DecodeLayerPlan":
+        if trace is not None and trace.op != self.name:
+            raise ValueError(f"trace for op {trace.op!r} cannot attach to "
+                             f"DecodeLayerPlan {self.name!r}")
+        return dataclasses.replace(self, trace=trace)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +105,17 @@ class DecodePlan:
     layers: Tuple[DecodeLayerPlan, ...]
     gemms: Tuple[GemmPlan, ...] = ()
     hw_params: Mapping[str, object] = dataclasses.field(default_factory=dict)
+
+    def hw_config(self) -> HardwareConfig:
+        if self.hw_params:
+            return HardwareConfig(**self.hw_params)
+        return HW_PRESETS[self.hw]
+
+    # ---------- inspection ----------
+
+    @property
+    def slots(self) -> int:
+        return len(self.context)
 
     @property
     def modes(self) -> Tuple[ExecutionMode, ...]:
@@ -78,16 +131,77 @@ class DecodePlan:
         return ms[0] if len(ms) == 1 else None
 
     @property
+    def heterogeneous(self) -> bool:
+        return len(self.modes) > 1
+
+    @property
     def total_hbm_bytes(self) -> int:
+        """Predicted attention HBM traffic for the whole step (the number
+        ``sim.simulate_serve`` cross-asserts against)."""
         return sum(lp.hbm_bytes for lp in self.layers)
 
     @property
     def total_rewrite_cycles(self) -> int:
         return sum(lp.rewrite_cycles for lp in self.layers)
 
+    @property
+    def traced_ops(self) -> Tuple[str, ...]:
+        return tuple(p.name for p in self.layers + self.gemms
+                     if p.trace is not None)
+
+    def layer(self, key: Union[int, str]) -> DecodeLayerPlan:
+        """Look up by op name, or by position in ``self.layers``."""
+        if isinstance(key, str):
+            for lp in self.layers:
+                if lp.name == key:
+                    return lp
+            raise KeyError(key)
+        return self.layers[key]
+
+    def summary(self) -> Dict[str, object]:
+        counts: Dict[str, int] = {}
+        for lp in self.layers:
+            counts[lp.mode.value] = counts.get(lp.mode.value, 0) + 1
+        return {
+            "model": self.model, "hw": self.hw,
+            "slots": self.slots, "context": list(self.context),
+            "attention_layers": len(self.layers), "modes": counts,
+            "heterogeneous": self.heterogeneous,
+            "total_hbm_bytes": self.total_hbm_bytes,
+            "total_rewrite_cycles": self.total_rewrite_cycles,
+            "traced_ops": len(self.traced_ops),
+        }
+
+    # ---------- trace attachment (repro.sim.replay) ----------
+
+    def attach_traces(self, traces: Union[Mapping[str, object],
+                                          Iterable[object]]) -> "DecodePlan":
+        """Attach recorded ``KernelTrace``s to the decode ops they name —
+        same contract as ``ExecutionPlan.attach_traces`` (records naming
+        no plan op are ignored)."""
+        if isinstance(traces, Mapping):
+            by_op = dict(traces)
+        else:
+            by_op = {t.op: t for t in traces}
+        layers = tuple(lp.attach_trace(by_op[lp.name])
+                       if lp.name in by_op else lp for lp in self.layers)
+        gemms = tuple(g.attach_trace(by_op[g.name])
+                      if g.name in by_op else g for g in self.gemms)
+        return dataclasses.replace(self, layers=layers, gemms=gemms)
+
+    def without_traces(self) -> "DecodePlan":
+        return dataclasses.replace(
+            self,
+            layers=tuple(lp.attach_trace(None) for lp in self.layers),
+            gemms=tuple(g.attach_trace(None) for g in self.gemms))
+
+    # ---------- serialization ----------
+
     def to_dict(self) -> Dict[str, object]:
         def enc(obj):
-            d = _encode_record(obj)
+            d = dataclasses.asdict(obj)
+            d["mode"] = obj.mode.value
+            d["trace"] = obj.trace.to_dict() if obj.trace else None
             if "seq_kv" in d:
                 d["seq_kv"] = list(d["seq_kv"])
             return d
@@ -110,7 +224,12 @@ class DecodePlan:
                 f"unsupported decode-plan version {d.get('version')!r}")
 
         def dec(rec):
-            rec = _decode_record(rec)
+            rec = dict(rec)
+            rec["mode"] = ExecutionMode(rec["mode"])
+            tr = rec.get("trace")
+            if tr is not None:
+                from repro_torch.sim.replay import KernelTrace
+                rec["trace"] = KernelTrace.from_dict(tr)
             if "seq_kv" in rec:
                 rec["seq_kv"] = tuple(rec["seq_kv"])
             return rec
@@ -126,9 +245,16 @@ class DecodePlan:
         return cls.from_dict(json.loads(s))
 
 
+# ---------------------------------------------------------------------------
+# Decode-op enumeration (mirrors sim.workload's prefill naming)
+# ---------------------------------------------------------------------------
+
 def _decode_attn_specs(cfg: ModelConfig) -> List[Dict[str, object]]:
     """The attention ops one decode step runs, in op order, named after
-    their ``sim.workload`` prefill counterparts."""
+    their ``sim.workload`` prefill counterparts.  Decoder families run one
+    self-attention per layer; enc-dec decoders add the static-KV
+    cross-attention.  Attention-free and encoder-only families have no
+    decode step — same contract as ``registry.cell_supported``."""
     if cfg.num_heads == 0 or cfg.attn_kind == AttnKind.NONE:
         raise ValueError(f"{cfg.name}: attention-free families have no "
                          "decode attention to plan")
@@ -166,12 +292,25 @@ def plan_decode_step(cfg: ModelConfig,
     """Compile one decode step into a ``DecodePlan``.
 
     ``context`` — per-active-slot KV length the step attends over
-    *including* the token being decoded; a bare int plans a single slot.
-    Per layer: the resolved mode (``force_mode=True`` pins the requested
-    one), ``seq_kv`` per slot (context clamped by the sliding window, then
-    by the DTPU prune decision), and predicted HBM bytes and rewrite
-    cycles summed over slots.  The step's GEMMs (output projection + FFN,
-    one token per slot) ride along as ``GemmPlan``s.
+    *including* the token being decoded (i.e. ``prompt_len +
+    tokens_generated_so_far + 1``); a bare int plans a single slot.
+
+    Per layer, the plan records:
+
+    * the resolved execution mode — same per-layer rule as ``plan_model``
+      (``force_mode=True`` pins the requested mode verbatim);
+    * ``seq_kv`` per slot: the context clamped by the sliding window
+      (ring-buffer caches never exceed ``cfg.sliding_window``) and then by
+      the DTPU prune decision ``PruningConfig.kept_tokens(layer, ...)`` —
+      the ``LayerPlan.keep_tokens`` schedule applied to the KV cache, so
+      deeper layers attend over monotonically fewer tokens;
+    * predicted HBM bytes (``decode_attn_hbm_bytes``) and CIM rewrite
+      cycles (``decode_rewrite_cycles``), summed over slots — the numbers
+      ``sim.simulate_serve`` cross-asserts per step.
+
+    The step's weight-stationary GEMMs (output projection + FFN, one token
+    per slot) ride along as ``GemmPlan``s so the plan lowers
+    self-contained, exactly like ``ExecutionPlan.gemms``.
     """
     hw_cfg = resolve_hw(hw)
     ctxs = (context,) if isinstance(context, int) else tuple(context)
@@ -231,6 +370,8 @@ def plan_decode_step(cfg: ModelConfig,
                 name=f"{s['tag']}_oproj" + DECODE_SUFFIX,
                 m=nslots, k=s["heads"] * s["hd"], n=s["d_q"], mode=resolved))
             op_index += 1
+        # FFN stack per model layer (gated MLPs carry the extra gate
+        # matmul, matching sim.workload._ffn_ops).
         prefix = f"dec{li}" if cfg.family == Family.ENCDEC else f"l{li}"
         ffn = [("ffn_up", d, d_ff)]
         if cfg.act == "silu":
@@ -247,3 +388,43 @@ def plan_decode_step(cfg: ModelConfig,
                       hw_params=dataclasses.asdict(hw_cfg),
                       context=ctxs, layers=tuple(layers),
                       gemms=tuple(gemms))
+
+
+def plan_decode_buckets(cfg: ModelConfig,
+                        context: Sequence[int], *,
+                        hw: Union[str, HardwareConfig, None] = None,
+                        mode: Optional[ExecutionMode] = None,
+                        force_mode: bool = False,
+                        block_kv: int = DEFAULT_BLOCK
+                        ) -> List[Tuple[Tuple[int, ...], DecodePlan]]:
+    """Plan one decode step as per-shape-bucket ``DecodePlan``s.
+
+    Slots with equal KV length share cache shape and position counter, so
+    the batched engine advances each such *bucket* with one
+    ``decode_step`` call.  Returns ``[(slot_positions, plan), ...]`` —
+    positions index into ``context``, buckets appear in order of their
+    first member — where each ``plan`` is ``plan_decode_step`` of that
+    bucket's (uniform) context.
+
+    Per-layer attention bytes/cycles and GEMM shapes are per-slot
+    additive (the planner never couples slots), so bucket plans are exact
+    slices of the whole-step plan: summed over buckets they reproduce
+    ``plan_decode_step(cfg, context, ...)``'s ``total_hbm_bytes`` —
+    ``sim.simulate_serve`` keeps cross-asserting the whole-step number,
+    coarse lowering accounts it bucket-by-bucket.
+    """
+    ctxs = tuple(context)
+    if not ctxs:
+        raise ValueError("context must name at least one active slot")
+    order: List[int] = []
+    members: Dict[int, List[int]] = {}
+    for i, c in enumerate(ctxs):
+        c = int(c)
+        if c not in members:
+            members[c] = []
+            order.append(c)
+        members[c].append(i)
+    return [(tuple(members[c]),
+             plan_decode_step(cfg, (c,) * len(members[c]), hw=hw, mode=mode,
+                              force_mode=force_mode, block_kv=block_kv))
+            for c in order]

@@ -12,7 +12,10 @@ length into shape buckets, each advanced by one ``decode_step`` call
 (``decode_batches`` counts the calls, ``decode_calls`` the per-slot token
 advances).  The step timeline is the shared deterministic schedule
 (``serve.schedule.build_schedule``); each decode step compiles its
-``DecodePlan`` (``plan.plan_decode_step``).
+``DecodePlan`` (``plan.plan_decode_step``).  Under a ``sim.replay``
+recording each ``decode_step`` call runs under the plan of its own slots
+instead, and that plan, with the call's records attached, lands in
+``Engine.traced_plans``.
 
 MoE decoders are served as the dense ones: grok-1's ``{"k", "v"}`` cache
 is paged and decoded in buckets, deepseek-v3's latent MLA cache
@@ -27,6 +30,7 @@ on a mesh is not ported (ROADMAP Queue 1 item 7).  The deprecated
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from collections import OrderedDict, deque
 from typing import Any, Dict, List, Optional, Tuple
@@ -66,6 +70,13 @@ class StepRecord:
     # Shape buckets the step's decode actually dispatched: (kv_len, rids)
     # per batched decode_step call; None on the per-slot fallback path.
     buckets: Optional[Tuple[Tuple[int, Tuple[int, ...]], ...]] = None
+
+
+def _recorder():
+    """The active ``sim.replay`` recorder, or None (also when the replay
+    module was never imported)."""
+    replay = sys.modules.get("repro_torch.sim.replay")
+    return None if replay is None else replay.active_recorder()
 
 
 class _LRU:
@@ -141,6 +152,10 @@ class Engine:
         self._clock = clock
         self._queue: deque = deque()
         self.step_log: List[StepRecord] = []
+        # Under a sim.replay recording, per decoding step: the DecodePlan
+        # each decode_step call ran under (one per bucket, or per slot on
+        # the per-slot path), with that call's KernelTraces attached.
+        self.traced_plans: Dict[int, Tuple[object, ...]] = {}
         self.decode_calls = 0         # per-slot token advances
         self.decode_batches = 0       # actual decode_step invocations
         self.last_schedule: Optional[Schedule] = None
@@ -238,6 +253,7 @@ class Engine:
         rid_slot: Dict[int, int] = {}
         done: List[Request] = []
         self.step_log = []
+        self.traced_plans = {}
         self.decode_calls = 0
         self.decode_batches = 0
         self._pool = None
@@ -272,18 +288,20 @@ class Engine:
                 slot_state[slot] = {"req": r, "cache": cache, "tok": tok}
                 rid_slot[rid] = slot
             dp = None
-            step_buckets = None
+            step_buckets = traced = None
             if st.decoding:
                 kv_lens = tuple(kv for _, _, kv in st.decoding)
                 dp = self.decode_plan_for(kv_lens)
+                if dp is not None and _recorder() is not None:
+                    traced = []
                 if self._pool is not None:
-                    step_buckets = self._decode_buckets(st, kv_lens,
-                                                        slot_state, V, dp)
+                    step_buckets = self._decode_buckets(
+                        st, kv_lens, slot_state, V, dp, traced)
                 else:
-                    for slot, rid, _kv in st.decoding:
+                    for slot, rid, kv in st.decoding:
                         ss = slot_state[slot]
-                        logits, ss["cache"] = self._decode(
-                            ss["cache"], ss["tok"], plan=dp)
+                        logits, ss["cache"] = self._decode_call(
+                            ss["cache"], ss["tok"], dp, (kv,), traced)
                         self.decode_calls += 1
                         self.decode_batches += 1
                         tok = torch.argmax(logits[:, 0, :V], dim=-1)[:, None]
@@ -296,6 +314,8 @@ class Engine:
                 kv_lens=tuple(kv for _, _, kv in st.decoding),
                 decode_plan=dp,
                 buckets=step_buckets))
+            if traced is not None:
+                self.traced_plans[st.step] = tuple(traced)
             self._step_walls[st.step] = (wall0, self._clock())
             for rid in st.finished:
                 done.append(by_rid[rid])
@@ -323,9 +343,26 @@ class Engine:
                     total += bounds[1] - bounds[0]
         return total
 
-    def _decode_buckets(self, st, kv_lens, slot_state, V, dp):
+    def _decode_call(self, cache, toks, dp, kv_lens, traced):
+        """One ``decode_step`` call under the step's ``DecodePlan`` ``dp``,
+        which blocks only the plain version.  Under a ``sim.replay``
+        recording (``traced`` a list) the call runs under the plan of its
+        own slots' ``kv_lens`` instead, so that each record has one
+        ``seq_kv`` entry per row, and that plan, with the records the call
+        made attached, is appended to ``traced``: buckets of one step name
+        the same ops, so their records never meet in one plan."""
+        if traced is None:
+            return self._decode(cache, toks, plan=dp)
+        rec = _recorder()
+        plan = self.decode_plan_for(kv_lens)
+        first = len(rec.records)
+        out = self._decode(cache, toks, plan=plan)
+        traced.append(plan.attach_traces(rec.records[first:]))
+        return out
+
+    def _decode_buckets(self, st, kv_lens, slot_state, V, dp, traced):
         """Advance one step's active slots bucket-by-bucket through the
-        paged pool under the step's ``DecodePlan`` ``dp``; returns the
+        paged pool (``_decode_call`` per bucket); returns the
         (kv_len, rids) buckets dispatched."""
         out = []
         for kv, positions in shape_buckets(kv_lens):
@@ -341,7 +378,8 @@ class Engine:
                         f"inconsistent with scheduled kv {kv}")
             cache = self._pool.gather(slots)
             toks = torch.cat([slot_state[s]["tok"] for s in slots], dim=0)
-            logits, cache = self._decode(cache, toks, plan=dp)
+            logits, cache = self._decode_call(cache, toks, dp,
+                                              (kv,) * len(slots), traced)
             self._pool.scatter(slots, cache)
             self.decode_batches += 1
             self.decode_calls += len(slots)

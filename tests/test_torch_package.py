@@ -41,6 +41,9 @@ def test_import_leaves_no_jax_and_no_repro_module():
         "import repro_torch.plan, repro_torch.models.mla\n"
         "import repro_torch.configs.grok1_314b\n"
         "import repro_torch.configs.deepseek_v3_671b\n"
+        "import repro_torch.sim, repro_torch.sim.replay\n"
+        "import repro_torch.configs.minitron_4b\n"
+        "import repro_torch.configs.h2o_danube3_4b\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print('BAD', bad)\n"

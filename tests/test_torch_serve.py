@@ -6,7 +6,11 @@ clock) on the request mix of ``tests/test_batched_serve.py``, and batched
 decode emits what per-slot decode emits.  The MoE family: grok1-smoke is
 served from the paged pool with batched decode, deepseekv3-smoke's latent
 cache takes the per-slot path, as in the JAX engine; both emit the JAX
-engine's tokens, step log and stats."""
+engine's tokens, step log and stats.  The last three decoder configs:
+minitron-smoke and danube3-smoke are served as the dense ones, and
+danube3-smoke (a dense sliding window of 16) also with prompts of 18-29
+tokens, whose rings wrap in prefill and decode, batched from the paged
+pool: the JAX engine's tokens, step log and stats."""
 import dataclasses
 import itertools
 
@@ -34,7 +38,8 @@ from repro_torch.serve.engine import Engine, Request
 from repro_torch.serve.kv_cache import PagedKVCache, shape_buckets
 from repro_torch.serve.schedule import ServeRequest, build_schedule
 
-ARCHS = ["starcoder2-7b", "qwen3-32b", "qwen2-vl-2b"]
+ARCHS = ["starcoder2-7b", "qwen3-32b", "qwen2-vl-2b", "minitron-4b",
+         "h2o-danube3-4b"]
 
 
 # ---------------------------------------------------------------------------
@@ -46,7 +51,10 @@ ARCHS = ["starcoder2-7b", "qwen3-32b", "qwen2-vl-2b"]
                                         ("starcoder2-7b", True),
                                         ("qwen2-vl-2b", False),
                                         ("grok-1-314b", False),
-                                        ("deepseek-v3-671b", False)])
+                                        ("deepseek-v3-671b", False),
+                                        ("starcoder2-7b", False),
+                                        ("minitron-4b", False),
+                                        ("h2o-danube3-4b", False)])
 @pytest.mark.parametrize("kw", [
     {}, {"seq_len": 1536}, {"shape": "prefill_32k"},
     {"mode": "non_stream", "force_mode": True},
@@ -72,7 +80,9 @@ def test_plan_model_to_dict_equals_jax(arch, smoke, kw):
                                         ("qwen2-vl-2b", False),
                                         ("whisper-base", False),
                                         ("grok-1-314b", False),
-                                        ("deepseek-v3-671b", False)])
+                                        ("deepseek-v3-671b", False),
+                                        ("h2o-danube3-4b", False),
+                                        ("h2o-danube3-4b", True)])
 @pytest.mark.parametrize("ctx", [(1025, 1025, 1025, 1537), 9, (4, 7, 4)])
 def test_plan_decode_step_to_dict_equals_jax(arch, smoke, ctx):
     got = plan_decode_step(get_config(arch, smoke), ctx)
@@ -230,7 +240,7 @@ def _run(engine, reqs):
     return {r.rid: list(r.out_tokens) for r in engine.run()}
 
 
-def _served(arch):
+def _served(arch, max_len=32, **request_kw):
     """One JAX Engine run of ``arch``'s smoke config (the JAX side is the
     slow one) and the converted port model."""
     cfg = get_config(arch, smoke=True)
@@ -238,8 +248,9 @@ def _served(arch):
     params = jT.init(jax.random.PRNGKey(0), jcfg)
     model = transformer_from_jax(jax.tree.map(np.asarray, params), cfg,
                                  device="cpu")
-    jeng = jengine.Engine(jcfg, params, slots=3, max_len=32, clock=_clock())
-    jtokens = _run(jeng, _requests(jengine.Request, jcfg))
+    jeng = jengine.Engine(jcfg, params, slots=3, max_len=max_len,
+                          clock=_clock())
+    jtokens = _run(jeng, _requests(jengine.Request, jcfg, **request_kw))
     return cfg, model, jeng, jtokens
 
 
@@ -309,6 +320,39 @@ def test_moe_engine_per_slot_matches_jax_tokens(served_moe):
     cfg, model, _, jtokens = served_moe
     per_slot = Engine(cfg, model, slots=3, max_len=32, batch_decode=False)
     assert _run(per_slot, _requests(Request, cfg)) == jtokens
+    assert per_slot.decode_batches == per_slot.decode_calls
+
+
+RING = dict(plen=(18, 30), max_new=(3, 8), n=5)   # prompts past window 16
+
+
+@pytest.fixture(scope="module")
+def served_ring():
+    return _served("h2o-danube3-4b", max_len=48, **RING)
+
+
+def test_ring_engine_matches_jax_engine_past_the_window(served_ring):
+    """danube3-smoke's prompts (18-29 tokens) are longer than its window
+    of 16: the pool holds 16 slots a row and every ring wraps, in prefill
+    and while decoding; batched decode emits the JAX engine's tokens."""
+    cfg, model, jeng, jtokens = served_ring
+    eng = Engine(cfg, model, slots=3, max_len=48, clock=_clock())
+    reqs = _requests(Request, cfg, **RING)
+    assert min(len(r.prompt) for r in reqs) > cfg.sliding_window
+    assert _run(eng, reqs) == jtokens
+    assert eng.stats() == jeng.stats()
+    assert [dataclasses.asdict(r) for r in eng.step_log] == \
+        [dataclasses.asdict(r) for r in jeng.step_log]
+    assert eng._pool is not None and eng._pool.pages_in_use == 0
+    assert eng.decode_batches < eng.decode_calls == jeng.decode_calls
+    assert all(kv > cfg.sliding_window for r in eng.step_log
+               for kv in r.kv_lens)
+
+
+def test_ring_engine_batched_matches_per_slot(served_ring):
+    cfg, model, _, jtokens = served_ring
+    per_slot = Engine(cfg, model, slots=3, max_len=48, batch_decode=False)
+    assert _run(per_slot, _requests(Request, cfg, **RING)) == jtokens
     assert per_slot.decode_batches == per_slot.decode_calls
 
 

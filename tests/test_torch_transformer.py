@@ -1,5 +1,7 @@
 """The port's dense decoder against ``repro.models.transformer`` on
-qwen3-smoke and starcoder2-smoke (f32): JAX parameters converted with
+qwen3-smoke, starcoder2-smoke, minitron-smoke (GELU MLP) and danube3-smoke
+(a dense sliding window of 16, hd 24: its 21-token prompt wraps the ring)
+(f32): JAX parameters converted with
 ``convert.transformer_from_jax``, the same numpy tokens; prefill under the
 planner's plan and two decode steps give logits within 1e-4 and caches
 within 1e-4; a heterogeneous plan runs each layer under its own mode.
@@ -34,7 +36,7 @@ from repro_torch.models import transformer as T
 from repro_torch.plan import plan_decode_step, plan_model
 
 TOL = 1e-4
-ARCHS = ["qwen3-32b", "starcoder2-7b"]
+ARCHS = ["qwen3-32b", "starcoder2-7b", "minitron-4b", "h2o-danube3-4b"]
 
 
 @pytest.fixture(scope="module", params=ARCHS)
@@ -187,14 +189,11 @@ def test_own_init_has_jax_shapes_and_scales(model):
 @pytest.mark.parametrize("change,item,call", [
     (dict(family=Family.MOE), "item 18", T.check_trainable),
     (dict(family=Family.ENCDEC), "models.encdec", T.check_supported),
-    (dict(attn_kind=AttnKind.SLIDING), "paged ring pool", T.check_supported),
     (dict(attn_kind=AttnKind.MLA), "item 18", T.check_trainable),
-    (dict(use_bias=True), "item 6", T.check_supported),
 ])
 def test_unported_variants_raise(change, item, call):
     """What the port still refuses: MoE and MLA training (item 18), the
-    encoder-decoder family in this module, a dense model's sliding window
-    (h2o-danube3's ring pool), biases.  The decoder refuses at
+    encoder-decoder family in this module.  The decoder refuses at
     construction what ``check_supported`` refuses."""
     cfg = dataclasses.replace(get_config("qwen3-32b", smoke=True), **change)
     with pytest.raises(NotImplementedError, match=item):
@@ -211,8 +210,70 @@ def test_registry_dispatches_families():
                                             family=Family.SSM)) is T
     assert model_module(get_config("grok-1-314b")) is T
     assert model_module(get_config("deepseek-v3-671b")) is T
-    with pytest.raises(NotImplementedError, match="smoke"):
-        get_config("starcoder2-7b")
+
+
+@pytest.mark.parametrize("arch", ["minitron-4b", "starcoder2-7b",
+                                  "h2o-danube3-4b"])
+def test_last_decoder_configs_are_copies_and_supported(arch):
+    """The three decoder configs the port refused until now: full CONFIG
+    and SMOKE equal the JAX package's, and the decoder takes both (a
+    dense sliding window, and ``use_bias``, which no model code reads)."""
+    for smoke in (False, True):
+        cfg = get_config(arch, smoke)
+        assert dataclasses.asdict(cfg) == {
+            **dataclasses.asdict(jregistry.get_config(arch, smoke)),
+            "family": cfg.family, "attn_kind": cfg.attn_kind,
+            "execution_mode": cfg.execution_mode}
+        assert cfg.family.value == jregistry.get_config(arch, smoke)\
+            .family.value
+        T.check_supported(cfg)
+        assert model_module(cfg) is T
+    assert get_config("starcoder2-7b").use_bias
+    assert get_config("h2o-danube3-4b").head_dim == 120
+
+
+def test_use_bias_is_read_by_no_model_code():
+    """starcoder2-smoke with ``use_bias=True`` (the full config's flag)
+    gives the JAX package's logits, forward and prefill + decode, within
+    1e-4: neither package draws or adds a bias."""
+    cfg = dataclasses.replace(get_config("starcoder2-7b", smoke=True),
+                              use_bias=True)
+    jcfg = dataclasses.replace(jregistry.get_config("starcoder2-7b",
+                                                    smoke=True),
+                               use_bias=True)
+    params = jT.init(jax.random.PRNGKey(1), jcfg)
+    port = transformer_from_jax(jax.tree.map(np.asarray, params), cfg,
+                                device="cpu")
+    own = T.Transformer(cfg, device="cpu")
+    assert own.state_dict().keys() == port.state_dict().keys()
+    tokens = np.random.default_rng(5).integers(0, cfg.vocab_size, (2, 13))
+    jtok = jnp.asarray(tokens, jnp.int32)
+    _close(port({"tokens": torch.as_tensor(tokens)}),
+           jT.forward(params, jcfg, {"tokens": jtok}))
+    jlogits, jcache = jT.prefill(params, jcfg, {"tokens": jtok}, max_len=16)
+    logits, cache = port.prefill({"tokens": torch.as_tensor(tokens)}, 16)
+    _close(logits, jlogits)
+    nxt = tokens[:, -1:]
+    jlogits, _ = jT.decode_step(params, jcfg, jcache,
+                                jnp.asarray(nxt, jnp.int32))
+    logits, _ = port.decode_step(cache, torch.as_tensor(nxt))
+    _close(logits, jlogits)
+
+
+def test_dense_ring_prefill_then_decode_equals_longer_prefill():
+    """danube3-smoke (window 16): prefill(S) and one decode step give the
+    last logits of prefill(S + 1) within 1e-4, for prompts that stay
+    inside the window, fill it, and wrap the ring."""
+    cfg = get_config("h2o-danube3-4b", smoke=True)
+    port = T.Transformer(cfg, device="cpu")
+    tokens = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (1, 40)))
+    for S in (9, 16, 23, 39):
+        longer, _ = port.prefill({"tokens": tokens[:, :S + 1]}, 48)
+        _, cache = port.prefill({"tokens": tokens[:, :S]}, 48)
+        assert cache["layers"]["k"].shape[3] == cfg.sliding_window
+        step, _ = port.decode_step(cache, tokens[:, S:S + 1])
+        _close(step[:, 0], longer[:, -1])
 
 
 def test_rope_and_norm_helpers_match_jax():
