@@ -28,7 +28,12 @@ the stream dQ kernel skips the tile forwarded once around its cluster;
 flash attention's wide route (MLA's 576/512 heads): the tensor-core
 kernel drops the last 64-column box of q/k from Q K^T (the roped part),
 or skips the rescale of the last 128 output columns; flash's SIMT kernel
-(f32, every width) drops the last 64-column chunk of q/k.
+(f32, every width) drops the last 64-column chunk of q/k; the flash
+backward's wide route: the dK/dV kernel leaves the last head of each
+group out of its sum (the tensor-core kernel in bf16, the SIMT one in
+f32), or the SIMT dQ kernel its last live kv tile (f32); the SSD backward: the reverse pass drops the decay of the state
+gradient it carries between chunks (f32), or the chunk kernel takes
+exp(LD_last - LD_s) with the wrong sign (bf16).
 chip_smoke's check of that kernel then runs on the copy, in a
 subprocess, in the dtype of the faulty route, once at the kernel test
 cases and once at the main path's shapes (the GEMM's faults once more at
@@ -62,6 +67,9 @@ DECODE = ("DECODE_CASES", "MAIN_DECODE", "check_decode")
 SSD = ("SSD_CASES", "MAIN_SSD", "check_ssd")
 FLASH_BWD = ("FLASH_BWD_CASES", "MAIN_FLASH_BWD", "check_flash_bwd")
 STREAM_BWD = ("STREAM_BWD_CASES", "MAIN_STREAM_BWD", "check_stream_bwd")
+FLASH_BWD_WIDE = ("FLASH_BWD_WIDE_CASES", "MAIN_FLASH_BWD_WIDE",
+                  "check_flash_bwd_wide")
+SSD_BWD = ("SSD_BWD_CASES", "MAIN_SSD_BWD", "check_ssd_bwd")
 # fault: (kernel, CUDA source, (text, planted replacement),
 #         chip_smoke's (test cases, main-path shapes, check function))
 FAULTS = {
@@ -197,6 +205,32 @@ FAULTS = {
         "stream_attention_bwd", "stream_attention_bwd.cu",
         ("kr[e] = r * sd.k_gamma[e] * kr[e] - r * r * r * kp[e] * dot / hd;",
          "kr[e] = r * sd.k_gamma[e] * kr[e];"), STREAM_BWD),
+    # the flash backward's wide route: dK/dV leaves the last head of each
+    # group out of its sum (its tensor-core kernels in bf16, its SIMT ones
+    # in f32); the SIMT dQ skips its last live kv tile
+    "flash_attention_bwd_wide_tc_head": (
+        "flash_attention_bwd", "attention_bwd_wide.cuh",
+        ("  for (int hg = 0; hg < gr.gc; ++hg) {",
+         "  for (int hg = 0; hg < gr.gc - 1; ++hg) {"), FLASH_BWD_WIDE),
+    "flash_attention_bwd_wide_head": (
+        "flash_attention_bwd", "attention_bwd_wide.cuh",
+        ("  for (int gi = 0; gi < gr.gc; ++gi) {",
+         "  for (int gi = 0; gi < gr.gc - 1; ++gi) {"), FLASH_BWD_WIDE),
+    "flash_attention_bwd_wide_dq": (
+        "flash_attention_bwd", "attention_bwd_wide.cuh",
+        ("  for (int j = kv.lo; j < kv.hi; ++j) {",
+         "  for (int j = kv.lo; j < kv.hi - 1; ++j) {"), FLASH_BWD_WIDE),
+    # the SSD backward (one route, both dtypes): the reverse pass carries
+    # the state gradient into the chunk before without its decay; the
+    # chunk kernel's exp(LD_last - LD_s) takes the wrong sign
+    "ssd_scan_bwd_carry": (
+        "ssd_scan_bwd", "ssd_scan_bwd.cu",
+        ("      grad = fmaf(dc[k], grad, v[k]);", "      grad = v[k];"),
+        SSD_BWD),
+    "ssd_scan_bwd_sign": (
+        "ssd_scan_bwd", "ssd_scan_bwd.cu",
+        ("    wl[tid] = expf(ld[L - 1] - ld[tid]);",
+         "    wl[tid] = expf(ld[tid] - ld[L - 1]);"), SSD_BWD),
 }
 # Faults checked at the test cases only (the main shapes do not reach them).
 CASES_ONLY = ("stream_attention_bwd_rope", "stream_attention_bwd_norm",
@@ -205,7 +239,9 @@ CASES_ONLY = ("stream_attention_bwd_rope", "stream_attention_bwd_norm",
 MAIN_SUBSETS = {"tile_gemm": ("hymba",)}
 # Faults in an f32 route: their runs check f32, the others bf16.
 F32_FAULTS = ("decode_attention_simt", "ssd_scan_simt",
-              "flash_attention_simt",
+              "flash_attention_simt", "flash_attention_bwd_wide_head",
+              "flash_attention_bwd_wide_dq",
+              "ssd_scan_bwd_carry",
               "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
               "stream_attention_bwd_rope", "stream_attention_bwd_norm")
 # Run inside the faulty copy: chip_smoke's bf16 check of one kernel, at

@@ -11,8 +11,10 @@
 // What bounds it on the H100: the FLOPs, five products of 2·Sq·Sk·hd per
 // (batch, head) over the live pairs.
 //
-// Two routes (the `route` argument; kernels/flash_vjp.py picks it), three
-// launches each:
+// Three routes (the `route` argument; kernels/flash_vjp.py picks it): tc
+// and simt, three launches each, and wide (heads over 128, MLA's latent
+// widths; attention_bwd_wide.cuh, its own comment), 1 + 3 per group of
+// query heads:
 //   delta          delta = rowsum(dO * O)                       (B, Hq, Sq)
 //   dK/dV kernel   one block per (kv tile of 64 keys, kv head, batch): K_j
 //                  and V_j stay in shared memory while the block walks the
@@ -445,21 +447,38 @@ inline int dispatch(const void* q, const void* k, const void* v,
 }  // namespace tcb
 }  // namespace repro
 
+#include "attention_bwd_wide.cuh"
+
 // route: 0 = simt (both dtypes), 1 = tc (bf16, where tcb::takes holds: the
-// call fails with cudaErrorInvalidValue otherwise).  dtype: 0 = float32,
-// 1 = bfloat16 (q, k, v, out, dout and the gradients dq, dk, dv).  lse
-// (B, Hq, Sq) f32 from the forward; delta (B, Hq, Sq) f32 scratch.  All
-// tensors contiguous; hd, hdv <= 128 (the Python wrapper checks).  Returns
-// the CUDA error code of the launches.
+// call fails with cudaErrorInvalidValue otherwise), 2 = wide (both dtypes,
+// a head over 128: q/k <= 576, v <= 512; bf16 where wbwd::tc_ok holds, the
+// call fails with cudaErrorInvalidValue otherwise; `scratch` holds
+// flash_attention_bwd_wide_scratch(..., gc) floats and the query heads of
+// each kv head go in groups of gc; the other routes read neither).  dtype:
+// 0 = float32, 1 = bfloat16 (q, k, v, out, dout and the gradients dq, dk,
+// dv).  lse (B, Hq, Sq) f32 from the forward; delta (B, Hq, Sq) f32
+// scratch.  All tensors contiguous; simt and tc take hd, hdv <= 128 (the
+// Python wrapper checks).  Returns the CUDA error code of the launches.
 extern "C" int flash_attention_bwd_launch(
     const void* q, const void* k, const void* v, const void* out,
     const void* dout, const float* lse, float* delta, void* dq, void* dk,
-    void* dv, int route, int dtype, int B, int Hq, int Hkv, int Sq, int Sk,
-    int hd, int hdv, float scale, int causal, int window, int q_offset,
-    int kv_len, void* stream) {
+    void* dv, void* scratch, int route, int dtype, int B, int Hq, int Hkv,
+    int Sq, int Sk, int hd, int hdv, float scale, int causal, int window,
+    int q_offset, int kv_len, int gc, void* stream) {
   repro::AttnShape sh{B, Hq, Hkv, Sq, Sk, hd, hdv, scale,
                       causal, window, q_offset, kv_len};
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 2) {
+    if (!repro::wbwd::takes(sh) || gc < 1) return (int)cudaErrorInvalidValue;
+    float* scr = (float*)scratch;
+    if (dtype == 0)
+      return repro::wbwd::launch<float>(q, k, v, out, dout, lse, delta, dq,
+                                        dk, dv, scr, gc, sh, s);
+    if (!repro::wbwd::tc_ok(sh, q, k, v, dout))
+      return (int)cudaErrorInvalidValue;
+    return repro::wbwd::launch<__nv_bfloat16>(q, k, v, out, dout, lse, delta,
+                                              dq, dk, dv, scr, gc, sh, s);
+  }
   if (route == 1)
     return dtype == 1 ? repro::tcb::dispatch(q, k, v, out, dout, lse, delta,
                                              dq, dk, dv, sh, s)
@@ -471,10 +490,19 @@ extern "C" int flash_attention_bwd_launch(
                                              dq, dk, dv, sh, s);
 }
 
-// The tc route's rule for the shapes (1 = tc, 0 = simt), with every tensor
-// 16-byte aligned: the rule blocked.flash_bwd_route mirrors.
+// f32 scratch of the wide route, in floats, for groups of gc query heads.
+extern "C" long long flash_attention_bwd_wide_scratch(int B, int Hq, int Hkv,
+                                                      int Sq, int Sk, int hd,
+                                                      int hdv, int gc) {
+  repro::AttnShape sh{B, Hq, Hkv, Sq, Sk, hd, hdv, 1.f, 0, 0, 0, Sk};
+  return (long long)repro::wbwd::scratch_floats(sh, gc);
+}
+
+// The route rule for the shapes (2 = wide, 1 = tc, 0 = simt), with every
+// tensor 16-byte aligned: the rule blocked.flash_bwd_route mirrors.
 extern "C" int flash_attention_bwd_route(int dtype, int hd, int hdv) {
   repro::AttnShape sh{1, 1, 1, 1, 1, hd, hdv, 1.f, 0, 0, 0, 1};
   static const uint4 aligned[1] = {};
+  if (hd > 128 || hdv > 128) return 2;
   return dtype == 1 && repro::tcb::takes(sh, aligned, aligned, aligned, aligned);
 }

@@ -26,7 +26,7 @@ CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 SOURCES = ("tile_gemm", "flash_attention", "stream_attention",
            "decode_attention", "ssd_scan", "flash_attention_bwd",
-           "stream_attention_bwd")
+           "stream_attention_bwd", "ssd_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -138,13 +138,14 @@ def needs_grad(*tensors) -> bool:
         t is not None and t.requires_grad for t in tensors)
 
 
-def refuse_grad(kernel: str, item: str, *tensors) -> None:
-    """Raise if autograd would need a gradient through ``kernel``, which has
-    no backward yet: its result would be silently detached."""
+def refuse_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a gradient through ``kernel``, a
+    serving kernel with no backward (none in the JAX package either): its
+    result would be silently detached."""
     if needs_grad(*tensors):
         raise NotImplementedError(
-            f"{kernel}: no backward is ported yet (ROADMAP Queue 1 "
-            f"item {item}); call it under torch.no_grad()")
+            f"{kernel}: serving only, on no training path, with no "
+            f"backward; call it under torch.no_grad()")
 
 
 def raise_on(kernel: str, rc: int) -> None:

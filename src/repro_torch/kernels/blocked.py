@@ -635,13 +635,33 @@ BWD_MAX_CLUSTER = 8       # tc: most blocks of a cluster
 STREAM_BWD_GROUPS = 16    # tc: most tile groups (dW slots per batch row)
 
 
+#: The flash backward's routes: the two above and "wide" (heads over 128,
+#: MLA's latent widths; both dtypes; ``csrc/attention_bwd_wide.cuh``).
+FLASH_BWD_ROUTES = BWD_ROUTES + ("wide",)
+BWD_WIDE_QK, BWD_WIDE_V = 576, 512   # widest q/k and v heads of "wide"
+#: f32 bytes of P and dS for the query heads the wide route takes at once.
+BWD_WIDE_SCRATCH = 512 * 2 ** 20
+
+
 def flash_bwd_route(dtype: torch.dtype, hd: int, hdv: int) -> str:
-    """The flash backward's route for 16-byte aligned tensors: "tc" for
-    bf16 with hd and hdv multiples of 8 up to 128 (the widths the
-    forward's tc core takes), else "simt"."""
+    """The flash backward's route for 16-byte aligned tensors: "wide" for
+    a head over 128 wide (q/k up to 576, v up to 512), "tc" for bf16 with
+    hd and hdv multiples of 8 up to 128 (the widths the forward's tc core
+    takes), else "simt"."""
+    if max(hd, hdv) > 128:
+        return "wide"
     ok = (dtype == torch.bfloat16 and hd % 8 == 0 and hdv % 8 == 0
           and hd <= 128 and hdv <= 128)
     return "tc" if ok else "simt"
+
+
+def flash_bwd_wide_heads(B: int, Hq: int, Hkv: int, Sq: int, Sk: int) -> int:
+    """Query heads of each kv head whose P and dS (f32, B·Hkv·Sq rows of
+    the keys padded to 64) the wide route holds at once, within
+    ``BWD_WIDE_SCRATCH``: it walks the G = Hq / Hkv heads in groups of
+    this many, summing dK and dV over the groups in order."""
+    per_head = 2 * B * Hkv * max(Sq, 1) * (-(-max(Sk, 1) // BWD_BK) * BWD_BK) * 4
+    return max(1, min(Hq // Hkv, BWD_WIDE_SCRATCH // per_head))
 
 
 def stream_bwd_cluster(Hkv: int, hd: int) -> int:
@@ -855,6 +875,104 @@ def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 SSD_ROUTES = ("simt", "tc")
 SSD_CHUNK = 64        # rows per chunk of the bf16 SSD kernel
+
+
+def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                       dstate: Optional[torch.Tensor] = None, *,
+                       chunk: int = SSD_CHUNK
+                       ) -> Tuple[torch.Tensor, ...]:
+    """The gradient of ``ssd_chunked_plain`` (the counterpart of XLA's
+    autodiff of ``jnp_blocked.ssd_chunked_jnp``, jnp_blocked.py:261) with
+    respect to x, dt, a, b and c, from dy (B, S, H, P) and d(final state)
+    (B, H, P, N) f32 (None: zeros), in the stages of the ``ssd_scan_bwd``
+    kernel, each over every chunk at once but the second.  Returns (dx in
+    x's dtype, ddt f32, da f32, db in b's dtype, dc in c's dtype).
+
+    Per chunk, with LD = cumsum(dt·a), u = dt·x, dS_out the gradient of
+    the state leaving the chunk and S_in the state entering it:
+
+    1. contributions: the chunk's own Σ_s exp(LD_last - LD_s) u_s b_sᵀ
+       (forward) and Σ_t exp(LD_t) dy_t c_tᵀ (backward), and its decay
+       exp(LD_last);
+    2. along the chunks: S_in forward, dS_out in reverse
+       (dS_in = exp(LD_last) dS_out + Σ_t exp(LD_t) dy_t c_tᵀ);
+    3. per chunk: du_s = Σ_{t≥s} exp(LD_t - LD_s)(c_t·b_s) dy_t
+       + exp(LD_last - LD_s) dS_out b_s; dc and db (per head) from
+       Q_ts = exp(LD_t - LD_s)(dy_t·u_s) on t ≥ s and the state terms;
+       dLD from the exponentials, then ddt and da through the reverse
+       cumsum, dx = du·dt and ddt += Σ_p du·x;
+    4. db and dc summed over the heads, da over the rows and chunks.
+    """
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    L = min(chunk, S)
+    x, _ = _pad_axis(x, 1, L)
+    dtp, _ = _pad_axis(dt, 1, L)
+    bp, _ = _pad_axis(b, 1, L)
+    cp, _ = _pad_axis(c, 1, L)
+    dyp, _ = _pad_axis(dy, 1, L)
+    nc = x.shape[1] // L
+    valid = (torch.arange(nc * L, device=x.device) < S).reshape(nc, L)
+    xf = x.float().reshape(B, nc, L, H, P)
+    dtf = dtp.float().reshape(B, nc, L, H) * valid[None, :, :, None]
+    bf = bp.float().reshape(B, nc, L, N)
+    cf = cp.float().reshape(B, nc, L, N)
+    dyf = dyp.float().reshape(B, nc, L, H, P)
+    af = a.float()
+    # 1
+    ld = torch.cumsum(dtf * af, dim=2)                        # (B, nc, L, H)
+    ld_last = ld[:, :, -1]                                    # (B, nc, H)
+    el = torch.exp(ld)
+    wl = torch.exp(ld_last[:, :, None] - ld)                  # exp(LD_last - LD_s)
+    u = xf * dtf[..., None]
+    contrib = torch.einsum("bcshp,bcsn->bchpn", wl[..., None] * u, bf)
+    dcontrib = torch.einsum("bcthp,bctn->bchpn", el[..., None] * dyf, cf)
+    decay = torch.exp(ld_last)
+    # 2
+    state = torch.zeros((B, H, P, N), device=x.device)
+    entering = []
+    for j in range(nc):
+        entering.append(state)
+        state = decay[:, j, :, None, None] * state + contrib[:, j]
+    entering = torch.stack(entering, dim=1)                   # (B, nc, H, P, N)
+    ds = (torch.zeros((B, H, P, N), device=x.device) if dstate is None
+          else dstate.float())
+    leaving = [None] * nc
+    for j in range(nc - 1, -1, -1):
+        leaving[j] = ds
+        ds = decay[:, j, :, None, None] * ds + dcontrib[:, j]
+    leaving = torch.stack(leaving, dim=1)                     # dS_out
+    # 3
+    tri = (torch.arange(L, device=x.device)[:, None]
+           >= torch.arange(L, device=x.device)[None, :])[..., None]
+    e = torch.where(tri, torch.exp(ld[:, :, :, None, :] - ld[:, :, None, :, :]),
+                    torch.zeros((), device=x.device))         # (B, nc, t, s, H)
+    cb = torch.einsum("bctn,bcsn->bcts", cf, bf)
+    q = e * torch.einsum("bcthp,bcshp->bctsh", dyf, u)
+    v2 = torch.einsum("bchpn,bcsn->bcshp", leaving, bf)       # dS_out b_s
+    du = (torch.einsum("bctsh,bcthp->bcshp", e * cb[..., None], dyf)
+          + wl[..., None] * v2)
+    dc = (torch.einsum("bctsh,bcsn->bctn", q, bf)
+          + torch.einsum("bcth,bchpn,bcthp->bctn", el, entering, dyf))
+    db = (torch.einsum("bctsh,bctn->bcsn", q, cf)
+          + torch.einsum("bcsh,bchpn,bcshp->bcsn", wl, leaving, u))
+    g = q * cb[..., None]
+    k = wl * (u * v2).sum(-1)
+    dld = (g.sum(3) - g.sum(2) - k
+           + el * torch.einsum("bcthp,bchpn,bctn->bcth", dyf, entering, cf))
+    last = decay * (leaving * entering).sum((-1, -2)) + k.sum(2)
+    dld = torch.cat([dld[:, :, :-1], dld[:, :, -1:] + last[:, :, None]], 2)
+    rev = torch.flip(torch.cumsum(torch.flip(dld, [2]), 2), [2])
+    ddt = (du * xf).sum(-1) + af * rev
+    da = (dtf * rev).sum((0, 1, 2))
+    dx = du * dtf[..., None]
+
+    def rows(t):
+        return t.reshape(B, nc * L, *t.shape[3:])[:, :S]
+
+    return (rows(dx).to(x.dtype), rows(ddt), da, rows(db).to(b.dtype),
+            rows(dc).to(c.dtype))
 
 
 def ssd_four_stage_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,

@@ -98,7 +98,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CPU tensors take the plain version, blocked by ``block_k``; CUDA tensors
     launch the kernel, whose rows are bitwise independent of B.  It has no
     backward: an input that requires grad under autograd raises."""
-    _build.refuse_grad("decode_attention", "18", q, k, v)
+    _build.refuse_grad("decode_attention", q, k, v)
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, cache_len, window=window,
                                       scale=scale, block_k=block_k)

@@ -21,7 +21,10 @@ and ``csrc/stream_attention_bwd.cu``, each with two routes: ``tc`` (bf16,
 wgmma/TMA, ``csrc/attention_bwd_tc.cuh``; the rule
 ``blocked.flash_bwd_route`` / ``stream_bwd_route`` and 16-byte aligned
 tensors) and ``simt`` (every other call: f32 SIMT, the first port's
-kernels); ``.routes`` counts the launches of each.  CPU tensors take the
+kernels); the flash backward has a third, ``wide`` (heads over 128, MLA's
+576/512 latent widths: ``csrc/attention_bwd_wide.cuh``; bf16 on its
+tensor-core kernels, widths multiples of 8, f32 on SIMT);
+``.routes`` counts the launches of each.  CPU tensors take the
 plain versions ``blocked.flash_attention_bwd_plain`` and
 ``blocked.stream_attention_bwd_plain``.
 
@@ -40,16 +43,17 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.blocked import (BWD_ROUTES, flash_attention_bwd_plain,
+from repro_torch.kernels.blocked import (BWD_ROUTES, BWD_WIDE_QK, BWD_WIDE_V,
+                                         FLASH_BWD_ROUTES,
+                                         flash_attention_bwd_plain,
                                          flash_bwd_route,
+                                         flash_bwd_wide_heads,
                                          stream_attention_bwd_plain,
                                          stream_bwd_route)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.stream_attention import stream_attention
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-#: The widest head (q/k and v) the backward kernels take.
-BWD_MAX_HEAD_DIM = 128
 
 
 def _fn(lib: str, name: str, argtypes):
@@ -61,7 +65,19 @@ def _fn(lib: str, name: str, argtypes):
 @functools.lru_cache(maxsize=1)
 def _flash_lib():
     return _fn("flash_attention_bwd", "flash_attention_bwd_launch",
-               [_P] * 10 + [_I] * 9 + [_F] + [_I] * 4 + [_P])
+               [_P] * 11 + [_I] * 9 + [_F] + [_I] * 5 + [_P])
+
+
+@functools.lru_cache(maxsize=1024)
+def wide_scratch_floats(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, hd: int,
+                        hdv: int, gc: int) -> int:
+    """f32 scratch of the flash backward's wide route, in floats: P and dS
+    of ``gc`` query heads of each kv head (and, for more than one group,
+    the f32 sums of dK and dV), read from its library."""
+    fn = getattr(_build.load("flash_attention_bwd"),
+                 "flash_attention_bwd_wide_scratch")
+    fn.argtypes, fn.restype = [_I] * 8, ctypes.c_longlong
+    return fn(B, Hq, Hkv, Sq, Sk, hd, hdv, gc)
 
 
 @functools.lru_cache(maxsize=1)
@@ -88,7 +104,8 @@ def library_route(kernel: str, *shape: int) -> str:
     "flash" with (dtype code, hd, hdv) or "stream" with (dtype code, hd, D,
     Hkv)."""
     name = f"{kernel}_attention_bwd"
-    return BWD_ROUTES[_fn(name, f"{name}_route", [_I] * len(shape))(*shape)]
+    routes = FLASH_BWD_ROUTES if kernel == "flash" else BWD_ROUTES
+    return routes[_fn(name, f"{name}_route", [_I] * len(shape))(*shape)]
 
 
 def stream_config(G: int, Sq: int) -> Tuple[int, int, int, int]:
@@ -132,7 +149,10 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) of ``flash_attention`` from its inputs, output, lse and
     dout.  CPU tensors take the plain version, blocked by ``block_k``;
-    CUDA tensors launch the kernel (kv tiles of 64 keys) on its route."""
+    CUDA tensors launch the kernel (kv tiles of 64 keys) on its route:
+    "wide" for heads over 128 (q/k up to 576, v up to 512: MLA's latent
+    attention), with f32 scratch for P and dS of ``flash_bwd_wide_heads``
+    query heads at a time."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
               kv_len=kv_len)
     if q.device.type == "cpu":
@@ -145,15 +165,36 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
     kv_len = Sk if kv_len is None else kv_len
     scale = hd ** -0.5 if scale is None else scale
-    route = ("tc" if flash_bwd_route(q.dtype, hd, hdv) == "tc"
-             and _aligned(q, k, v, dout) else "simt")
+    route = flash_bwd_route(q.dtype, hd, hdv)
+    if route == "wide" and (hd > BWD_WIDE_QK or hdv > BWD_WIDE_V):
+        raise ValueError(f"flash_attention_bwd: head widths {hd}/{hdv} over "
+                         f"the widest the kernels take, {BWD_WIDE_QK}/"
+                         f"{BWD_WIDE_V}")
+    if route == "tc" and not _aligned(q, k, v, dout):
+        route = "simt"
+    if route == "wide" and q.dtype == torch.bfloat16:
+        if hd % 8 or hdv % 8:
+            raise ValueError(f"flash_attention_bwd: the wide route takes bf16 "
+                             f"head widths that are multiples of 8, not "
+                             f"{hd}/{hdv}")
+        # its tensor-core kernels load 16-byte rows
+        q, k, v, dout = (t if _aligned(t) else t.clone()
+                         for t in (q, k, v, dout))
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     delta = torch.empty_like(lse)
+    gc, scratch = 0, None
+    if route == "wide":
+        gc = flash_bwd_wide_heads(B, Hq, Hkv, Sq, Sk)
+        scratch = torch.empty(wide_scratch_floats(B, Hq, Hkv, Sq, Sk, hd,
+                                                  hdv, gc),
+                              dtype=torch.float32, device=q.device)
     _build.raise_on(f"flash_attention_bwd ({route} route)", _flash_lib()(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), BWD_ROUTES.index(route), code, B, Hq,
-        Hkv, Sq, Sk, hd, hdv, scale, int(causal), window, q_offset, kv_len,
+        dk.data_ptr(), dv.data_ptr(),
+        None if scratch is None else scratch.data_ptr(),
+        FLASH_BWD_ROUTES.index(route), code, B, Hq, Hkv, Sq, Sk, hd, hdv,
+        scale, int(causal), window, q_offset, kv_len, gc,
         _build.stream_ptr(q.device)))
     flash_attention_bwd.launches += 1
     flash_attention_bwd.routes[route] += 1
@@ -161,7 +202,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention_bwd.launches = 0
-flash_attention_bwd.routes = dict.fromkeys(BWD_ROUTES, 0)
+flash_attention_bwd.routes = dict.fromkeys(FLASH_BWD_ROUTES, 0)
 
 
 def stream_attention_bwd(q: torch.Tensor, x_kv: torch.Tensor,
@@ -255,12 +296,6 @@ class FlashAttentionFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        if max(q.shape[-1], v.shape[-1]) > BWD_MAX_HEAD_DIM:
-            raise NotImplementedError(
-                f"flash attention backward at head widths {q.shape[-1]}/"
-                f"{v.shape[-1]} (over {BWD_MAX_HEAD_DIM}: MLA's latent "
-                f"attention) is not ported yet: MoE and MLA training are "
-                f"ROADMAP Queue 1 item 18")
         dq, dk, dv = flash_attention_bwd(q, k, v, out, lse,
                                          dout.contiguous(), **ctx.kw)
         return dq, dk, dv, None, None, None, None

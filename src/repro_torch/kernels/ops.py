@@ -85,7 +85,7 @@ def mla_latent_attention(q_cat: torch.Tensor, k_cat: torch.Tensor,
     wide route, 576/512 at deepseek-v3), on CPU tensors its plain version
     blocked by ``block_k``.  Under autograd it goes through
     ``FlashAttentionFn``, whose default scale is the same and whose
-    backward refuses these widths (ROADMAP Queue 1 item 18)."""
+    backward takes the flash backward's wide route at these widths."""
     q_cat, k_cat, c = q_cat.contiguous(), k_cat.contiguous(), c.contiguous()
     block_k = runtime.get("block_k", block_k)
     if needs_grad(q_cat, k_cat, c):
@@ -149,8 +149,10 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mamba-2 SSD scan -> (y, final state) (ops.py:190): the ``ssd_scan``
     kernel on CUDA tensors, its plain version, chunked by ``chunk``, on CPU
-    tensors.  Nothing is padded here: the kernel masks the ragged last
-    chunk, the plain version pads itself."""
+    tensors; under autograd through ``SSDScanFn``, whose backward is the
+    ``ssd_scan_bwd`` kernel (the JAX training path differentiates
+    ``ssd_chunked_jnp``).  Nothing is padded here: the kernels mask the
+    ragged last chunk, the plain versions pad themselves."""
     return ssd_scan(x.contiguous(), dt.contiguous(), a.contiguous(),
                     b.contiguous(), c.contiguous(), chunk=chunk)
 

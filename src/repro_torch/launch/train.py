@@ -5,9 +5,10 @@
         [--smoke] [--mode tile_stream] [--checkpoint-dir ckpts/run1] \\
         [--microbatches 4] [--device cpu]
 
-It runs on the card (one device) unless ``--device`` names another; with
-no card and no ``--device cpu`` it refuses to start.  ``--smoke`` takes the
-arch's small config and a small shape.  The JAX launcher's
+Every registry arch trains.  It runs on the card (one device) unless
+``--device`` names another; with no card and no ``--device cpu`` it
+refuses to start.  ``--smoke`` takes the arch's small config and a small
+shape.  The JAX launcher's
 ``--use-pallas`` and ``--multi-pod`` have no counterpart: the kernels run
 whenever the tensors are on the card, and multi-GPU training is ROADMAP
 Queue 1 item 13.

@@ -12,7 +12,9 @@ Entry points, on the card unless the model was built on the CPU:
 
 * ``EncDec.encode`` / ``decode_train`` / ``forward`` (encdec.py:61-115),
   every attention layer under the execution mode; ``loss_fn`` the
-  teacher-forced cross-entropy;
+  teacher-forced cross-entropy, the training path (``train.loop`` builds
+  ``EncDec``; the backward of the stream and flash kernels, and autograd
+  through the rest);
 * ``EncDec.prefill``: the encoder, then the decoder over the prompt, its
   causal self-attention through ``ops.multi_head_attention`` (the flash
   kernel) while the cache fills, its cross-attention under the mode;
@@ -242,9 +244,13 @@ class EncDec(nn.Module):
 
 
 def loss_fn(model: EncDec, batch: Dict[str, torch.Tensor], *,
-            mode: Optional[ExecutionMode] = None) -> torch.Tensor:
+            mode: Optional[ExecutionMode] = None,
+            remat: bool = False) -> torch.Tensor:
     """Teacher-forced next-token cross-entropy (encdec.py:117): batch
-    {"frames", "tokens", "labels"}; labels == -1 are masked."""
+    {"frames", "tokens", "labels"}; labels == -1 are masked.  The training
+    path (``train.steps``) differentiates it; ``remat`` is accepted and
+    not read, as in JAX."""
+    del remat
     enc = model._encode(batch["frames"], mode)
     logits = model._decode_train(batch["tokens"], enc, mode)
     labels = batch["labels"]

@@ -388,7 +388,9 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     (the JAX einsums, outside any kernel there too); the combine gathers
     each token's K slot outputs, weighs each by its gate in x's dtype and
     sums them in f32 in k order (deterministic: no scatter-add).  The
-    shared expert runs through ``mlp_forward`` (``tile_gemm``)."""
+    shared expert runs through ``mlp_forward`` (``tile_gemm``).  Under
+    autograd the gathers and products differentiate (the router through
+    the gate weights); a dropped slot gets no gradient, as in JAX."""
     from repro_torch.core import runtime
     if capacity_factor is None:
         capacity_factor = runtime.get("moe_capacity", 1.25)

@@ -6,7 +6,8 @@ shared roped key (qk_rope_head_dim wide).  Prefill absorbs wk_b into the
 query, so attention runs in latent space as MQA: one "key" [c ; k_rope]
 (kvr + dr wide) and one "value" c (kvr wide) shared by every query head,
 through ``ops.mla_latent_attention`` (the flash kernel at those widths on
-CUDA tensors).  K and V never exist as tensors: the latent is the cache.
+CUDA tensors; under autograd its backward takes the flash backward's
+wide route).  K and V never exist as tensors: the latent is the cache.
 Decode keeps the absorbed form in plain PyTorch, in f32, as the JAX
 function does (it reaches no kernel there).
 """

@@ -2,8 +2,10 @@
 (arXiv:2405.21060; counterpart of ``repro/models/ssm.py``).  Used alone
 (mamba2-780m) and beside attention in hymba's hybrid layers.
 
-Prefill runs the SSD scan through ``ops.ssd`` (the ``ssd_scan`` kernel on
-CUDA tensors); the in/out projections are ``torch.matmul``, as the
+Prefill and training run the SSD scan through ``ops.ssd`` (the
+``ssd_scan`` kernel on CUDA tensors; under autograd ``SSDScanFn``, whose
+backward is the ``ssd_scan_bwd`` kernel); the in/out projections are
+``torch.matmul``, as the
 reference's ``jnp.dot``; the causal conv, the gated RMSNorm and the
 one-token decode recurrence are plain PyTorch.  ``ssm_forward`` also
 serves the reference's ``transformer._ssm_prefill_state``: given a layer

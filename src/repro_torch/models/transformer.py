@@ -44,17 +44,19 @@ Under an active ``sim.replay`` recording, a planned prefill runs one
 dispatch segment per layer, so that each layer's ``KernelTrace`` carries
 its own plan op's name (transformer.py:524-536).
 
-Training (dense family): ``Transformer.hidden`` is the forward with
-autograd, each layer optionally recomputed in the backward
+Training (every family of this module): ``Transformer.hidden`` is the
+forward with autograd, each layer optionally recomputed in the backward
 (``torch.utils.checkpoint``, as ``jax.checkpoint`` in the JAX
 ``_scan_stack``); ``loss_fn`` is next-token cross-entropy through
-``chunked_xent`` (transformer.py:177-214).  The serving entry points keep
+``chunked_xent`` (transformer.py:177-214).  The SSM scan differentiates
+through ``SSDScanFn`` (the ``ssd_scan_bwd`` kernel), MLA's latent
+attention through ``FlashAttentionFn`` (the flash backward's wide route),
+the MoE layer's gathers and batched products through autograd (a dropped
+slot gets no gradient, as in JAX).  The serving entry points keep
 ``torch.no_grad()``.
 
 Not ported yet, and refused with ``NotImplementedError``: serving on a
-mesh (ROADMAP Queue 1 item 7); training the SSM, hybrid, VLM and MoE
-families and MLA (item 18: ``ssd_scan`` has no backward, nor flash
-attention at MLA's widths).
+mesh (ROADMAP Queue 1 item 7).
 """
 from __future__ import annotations
 
@@ -100,20 +102,6 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: attention-free layers outside the SSM family are "
             f"not ported: no registry arch has them")
-
-
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for the families whose training is not ported yet."""
-    check_supported(cfg)
-    if cfg.family != Family.DENSE:
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family.value} family is not "
-            f"ported yet (ROADMAP Queue 1 item 18)")
-    if cfg.attn_kind == AttnKind.MLA:
-        raise NotImplementedError(
-            f"{cfg.name}: training MLA attention is not ported yet: its "
-            f"flash backward at the latent widths is ROADMAP Queue 1 "
-            f"item 18")
 
 
 def _window(cfg: ModelConfig) -> int:

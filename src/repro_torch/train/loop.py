@@ -42,15 +42,9 @@ def build_model(cfg: ModelConfig, device: torch.device, seed: int):
     """The model of ``cfg`` with weights drawn from ``seed`` on ``device``,
     its parameters requiring grad."""
     mod = registry.model_module(cfg)
-    if cfg.family == Family.ENCDEC:
-        raise NotImplementedError(
-            f"{cfg.name}: training the encdec family is not ported yet "
-            f"(ROADMAP Queue 1 item 18)")
-    if cfg.family == Family.CROSSMODAL:
-        cls = mod.ViLBERT
-    else:
-        mod.check_trainable(cfg)
-        cls = mod.Transformer
+    cls = {Family.CROSSMODAL: "ViLBERT", Family.ENCDEC: "EncDec"}.get(
+        cfg.family, "Transformer")
+    cls = getattr(mod, cls)
     gen = torch.Generator(device=device).manual_seed(seed)
     return cls(cfg, device=device, generator=gen).requires_grad_(True)
 

@@ -26,8 +26,12 @@ def make_train_step(cfg: ModelConfig,
 
     def single_grads(model, params, batch) -> Tuple[torch.Tensor, list]:
         loss = mod.loss_fn(model, batch, mode=mode, remat=remat)
-        grads = torch.autograd.grad(loss, list(params.values()))
-        return loss.detach(), grads
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        # a parameter the loss never reads (deepseek-v3's mtp_proj, carried
+        # unused as in JAX) gets the zero gradient jax.grad gives it
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(params.values(), grads)]
 
     def train_step(model, opt_state: opt.OptState,
                    batch: Dict[str, torch.Tensor]):

@@ -266,7 +266,8 @@ def test_backward_bf16_operands_alone_break_the_limit(kernel):
 @pytest.mark.parametrize("dtype, hd, hdv, route", [
     (torch.bfloat16, 128, 128, "tc"), (torch.bfloat16, 64, 64, "tc"),
     (torch.bfloat16, 96, 32, "tc"), (torch.bfloat16, 36, 64, "simt"),
-    (torch.bfloat16, 128, 256, "simt"), (torch.float32, 128, 128, "simt"),
+    (torch.bfloat16, 128, 256, "wide"), (torch.float32, 128, 128, "simt"),
+    (torch.bfloat16, 576, 512, "wide"), (torch.float32, 576, 512, "wide"),
 ])
 def test_flash_backward_route_rule(dtype, hd, hdv, route):
     assert blocked.flash_bwd_route(dtype, hd, hdv) == route

@@ -125,17 +125,23 @@ def test_split_operands_hold_the_bf16_limit_at_mla_widths():
     assert ((g - w).abs() <= 1e-4 + 2 ** -7 * w.abs()).all()
 
 
-def test_flash_backward_refuses_mla_widths():
-    """Training MLA is ROADMAP item 18: the forward runs under autograd at
-    576/512, its backward refuses; at 128 the backward runs."""
+@pytest.mark.parametrize("hd,hdv", [(576, 512), (128, 128)])
+def test_flash_backward_at_mla_widths(hd, hdv):
+    """The latent attention under autograd equals its no-grad forward, and
+    its backward (the wide route's plain version at 576/512) gives the
+    plain flash backward's gradients."""
     q, k, c = (torch.from_numpy(t).requires_grad_()
-               for t in _latent_inputs(1, 2, 16, 16, 576, 512))
+               for t in _latent_inputs(1, 2, 16, 16, hd, hdv))
     out = ops.mla_latent_attention(q, k, c, causal=True)
     with torch.no_grad():
         _close(out, ops.mla_latent_attention(q, k, c, causal=True))
-    with pytest.raises(NotImplementedError, match="item 18"):
-        out.sum().backward()
-    q, k, c = (torch.from_numpy(t).requires_grad_()
-               for t in _latent_inputs(1, 2, 16, 16, 128, 128))
-    ops.mla_latent_attention(q, k, c, causal=True).sum().backward()
-    assert q.grad is not None and c.grad is not None
+    dout = torch.ones_like(out)
+    got = torch.autograd.grad(out, (q, k, c), dout)
+    with torch.no_grad():
+        _, lse = blocked.flash_attention_plain(q, k, c, causal=True,
+                                               return_lse=True)
+        want = blocked.flash_attention_bwd_plain(q, k, c, out, lse, dout,
+                                                 causal=True)
+    for g, w in zip(got, want):
+        assert bool(w.any())
+        _close(g, w)

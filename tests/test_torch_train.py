@@ -320,21 +320,22 @@ def test_launcher_trains_on_the_cpu_when_asked(capsys):
     assert "step      2  loss" in capsys.readouterr().out
 
 
-def test_train_refuses_a_mesh_and_untrainable_families():
+def test_train_refuses_a_mesh():
     cfg = registry.get_config("qwen3-32b", smoke=True)
     with pytest.raises(NotImplementedError, match="item 13"):
         L.train(cfg, SHAPE, SyntheticLM(cfg, SHAPE), L.TrainConfig(steps=1),
                 device="cpu", mesh=object())
-    ssm = registry.get_config("mamba2-780m", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 18"):
-        L.build_model(ssm, torch.device("cpu"), 0)
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-2b"])
-def test_build_model_refuses_the_serving_only_families(arch):
-    with pytest.raises(NotImplementedError, match="item 18"):
-        L.build_model(registry.get_config(arch, smoke=True),
-                      torch.device("cpu"), 0)
+def test_build_model_builds_the_formerly_serving_only_families(arch):
+    """The encoder-decoder and VLM families train (they were served only
+    before their backward paths were ported)."""
+    model = L.build_model(registry.get_config(arch, smoke=True),
+                          torch.device("cpu"), 0)
+    want = "EncDec" if arch == "whisper-base" else "Transformer"
+    assert type(model).__name__ == want
+    assert all(p.requires_grad for p in model.parameters())
 
 
 def test_train_refuses_batches_that_do_not_fit_the_shape():
