@@ -30,10 +30,16 @@ kernel drops the last 64-column box of q/k from Q K^T (the roped part),
 or skips the rescale of the last 128 output columns; flash's SIMT kernel
 (f32, every width) drops the last 64-column chunk of q/k; the flash
 backward's wide route: the dK/dV kernel leaves the last head of each
-group out of its sum (the tensor-core kernel in bf16, the SIMT one in
-f32), or the SIMT dQ kernel its last live kv tile (f32); the SSD backward: the reverse pass drops the decay of the state
-gradient it carries between chunks (f32), or the chunk kernel takes
-exp(LD_last - LD_s) with the wrong sign (bf16).
+group out of its sum (the wgmma kernels in bf16, the SIMT one in f32),
+or the SIMT dQ kernel its last live kv tile (f32), and in bf16 each dK/dV
+block skips its last live query span, the sum of the split partials
+leaves out the last head slice, or dQ drops dS's lo half; the SSD
+backward's simt route (f32): the reverse pass drops the decay of the
+state gradient it carries between chunks, or the chunk kernel takes
+exp(LD_last - LD_s) with the wrong sign; its tc route (bf16): the same
+dropped decay in its pass, dLD's column sums with the wrong sign, the lo
+halves of the split states left out, or dc's Q B products without the
+chunk's first 16 rows of s.
 chip_smoke's check of that kernel then runs on the copy, in a
 subprocess, in the dtype of the faulty route, once at the kernel test
 cases and once at the main path's shapes (the GEMM's faults once more at
@@ -206,12 +212,28 @@ FAULTS = {
         ("kr[e] = r * sd.k_gamma[e] * kr[e] - r * r * r * kp[e] * dot / hd;",
          "kr[e] = r * sd.k_gamma[e] * kr[e];"), STREAM_BWD),
     # the flash backward's wide route: dK/dV leaves the last head of each
-    # group out of its sum (its tensor-core kernels in bf16, its SIMT ones
-    # in f32); the SIMT dQ skips its last live kv tile
+    # group out of its sum (its bf16 wgmma kernels: the last head slice
+    # one head short; its SIMT ones in f32); the SIMT dQ skips its last
+    # live kv tile; the bf16 kernels also: each dK/dV block skips its last
+    # live query span, or the last head slice's partial is left out of the
+    # sum, or dQ's products drop dS's lo half
     "flash_attention_bwd_wide_tc_head": (
-        "flash_attention_bwd", "attention_bwd_wide.cuh",
-        ("  for (int hg = 0; hg < gr.gc; ++hg) {",
-         "  for (int hg = 0; hg < gr.gc - 1; ++hg) {"), FLASH_BWD_WIDE),
+        "flash_attention_bwd", "attention_bwd_wide_tc.cuh",
+        ("hg1 = (sp + 1) * gr.gc / splits;",
+         "hg1 = (sp + 1) * gr.gc / splits - (sp == splits - 1);"),
+        FLASH_BWD_WIDE),
+    "flash_attention_bwd_wide_tc_span": (
+        "flash_attention_bwd", "attention_bwd_wide_tc.cuh",
+        ("    ++nsteps;\n", "    ++nsteps;\n  nsteps -= nsteps > 0;\n"),
+        FLASH_BWD_WIDE),
+    "flash_attention_bwd_wide_tc_split": (
+        "flash_attention_bwd", "attention_bwd_wide_tc.cuh",
+        ("for (int s = 0; s < splits; ++s)", "for (int s = 0; s < splits - 1; ++s)"),
+        FLASH_BWD_WIDE),
+    "flash_attention_bwd_wide_tc_lo": (
+        "flash_attention_bwd", "attention_bwd_wide_tc.cuh",
+        ("        tc::wgmma_ss<1>(pt[bx], al, kb, 1);\n", "\n"),
+        FLASH_BWD_WIDE),
     "flash_attention_bwd_wide_head": (
         "flash_attention_bwd", "attention_bwd_wide.cuh",
         ("  for (int gi = 0; gi < gr.gc; ++gi) {",
@@ -220,9 +242,12 @@ FAULTS = {
         "flash_attention_bwd", "attention_bwd_wide.cuh",
         ("  for (int j = kv.lo; j < kv.hi; ++j) {",
          "  for (int j = kv.lo; j < kv.hi - 1; ++j) {"), FLASH_BWD_WIDE),
-    # the SSD backward (one route, both dtypes): the reverse pass carries
-    # the state gradient into the chunk before without its decay; the
-    # chunk kernel's exp(LD_last - LD_s) takes the wrong sign
+    # the SSD backward, simt (f32): the reverse pass carries the state
+    # gradient into the chunk before without its decay; the chunk kernel's
+    # exp(LD_last - LD_s) takes the wrong sign; tc (bf16): the same dropped
+    # carry in its pass, dLD's column sums added with the wrong sign, the
+    # lo halves of the split states left out of their products, or the
+    # chunk's Q tile products (dc = Q B) without the chunk's first rows
     "ssd_scan_bwd_carry": (
         "ssd_scan_bwd", "ssd_scan_bwd.cu",
         ("      grad = fmaf(dc[k], grad, v[k]);", "      grad = v[k];"),
@@ -231,6 +256,22 @@ FAULTS = {
         "ssd_scan_bwd", "ssd_scan_bwd.cu",
         ("    wl[tid] = expf(ld[L - 1] - ld[tid]);",
          "    wl[tid] = expf(ld[tid] - ld[L - 1]);"), SSD_BWD),
+    "ssd_scan_bwd_tc_carry": (
+        "ssd_scan_bwd", "ssd_scan_bwd_tc.cuh",
+        ("      run = fma4(dc[k], run, v[k]);",
+         "      run = reverse ? v[k] : fma4(dc[k], run, v[k]);"),
+        SSD_BWD),
+    "ssd_scan_bwd_tc_sign": (
+        "ssd_scan_bwd", "ssd_scan_bwd_tc.cuh",
+        ("    dla[t] = dla[t] - cols + el[t] * y2s[t] - kks[t];",
+         "    dla[t] = dla[t] + cols + el[t] * y2s[t] - kks[t];"), SSD_BWD),
+    "ssd_scan_bwd_tc_lo": (
+        "ssd_scan_bwd", "ssd_scan_bwd_tc.cuh",
+        ("  wm::mma16816(acc[2 * jp], af, bl[0], bl[1]);\n", "\n"), SSD_BWD),
+    "ssd_scan_bwd_tc_rows": (
+        "ssd_scan_bwd", "ssd_scan_bwd_tc.cuh",
+        ("      for (int kk = 0; kk <= warp; ++kk) {   // s <= t",
+         "      for (int kk = 1; kk <= warp; ++kk) {   // s <= t"), SSD_BWD),
 }
 # Faults checked at the test cases only (the main shapes do not reach them).
 CASES_ONLY = ("stream_attention_bwd_rope", "stream_attention_bwd_norm",
@@ -241,7 +282,7 @@ MAIN_SUBSETS = {"tile_gemm": ("hymba",)}
 F32_FAULTS = ("decode_attention_simt", "ssd_scan_simt",
               "flash_attention_simt", "flash_attention_bwd_wide_head",
               "flash_attention_bwd_wide_dq",
-              "ssd_scan_bwd_carry",
+              "ssd_scan_bwd_carry", "ssd_scan_bwd_sign",
               "flash_attention_bwd_dkv", "flash_attention_bwd_dq",
               "stream_attention_bwd_rope", "stream_attention_bwd_norm")
 # Run inside the faulty copy: chip_smoke's bf16 check of one kernel, at

@@ -171,8 +171,10 @@ caught:
      the card); gates: exact launches and routes every step (the SSD
      scan and its backward, flash's wide backward for MLA), a falling
      loss, a gradient on every parameter the loss reads; a profiled
-     step and the peak memory printed (phase 3 checks and times the
-     SSD backward and the flash backward's wide route);
+     step and the peak memory printed (phase 3 checks the SSD backward,
+     bf16 on its tc route, and the flash backward's wide route, and times
+     each at phase 19's shapes against its parent's kernels, launched
+     through the C interface, in turns);
  20. their f32 gradients at 1-2 layers, kernel path against plain path,
      and the modes against each other where a mode changes what runs;
  then one JSON line of per-kernel numbers, with the routes of
@@ -232,7 +234,7 @@ from repro_torch.kernels.tile_gemm import (  # noqa: E402
     route_of, splits_of, tile_gemm)
 from repro_torch.models import layers as model_layers  # noqa: E402
 from repro_torch.models.encdec import EncDec  # noqa: E402
-from repro_torch.models.ssm import SSM  # noqa: E402
+from repro_torch.models.ssm import SSM, ssm_dims  # noqa: E402
 from repro_torch.models.transformer import Transformer  # noqa: E402
 from repro_torch.models.vilbert import ViLBERT  # noqa: E402
 from repro_torch.plan import plan_decode_step, plan_model  # noqa: E402
@@ -1174,8 +1176,23 @@ def check_bwd_rules():
                     fail(f"stream_attention_bwd slots of {route} "
                          f"{(B, Sk, Hkv, hd)}: library {lib}, blocked "
                          f"{blocked.stream_bwd_slots(route, B, Sk, Hkv, hd)}")
-    say("  backward routes and slots: the libraries' rules equal blocked's "
-        "at every case and training shape")
+        for P, N in {(c[3], c[4]) for c in SSD_BWD_CASES} | {
+                (v[3], v[4]) for v in MAIN_SSD_BWD.values()}:
+            got = ssd_lib.library_bwd_route(code, P, N)
+            if got != blocked.ssd_bwd_route(dt, P, N):
+                fail(f"ssd_scan_bwd route of {dt} {(P, N)}: library {got}, "
+                     f"blocked {blocked.ssd_bwd_route(dt, P, N)}")
+    for gc in sorted({blocked.flash_bwd_wide_heads(B, Hq, Hkv, Sq, Sk)
+                      for B, Hq, Hkv, Sq, Sk, *_ in FLASH_BWD_WIDE_CASES}
+                     | {blocked.flash_bwd_wide_heads(B, Hq, Hkv, Sq, Sk)
+                        for B, Hq, Hkv, Sq, Sk, *_
+                        in MAIN_FLASH_BWD_WIDE.values()} | {1, 16, 64, 128}):
+        if flash_vjp.wide_splits(gc) != blocked.flash_bwd_wide_splits(gc):
+            fail(f"flash_attention_bwd wide splits of {gc} heads: library "
+                 f"{flash_vjp.wide_splits(gc)}, blocked "
+                 f"{blocked.flash_bwd_wide_splits(gc)}")
+    say("  backward routes, slots and splits: the libraries' rules equal "
+        "blocked's at every case and training shape")
 
 
 def check_flash_bwd(gen, report):
@@ -1895,10 +1912,32 @@ def ssd_bwd_flops(B, S, H, P, N) -> int:
     return min(at(L) for L in range(1, S + 1))
 
 
+def parent_ssd_bwd(x, dt, a, b, c, dy, dstate=None):
+    """The parent's kernels: the library's simt route (the first port's
+    SIMT f32 kernels, bf16 instantiation), launched through the C
+    interface in the dtype it is given; it counts no launch."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
+    ddt, da = torch.empty_like(dt), torch.empty_like(a)
+    scratch = torch.empty(ssd_lib.bwd_scratch_floats(B, S, H, P, N),
+                          dtype=torch.float32, device=x.device)
+    _build.raise_on("ssd_scan_bwd (simt route)", ssd_lib._bwd_lib()(
+        x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
+        c.data_ptr(), dy.data_ptr(),
+        None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
+        ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
+        scratch.data_ptr(), blocked.SSD_ROUTES.index("simt"),
+        _build.DTYPE_CODES[x.dtype], B, S, H, P, N,
+        _build.stream_ptr(x.device)))
+    return dx, ddt, da, db, dc
+
+
 def check_ssd_bwd(gen, report):
     """ssd_scan_bwd against blocked.ssd_scan_bwd_plain in f32 and bf16, at
-    the cases and phase 19's shapes, bitwise deterministic; timed at
-    SSD_BWD_TIMED in bf16."""
+    the cases and phase 19's shapes, on its route (bf16 tc, f32 simt),
+    bitwise deterministic; timed at MAIN_SSD_BWD in bf16 against the
+    parent's kernels (the simt route through the C interface) in turns."""
     name = "ssd_scan_bwd"
     shapes = []
     for dt in DTYPES:
@@ -1912,24 +1951,31 @@ def check_ssd_bwd(gen, report):
             def run():
                 return ssd_scan_bwd(*args, dy, ds, chunk=chunk)
 
+            case = f"{dt} {key} {(B, S, H, P, N, chunk)}"
             before = ssd_scan_bwd.launches
-            got = run()
+            got = check_bwd_route(name, case, ssd_scan_bwd, run,
+                                  blocked.ssd_bwd_route(dt, P, N))
             if ssd_scan_bwd.launches != before + 1:
                 fail(f"{name} {dt} {key}: the kernel did not launch")
-            case = f"{dt} {key} {(B, S, H, P, N, chunk)}"
             err = compare_grads(name, case, got, blocked.ssd_scan_bwd_plain(
                 *args, dy, ds, chunk=chunk))
             check_deterministic(name, case, run, got)
             say(f"  {name} {str(dt)[6:]} {key} (B, S, H, P, N, chunk) = "
                 f"{(B, S, H, P, N, chunk)}, d(final state) "
-                f"{'given' if with_state else 'None'}: max|err| {err:.2e}, "
+                f"{'given' if with_state else 'None'}, "
+                f"{blocked.ssd_bwd_route(dt, P, N)}: max|err| {err:.2e}, "
                 f"bitwise deterministic")
             if dt != torch.bfloat16 or key not in MAIN_SSD_BWD:
                 continue
-            n0 = ssd_scan_bwd.launches
-            ms = time_ms(run)
+            n0, routes0 = ssd_scan_bwd.launches, dict(ssd_scan_bwd.routes)
+
+            def parent():
+                return parent_ssd_bwd(*args, dy, ds)
+
+            ms, parent_ms, t = in_turns(parent, run)
             dev, kernels, per = device_ms(run)
-            ssd_scan_bwd.launches = n0
+            parent_dev, _, parent_per = device_ms(parent, reps=5)
+            ssd_scan_bwd.launches, ssd_scan_bwd.routes = n0, routes0
             flops = ssd_bwd_flops(B, S, H, P, N)
             # the function's bytes, each once: x, dy, dx; b, c, db, dc;
             # dt, ddt, a, da in f32 (the chunk states the kernel recomputes
@@ -1938,14 +1984,26 @@ def check_ssd_bwd(gen, report):
             nbytes = ((3 * args[0].numel() + 4 * args[3].numel()) * e
                       + (2 * args[1].numel() + 2 * H) * 4)
             b_ms, b_by = bound(flops, nbytes, torch.bfloat16)
-            say(f"    timed {key}: kernel {ms:.4f} ms, device {dev:.4f} ms "
-                f"in {kernels:g} launches; bound {b_ms:.4f} ms ({b_by}): "
-                f"device {dev / b_ms:.1f}x bound, {flops / dev / 1e9:.1f} "
-                f"TFLOP/s of the function; by kernel: "
-                + ", ".join(f"{kernel_name(k)} {v:.4f}" for k, v in per.items()))
+            say(f"    timed {key}: tc {ms:.4f} ms ({t[1]:.4f}, {t[2]:.4f}), "
+                f"device {dev:.4f} ms in {kernels:g} launches; parent (simt) "
+                f"{parent_ms:.4f} ms ({t[0]:.4f}, {t[3]:.4f}), device "
+                f"{parent_dev:.4f} ms; {parent_dev / dev:.2f}x faster; bound "
+                f"{b_ms:.4f} ms ({b_by}): device {dev / b_ms:.1f}x bound, "
+                f"{flops / dev / 1e9:.1f} TFLOP/s of the function; by kernel: "
+                + ", ".join(f"{kernel_name(k)} {v:.4f}" for k, v in per.items())
+                + "; parent: "
+                + ", ".join(f"{kernel_name(k)} {v:.4f}"
+                            for k, v in parent_per.items()))
+            if key == SSD_BWD_TIMED and not ms < parent_ms:
+                fail(f"{name} {key}: the tc route ({ms:.4f} ms) is not faster "
+                     f"than the parent's simt kernels ({parent_ms:.4f} ms)")
             shapes.append(dict(name=key, shape=[B, S, H, P, N], ms=ms,
-                               device_ms=dev, max_abs_err=err, bound_ms=b_ms,
-                               bound_by=b_by, flops=flops, bytes=nbytes))
+                               device_ms=dev, parent_ms=parent_ms,
+                               parent_device_ms=parent_dev, max_abs_err=err,
+                               bound_ms=b_ms, bound_by=b_by, flops=flops,
+                               bytes=nbytes,
+                               kernels={kernel_name(k): v
+                                        for k, v in per.items()}))
             if key == SSD_BWD_TIMED:
                 report[name] = dict(
                     shapes[-1], plain_ms=time_ms(
@@ -1955,6 +2013,30 @@ def check_ssd_bwd(gen, report):
                     shape=f"x/dy {(B, S, H, P)}, b/c {(B, S, N)} bf16, chunk "
                           f"{chunk}", dtype=torch.bfloat16)
     report.setdefault(name, {})["shapes"] = shapes
+
+
+def parent_flash_bwd_wide(q, k, v, out, lse, dout, *, causal=False,
+                          window=0, q_offset=0, kv_len=None):
+    """The parent's kernels: the wide route's first bf16 kernels
+    (mma.sync, route 3 of the library's C interface), on the wrapper's
+    head groups; it counts no launch."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk, hdv = k.shape[1], k.shape[2], v.shape[3]
+    gc = blocked.flash_bwd_wide_heads(B, Hq, Hkv, Sq, Sk)
+    dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+    delta = torch.empty_like(lse)
+    scratch = torch.empty(flash_vjp.wide_scratch_floats(B, Hq, Hkv, Sq, Sk,
+                                                        hd, hdv, gc),
+                          dtype=torch.float32, device=q.device)
+    _build.raise_on("flash_attention_bwd (wide route's parent)",
+                    flash_vjp._flash_lib()(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), 3,
+        _build.DTYPE_CODES[q.dtype], B, Hq, Hkv, Sq, Sk, hd, hdv, hd ** -0.5,
+        int(causal), window, q_offset, Sk if kv_len is None else kv_len, gc,
+        _build.stream_ptr(q.device)))
+    return dq, dk, dv
 
 
 def check_flash_bwd_wide(gen, report):
@@ -2004,8 +2086,13 @@ def check_flash_bwd_wide(gen, report):
                 continue
             n0 = flash_attention_bwd.launches
             routes0 = dict(flash_attention_bwd.routes)
-            ms = time_ms(run)
-            dev, kernels, per = device_ms(run)
+
+            def parent():
+                return parent_flash_bwd_wide(q, k, v, out, lse, do, **kw)
+
+            ms, parent_ms, t = in_turns(parent, run)
+            dev, kernels, per = device_ms(run, reps=5)
+            parent_dev, _, parent_per = device_ms(parent, reps=3)
             flash_attention_bwd.launches = n0
             flash_attention_bwd.routes = routes0
             flops = flash_bwd_flops(B, Hq, Sq, Sk, hd, hdv, **{
@@ -2014,15 +2101,27 @@ def check_flash_bwd_wide(gen, report):
             nbytes = (2 * (q.numel() + k.numel() + v.numel() + out.numel())
                       * e + lse.numel() * 4)
             b_ms, b_by = bound(flops, nbytes, dt)
-            say(f"    timed {key}: kernel {ms:.3f} ms, device {dev:.3f} ms "
-                f"in {kernels:g} launches; bound {b_ms:.4f} ms ({b_by}): "
-                f"device {dev / b_ms:.1f}x bound, {flops / dev / 1e9:.1f} "
-                f"TFLOP/s of the function; by kernel: "
-                + ", ".join(f"{kernel_name(k_)} {v_:.3f}"
-                            for k_, v_ in per.items()))
+            say(f"    timed {key}: kernel {ms:.3f} ms ({t[1]:.3f}, "
+                f"{t[2]:.3f}), device {dev:.3f} ms in {kernels:g} launches; "
+                f"parent (mma.sync) {parent_ms:.3f} ms ({t[0]:.3f}, "
+                f"{t[3]:.3f}), device {parent_dev:.3f} ms; "
+                f"{parent_dev / dev:.2f}x faster; bound {b_ms:.4f} ms "
+                f"({b_by}): device {dev / b_ms:.1f}x bound, "
+                f"{flops / dev / 1e9:.1f} TFLOP/s of the function; by "
+                f"kernel: " + ", ".join(f"{kernel_name(k_)} {v_:.3f}"
+                                        for k_, v_ in per.items())
+                + "; parent: " + ", ".join(f"{kernel_name(k_)} {v_:.3f}"
+                                           for k_, v_ in parent_per.items()))
+            if key == FLASH_BWD_WIDE_TIMED and not ms < parent_ms:
+                fail(f"{name} {key}: the wide route ({ms:.3f} ms) is not "
+                     f"faster than its parent's kernels ({parent_ms:.3f} ms)")
             shapes.append(dict(name=key, ms=ms, device_ms=dev,
+                               parent_ms=parent_ms,
+                               parent_device_ms=parent_dev,
                                max_abs_err=err, bound_ms=b_ms, bound_by=b_by,
-                               flops=flops, bytes=nbytes))
+                               flops=flops, bytes=nbytes,
+                               kernels={kernel_name(k_): v_
+                                        for k_, v_ in per.items()}))
             if key != FLASH_BWD_WIDE_TIMED:
                 continue
             qr, kr, vr = (t.detach().requires_grad_() for t in (q, k, v))
@@ -2085,13 +2184,15 @@ def check_kernel_routes(what: str, routes: dict, got: dict) -> None:
 def bwd_routes(cfg, dtype: torch.dtype) -> dict:
     """The route every backward launch of ``cfg``'s training path takes in
     ``dtype``: tc in bf16 and simt in f32, but the flash backward at MLA's
-    latent widths (wide, both dtypes) and the SSD backward (simt)."""
+    latent widths (wide, both dtypes); the SSD backward's by its rule
+    (tc in bf16 at every SSM family's widths)."""
     base = "tc" if dtype == torch.bfloat16 else "simt"
     want = dict.fromkeys(BWD, base)
     if cfg.attn_kind == AttnKind.MLA:
         want["flash_attention_bwd"] = blocked.flash_bwd_route(
             dtype, cfg.kv_lora_rank + cfg.qk_rope_head_dim, cfg.kv_lora_rank)
-    want["ssd_scan_bwd"] = "simt"
+    want["ssd_scan_bwd"] = (blocked.ssd_bwd_route(
+        dtype, ssm_dims(cfg)[3], cfg.ssm_state) if cfg.ssm_state else "simt")
     return want
 
 
@@ -4580,15 +4681,18 @@ def main() -> None:
     r = report["flash_attention_bwd_wide"]
     b_ms, b_by = bound(r["flops"], r["bytes"], r["dtype"])
     say(f"  flash_attention_bwd wide route at {r['shape']}: kernel "
-        f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), plain "
-        f"{r['plain_ms']:.3f} ms, SDPA's backward {r['library_ms']:.3f} ms, "
-        f"bound {b_ms:.4f} ms ({b_by})")
+        f"{r['ms']:.3f} ms (device {r['device_ms']:.3f}), parent "
+        f"{r['parent_ms']:.3f} ms (device {r['parent_device_ms']:.3f}), "
+        f"plain {r['plain_ms']:.3f} ms, SDPA's backward "
+        f"{r['library_ms']:.3f} ms, bound {b_ms:.4f} ms ({b_by})")
     rows.append({"name": "flash_attention_bwd (wide route)", "route": "cuda",
-                 "source": "src/repro_torch/csrc/attention_bwd_wide.cuh",
+                 "source": "src/repro_torch/csrc/attention_bwd_wide_tc.cuh",
                  "replaces": KERNELS["flash_attention_bwd"][1],
                  "launches": launches["flash_attention_bwd routes"]["wide"],
                  "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-                 "device_ms": r["device_ms"], "plain_ms": r["plain_ms"],
+                 "device_ms": r["device_ms"], "parent_ms": r["parent_ms"],
+                 "parent_device_ms": r["parent_device_ms"],
+                 "plain_ms": r["plain_ms"],
                  "bound_ms": b_ms, "bound_by": b_by,
                  "library_ms": r["library_ms"],
                  "library_backend": r["library_backend"]})

@@ -31,8 +31,10 @@
 //   wide_dq     per (64 query rows, 64 columns of dQ, head): dQ = dS K over
 //               the row span's live kv tiles.
 // bf16 inputs (widths multiples of 8, tensors 16-byte aligned: tc_ok; the
-// launch fails otherwise) run them on the tensor cores (the *_tc kernels
-// below), f32 inputs on SIMT f32 FMAs (the thread (ty, tx) of a 16 x 16
+// launch fails otherwise) run the redesign of attention_bwd_wide_tc.cuh;
+// the first tensor-core kernels (the *_tc kernels below, on mma.sync) stay
+// reachable as route 3 of the C interface, the parent, for timing.  f32
+// inputs run these three kernels on SIMT f32 FMAs (the thread (ty, tx) of a 16 x 16
 // grid owning rows ty + 16i and columns tx + 16c, i, c < 4, of a tile).  Every gradient element is written by one block a launch, the
 // launches run in order: no atomics, bitwise reproducible.  S and dP are
 // computed once per live tile pair (five products of the function); what

@@ -13,8 +13,8 @@
 //
 // Three routes (the `route` argument; kernels/flash_vjp.py picks it): tc
 // and simt, three launches each, and wide (heads over 128, MLA's latent
-// widths; attention_bwd_wide.cuh, its own comment), 1 + 3 per group of
-// query heads:
+// widths; bf16: attention_bwd_wide_tc.cuh, 1 + 4 launches per group of
+// query heads; f32: attention_bwd_wide.cuh, 1 + 3; their own comments):
 //   delta          delta = rowsum(dO * O)                       (B, Hq, Sq)
 //   dK/dV kernel   one block per (kv tile of 64 keys, kv head, batch): K_j
 //                  and V_j stay in shared memory while the block walks the
@@ -447,14 +447,17 @@ inline int dispatch(const void* q, const void* k, const void* v,
 }  // namespace tcb
 }  // namespace repro
 
-#include "attention_bwd_wide.cuh"
+#include "attention_bwd_wide_tc.cuh"   // and attention_bwd_wide.cuh
 
 // route: 0 = simt (both dtypes), 1 = tc (bf16, where tcb::takes holds: the
 // call fails with cudaErrorInvalidValue otherwise), 2 = wide (both dtypes,
 // a head over 128: q/k <= 576, v <= 512; bf16 where wbwd::tc_ok holds, the
 // call fails with cudaErrorInvalidValue otherwise; `scratch` holds
 // flash_attention_bwd_wide_scratch(..., gc) floats and the query heads of
-// each kv head go in groups of gc; the other routes read neither).  dtype:
+// each kv head go in groups of gc; the other routes read neither; bf16 on
+// attention_bwd_wide_tc.cuh's kernels, f32 on the SIMT ones), 3 = the wide
+// route's first bf16 kernels (mma.sync, attention_bwd_wide.cuh: the
+// parent, reachable only here, for timing).  dtype:
 // 0 = float32, 1 = bfloat16 (q, k, v, out, dout and the gradients dq, dk,
 // dv).  lse (B, Hq, Sq) f32 from the forward; delta (B, Hq, Sq) f32
 // scratch.  All tensors contiguous; simt and tc take hd, hdv <= 128 (the
@@ -468,16 +471,20 @@ extern "C" int flash_attention_bwd_launch(
   repro::AttnShape sh{B, Hq, Hkv, Sq, Sk, hd, hdv, scale,
                       causal, window, q_offset, kv_len};
   cudaStream_t s = (cudaStream_t)stream;
-  if (route == 2) {
+  if (route == 2 || route == 3) {
     if (!repro::wbwd::takes(sh) || gc < 1) return (int)cudaErrorInvalidValue;
     float* scr = (float*)scratch;
-    if (dtype == 0)
+    if (dtype == 0 && route == 2)
       return repro::wbwd::launch<float>(q, k, v, out, dout, lse, delta, dq,
                                         dk, dv, scr, gc, sh, s);
-    if (!repro::wbwd::tc_ok(sh, q, k, v, dout))
+    if (dtype != 1 || !repro::wbwd::tc_ok(sh, q, k, v, dout))
       return (int)cudaErrorInvalidValue;
-    return repro::wbwd::launch<__nv_bfloat16>(q, k, v, out, dout, lse, delta,
-                                              dq, dk, dv, scr, gc, sh, s);
+    if (route == 3)
+      return repro::wbwd::launch<__nv_bfloat16>(q, k, v, out, dout, lse,
+                                                delta, dq, dk, dv, scr, gc, sh,
+                                                s);
+    return repro::wbwd::launch_wg(q, k, v, out, dout, lse, delta, dq, dk, dv,
+                                  scr, gc, sh, s);
   }
   if (route == 1)
     return dtype == 1 ? repro::tcb::dispatch(q, k, v, out, dout, lse, delta,
@@ -490,12 +497,22 @@ extern "C" int flash_attention_bwd_launch(
                                              dq, dk, dv, sh, s);
 }
 
-// f32 scratch of the wide route, in floats, for groups of gc query heads.
+// f32 scratch of the wide route, in floats, for groups of gc query heads
+// (the most any of its kernels needs: the bf16 kernels' split partials on
+// top of P and dS).
 extern "C" long long flash_attention_bwd_wide_scratch(int B, int Hq, int Hkv,
                                                       int Sq, int Sk, int hd,
                                                       int hdv, int gc) {
   repro::AttnShape sh{B, Hq, Hkv, Sq, Sk, hd, hdv, 1.f, 0, 0, 0, Sk};
-  return (long long)repro::wbwd::scratch_floats(sh, gc);
+  const size_t a = repro::wbwd::scratch_floats(sh, gc);
+  const size_t b = repro::wbwd::wg_scratch_floats(sh, gc);
+  return (long long)(a > b ? a : b);
+}
+
+// The dK/dV blocks a key tile of the wide route's bf16 kernels for a group
+// of gc query heads (blocked.flash_bwd_wide_splits mirrors it).
+extern "C" int flash_attention_bwd_wide_splits(int gc) {
+  return repro::wbwd::dkv_splits(gc);
 }
 
 // The route rule for the shapes (2 = wide, 1 = tc, 0 = simt), with every

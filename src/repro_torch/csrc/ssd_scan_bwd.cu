@@ -27,8 +27,15 @@
 // ~9.7 GFLOP (0.0098 ms at the bf16 peak).  The kernels' own scratch (the
 // chunk states, recomputed, and their gradients) moves ~0.3 GB more.
 //
-// One route, SIMT f32 for both dtypes (bf16 inputs are widened on load),
-// five launches a call:
+// Two routes, picked by the caller (the wrapper; blocked.ssd_bwd_route):
+// tc for bf16 with P and N multiples of 8 up to 128 and x, b, c, dy
+// 16-byte aligned (the tensor-core kernels of ssd_scan_bwd_tc.cuh, six
+// launches; that file's comment), simt otherwise (f32, the parity path).
+//
+// simt (the first port's kernels, kept as they were; the bf16
+// instantiation stays reachable through the C interface, route 0, for
+// timing the parent): SIMT f32 for both dtypes (bf16 inputs are widened
+// on load), five launches a call:
 //   1. bwd_contrib, per (chunk, head, row): the chunk's own contribution
 //      to the state, sum_s exp(LD_last - LD_s) u_s b_s^T, and to the state
 //      gradient, sum_t exp(LD_t) dy_t c_t^T (P x N each), and its decay;
@@ -46,6 +53,7 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stddef.h>
+#include <stdint.h>
 
 namespace {
 
@@ -502,6 +510,12 @@ bwd_da(const float* __restrict__ dap, float* __restrict__ da, Shape sh) {
   da[h] = s;
 }
 
+}  // namespace
+
+#include "ssd_scan_bwd_tc.cuh"   // the tc route (bf16): bwd_cb .. launch_tc
+
+namespace {
+
 bool takes(int P, int N) {
   return P >= 1 && N >= 1 && P <= MAX_P &&
          sizeof(float) * chunk_floats(P, N) <= (size_t)SMEM_LIMIT &&
@@ -509,11 +523,13 @@ bool takes(int P, int N) {
 }
 
 // f32 scratch in floats: the chunk states and their gradients, the
-// decays, the per-head partials of db and dc, da's partials.
+// decays, the per-head partials of db and dc, da's partials, and (the tc
+// route) CB.
 size_t scratch_floats(int B, int S, int H, int P, int N) {
   const size_t nc = (S + L - 1) / L;
   return 2 * (size_t)B * H * nc * P * N + (size_t)B * H * nc
-         + 2 * (size_t)B * nc * H * L * N + (size_t)B * nc * H;
+         + 2 * (size_t)B * nc * H * L * N + (size_t)B * nc * H
+         + tc_cb_floats(B, S);
 }
 
 template <typename T>
@@ -553,14 +569,23 @@ int launch(const void* x, const float* dt, const float* a, const void* b,
 
 }  // namespace
 
-// Whether the kernel takes head width P and state width N.
+// Whether the simt route takes head width P and state width N.
 extern "C" int ssd_scan_bwd_takes(int P, int N) { return takes(P, N); }
+// The route rule for 16-byte aligned tensors (1 = tc, 0 = simt): tc for
+// bf16 with P and N multiples of 8 up to 128; blocked.ssd_bwd_route
+// mirrors it.
+extern "C" int ssd_scan_bwd_route(int dtype, int P, int N) {
+  return dtype == 1 && tc_takes(P, N);
+}
 // f32 scratch the kernel needs for (B, S, H, P, N), in floats.
 extern "C" long long ssd_scan_bwd_scratch(int B, int S, int H, int P, int N) {
   return (long long)scratch_floats(B, S, H, P, N);
 }
 
-// dtype (of x, b, c, dy and dx, db, dc): 0 = float32, 1 = bfloat16.  x
+// route: 0 = simt (either dtype), 1 = tc (bf16, where ssd_scan_bwd_route
+// gives 1; x, b, c and dy 16-byte aligned: the call fails with
+// cudaErrorInvalidValue otherwise).  dtype (of x, b, c, dy and dx, db,
+// dc): 0 = float32, 1 = bfloat16.  x
 // (B, S, H, P), dt (B, S, H) f32, a (H,) f32, b/c (B, S, N), dy like x,
 // dstate (B, H, P, N) f32 or null (zeros); outputs dx like x, ddt like dt,
 // da like a, db/dc like b; scratch: ssd_scan_bwd_scratch(...) floats.  All
@@ -571,11 +596,21 @@ extern "C" int ssd_scan_bwd_launch(const void* x, const void* dt,
                                    const void* c, const void* dy,
                                    const void* dstate, void* dx, void* ddt,
                                    void* da, void* db, void* dc,
-                                   void* scratch, int dtype, int B, int S,
-                                   int H, int P, int N, void* stream) {
-  if (!takes(P, N) || S < 1) return (int)cudaErrorInvalidValue;
+                                   void* scratch, int route, int dtype,
+                                   int B, int S, int H, int P, int N,
+                                   void* stream) {
   const Shape sh{B, S, H, P, N, (S + L - 1) / L};
   cudaStream_t s = (cudaStream_t)stream;
+  if (route == 1) {
+    const bool aligned = !(((uintptr_t)x | (uintptr_t)b | (uintptr_t)c |
+                            (uintptr_t)dy) & 15);
+    if (dtype != 1 || !tc_takes(P, N) || !aligned || S < 1)
+      return (int)cudaErrorInvalidValue;
+    return launch_tc(x, (const float*)dt, (const float*)a, b, c, dy,
+                     (const float*)dstate, dx, (float*)ddt, (float*)da, db,
+                     dc, (float*)scratch, sh, s);
+  }
+  if (!takes(P, N) || S < 1) return (int)cudaErrorInvalidValue;
   if (dtype == 0)
     return launch<float>(x, (const float*)dt, (const float*)a, b, c, dy,
                          (const float*)dstate, dx, (float*)ddt, (float*)da,

@@ -639,7 +639,7 @@ STREAM_BWD_GROUPS = 16    # tc: most tile groups (dW slots per batch row)
 #: MLA's latent widths; both dtypes; ``csrc/attention_bwd_wide.cuh``).
 FLASH_BWD_ROUTES = BWD_ROUTES + ("wide",)
 BWD_WIDE_QK, BWD_WIDE_V = 576, 512   # widest q/k and v heads of "wide"
-#: f32 bytes of P and dS for the query heads the wide route takes at once.
+#: Bytes of P and dS for the query heads the wide route takes at once.
 BWD_WIDE_SCRATCH = 512 * 2 ** 20
 
 
@@ -656,12 +656,110 @@ def flash_bwd_route(dtype: torch.dtype, hd: int, hdv: int) -> str:
 
 
 def flash_bwd_wide_heads(B: int, Hq: int, Hkv: int, Sq: int, Sk: int) -> int:
-    """Query heads of each kv head whose P and dS (f32, B·Hkv·Sq rows of
-    the keys padded to 64) the wide route holds at once, within
+    """Query heads of each kv head whose P and dS (4 bytes an element each:
+    f32 on the f32 kernels, bf16 hi + lo on the bf16 ones; B·Hkv·Sq rows
+    of the keys padded to 64) the wide route holds at once, within
     ``BWD_WIDE_SCRATCH``: it walks the G = Hq / Hkv heads in groups of
     this many, summing dK and dV over the groups in order."""
     per_head = 2 * B * Hkv * max(Sq, 1) * (-(-max(Sk, 1) // BWD_BK) * BWD_BK) * 4
     return max(1, min(Hq // Hkv, BWD_WIDE_SCRATCH // per_head))
+
+
+#: Most dK/dV blocks a key tile of the wide route's bf16 kernels.
+BWD_WIDE_SPLITS = 16
+
+
+def flash_bwd_wide_splits(gc: int) -> int:
+    """The dK/dV blocks a key tile of the wide route's bf16 kernels for a
+    group of ``gc`` query heads: slice s of ``n`` takes the group's heads
+    [s·gc // n, (s + 1)·gc // n) (``dkv_splits`` in
+    csrc/attention_bwd_wide_tc.cuh)."""
+    return min(gc, BWD_WIDE_SPLITS)
+
+
+def flash_attention_bwd_wide_split(q: torch.Tensor, k: torch.Tensor,
+                                   v: torch.Tensor, out: torch.Tensor,
+                                   lse: torch.Tensor, dout: torch.Tensor, *,
+                                   causal: bool = False, window: int = 0,
+                                   q_offset: int = 0,
+                                   scale: Optional[float] = None,
+                                   kv_len: Optional[int] = None,
+                                   heads: Optional[int] = None
+                                   ) -> Tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """``flash_attention_bwd_plain`` in the order of sums and with the
+    operands of the wide route's bf16 kernels
+    (csrc/attention_bwd_wide_tc.cuh), in kv tiles and query spans of 64:
+    the G query heads of each kv head go in groups of ``heads``
+    (``flash_bwd_wide_heads`` by default); P and dS enter the dK, dV and dQ
+    products as hi + lo; per key tile, dK and dV sum each live span
+    (``live_kv_tiles`` of the span holds the tile) apart, add the spans of
+    each of ``flash_bwd_wide_splits`` head slices in order, the slices in
+    order, then the groups in order; dQ sums each live kv tile apart, then
+    adds the tiles in order.  Q, K, V and dO enter as they are."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    kv_len = Sk if kv_len is None else kv_len
+    scale = hd ** -0.5 if scale is None else scale
+    gc = flash_bwd_wide_heads(B, Hq, Hkv, Sq, Sk) if heads is None else heads
+    bk, ops = BWD_BK, _operands("split")
+    kp, _ = _pad_axis(k, 2, bk)
+    vp, _ = _pad_axis(v, 2, bk)
+    qf, dof, lsef, delta = _bwd_rows(q, out, lse, dout, Hkv)
+    qpos = torch.arange(Sq, device=q.device) + q_offset
+    kt, nq = kp.shape[2] // bk, -(-Sq // bk)
+    live = [live_kv_tiles(i * bk, min((i + 1) * bk, Sq), Sq, sk=Sk,
+                          kv_len=kv_len, causal=causal, window=window,
+                          q_offset=q_offset) for i in range(nq)]
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros(B, Hkv, kt * bk, hd, device=q.device)
+    dv = torch.zeros(B, Hkv, kt * bk, vp.shape[-1], device=q.device)
+    for g0 in range(0, G, gc):
+        n = min(gc, G - g0)
+        splits = flash_bwd_wide_splits(n)
+        for j in range(kt):
+            keys = slice(j * bk, (j + 1) * bk)
+            kpos = j * bk + torch.arange(bk, device=q.device)
+            k_j, v_j = kp[:, :, keys].float(), vp[:, :, keys].float()
+            mask = _mask(qpos, kpos, kv_len, causal, window)
+            hs = slice(g0, g0 + n)
+            sc = torch.einsum("bhgqd,bhkd->bhgqk", qf[:, :, hs], k_j) * scale
+            lg = lsef[:, :, hs, :, None]
+            p = torch.where(mask, torch.exp(sc - lg), torch.zeros_like(sc))
+            dead = lg <= DEAD_LSE
+            mean = (kpos < Sk).to(p.dtype) / max(Sk, 1)
+            p = torch.where(dead, mean.expand_as(p), p)
+            dp = torch.einsum("bhgqd,bhkd->bhgqk", dof[:, :, hs], v_j)
+            ds = torch.where(mask & ~dead,
+                             p * (dp - delta[:, :, hs, :, None]) * scale,
+                             torch.zeros_like(p))
+            p_ops, ds_ops = ops(p), ops(ds)
+            spans = [i for i in range(nq) if live[i][0] <= j < live[i][1]]
+            dk_j = torch.zeros_like(dk[:, :, keys])
+            dv_j = torch.zeros_like(dv[:, :, keys])
+            for sp in range(splits):
+                part_k, part_v = torch.zeros_like(dk_j), torch.zeros_like(dv_j)
+                for gi in range(sp * n // splits, (sp + 1) * n // splits):
+                    for i in spans:
+                        rows = slice(i * bk, min((i + 1) * bk, Sq))
+                        part_k = part_k + sum(torch.einsum(
+                            "bhqk,bhqd->bhkd", t[:, :, gi, rows],
+                            qf[:, :, g0 + gi, rows]) for t in ds_ops)
+                        part_v = part_v + sum(torch.einsum(
+                            "bhqk,bhqd->bhkd", t[:, :, gi, rows],
+                            dof[:, :, g0 + gi, rows]) for t in p_ops)
+                dk_j, dv_j = dk_j + part_k, dv_j + part_v
+            dk[:, :, keys] += dk_j
+            dv[:, :, keys] += dv_j
+            for i in range(nq):
+                if live[i][0] <= j < live[i][1]:
+                    rows = slice(i * bk, min((i + 1) * bk, Sq))
+                    dq[:, :, hs, rows] += sum(torch.einsum(
+                        "bhgqk,bhkd->bhgqd", t[:, :, :, rows], k_j)
+                        for t in ds_ops)
+    return (dq.reshape(B, Hq, Sq, hd).to(q.dtype), dk[:, :, :Sk].to(k.dtype),
+            dv[:, :, :Sk].to(v.dtype))
 
 
 def stream_bwd_cluster(Hkv: int, hd: int) -> int:
@@ -875,6 +973,16 @@ def ssd_chunked_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
 
 SSD_ROUTES = ("simt", "tc")
 SSD_CHUNK = 64        # rows per chunk of the bf16 SSD kernel
+SSD_BWD_TC_MAX = 128  # widest P and N of the SSD backward's tc route
+
+
+def ssd_bwd_route(dtype: torch.dtype, P: int, N: int) -> str:
+    """The SSD backward's route for 16-byte aligned x, b, c and dy: "tc"
+    (tensor cores) for bf16 with P and N multiples of 8 up to
+    ``SSD_BWD_TC_MAX``, else "simt" (the f32 SIMT kernels)."""
+    ok = (dtype == torch.bfloat16 and P % 8 == 0 and N % 8 == 0
+          and 8 <= P <= SSD_BWD_TC_MAX and 8 <= N <= SSD_BWD_TC_MAX)
+    return "tc" if ok else "simt"
 
 
 def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
@@ -961,6 +1069,99 @@ def ssd_scan_bwd_plain(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     k = wl * (u * v2).sum(-1)
     dld = (g.sum(3) - g.sum(2) - k
            + el * torch.einsum("bcthp,bchpn,bctn->bcth", dyf, entering, cf))
+    last = decay * (leaving * entering).sum((-1, -2)) + k.sum(2)
+    dld = torch.cat([dld[:, :, :-1], dld[:, :, -1:] + last[:, :, None]], 2)
+    rev = torch.flip(torch.cumsum(torch.flip(dld, [2]), 2), [2])
+    ddt = (du * xf).sum(-1) + af * rev
+    da = (dtf * rev).sum((0, 1, 2))
+    dx = du * dtf[..., None]
+
+    def rows(t):
+        return t.reshape(B, nc * L, *t.shape[3:])[:, :S]
+
+    return (rows(dx).to(x.dtype), rows(ddt), da, rows(db).to(b.dtype),
+            rows(dc).to(c.dtype))
+
+
+def ssd_scan_bwd_split(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
+                       b: torch.Tensor, c: torch.Tensor, dy: torch.Tensor,
+                       dstate: Optional[torch.Tensor] = None
+                       ) -> Tuple[torch.Tensor, ...]:
+    """``ssd_scan_bwd_plain`` in the products and operands of the
+    backward's tc route (csrc/ssd_scan_bwd_tc.cuh), in chunks of 64: x,
+    dy, b and c enter as they are, every f32 operand as its bf16 hi + lo
+    pair (``split_bf16``; lo x lo left out).  Per chunk, with E =
+    exp(LD_t - LD_s) on t >= s, wl = exp(LD_last - LD_s), el = exp(LD_t):
+
+    1. CB = C Bᵀ, once for all heads;
+    2. the contributions (wl·dt·x)ᵀ B and (el·dy)ᵀ C, the chunk decays;
+    3. the pass: S_in forward, dS_out in reverse (f32);
+    4. Q = E·dt_s·(dY Xᵀ); du = (E·CB)ᵀ dY + wl·(B dS_outᵀ); db = Qᵀ C +
+       wl·dt·(X dS_out) and dc = Q B + el·(dY S_in) per head, then summed
+       over the heads; y2 = rowsum((dY S_in)·C), k = wl·dt·rowsum(x·v2);
+       dLD, ddt, da and dx as the plain version.
+    Returns what ``ssd_scan_bwd_plain`` returns."""
+    B, S, H, P = x.shape
+    N = b.shape[-1]
+    L = SSD_CHUNK
+    ops = _operands("split")
+
+    def mm(eq, a_, b_, split_a=False, split_b=False):
+        return _split_sum(eq, ops(a_) if split_a else [a_],
+                          ops(b_) if split_b else [b_])
+
+    xp, _ = _pad_axis(x, 1, L)
+    dtp, _ = _pad_axis(dt, 1, L)
+    bp, _ = _pad_axis(b, 1, L)
+    cp, _ = _pad_axis(c, 1, L)
+    dyp, _ = _pad_axis(dy, 1, L)
+    nc = xp.shape[1] // L
+    valid = (torch.arange(nc * L, device=x.device) < S).reshape(nc, L)
+    xf = xp.float().reshape(B, nc, L, H, P)
+    dtf = dtp.float().reshape(B, nc, L, H) * valid[None, :, :, None]
+    bf = bp.float().reshape(B, nc, L, N)
+    cf = cp.float().reshape(B, nc, L, N)
+    dyf = dyp.float().reshape(B, nc, L, H, P)
+    af = a.float()
+    ld = torch.cumsum(dtf * af, dim=2)                        # (B, nc, L, H)
+    el = torch.exp(ld)
+    wl = torch.exp(ld[:, :, -1:] - ld)
+    decay = torch.exp(ld[:, :, -1])
+    cb = torch.einsum("bctn,bcsn->bcts", cf, bf)              # 1
+    contrib = mm("bcshp,bcsn->bchpn", (wl * dtf)[..., None] * xf, bf,
+                 split_a=True)                                # 2
+    dcontrib = mm("bcthp,bctn->bchpn", el[..., None] * dyf, cf, split_a=True)
+    state = torch.zeros((B, H, P, N), device=x.device)        # 3
+    entering = []
+    for j in range(nc):
+        entering.append(state)
+        state = decay[:, j, :, None, None] * state + contrib[:, j]
+    entering = torch.stack(entering, dim=1)
+    ds = (torch.zeros((B, H, P, N), device=x.device) if dstate is None
+          else dstate.float())
+    leaving = [None] * nc
+    for j in range(nc - 1, -1, -1):
+        leaving[j] = ds
+        ds = decay[:, j, :, None, None] * ds + dcontrib[:, j]
+    leaving = torch.stack(leaving, dim=1)
+    tri = (torch.arange(L, device=x.device)[:, None]
+           >= torch.arange(L, device=x.device)[None, :])[..., None]
+    e = torch.where(tri, torch.exp(ld[:, :, :, None, :] - ld[:, :, None, :, :]),
+                    torch.zeros((), device=x.device))         # (B, nc, t, s, H)
+    q = e * dtf[:, :, None] * torch.einsum("bcthp,bcshp->bctsh", dyf, xf)
+    v2 = mm("bcsn,bchpn->bcshp", bf, leaving, split_b=True)   # dS_out b_s
+    du = (mm("bctsh,bcthp->bcshp", e * cb[..., None], dyf, split_a=True)
+          + wl[..., None] * v2)
+    db = (mm("bctsh,bctn->bcsn", q, cf, split_a=True)
+          + torch.einsum("bcsh,bcshn->bcsn", wl * dtf,
+                         mm("bcshp,bchpn->bcshn", xf, leaving, split_b=True)))
+    dys_in = mm("bcthp,bchpn->bcthn", dyf, entering, split_b=True)
+    dc = (mm("bctsh,bcsn->bctn", q, bf, split_a=True)
+          + torch.einsum("bcth,bcthn->bctn", el, dys_in))
+    g = q * cb[..., None]
+    k = wl * dtf * (xf * v2).sum(-1)
+    dld = (g.sum(3) - g.sum(2) - k
+           + el * torch.einsum("bcthn,bctn->bcth", dys_in, cf))
     last = decay * (leaving * entering).sum((-1, -2)) + k.sum(2)
     dld = torch.cat([dld[:, :, :-1], dld[:, :, -1:] + last[:, :, None]], 2)
     rev = torch.flip(torch.cumsum(torch.flip(dld, [2]), 2), [2])

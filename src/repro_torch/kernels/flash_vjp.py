@@ -22,8 +22,12 @@ wgmma/TMA, ``csrc/attention_bwd_tc.cuh``; the rule
 ``blocked.flash_bwd_route`` / ``stream_bwd_route`` and 16-byte aligned
 tensors) and ``simt`` (every other call: f32 SIMT, the first port's
 kernels); the flash backward has a third, ``wide`` (heads over 128, MLA's
-576/512 latent widths: ``csrc/attention_bwd_wide.cuh``; bf16 on its
-tensor-core kernels, widths multiples of 8, f32 on SIMT);
+576/512 latent widths: bf16 on the wgmma/TMA kernels of
+``csrc/attention_bwd_wide_tc.cuh``, widths multiples of 8, P and dS in
+scratch as bf16 hi + lo, the dK/dV contraction split over
+``blocked.flash_bwd_wide_splits`` blocks a key tile, mirrored by
+``blocked.flash_attention_bwd_wide_split``; f32 on the SIMT kernels of
+``csrc/attention_bwd_wide.cuh``);
 ``.routes`` counts the launches of each.  CPU tensors take the
 plain versions ``blocked.flash_attention_bwd_plain`` and
 ``blocked.stream_attention_bwd_plain``.
@@ -78,6 +82,15 @@ def wide_scratch_floats(B: int, Hq: int, Hkv: int, Sq: int, Sk: int, hd: int,
                  "flash_attention_bwd_wide_scratch")
     fn.argtypes, fn.restype = [_I] * 8, ctypes.c_longlong
     return fn(B, Hq, Hkv, Sq, Sk, hd, hdv, gc)
+
+
+@functools.lru_cache(maxsize=1024)
+def wide_splits(gc: int) -> int:
+    """The wide route's dK/dV blocks a key tile for a group of ``gc`` query
+    heads, read from its library (``blocked.flash_bwd_wide_splits``
+    mirrors it)."""
+    return _fn("flash_attention_bwd", "flash_attention_bwd_wide_splits",
+               [_I])(gc)
 
 
 @functools.lru_cache(maxsize=1)
@@ -151,7 +164,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     dout.  CPU tensors take the plain version, blocked by ``block_k``;
     CUDA tensors launch the kernel (kv tiles of 64 keys) on its route:
     "wide" for heads over 128 (q/k up to 576, v up to 512: MLA's latent
-    attention), with f32 scratch for P and dS of ``flash_bwd_wide_heads``
+    attention), with scratch for P and dS of ``flash_bwd_wide_heads``
     query heads at a time."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, scale=scale,
               kv_len=kv_len)

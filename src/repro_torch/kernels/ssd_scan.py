@@ -13,8 +13,12 @@ kernel).  Plain version: ``blocked.ssd_chunked_plain``, chunked as
 ``chunk`` says.
 
 Its gradient (``ssd_scan_bwd``; ``SSDScanFn``, which ``ssd_scan`` takes
-under autograd) is the kernel ``csrc/ssd_scan_bwd.cu``, one SIMT f32 route
-for both dtypes, whose plain version is ``blocked.ssd_scan_bwd_plain``.
+under autograd) is the kernel ``csrc/ssd_scan_bwd.cu``, two routes:
+``tc`` (bf16 with P and N multiples of 8 up to 128 and 16-byte aligned x,
+b, c, dy: ``csrc/ssd_scan_bwd_tc.cuh``, the chunk products on the tensor
+cores; the rule ``blocked.ssd_bwd_route``) and ``simt`` (every other call;
+the first port's f32 kernels).  Plain version:
+``blocked.ssd_scan_bwd_plain``.
 The JAX training path differentiates ``jnp_blocked.ssd_chunked_jnp``
 through XLA's autodiff; the backward here recomputes the chunk states
 from the saved inputs rather than keeping them from the forward.
@@ -28,7 +32,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.blocked import (SSD_ROUTES, ssd_chunked_plain,
+from repro_torch.kernels.blocked import (SSD_ROUTES, ssd_bwd_route,
+                                         ssd_chunked_plain,
                                          ssd_scan_bwd_plain)
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -128,7 +133,7 @@ ssd_scan.routes = dict.fromkeys(SSD_ROUTES, 0)
 def _bwd_lib():
     lib = _build.load("ssd_scan_bwd")
     fn = lib.ssd_scan_bwd_launch
-    fn.argtypes, fn.restype = [_P] * 13 + [_I] * 6 + [_P], _I
+    fn.argtypes, fn.restype = [_P] * 13 + [_I] * 7 + [_P], _I
     return fn
 
 
@@ -136,7 +141,8 @@ def _bwd_lib():
 def bwd_scratch_floats(B: int, S: int, H: int, P: int, N: int) -> int:
     """f32 scratch of ``ssd_scan_bwd`` at (B, S, H, P, N), in floats: the
     chunk states and their gradients (2 B·H·nc·P·N), the per-head partials
-    of db and dc (2 B·nc·H·64·N), the decays and da's partials."""
+    of db and dc (2 B·nc·H·64·N), the decays, da's partials and the tc
+    route's C Bᵀ (B·nc·64·64)."""
     fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_scratch
     fn.argtypes, fn.restype = [_I] * 5, ctypes.c_longlong
     return fn(B, S, H, P, N)
@@ -144,8 +150,8 @@ def bwd_scratch_floats(B: int, S: int, H: int, P: int, N: int) -> int:
 
 @functools.lru_cache(maxsize=1024)
 def bwd_takes(P: int, N: int) -> bool:
-    """Whether the backward kernel takes head width P and state width N
-    (its per-chunk tiles fit one block's shared memory)."""
+    """Whether the backward's simt route takes head width P and state
+    width N (its per-chunk tiles fit one block's shared memory)."""
     fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_takes
     fn.argtypes, fn.restype = [_I] * 2, _I
     return bool(fn(P, N))
@@ -159,9 +165,9 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     P) in x's dtype and d(final state) (B, H, P, N) f32 or None (zeros):
     dx, db, dc in their inputs' dtypes, ddt and da f32.  CPU tensors take
     the plain version, chunked by ``chunk``; CUDA tensors launch the
-    kernel (64-row chunks, the chunk states recomputed from the inputs;
-    db and dc summed over the heads, da over rows and chunks, in a fixed
-    order: bitwise reproducible)."""
+    kernel on its route (``ssd_bwd_route``; 64-row chunks, the chunk
+    states recomputed from the inputs; db and dc summed over the heads, da
+    over rows and chunks, in a fixed order: bitwise reproducible)."""
     if x.device.type == "cpu":
         return ssd_scan_bwd_plain(x, dt, a, b, c, dy, dstate, chunk=chunk)
     code = _check("ssd_scan_bwd", x, dt, a, b, c)
@@ -177,7 +183,10 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
                                or not dstate.is_contiguous()):
         raise ValueError(f"ssd_scan_bwd: d(final state) must be contiguous "
                          f"float32 {(B, H, P, N)} on {x.device}")
-    if not bwd_takes(P, N):
+    route = ssd_bwd_route(x.dtype, P, N)
+    if route == "tc" and any(t.data_ptr() % 16 for t in (x, b, c, dy)):
+        route = "simt"
+    if route == "simt" and not bwd_takes(P, N):
         raise ValueError(f"ssd_scan_bwd: head width {P} and state width {N} "
                          f"do not fit the kernel's shared memory")
     dx, db, dc = torch.empty_like(x), torch.empty_like(b), torch.empty_like(c)
@@ -185,20 +194,29 @@ def ssd_scan_bwd(x: torch.Tensor, dt: torch.Tensor, a: torch.Tensor,
     da = torch.empty_like(a)
     scratch = torch.empty(bwd_scratch_floats(B, S, H, P, N),
                           dtype=torch.float32, device=x.device)
-    _build.raise_on("ssd_scan_bwd", _bwd_lib()(
+    _build.raise_on(f"ssd_scan_bwd ({route} route)", _bwd_lib()(
         x.data_ptr(), dt.data_ptr(), a.data_ptr(), b.data_ptr(),
         c.data_ptr(), dy.data_ptr(),
         None if dstate is None else dstate.data_ptr(), dx.data_ptr(),
         ddt.data_ptr(), da.data_ptr(), db.data_ptr(), dc.data_ptr(),
-        scratch.data_ptr(), code, B, S, H, P, N,
+        scratch.data_ptr(), SSD_ROUTES.index(route), code, B, S, H, P, N,
         _build.stream_ptr(x.device)))
     ssd_scan_bwd.launches += 1
-    ssd_scan_bwd.routes["simt"] += 1
+    ssd_scan_bwd.routes[route] += 1
     return dx, ddt, da, db, dc
 
 
 ssd_scan_bwd.launches = 0
-ssd_scan_bwd.routes = {"simt": 0}
+ssd_scan_bwd.routes = dict.fromkeys(SSD_ROUTES, 0)
+
+
+@functools.lru_cache(maxsize=1024)
+def library_bwd_route(code: int, P: int, N: int) -> str:
+    """The library's route rule for the SSD backward (dtype code, P, N),
+    16-byte aligned tensors: what ``blocked.ssd_bwd_route`` mirrors."""
+    fn = _build.load("ssd_scan_bwd").ssd_scan_bwd_route
+    fn.argtypes, fn.restype = [_I] * 3, _I
+    return SSD_ROUTES[fn(code, P, N)]
 
 
 class SSDScanFn(torch.autograd.Function):

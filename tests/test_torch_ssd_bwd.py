@@ -17,6 +17,7 @@ import torch
 
 from repro.kernels import flash_vjp as jvjp
 from repro.kernels import jnp_blocked as JB
+from repro.kernels import ref as jref
 from repro_torch.kernels import blocked, ops
 from repro_torch.kernels.flash_vjp import FlashAttentionFn
 from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan, ssd_scan_bwd
@@ -116,6 +117,46 @@ def test_plain_bwd_matches_autograd(case, kind, seed, with_state, chunk):
         _close_scaled(f"d{name}", g.detach(), w.detach())
 
 
+@pytest.mark.parametrize("case,kind,seed,with_state", SSD_CASES)
+def test_split_bwd_matches_jax_and_plain(case, kind, seed, with_state):
+    """``ssd_scan_bwd_split`` (the tc route's products, f32 operands as
+    bf16 hi + lo, in chunks of 64) against ``jax.vjp`` of
+    ``ssd_chunked_jnp`` at the case's own chunk and against
+    ``ssd_scan_bwd_plain``: ragged last chunks, slow decay, d(final state)
+    null and given, f32 inputs."""
+    B, S, H, P, N, chunk = case
+    arrs, dy, dstate = _ssd_inputs(B, S, H, P, N, kind, seed)
+    ds = dstate if with_state else np.zeros_like(dstate)
+    _, vjp = jax.vjp(lambda *a: JB.ssd_chunked_jnp(*a, chunk=chunk), *arrs)
+    want = vjp((jnp.asarray(dy), jnp.asarray(ds)))
+    ts = [torch.from_numpy(a) for a in arrs]
+    dst = torch.from_numpy(dstate) if with_state else None
+    got = blocked.ssd_scan_bwd_split(*ts, torch.from_numpy(dy), dst)
+    plain = blocked.ssd_scan_bwd_plain(*ts, torch.from_numpy(dy), dst,
+                                       chunk=chunk)
+    for name, g, w, p_ in zip(NAMES, got, want, plain):
+        assert g.dtype == p_.dtype and g.shape == p_.shape
+        _close_scaled(f"d{name}", g, w)
+        _close_scaled(f"d{name} (plain)", g, p_)
+
+
+@pytest.mark.parametrize("dtype,P,N,route", [
+    (torch.bfloat16, 64, 128, "tc"),      # mamba2-780m
+    (torch.bfloat16, 128, 16, "tc"),      # hymba-1.5b
+    (torch.bfloat16, 8, 8, "tc"),
+    (torch.bfloat16, 136, 16, "simt"),    # wider than the tc tiles
+    (torch.bfloat16, 64, 132, "simt"),
+    (torch.bfloat16, 60, 16, "simt"),     # not a multiple of 8
+    (torch.bfloat16, 64, 4, "simt"),
+    (torch.float32, 64, 128, "simt"),     # f32: the parity path
+])
+def test_ssd_bwd_route(dtype, P, N, route):
+    """The SSD backward's route rule (the library's, read on the card by
+    chip_smoke.py, must agree): tc for bf16 with P and N multiples of 8 up
+    to 128, simt otherwise."""
+    assert blocked.ssd_bwd_route(dtype, P, N) == route
+
+
 def test_ssd_grad_of_y_alone_and_bf16_dtypes():
     """A loss on y alone (the training case: ``ssm_forward`` drops the
     state) passes no state gradient; bf16 inputs get bf16 gradients for
@@ -191,9 +232,75 @@ def test_wide_flash_grad_matches_jax(case):
     (128, 1, 32768, 32768, 1),    # at least one
 ])
 def test_wide_route_head_groups(Hq, Hkv, Sq, Sk, heads):
-    """The wide route's head groups keep P and dS (f32) within
-    ``BWD_WIDE_SCRATCH``."""
+    """The wide route's head groups keep P and dS (4 bytes an element:
+    f32, or bf16 hi + lo) within ``BWD_WIDE_SCRATCH``."""
     got = blocked.flash_bwd_wide_heads(1, Hq, Hkv, Sq, Sk)
     assert got == heads
     assert (got == 1 or 2 * got * Sq * (-(-Sk // 64) * 64) * 4
             <= blocked.BWD_WIDE_SCRATCH)
+
+
+# B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, q_offset, heads a group:
+# narrow widths over 128 (the wide route), against the reference attention
+WIDE_SPLIT_CASES = [
+    (1, 4, 1, 130, 130, 144, 136, True, 0, 0, None),   # causal, ragged spans
+    (1, 4, 1, 96, 160, 144, 136, True, 0, 64, 1),      # offset, one head a group
+    (2, 6, 2, 100, 100, 136, 144, False, 40, 0, 2),    # GQA, window, 2 groups
+    (1, 3, 1, 70, 50, 144, 136, False, 16, 40, 2),     # rows with no live key
+    (1, 20, 1, 64, 64, 136, 136, True, 0, 0, 20),      # 16 head slices
+]
+
+
+def _ref_attention(q, k, v, *, causal, window, q_offset):
+    """``ref_attention``'s function (its mask and -1e30 fill, softmax over
+    the keys) with v wider or narrower than q/k."""
+    B, Hq, Sq, hd = q.shape
+    Hkv, Sk = k.shape[1], k.shape[2]
+    qf = q.reshape(B, Hkv, Hq // Hkv, Sq, hd)
+    s = jnp.einsum("bhgqd,bhkd->bhgqk", qf, k) * hd ** -0.5
+    mask = jref._attn_mask(Sq, Sk, causal, window, q_offset)
+    if mask is not None:
+        s = jnp.where(mask[None, None, None], s, jref.NEG_INF)
+    o = jnp.einsum("bhgqk,bhkd->bhgqd", jax.nn.softmax(s, axis=-1), v)
+    return o.reshape(B, Hq, Sq, v.shape[-1])
+
+
+@pytest.mark.parametrize("case", WIDE_SPLIT_CASES)
+def test_wide_split_matches_jax(case):
+    """``flash_attention_bwd_wide_split`` (the wide route's bf16 kernels'
+    order of sums: head groups, head slices, spans summed apart; P and dS
+    as hi + lo) against ``jax.grad`` of the reference attention
+    (``ref_attention``'s function: a row with no live key attends
+    uniformly to every key, the port's rule), dq, dk, dv within 1e-4 of their largest
+    values, and against ``flash_attention_bwd_plain``."""
+    B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, off, heads = case
+    rng = np.random.default_rng(sum(case[:7]))
+    q = (rng.standard_normal((B, Hq, Sq, hd)) * 0.3).astype(np.float32)
+    k = (rng.standard_normal((B, Hkv, Sk, hd)) * 0.3).astype(np.float32)
+    v = (rng.standard_normal((B, Hkv, Sk, hdv)) * 0.5).astype(np.float32)
+    cot = rng.standard_normal((B, Hq, Sq, hdv)).astype(np.float32)
+    want = jax.grad(lambda *a: jnp.sum(_ref_attention(
+        *a, causal=causal, window=window, q_offset=off) * cot),
+        argnums=(0, 1, 2))(q, k, v)
+    qt, kt_, vt, dout = (torch.from_numpy(t) for t in (q, k, v, cot))
+    kw = dict(causal=causal, window=window, q_offset=off)
+    out, lse = blocked.flash_attention_plain(qt, kt_, vt, return_lse=True,
+                                             **kw)
+    got = blocked.flash_attention_bwd_wide_split(qt, kt_, vt, out, lse, dout,
+                                                 heads=heads, **kw)
+    plain = blocked.flash_attention_bwd_plain(qt, kt_, vt, out, lse, dout,
+                                              **kw)
+    for name, g, w, p_ in zip("qkv", got, want, plain):
+        _close_scaled(f"d{name}", g, w)
+        _close_scaled(f"d{name} (plain)", g, p_)
+
+
+@pytest.mark.parametrize("gc,splits", [(64, 16), (16, 16), (4, 4), (1, 1),
+                                       (100, 16)])
+def test_wide_route_splits(gc, splits):
+    """The wide route's dK/dV blocks a key tile: the group's heads in at
+    most 16 even slices, every head in exactly one."""
+    assert blocked.flash_bwd_wide_splits(gc) == splits
+    heads = [h for s in range(splits)
+             for h in range(s * gc // splits, (s + 1) * gc // splits)]
+    assert heads == list(range(gc))
