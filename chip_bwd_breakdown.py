@@ -2,9 +2,9 @@
 """Where the backward kernels' tensor-core routes spend their time, on one
 NVIDIA card.
 
-    python3 chip_bwd_breakdown.py [stream] [ssd] [wide]
+    python3 chip_bwd_breakdown.py [stream] [ssd] [wide] [flash]
 
-For each named target (all three by default), builds copies of csrc/
+For each named target (all four by default), builds copies of csrc/
 under build/bwd_breakdown/<target>-<variant>/ in which one part of a
 kernel is left out, and times each copy's kernels by the profiler, kernel
 by kernel (each stage of a route is a kernel of its own, so the base
@@ -44,6 +44,15 @@ v 512, causal):
   dkv_3x1      wide_dkv_wg with 3 stages, 1 block an SM;
   boxes_2x3    dK/dV and dQ blocks of 2 column boxes (128 columns), 3
                blocks an SM.
+flash: the flash backward's tc route (csrc/flash_attention_bwd.cu,
+attention_bwd_tc.cuh) at vilbert-base's vision self-attention (B = 2,
+8 heads, N = 4096, hd 128) and qwen3-32b's causal GQA training shape (64
+query and 8 kv heads, S = 4096, hd 128), bf16:
+  base         its kernels (delta_kernel, flash_dkv_tc, flash_dq_tc);
+  and a design alternative (the same function, other f32 sums):
+  one_chain    flash_dkv_tc's accumulators carried over every span of a
+               warpgroup and added to the totals once at the end (no
+               flush every FLUSH_SPANS spans; the earlier design's sums).
 Prints the card's name and power limit, then one line a variant and shape.
 """
 from __future__ import annotations
@@ -136,8 +145,13 @@ TARGETS = {
                        "constexpr int COL_BOXES = 2;")],
     }),
 }
+TARGETS["flash"] = ("flash_attention_bwd", {
+    "base": None,
+    "one_chain": ("flash_attention_bwd.cu", "constexpr int FLUSH_SPANS = 4;",
+                  "constexpr int FLUSH_SPANS = 1 << 20;"),
+})
 FORWARD = {"stream": "stream_attention", "ssd": "ssd_scan",
-           "wide": "flash_attention"}
+           "wide": "flash_attention", "flash": "flash_attention"}
 
 
 def plant(target: str, variant: str) -> Path:
@@ -190,6 +204,15 @@ def calls(target: str, gen):
             a = -(1 + 15 * torch.rand((H,), generator=gen, device="cuda"))
             out[key] = (lambda x=x, dt=dt, a=a, b=b, c=c, dy=dy:
                         ssd_scan_bwd(x, dt, a, b, c, dy))
+    elif target == "flash":
+        for key, (B, H, Hkv, S, causal) in {
+                "vision self 4096": (2, 8, 8, 4096, False),
+                "qwen3-32b train 4096": (1, 64, 8, 4096, True)}.items():
+            q, do = randn(B, H, S, 128), randn(B, H, S, 128)
+            k, v = randn(B, Hkv, S, 128), randn(B, Hkv, S, 128)
+            o, lse = flash_attention(q, k, v, causal=causal, return_lse=True)
+            out[key] = (lambda q=q, k=k, v=v, o=o, lse=lse, do=do, c=causal:
+                        flash_attention_bwd(q, k, v, o, lse, do, causal=c))
     else:
         B, H, S, hd, hdv = 1, 128, 1024, 576, 512
         q = randn(B, H, S, hd, scale=0.5)

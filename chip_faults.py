@@ -23,8 +23,10 @@ kernel skips the last query tile of each head, the flash dQ kernel the
 last live kv tile, the stream dK/dV kernel drops the rotation terms of the
 RoPE backward, or the second term of the qk-norm backward (those two only
 at the test cases: the main shapes, vilbert-base's, have neither RoPE nor
-qk-norm); and on the tc route the dQ products leave out dS's lo half, or
-the stream dQ kernel skips the tile forwarded once around its cluster;
+qk-norm); and on the tc route the dQ products leave out dS's lo half,
+the stream dQ kernel skips the tile forwarded once around its cluster, or
+the flash dK/dV kernel's second warpgroup adds only its first group of
+spans to the block's totals;
 flash attention's wide route (MLA's 576/512 heads): the tensor-core
 kernel drops the last 64-column box of q/k from Q K^T (the roped part),
 or skips the rescale of the last 128 output columns; flash's SIMT kernel
@@ -66,7 +68,8 @@ SKIP_LAST_LIVE_TILE = (LIVE_RANGE, LIVE_RANGE.replace(
     "= live_kv_tiles(sh, any, qmin, qmax);",
     "= {live_kv_tiles(sh, any, qmin, qmax).lo, "
     "live_kv_tiles(sh, any, qmin, qmax).hi - 1};"))
-FLASH = ("FLASH_CASES", "MAIN_FLASH", "check_flash")
+# (several names, space-separated: chip_smoke's lists of one part)
+FLASH = ("FLASH_CASES FLASH_WIDE_CASES", "MAIN_FLASH", "check_flash")
 STREAM = ("STREAM_CASES", "MAIN_STREAM", "check_stream")
 GEMM = ("GEMM_CASES", "MAIN_GEMM", "check_gemm")
 DECODE = ("DECODE_CASES", "MAIN_DECODE", "check_decode")
@@ -168,6 +171,13 @@ FAULTS = {
         FLASH_BWD),
     "flash_attention_bwd_tc_dq": (
         "flash_attention_bwd", "flash_attention_bwd.cu", SKIP_LAST_LIVE_TILE,
+        FLASH_BWD),
+    # flash dK/dV: warpgroup 1 adds only its first group of spans to the
+    # totals (its later sums are lost)
+    "flash_attention_bwd_tc_flush": (
+        "flash_attention_bwd", "flash_attention_bwd.cu",
+        ("    named_sync(BAR_TURN0, CONSUMERS);\n    acc.flush(tot);",
+         "    named_sync(BAR_TURN0, CONSUMERS);\n    if (!done) acc.flush(tot);"),
         FLASH_BWD),
     "stream_attention_bwd_tc_rope": (
         "stream_attention_bwd", "stream_attention_bwd.cu",
@@ -294,13 +304,12 @@ import chip_smoke as c
 cases, main, check = {names!r}
 part = {part!r}
 c.DTYPES = (torch.{dtype},)
-if part == "cases":
-    setattr(c, main, {{}})
-else:
-    setattr(c, cases, [])
+for name in (main if part == "cases" else cases).split():
+    setattr(c, name, {{}} if part == "cases" else [])
 if part not in ("cases", "main"):
-    setattr(c, main, {{k: v for k, v in getattr(c, main).items()
-                       if k.startswith(part)}})
+    for name in main.split():
+        setattr(c, name, {{k: v for k, v in getattr(c, name).items()
+                           if k.startswith(part)}})
 c._build.build_all([{kernel!r}])
 getattr(c, check)(torch.Generator(device="cuda").manual_seed(0), {{}})
 """

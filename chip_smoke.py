@@ -23,10 +23,14 @@ caught:
      hymba-1.5b's windowed prefill, and phases 12-14's: vilbert-large's
      hd-64 streams, whisper-base's encoder, prompt and cross-attention,
      qwen2-vl-2b's causal GQA 12/2 at 4096 and 2048), its wide route at
-     MLA's latent widths (q/k 576, v 512, MQA; a ragged causal case and
-     deepseek-v3's prefill of 1024 tokens with 128 heads, timed against
-     its plain version, SDPA (with the backends that take it) and a
-     matmul-softmax-matmul chain), the stream kernel's
+     MLA's latent widths (q/k 576, v 512; cases with rows that straddle
+     two heads, odd G, GQA at 192/160, B = 2, a window, rows with no
+     live key; every case's route against blocked.flash_route and the
+     library's last launch, the wide route bitwise deterministic;
+     deepseek-v3's prefills of 256 and 1024 tokens and a 4096-token
+     forward with 128 heads, the 1024 and 4096 ones timed against the
+     plain version, SDPA (with the backends that take it; the kernel
+     must beat it) and a matmul-softmax-matmul chain), the stream kernel's
      K/V regeneration factor and its main shapes (vilbert-large's, and
      whisper-base's encoder self-attention and cross-attention over 1500
      encoder states with 4 and with 1 query row per kv head, timed at the
@@ -49,7 +53,8 @@ caught:
      their plain versions in f32 and bf16 at their cases (ragged kv_len,
      causal with q_offset, window, GQA, RoPE + qk-norm, hd 32-128, rows
      with no live key) and at the training shapes (vilbert-base's text
-     and vision streams at N = 4096, qwen3-32b's causal 4096), each call
+     and vision streams at N = 4096, qwen3-32b's causal 4096, the flash
+     tc route there also on four draws of its own), each call
      repeated and held bitwise equal, the forwards' lse against the plain
      versions', times against SDPA's backward (flash) and matmul K/V
      generation + SDPA's backward + the dx/dW matmuls (stream);
@@ -134,8 +139,8 @@ caught:
  16. deepseek-v3-671b (MLA + 256 experts top-8 + a shared expert) at full
      width, its 3 dense-prefix layers and 2 MoE layers, the same way:
      MLA's latent attention on flash's wide route in every mode (the
-     modes bitwise equal), the latent cache served per slot, f32 checks
-     at 1 dense + 1 MoE layer;
+     modes bitwise equal; exact wide-route counts), the latent cache
+     served per slot, f32 checks at 1 dense + 1 MoE layer;
  17. minitron-4b (GELU MLP, GQA 24/8, vocab 256,000), starcoder2-7b
      (GELU, GQA 36/4; its use_bias read by no model code) and
      h2o-danube3-4b (dense sliding window of 4096, hd 120) at full width
@@ -169,16 +174,17 @@ caught:
      layers, 5 steps each on a repeated batch (AdamW 1e-4), and grok-1's
      one layer forward + backward (its optimizer's state does not fit
      the card); gates: exact launches and routes every step (the SSD
-     scan and its backward, flash's wide backward for MLA), a falling
-     loss, a gradient on every parameter the loss reads; a profiled
-     step and the peak memory printed (phase 3 checks the SSD backward,
-     bf16 on its tc route, and the flash backward's wide route, and times
-     each at phase 19's shapes against its parent's kernels, launched
-     through the C interface, in turns);
+     scan and its backward, flash's wide forward and backward for MLA),
+     a falling loss, a gradient on every parameter the loss reads; a
+     profiled step and the peak memory printed (phase 3 checks the SSD
+     backward, bf16 on its tc route, and the flash backward's wide route,
+     and times each at phase 19's shapes against its parent's kernels,
+     launched through the C interface, in turns);
  20. their f32 gradients at 1-2 layers, kernel path against plain path,
      and the modes against each other where a mode changes what runs;
  then one JSON line of per-kernel numbers, with the routes of
- tile_gemm, decode attention, the SSD scan and the backward kernels
+ tile_gemm, flash attention, decode attention, the SSD scan and the
+ backward kernels
  over the main paths (phases 4-5, 7-8, 10, 12-17, 19) and their timed
  shapes ("tile_gemm_shapes", "decode_attention_shapes",
  "ssd_scan_shapes", "stream_attention_shapes", "flash_attention_shapes",
@@ -410,6 +416,18 @@ FLASH_CASES = [
     # MLA's latent widths (the wide route): MQA, ragged Sq != Sk, kv_len
     (1, 16, 1, 200, 333, 576, 512, True, 0, 300),
 ]
+# More of the wide route's edges: odd G, Hkv = 2 GQA just over 128 wide,
+# B = 2, a sliding window, rows past kv_len + window - 1 with no live key,
+# G = 3 with kv_len, non-causal rows that straddle two heads.
+FLASH_WIDE_CASES = [
+    (1, 5, 1, 128, 128, 576, 512, True, 0, None),
+    (1, 8, 2, 128, 192, 192, 160, True, 0, None),
+    (2, 8, 1, 128, 256, 576, 512, True, 0, None),
+    (1, 4, 1, 256, 256, 576, 512, True, 70, None),
+    (1, 4, 1, 192, 192, 576, 512, False, 32, 100),
+    (1, 3, 1, 64, 300, 576, 512, False, 0, 250),
+    (1, 4, 1, 100, 256, 576, 512, False, 0, None),
+]
 # B, Hq, Hkv, Sq, Sk, hd, D, causal, window, rope, knorm, kv_len
 STREAM_CASES = [
     (1, 4, 4, 128, 128, 128, 256, False, 0, False, False, None),
@@ -498,7 +516,10 @@ MAIN_FLASH.update({f"grok-1 prefill {s}": (1, 48, 8, s, s, 128, True, 0)
 MAIN_FLASH_MLA = {  # name: (B, Hq, Hkv, Sq, Sk, hd, hdv, causal)
     f"deepseek-v3 MLA prefill {s}": (1, 128, 1, s, s, 576, 512, True)
     for s in MOE_PROMPTS}
-MLA_TIMED = ("deepseek-v3 MLA prefill 1024",)
+# ... and the forward of phase 3's 4096-token wide backward shape, also
+# timed
+MLA_LONG = {"deepseek-v3 MLA 4096": (1, 128, 1, 4096, 4096, 576, 512, True)}
+MLA_TIMED = ("deepseek-v3 MLA prefill 1024", "deepseek-v3 MLA 4096")
 MAIN_STREAM = {  # name: (B, H, Sq, Sk, hd, D)
     "vision self 4096": (2, 8, 4096, 4096, 128, 1024),
     "text self 4096": (2, 12, 4096, 4096, 64, 768),
@@ -702,7 +723,8 @@ def check_mean_rows(name, case, got, v, dead):
 def check_live_tiles():
     """The kernels' live kv tiles (read from the library) against their
     Python mirror, at every 128-row span of every flash case."""
-    for B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len in FLASH_CASES:
+    for B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len in \
+            FLASH_CASES + FLASH_WIDE_CASES:
         kw = dict(kv_len=Sk if kv_len is None else kv_len, causal=causal,
                   window=window, q_offset=Sk - Sq if causal else 0)
         for r0 in range(0, Hq // Hkv * Sq, 64):
@@ -717,25 +739,50 @@ def check_live_tiles():
         "at every flash case")
 
 
+def check_flash_route(case: str, dt, hd: int, hdv: int, n0: int,
+                      routes0: dict) -> str:
+    """The route of the flash launches since (n0, routes0): all on
+    blocked.flash_route's, which the library's last-launch record names
+    too."""
+    want = blocked.flash_route(dt, hd, hdv)
+    n = flash_attention.launches - n0
+    got = {r: flash_attention.routes[r] - routes0[r] for r in routes0}
+    code = _build.last_launch("flash_attention")[0]
+    if got != {**dict.fromkeys(routes0, 0), want: n} or \
+            code != blocked.FLASH_ROUTES.index(want):
+        fail(f"flash_attention {case}: routes {got} (library's last launch "
+             f"route {code}); all {n} launches must take the {want} route "
+             f"(code {blocked.FLASH_ROUTES.index(want)})")
+    return want
+
+
 def check_flash(gen, report):
     name = "flash_attention"
     check_live_tiles()
     for dt in DTYPES:
-        for B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len in FLASH_CASES:
+        for B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len in \
+                FLASH_CASES + FLASH_WIDE_CASES:
             q = randn(gen, B, Hq, Sq, hd, dtype=dt, scale=0.5)
             k = randn(gen, B, Hkv, Sk, hd, dtype=dt, scale=0.5)
             v = randn(gen, B, Hkv, Sk, hdv, dtype=dt, scale=0.5)
             kw = dict(causal=causal, window=window,
                       q_offset=Sk - Sq if causal else 0, kv_len=kv_len)
             case = f"{dt} case {(B, Hq, Hkv, Sq, Sk, hd, hdv)}"
+            n0, routes0 = flash_attention.launches, dict(flash_attention.routes)
             got = flash_attention(q, k, v, **kw)
+            route = check_flash_route(case, dt, hd, hdv, n0, routes0)
             err = compare(name, case, got,
                           blocked.flash_attention_plain(q, k, v, **kw))
             check_mean_rows(name, case, got, v,
                             no_live_key(Sq, Sk, causal, window, kv_len))
+            extra = ""
+            if route == "wide":
+                if not torch.equal(flash_attention(q, k, v, **kw), got):
+                    fail(f"{name} {case}: two calls of the wide route differ")
+                extra = ", wide route, bitwise deterministic"
             say(f"  {name} {str(dt)[6:]} {(B, Hq, Hkv, Sq, Sk, hd, hdv)} "
                 f"causal={causal} window={window} kv_len={kv_len}: "
-                f"max|err| {err:.2e}")
+                f"max|err| {err:.2e}{extra}")
         for case, (B, H, Hkv, Sq, Sk, hd, causal, window) in \
                 MAIN_FLASH.items():
             q = randn(gen, B, H, Sq, hd, dtype=dt)
@@ -766,24 +813,31 @@ def check_flash(gen, report):
                     shape=f"q/k/v {(B, H, Sq, hd)} bf16",
                     flops=flops, bytes=nbytes, dtype=dt, shapes=[])
         for case, (B, H, Hkv, Sq, Sk, hd, hdv, causal) in \
-                MAIN_FLASH_MLA.items():
+                {**MAIN_FLASH_MLA, **MLA_LONG}.items():
             q = randn(gen, B, H, Sq, hd, dtype=dt, scale=0.5)
             k = randn(gen, B, Hkv, Sk, hd, dtype=dt, scale=0.5)
             v = randn(gen, B, Hkv, Sk, hdv, dtype=dt, scale=0.5)
+            n0, routes0 = flash_attention.launches, dict(flash_attention.routes)
             got = flash_attention(q, k, v, causal=causal)
+            route = check_flash_route(f"{dt} {case}", dt, hd, hdv, n0, routes0)
             err = compare(name, f"{dt} {case}", got,
                           blocked.flash_attention_plain(q, k, v,
                                                         causal=causal))
+            if route == "wide" and not torch.equal(
+                    flash_attention(q, k, v, causal=causal), got):
+                fail(f"{name} {dt} {case}: two calls of the wide route differ")
             ms = time_ms(lambda: flash_attention(q, k, v, causal=causal))
             flops = 2 * B * H * (hd + hdv) * live_pairs(
                 Sq, Sk, causal, 0, Sk - Sq if causal else 0)
             say(f"  {name} {str(dt)[6:]} main path {case} "
                 f"{(B, H, Hkv, Sq, Sk, hd, hdv)} causal={causal}: max|err| "
                 f"{err:.2e}; {ms:.3f} ms, {flops / ms / 1e9:.1f} TFLOP/s "
-                f"over the live keys")
+                f"over the live keys; {route} route"
+                + (", bitwise deterministic" if route == "wide" else ""))
             if dt == torch.bfloat16 and case in MLA_TIMED:
                 report.setdefault(name, {"shapes": []})["shapes"].append(
                     time_flash_mla(case, q, k, v, causal, err))
+            del q, k, v, got
 
 
 def sdpa_gqa(q, k, v, causal: bool):
@@ -828,14 +882,15 @@ def time_flash_mla(case, q, k, v, causal, err):
     """The wide route at MLA's shape, bf16: kernel (CUDA events) and device
     (profiler) time, the plain version, SDPA (the backend it takes) and the
     matmul-softmax-matmul chain, against the bound of the live (query, key)
-    pairs' FLOPs.  Its launches are not counted."""
+    pairs' FLOPs.  Fails unless the kernel is faster than SDPA.  Its
+    launches are not counted."""
     B, H, Sq, hd = q.shape
     Sk, hdv = k.shape[2], v.shape[3]
-    n0 = flash_attention.launches
+    n0, routes0 = flash_attention.launches, dict(flash_attention.routes)
     fn = lambda: flash_attention(q, k, v, causal=causal)  # noqa: E731
     ms = time_ms(fn)
     dev, kernels, per = device_ms(fn)
-    flash_attention.launches = n0
+    flash_attention.launches, flash_attention.routes = n0, routes0
     plain_ms = time_ms(lambda: blocked.flash_attention_plain(
         q, k, v, causal=causal))
     backends = sdpa_backends(q, k, v, causal)
@@ -853,6 +908,9 @@ def time_flash_mla(case, q, k, v, causal, err):
         f"{lib_ms:.3f} ms (device {lib_dev:.3f}; backends that take it: "
         f"{backends}); matmul-softmax-matmul {chain_ms:.3f} ms; bound "
         f"{b_ms:.4f} ms ({b_by}): device {dev / b_ms:.1f}x bound")
+    if not ms < lib_ms:
+        fail(f"flash_attention {case}: the wide route ({ms:.4f} ms) is not "
+             f"faster than SDPA ({lib_ms:.4f} ms)")
     return dict(name=case, max_abs_err=err, ms=ms, device_ms=dev,
                 plain_ms=plain_ms, library_ms=lib_ms,
                 library_device_ms=lib_dev, library_backends=backends,
@@ -1041,6 +1099,12 @@ MAIN_STREAM_BWD = {  # name: (B, H, Sq, Sk, hd, D)
                              ("text co", 12, 64, 1024))}
 BWD_TIMED = {"flash_attention_bwd": "vision self 4096",
              "stream_attention_bwd": "vision self 4096"}
+# The tc backward at qwen3-32b's training shape on draws of their own
+# besides phase 3's: dK and dV sum 8 heads x 4096 query rows a key, where
+# one tensor-core accumulator carried over every span drifted past the
+# bf16 limit on some draws (dV 1.1x); the kernel now adds sums of a few
+# spans in f32 (DkvAcc::flush).
+FLASH_BWD_SEEDS = (1, 2, 3, 4)
 
 
 def compare_grads(name: str, case: str, got, want) -> float:
@@ -1195,6 +1259,37 @@ def check_bwd_rules():
         "blocked's at every case and training shape")
 
 
+def limit_share(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest error of ``got`` as a share of ``compare``'s limit."""
+    atol, rtol, *_ = TOL[name][got.dtype]
+    g, w = got.float(), want.float()
+    return ((g - w).abs() / (atol + rtol * w.abs())).max().item()
+
+
+def check_flash_bwd_seeds():
+    """The tc backward at qwen3-32b's training shape, bf16, against its
+    plain version on the FLASH_BWD_SEEDS draws; prints each gradient's
+    largest error as a share of the limit."""
+    name, key = "flash_attention_bwd", "qwen3-32b train 4096"
+    B, H, Hkv, Sq, Sk, hd, causal = MAIN_FLASH_BWD[key]
+    kw = dict(causal=causal, q_offset=Sk - Sq if causal else 0)
+    shares = []
+    for seed in FLASH_BWD_SEEDS:
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        q, k, v, do = (randn(g, B, n, S, hd, dtype=torch.bfloat16)
+                       for n, S in ((H, Sq), (Hkv, Sk), (Hkv, Sk), (H, Sq)))
+        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+        got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+        want = blocked.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
+        compare_grads(name, f"bf16 {key} seed {seed}", got, want)
+        shares.append(", ".join(
+            f"d{label} {limit_share(name, a, b):.2f}" for label, a, b in
+            zip(GRAD_NAMES[name], got, want)))
+        del q, k, v, do, out, lse, got, want
+    say(f"  {name} bfloat16 {key}, tc route, seeds {FLASH_BWD_SEEDS}: "
+        f"largest error a share of the limit: " + "; ".join(shares))
+
+
 def check_flash_bwd(gen, report):
     name = "flash_attention_bwd"
     shapes = []
@@ -1255,6 +1350,7 @@ def check_flash_bwd(gen, report):
                     bytes=(4 * q.numel() + 2 * k.numel() + 2 * v.numel()) * e
                     + 4 * lse.numel(), dtype=dt)
                 del ref_out
+    check_flash_bwd_seeds()
     report.setdefault(name, {})["shapes"] = shapes
 
 
@@ -2153,7 +2249,8 @@ def check_flash_bwd_wide(gen, report):
 # ---------------------------------------------------------------------------
 
 # Kernels whose wrappers count launches per route as well.
-ROUTED = {"tile_gemm": tile_gemm, "decode_attention": decode_attention,
+ROUTED = {"tile_gemm": tile_gemm, "flash_attention": flash_attention,
+          "decode_attention": decode_attention,
           "ssd_scan": ssd_scan, "flash_attention_bwd": flash_attention_bwd,
           "stream_attention_bwd": stream_attention_bwd,
           "ssd_scan_bwd": ssd_scan_bwd}
@@ -2179,6 +2276,27 @@ def check_kernel_routes(what: str, routes: dict, got: dict) -> None:
         if routes[name] != {"simt": 0, "tc": got[name]}:
             fail(f"{what}: {name} routes {routes[name]}; every one of its "
                  f"{got[name]} launches must take the tc route")
+
+
+def flash_route_of(cfg, dtype: torch.dtype = torch.bfloat16) -> str:
+    """The route every flash launch of ``cfg``'s path takes in ``dtype``
+    (blocked.flash_route): MLA's latent attention (q/k kv_lora_rank +
+    qk_rope_head_dim, v kv_lora_rank) the wide route in bf16, the other
+    attention kinds' heads tc."""
+    if cfg.attn_kind == AttnKind.MLA:
+        return blocked.flash_route(dtype, cfg.kv_lora_rank
+                                   + cfg.qk_rope_head_dim, cfg.kv_lora_rank)
+    return blocked.flash_route(dtype, cfg.head_dim, cfg.head_dim)
+
+
+def check_flash_routes(what: str, cfg, want_n: int) -> None:
+    """Fail unless the flash launches since the last reset_counts() are
+    ``want_n``, every one on ``flash_route_of(cfg)``."""
+    route = flash_route_of(cfg)
+    want = {**dict.fromkeys(flash_attention.routes, 0), route: want_n}
+    if flash_attention.routes != want:
+        fail(f"{what}: flash_attention routes {flash_attention.routes}, "
+             f"expected {want}")
 
 
 def bwd_routes(cfg, dtype: torch.dtype) -> dict:
@@ -3378,6 +3496,8 @@ def family_training(smi: str, launches: dict) -> None:
                 check_routes(what, tile_gemm.routes, "wgmma")
             check_kernel_routes(what, route_counts(), got)
             check_bwd_routes(f"{what} step {i + 1}", cfg, torch.bfloat16)
+            check_flash_routes(f"{what} step {i + 1}", cfg,
+                               want["flash_attention"])
             if not (math.isfinite(m["loss"])
                     and math.isfinite(m["grad_norm"])):
                 fail(f"{what} step {i + 1}: loss {m['loss']}, grad norm "
@@ -3398,7 +3518,8 @@ def family_training(smi: str, launches: dict) -> None:
             + f": step {step_ms:.1f} ms mean of steps 2-{steps}, "
             f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} "
             f"GiB, launches a step {want}, routes "
-            f"{ {k: v for k, v in bwd_routes(cfg, torch.bfloat16).items()} } "
+            f"{ {k: v for k, v in bwd_routes(cfg, torch.bfloat16).items()} }"
+            f", flash {flash_route_of(cfg)} x {want['flash_attention']} "
             f"[{smi}]")
         text, live, n = profiled_step(model, cfg, mode, batch, state)
         unused = [k for k in params if k.split(".")[0] in UNUSED]
@@ -3814,13 +3935,16 @@ def moe_path(arch: str, smi: str, launches: dict) -> None:
             ms = (time.perf_counter() - t0) * 1e3
         want = moe_forward_launches(cfg, mode)
         check_call(f"{arch} forward {mode.value}", launches, want, "wgmma")
+        check_flash_routes(f"{arch} forward {mode.value}", cfg,
+                           want["flash_attention"])
         if logits.shape[:2] != (1, MOE_S) or not torch.isfinite(logits).all():
             fail(f"{arch} forward {mode.value}: logits "
                  f"{tuple(logits.shape)} or not finite")
         routes[mode] = seen
         say(f"  forward {mode.value}, S = {MOE_S}: {ms:.1f} ms wall, "
             f"attention {attention_kernel(cfg, mode) or 'plain (NON)'} in "
-            f"each of the {L} layers, launches {want} [{smi}]")
+            f"each of the {L} layers, launches {want}, flash routes "
+            f"{dict(flash_attention.routes)} [{smi}]")
         if first is None:
             first = logits
         elif cfg.attn_kind == AttnKind.MLA and not torch.equal(logits, first):
@@ -3885,11 +4009,18 @@ def moe_path(arch: str, smi: str, launches: dict) -> None:
         f"{want['stream_attention'] // n_pre} stream, {moe_gemms(cfg)} "
         f"tile_gemm; per decode call: "
         f"{want['decode_attention'] // n_dec} decode attention, "
-        f"{moe_gemms(cfg)} tile_gemm; tile_gemm routes: prefill "
+        f"{moe_gemms(cfg)} tile_gemm; flash routes "
+        f"{kroutes['flash_attention']}; tile_gemm routes: prefill "
         f"{dict(probe.routes['prefill'])}, decode "
         f"{dict(probe.routes['decode'])}")
     if got != want:
         fail(f"{arch} serving: launches {got}, expected {want}")
+    if kroutes["flash_attention"] != {
+            **dict.fromkeys(kroutes["flash_attention"], 0),
+            flash_route_of(cfg): want["flash_attention"]}:
+        fail(f"{arch} serving: flash_attention routes "
+             f"{kroutes['flash_attention']}; all {want['flash_attention']} "
+             f"must take the {flash_route_of(cfg)} route")
     if (eng._pool is not None) != paged \
             or (n_dec < eng.decode_calls) != paged:
         fail(f"{arch} serving: pool {eng._pool is not None}, decode_batches "
@@ -4678,6 +4809,17 @@ def main() -> None:
                 rows[-1][key] = r[key]
         if name in ROUTED:
             rows[-1]["routes"] = launches[f"{name} routes"]
+    r = report["flash_attention"]["shapes"][0]
+    rows.append({"name": "flash_attention (wide route)", "route": "cuda",
+                 "source": "src/repro_torch/csrc/attention_wide.cuh",
+                 "replaces": KERNELS["flash_attention"][1],
+                 "launches": launches["flash_attention routes"]["wide"],
+                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                 "device_ms": r["device_ms"],
+                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+                 "library_device_ms": r["library_device_ms"],
+                 "shape": r["name"]})
     r = report["flash_attention_bwd_wide"]
     b_ms, b_by = bound(r["flops"], r["bytes"], r["dtype"])
     say(f"  flash_attention_bwd wide route at {r['shape']}: kernel "

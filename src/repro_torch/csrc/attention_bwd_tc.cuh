@@ -19,9 +19,12 @@
 //     out in the accumulator layout that re-packs as the register A operand
 //     of dV += P^T dO and dK += dS^T Q.  The live query spans of 64 rows
 //     (span_tiles, the SIMT kernels' rule) alternate between the two
-//     warpgroups, whose partial dK and dV are added once at the end (a + b:
-//     fixed, and commutative in IEEE arithmetic).  Each key's gradient is
-//     written once, by its block.
+//     warpgroups.  The flash kernel adds each warpgroup's accumulators to
+//     f32 totals in shared memory every few spans (flush, the two
+//     warpgroups in turn: a fixed order); the stream kernel adds the two
+//     warpgroups' partials once at the end (combine: a + b, fixed, and
+//     commutative in IEEE arithmetic).  Each key's gradient is written
+//     once, by its block.
 //   dQ pass (DqRows): a block owns 128 of the flattened (G x Sq) query rows
 //     of one (batch, kv head), as attention_tc.cuh does, so a GQA group
 //     shares every K/V tile; Q is the register A operand, dO a shared-memory
@@ -175,6 +178,27 @@ struct DkvAcc {
     fence_regs(p_lo);
     fence_regs(d_hi);
     fence_regs(d_lo);
+  }
+
+  // The accumulators added to the f32 totals `tot` (dK's HDP / 2, then
+  // dV's HDVP / 2 values a thread, laid out [value][thread]) and zeroed.
+  // The tensor cores add each product to an accumulator at the precision
+  // of the running sum, truncated, so a sum carried over every span of a
+  // long sequence drifts from the f32 sum by more than a bf16 ulp (dV at
+  // 8 heads x 4096 rows a key); sums of a few spans added here in f32 do
+  // not.
+  __device__ void flush(float* tot) {
+    const int tid = threadIdx.x % WGT;
+#pragma unroll
+    for (int i = 0; i < HDP / 2; ++i) {
+      tot[i * WGT + tid] += dk[i];
+      dk[i] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < HDVP / 2; ++i) {
+      tot[(HDP / 2 + i) * WGT + tid] += dv[i];
+      dv[i] = 0.f;
+    }
   }
 
   // The two warpgroups' partials added through `buf` (2 x 64 x HDP f32 of

@@ -166,18 +166,26 @@ namespace repro {
 namespace tcb {
 
 constexpr int FLASH_STAGES = 4;
+constexpr int FLUSH_SPANS = 4;     // dK/dV: a warpgroup's spans a flush
+constexpr int BAR_TURN0 = 3;       // named barriers of the flushes' turns
+constexpr int BAR_TURN1 = 4;
 
 template <int HDP, int HDVP>
 struct FlashBwdSmem {
   static constexpr int K_BYTES = (HDP / 64) * BOX_BYTES;   // 64 rows
   static constexpr int V_BYTES = (HDVP / 64) * BOX_BYTES;
-  // dK/dV pass: the block's K and V, then the ring of spans (Q, dO, lse,
-  // delta); the two warpgroups' partials meet in the ring once it is idle
+  // dK/dV pass: the block's K and V, the ring of spans (Q, dO, lse, delta)
+  // in as many stages (up to 4) as fit beside the f32 totals of dK and dV
   static constexpr int SPAN = K_BYTES + V_BYTES + LSE_BYTES;
   static constexpr int DKV_RING = K_BYTES + V_BYTES;
-  static constexpr int DKV_BARS = DKV_RING + FLASH_STAGES * SPAN;
-  static constexpr int DKV_BYTES = DKV_BARS + (2 * FLASH_STAGES + 1) * 8 + 1024;
-  static_assert(FLASH_STAGES * SPAN >= 64 * (HDP + HDVP) * 4, "combine buffer");
+  static constexpr int TOT_BYTES = (HDP + HDVP) / 2 * WGT * 4;
+  static constexpr int DKV_FIXED = DKV_RING + TOT_BYTES + 1024 + 128;
+  static constexpr int DKV_STAGES =
+      DKV_FIXED + 4 * SPAN <= 232448 ? 4 : DKV_FIXED + 3 * SPAN <= 232448 ? 3 : 2;
+  static constexpr int DKV_TOT = DKV_RING + DKV_STAGES * SPAN;
+  static constexpr int DKV_BARS = DKV_TOT + TOT_BYTES;
+  static constexpr int DKV_BYTES = DKV_BARS + (2 * DKV_STAGES + 1) * 8 + 1024;
+  static_assert(DKV_BYTES <= 232448, "dK/dV shared memory");
   // dQ pass: the block's dO (128 rows), then the ring of K/V tiles
   static constexpr int DO_BYTES = 2 * V_BYTES;
   static constexpr int KV = K_BYTES + V_BYTES;
@@ -185,10 +193,30 @@ struct FlashBwdSmem {
   static constexpr int DQ_BYTES = DQ_BARS + (2 * FLASH_STAGES + 1) * 8 + 1024;
 };
 
+// A warpgroup's turn at the dK/dV totals after a group of spans: warpgroup
+// 0 adds its accumulators once warpgroup 1 added those of the group before
+// (none before the first), warpgroup 1 once warpgroup 0 added this group's.
+template <class Acc>
+__device__ __forceinline__ void flush_turn(Acc& acc, float* tot, int wg,
+                                           int done) {
+  if (wg == 0) {
+    if (done) named_sync(BAR_TURN1, CONSUMERS);
+    acc.flush(tot);
+    named_arrive(BAR_TURN0, CONSUMERS);
+  } else {
+    named_sync(BAR_TURN0, CONSUMERS);
+    acc.flush(tot);
+    named_arrive(BAR_TURN1, CONSUMERS);
+  }
+}
+
 // dK/dV: one block per (kv tile j of 64 keys, kv head, batch).  K_j and V_j
 // arrive by TMA once and stay; the producer warp brings each live query
 // span of the G query heads (Q, dO by TMA; lse, delta by its lanes) into a
-// ring of FLASH_STAGES stages; span i goes to warpgroup i % 2.
+// ring of DKV_STAGES stages; span i goes to warpgroup i % 2.  After every
+// 2 x FLUSH_SPANS spans (and after the last) warpgroup 0, then warpgroup
+// 1, adds its accumulators to the block's f32 totals in shared memory
+// (DkvAcc::flush), so no accumulator sums more than FLUSH_SPANS spans.
 template <int HDP, int HDVP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_dkv_tc(const __grid_constant__ CUtensorMap kmap,
@@ -201,12 +229,12 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap kmap,
   extern __shared__ uint8_t smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   uint8_t* gbase = smem_raw + (base - smem_u32(smem_raw));
-  const uint32_t full = base + L::DKV_BARS, empty = full + 8 * FLASH_STAGES;
-  const uint32_t kvbar = empty + 8 * FLASH_STAGES;
+  const uint32_t full = base + L::DKV_BARS, empty = full + 8 * L::DKV_STAGES;
+  const uint32_t kvbar = empty + 8 * L::DKV_STAGES;
   const int j = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
   const int G = sh.Hq / sh.Hkv;
   if (threadIdx.x == 0) {
-    for (int s = 0; s < FLASH_STAGES; ++s) {
+    for (int s = 0; s < L::DKV_STAGES; ++s) {
       mbar_init(full + 8 * s, 32);
       mbar_init(empty + 8 * s, WGT);   // one warpgroup consumes a span
     }
@@ -231,8 +259,8 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap kmap,
     for (int g = 0; g < G; ++g)
       for (int q0 = 0; q0 < sh.Sq; q0 += bwd::BQ) {
         if (!span_live(sh, g, q0, j)) continue;
-        const int st = it % FLASH_STAGES, ph = (it / FLASH_STAGES) & 1;
-        if (it >= FLASH_STAGES) mbar_wait(empty + 8 * st, ph ^ 1);
+        const int st = it % L::DKV_STAGES, ph = (it / L::DKV_STAGES) & 1;
+        if (it >= L::DKV_STAGES) mbar_wait(empty + 8 * st, ph ^ 1);
         const uint32_t qs = base + L::DKV_RING + st * L::SPAN;
         const uint32_t dos = qs + L::K_BYTES, ls = dos + L::V_BYTES;
         const int bh = b * sh.Hq + kvh * G + g;
@@ -252,15 +280,19 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap kmap,
   } else {                                    // consumer warpgroups
     setmaxnreg_inc<240>();
     const int wg = threadIdx.x / WGT;
+    float* tot = reinterpret_cast<float*>(gbase + L::DKV_TOT);
+    for (int i = threadIdx.x; i < L::TOT_BYTES / 4; i += CONSUMERS) tot[i] = 0.f;
+    named_sync(BAR_PAIR, CONSUMERS);
     DkvAcc<HDP, HDVP, false> acc;
     acc.zero();
+    int flushed = 0;
     mbar_wait(kvbar, 0);
     int it = 0;
     for (int g = 0; g < G; ++g)
       for (int q0 = 0; q0 < sh.Sq; q0 += bwd::BQ) {
         if (!span_live(sh, g, q0, j)) continue;
         if (it % 2 == wg) {
-          const int st = it % FLASH_STAGES, ph = (it / FLASH_STAGES) & 1;
+          const int st = it % L::DKV_STAGES, ph = (it / L::DKV_STAGES) & 1;
           const uint32_t qs = base + L::DKV_RING + st * L::SPAN;
           const uint32_t dos = qs + L::K_BYTES, ls = dos + L::V_BYTES;
           mbar_wait(full + 8 * st, ph);
@@ -268,10 +300,20 @@ flash_dkv_tc(const __grid_constant__ CUtensorMap kmap,
                    reinterpret_cast<const float*>(gbase + (ls - base)));
           mbar_arrive(empty + 8 * st);
         }
-        ++it;
+        if (++it % (2 * FLUSH_SPANS) == 0) flush_turn(acc, tot, wg, flushed++);
       }
-    // every span is consumed: the ring holds the partials meanwhile
-    acc.combine(reinterpret_cast<float*>(gbase + L::DKV_RING), wg);
+    if (it % (2 * FLUSH_SPANS)) flush_turn(acc, tot, wg, flushed++);
+    // warpgroup 0 waits for warpgroup 1's last flush; warpgroup 1's came
+    // after every other
+    if (wg == 0 && flushed) named_sync(BAR_TURN1, CONSUMERS);
+    const int tid = threadIdx.x % WGT;
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < HDP / 2; ++i) acc.dk[i] = tot[i * WGT + tid];
+    } else {
+#pragma unroll
+      for (int i = 0; i < HDVP / 2; ++i) acc.dv[i] = tot[(HDP / 2 + i) * WGT + tid];
+    }
     const Frag f;
     const size_t kb = (size_t)(b * sh.Hkv + kvh) * sh.Sk;
     // warpgroup 0 writes dK, warpgroup 1 dV

@@ -110,6 +110,11 @@ __device__ __forceinline__ void cluster_sync() {
 __device__ __forceinline__ void named_sync(int id, int n) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(n) : "memory");
 }
+// Arrive at named barrier `id` of `n` threads without waiting for it (the
+// other threads of the count wait in named_sync).
+__device__ __forceinline__ void named_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(n) : "memory");
+}
 // Four f32 of a peer block's shared memory (cluster address from
 // map_to_rank, 16-byte aligned).
 __device__ __forceinline__ float4 ld_cluster_f32x4(uint32_t addr) {

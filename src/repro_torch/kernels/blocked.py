@@ -200,6 +200,23 @@ def live_kv_tiles(r0: int, r1: int, Sq: int, *, sk: int, kv_len: int,
     return beg0 // bk, -(-end1 // bk)
 
 
+FLASH_ROUTES = ("simt", "tc", "wide")   # flash_attention.cu's route codes
+
+
+def flash_route(dtype: torch.dtype, hd: int, hdv: int,
+                kv_aligned: bool = True, q_aligned: bool = True) -> str:
+    """The route ``flash_attention.cu`` takes (``tc::dispatch``): f32 on
+    the SIMT kernel; bf16 with hd and hdv multiples of 8 and k, v 16-byte
+    aligned (``kv_aligned``) on ``tc`` up to 128 wide, and on ``wide`` for
+    a head over 128 wide if q is 16-byte aligned too (``q_aligned``: the
+    wide kernel reads Q by TMA); other bf16 shapes on the SIMT kernel."""
+    if dtype != torch.bfloat16 or hd % 8 or hdv % 8 or not kv_aligned:
+        return "simt"
+    if hd > 128 or hdv > 128:
+        return "wide" if q_aligned else "simt"
+    return "tc"
+
+
 def flash_attention_live(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          *, causal: bool = False, window: int = 0,
                          q_offset: int = 0, scale: Optional[float] = None,

@@ -1,8 +1,12 @@
 """Flash attention over materialized K/V, the LAYER_STREAM path
 (counterpart of ``repro/kernels/flash_attention.py``).
 
-CUDA kernel: ``csrc/flash_attention.cu``.  Plain version:
-``blocked.flash_attention_plain``.
+CUDA kernel: ``csrc/flash_attention.cu``, three routes picked by dtype,
+width and alignment (``blocked.flash_route`` mirrors the library's
+``tc::dispatch``): ``tc`` (bf16 heads up to 128), ``wide`` (bf16 heads over
+128: MLA's, ``csrc/attention_wide.cuh``) and ``simt`` (f32, and bf16
+shapes TMA cannot read).  ``flash_attention.routes`` counts launches per
+route.  Plain version: ``blocked.flash_attention_plain``.
 """
 from __future__ import annotations
 
@@ -12,7 +16,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.blocked import flash_attention_plain
+from repro_torch.kernels.blocked import (FLASH_ROUTES, flash_attention_plain,
+                                         flash_route)
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 #: The widest q/k and v heads the kernel takes: MLA's absorbed widths at
@@ -81,13 +86,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     lse = (torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
            if return_lse else None)
     if out.numel():
-        _build.raise_on("flash_attention", _lib()(
+        route = flash_route(q.dtype, hd, hdv,
+                            kv_aligned=not (k.data_ptr() % 16
+                                            or v.data_ptr() % 16),
+                            q_aligned=not q.data_ptr() % 16)
+        _build.raise_on(f"flash_attention ({route} route)", _lib()(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), code,
             B, Hq, Hkv, Sq, Sk, hd, hdv, scale, int(causal), window,
             q_offset, kv_len, None if lse is None else lse.data_ptr(),
             _build.stream_ptr(q.device)))
         flash_attention.launches += 1
+        flash_attention.routes[route] += 1
     return (out, lse) if return_lse else out
 
 
 flash_attention.launches = 0
+flash_attention.routes = dict.fromkeys(FLASH_ROUTES, 0)

@@ -157,6 +157,29 @@ def test_live_tiles_equal_the_full_loop(case):
         assert walked < full
 
 
+@pytest.mark.parametrize("dtype, hd, hdv, kv_aligned, q_aligned, route", [
+    (torch.bfloat16, 128, 128, True, True, "tc"),
+    (torch.bfloat16, 64, 32, True, True, "tc"),
+    (torch.bfloat16, 128, 128, True, False, "tc"),
+    (torch.bfloat16, 576, 512, True, True, "wide"),
+    (torch.bfloat16, 192, 160, True, True, "wide"),
+    (torch.bfloat16, 64, 256, True, True, "wide"),
+    (torch.bfloat16, 576, 512, False, True, "simt"),
+    (torch.bfloat16, 576, 512, True, False, "simt"),
+    (torch.bfloat16, 128, 128, False, True, "simt"),
+    (torch.bfloat16, 36, 64, True, True, "simt"),
+    (torch.bfloat16, 200, 100, True, True, "simt"),
+    (torch.float32, 128, 128, True, True, "simt"),
+    (torch.float32, 576, 512, True, True, "simt"),
+])
+def test_flash_route_rule(dtype, hd, hdv, kv_aligned, q_aligned, route):
+    """The forward's routes (flash_attention.cu's tc::dispatch): bf16 over
+    128 wide is ``wide`` (q, k and v 16-byte aligned), TMA-readable bf16 up
+    to 128 ``tc`` (k and v aligned; Q is not read by TMA), the rest
+    ``simt``."""
+    assert blocked.flash_route(dtype, hd, hdv, kv_aligned, q_aligned) == route
+
+
 # B, Hq, Hkv, Sq, Sk, hd, causal, window, kv_len: the query rows at or
 # past kv_len + window - 1 (or all rows, at kv_len 0) have no live key.
 MASKED_CASES = [

@@ -240,6 +240,26 @@ def test_wrappers_take_plain_versions_on_cpu_without_counting():
             tile_gemm.launches) == before
 
 
+def test_cpu_calls_leave_the_route_counters_at_zero():
+    """CPU tensors take the plain versions at the shapes of every flash
+    route (tc, wide, simt), and neither the launch count nor the route
+    counters move."""
+    rng = np.random.default_rng(12)
+    flash_attention.launches = 0
+    flash_attention.routes = dict.fromkeys(flash_attention.routes, 0)
+    for dt, hd, hdv, Hkv in ((torch.bfloat16, 64, 64, 2),
+                             (torch.bfloat16, 576, 512, 1),
+                             (torch.float32, 96, 32, 1)):
+        q = T(_rand(rng, 1, 4, 16, hd)).to(dt)
+        k, v = T(_rand(rng, 1, Hkv, 24, hd)).to(dt), T(_rand(rng, 1, Hkv, 24,
+                                                            hdv)).to(dt)
+        kw = dict(causal=True, q_offset=8, block_k=8)
+        _close(flash_attention(q, k, v, **kw).float(),
+               blocked.flash_attention_plain(q, k, v, **kw).float(), 0)
+    assert flash_attention.launches == 0
+    assert flash_attention.routes == dict.fromkeys(blocked.FLASH_ROUTES, 0)
+
+
 def test_wrappers_refuse_tensors_off_cpu_and_cuda():
     """A tensor on neither the CPU nor a CUDA device raises: the kernel
     path never falls back to a plain version."""
