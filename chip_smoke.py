@@ -182,14 +182,32 @@ caught:
      launched through the C interface, in turns);
  20. their f32 gradients at 1-2 layers, kernel path against plain path,
      and the modes against each other where a mode changes what runs;
+ 21. the rest of single-card inference: (a) the serving launcher's
+     ``launch.serve.run`` at starcoder2-7b's full CONFIG (8 drawn requests,
+     16 new tokens, 4 slots, max_len 256; exact launch gates), then
+     ``simulate_serve`` over the same requests with the engine's own
+     plans, held to ``Engine.stats()`` by ``assert_serve_parity``; tokens/s,
+     wall, and a profiled rerun's device time and busy share; (b) the int8
+     projection (``ops.projection`` under ``runtime.flags(
+     quantize_proj=True)``, bf16) at vilbert-base's and starcoder2-7b's
+     MLP shapes, M = 4 (padded for ``torch._int_mm``) included: int8
+     operands, scales and output bitwise equal to the CPU plain path's,
+     the int32 sums to an exact f64 product, timed beside ``tile_gemm``,
+     ``torch.matmul`` and the bound (int8 at 1,979 TOPS); (c) vilbert-base's
+     LAYER_STREAM forward (B = 2, N = 4096) and starcoder2-7b's serving
+     under the flag: no ``tile_gemm`` launch, every MLP product on the
+     int8 path, finite logits, parity, tokens in range, the share of
+     greedy tokens equal to (a)'s; (d) the three examples
+     (``examples/torch_*.py``) on the card and ``python -m repro_torch.obs``
+     twice, as subprocesses that must exit 0;
  then one JSON line of per-kernel numbers, with the routes of
  tile_gemm, flash attention, decode attention, the SSD scan and the
  backward kernels
  over the main paths (phases 4-5, 7-8, 10, 12-17, 19) and their timed
  shapes ("tile_gemm_shapes", "decode_attention_shapes",
  "ssd_scan_shapes", "stream_attention_shapes", "flash_attention_shapes",
- the backward kernels'); and the last line: {"ok": true, "device":
- {...}}.
+ the backward kernels', "int8_projection_shapes"); and the last line:
+ {"ok": true, "device": {...}}.
 
 Bound of a kernel call: the larger of its FLOPs over the H100 SXM peak of
 its input type (989 TFLOP/s bf16, 67 TFLOP/s f32) and the bytes it must
@@ -205,6 +223,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -224,7 +243,7 @@ from repro_torch.configs.registry import get_config  # noqa: E402
 from repro_torch.core import runtime  # noqa: E402
 from repro_torch.core.types import (  # noqa: E402
     AttnKind, ExecutionMode, Family)
-from repro_torch.kernels import _build, blocked, ops, ref  # noqa: E402
+from repro_torch.kernels import _build, blocked, ops, quant, ref  # noqa: E402
 from repro_torch.kernels import decode_attention as decode_lib  # noqa: E402
 from repro_torch.kernels.decode_attention import decode_attention  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
@@ -246,8 +265,11 @@ from repro_torch.models.vilbert import ViLBERT  # noqa: E402
 from repro_torch.plan import plan_decode_step, plan_model  # noqa: E402
 from repro_torch.sim import (  # noqa: E402
     KernelRecorder, analytic_op_profile, compare_modes, fit_calibration,
-    record_plan, recording, simulate_plan)
+    record_plan, recording, simulate_plan, simulate_serve)
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
+from repro_torch.serve.schedule import ServeRequest  # noqa: E402
+from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.obs.metrics import assert_serve_parity  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.types import ShapeConfig  # noqa: E402
 from repro_torch.data.pipeline import SyntheticLM  # noqa: E402
@@ -4578,6 +4600,343 @@ def served_decode_records(smi: str, report: dict) -> None:
         f"{t.block_q} [{smi}]")
 
 
+# ---------------------------------------------------------------------------
+# Phase 21: the rest of single-card inference
+# ---------------------------------------------------------------------------
+
+# launch.serve at starcoder2-7b's full CONFIG (the launcher's own request
+# draw: 8 prompts of 4-63 tokens, 16 new tokens each)
+LAUNCH_ARGV = ["--arch", "starcoder2-7b", "--requests", "8", "--max-new",
+               "16", "--slots", "4", "--max-len", "256"]
+# ops.projection under quantize_proj, bf16: vilbert-base's text MLP and
+# starcoder2-7b's MLP at a prefill's rows and at a decode bucket's (M = 4,
+# which the wrapper pads to 32 rows for torch._int_mm)
+INT8_SHAPES = {"vilbert-base mlp up": (8192, 768, 3072),
+               "vilbert-base mlp down": (8192, 3072, 768),
+               "starcoder2-7b mlp up 1024": (1024, 4608, 18432),
+               "starcoder2-7b mlp down 1024": (1024, 18432, 4608),
+               "starcoder2-7b mlp up 4": (4, 4608, 18432),
+               "starcoder2-7b mlp down 4": (4, 18432, 4608)}
+# rows of each shape that also go through the whole CPU path (its int32
+# product runs at ~10 GOP/s on the host; the card's int32 sums are held
+# to an exact f64 product on every row)
+INT8_CPU_ROWS = 64
+INT8_PEAK = 1979e12          # H100 SXM dense int8 tensor-core ops/s
+QUANT_MODE = ExecutionMode.LAYER_STREAM
+EXAMPLE_RUNS = (["examples/torch_quickstart.py"],
+                ["examples/torch_crossmodal_pruning.py"],
+                ["examples/torch_serve_batch.py"])
+OBS_RUNS = (["-m", "repro_torch.obs", "--rewrite-stall", "--critpath"],
+            ["-m", "repro_torch.obs", "--model", "vilbert-base", "--mode",
+             "tile_stream", "--critpath", "--whatif", "ATTN:2"])
+
+
+def served_tokens(what: str, cfg, reqs, done) -> dict:
+    """{rid: tokens}; fails unless every request returned its token budget
+    of ids inside the vocabulary."""
+    tokens = {r.rid: list(r.out_tokens) for r in done}
+    for r in reqs:
+        got = tokens.get(r.rid, [])
+        if len(got) != r.max_new_tokens or not all(
+                0 <= t < cfg.vocab_size for t in got):
+            fail(f"{what}: request r{r.rid} returned {got} "
+                 f"({r.max_new_tokens} tokens in [0, {cfg.vocab_size}) "
+                 f"expected)")
+    return tokens
+
+
+def serve_parity(what: str, eng, reqs):
+    """simulate_serve over ``reqs`` with the engine's own prefill and
+    decode plans, held to ``eng.stats()`` by assert_serve_parity."""
+    sim = simulate_serve(eng.cfg, [ServeRequest(r.rid, len(r.prompt),
+                                                r.max_new_tokens,
+                                                r.arrival_step)
+                                   for r in reqs],
+                         slots=eng.slots, plan_fn=eng.plan_for,
+                         decode_plan_fn=eng.decode_plan_for)
+    try:
+        assert_serve_parity(eng.stats(), sim.metrics)
+    except AssertionError as e:
+        fail(f"{what}: engine and simulate_serve disagree: {e}")
+    return sim
+
+
+def serve_wall_s(eng) -> float:
+    """The engine's serving wall time: first step's start to last step's
+    end, on its own clock."""
+    walls = eng._step_walls.values()
+    return max(e for _, e in walls) - min(s for s, _ in walls)
+
+
+def profiled_serve(cfg, model, reqs, **engine_kw) -> str:
+    """The same requests served once more by a fresh Engine under
+    torch.profiler (device activity only): device time, wall time, busy
+    share, kernel count.  The run launches ~2e5 kernels, so the device
+    times are summed from the raw records: building the profiler's event
+    tree for them (``key_averages``) takes minutes."""
+    from torch.profiler import ProfilerActivity, profile
+    eng = Engine(cfg, model, **engine_kw)
+    for r in reqs:
+        eng.submit(dataclasses.replace(r, out_tokens=None))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    cuda = torch.autograd.DeviceType.CUDA
+    durs = [e.duration_ns() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+    busy = sum(durs) / 1e3
+    if busy == 0:
+        return "profiler recorded no device time"
+    return (f"device {busy / 1e3:.1f} ms of {wall_us / 1e3:.1f} ms wall "
+            f"({100 * busy / wall_us:.0f}% busy), {len(durs)} kernels and "
+            f"copies")
+
+
+def launcher_serving(smi: str, launches: dict):
+    """(a) ``launch.serve.run`` at starcoder2-7b's full CONFIG with exact
+    launch gates and engine==simulator parity; returns its engine, the
+    drawn requests and their tokens."""
+    args = launch_serve.parse(LAUNCH_ARGV)
+    cfg = get_config(args.arch)
+    free()
+    reset_counts()
+    i0 = quant.int8_mm.launches
+    t0 = time.perf_counter()
+    eng, done = launch_serve.run(args)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    got, routes = counts(), route_counts()
+    tally(launches)
+    reqs = launch_serve.draw_requests(cfg, args.requests, args.max_len,
+                                      args.max_new)
+    tokens = served_tokens("launch.serve", cfg, reqs, done)
+    check_kernel_routes("launch.serve", routes, got)
+    gemm = routes["tile_gemm"]
+    if got["tile_gemm"] == 0 or gemm["mma"] or gemm["simt"] \
+            or got["flash_attention"] == 0 or got["stream_attention"] \
+            or quant.int8_mm.launches != i0 \
+            or got["decode_attention"] != cfg.num_layers * eng.decode_batches:
+        fail(f"launch.serve: launches {got}, tile_gemm routes {gemm}, "
+             f"int8 products {quant.int8_mm.launches - i0} do not fit the "
+             f"path (decode attention {cfg.num_layers} x "
+             f"{eng.decode_batches} batches)")
+    serve_parity("launch.serve", eng, reqs)
+    wall = serve_wall_s(eng)
+    n = sum(len(t) for t in tokens.values())
+    gb = sum(p.numel() * p.element_size()
+             for p in eng.model.parameters()) / 1e9
+    say(f"  launch.serve --arch {args.arch}: {len(done)} requests, {n} new "
+        f"tokens in {wall:.2f} s of serving ({n / wall:.1f} tokens/s; "
+        f"{total:.1f} s with the build of its {gb:.1f} GB of weights), "
+        f"{eng.stats()['steps']} steps, decode_batches "
+        f"{eng.decode_batches}; launches {got}, tile_gemm routes {gemm}; "
+        f"assert_serve_parity against simulate_serve with the engine's "
+        f"plans holds [{smi}]")
+    profile = profiled_serve(cfg, eng.model, reqs, slots=args.slots,
+                             max_len=args.max_len)
+    say(f"  the same requests served again under torch.profiler: "
+        f"{profile} [{smi}]")
+    return eng, reqs, tokens
+
+
+def check_int8(gen, smi: str) -> list:
+    """(b) ops.projection under quantize_proj at INT8_SHAPES in bf16: int8
+    operands, scales and output bitwise equal to the CPU plain path's on
+    the same inputs; timed beside tile_gemm, torch._int_mm alone,
+    torch.matmul and the bound."""
+    rows = []
+    for name, (M, K, N) in INT8_SHAPES.items():
+        x = randn(gen, M, K, dtype=torch.bfloat16)
+        w = randn(gen, K, N, dtype=torch.bfloat16, scale=K ** -0.5)
+        g0 = tile_gemm.launches
+        i0 = quant.int8_mm.launches
+        with runtime.flags(quantize_proj=True):
+            out = ops.projection(x, w)
+        if quant.int8_mm.launches != i0 + 1 or tile_gemm.launches != g0:
+            fail(f"int8 {name}: ops.projection under quantize_proj did not "
+                 f"take the int8 path")
+        xq, sx = quant.quantize_rows(x.float())
+        wq, sw = quant.quantize_cols(w.float())
+        acc = quant.int8_mm(xq, wq)
+        xc, wc = x.cpu(), w.cpu()
+        cxq, csx = quant.quantize_rows(xc.float())
+        cwq, csw = quant.quantize_cols(wc.float())
+        for what, a, b in (("x int8", xq, cxq), ("x scales", sx, csx),
+                           ("w int8", wq, cwq), ("w scales", sw, csw)):
+            if not torch.equal(a.cpu(), b):
+                fail(f"int8 {name}: {what} differ from the CPU path's")
+        if acc.dtype != torch.int32 or not torch.equal(
+                acc.double(), xq.double() @ wq.double()):
+            fail(f"int8 {name}: the int32 sums are not the exact product")
+        if not torch.equal(out.cpu(),
+                           (acc.cpu().float() * csx * csw).to(x.dtype)):
+            fail(f"int8 {name}: output differs from the CPU dequantization")
+        r = min(M, INT8_CPU_ROWS)
+        with runtime.flags(quantize_proj=True):
+            plain = ops.projection(xc[:r], wc)
+        if not torch.equal(out[:r].cpu(), plain):
+            fail(f"int8 {name}: the first {r} rows differ from the CPU "
+                 f"plain path's")
+        with runtime.flags(quantize_proj=True):
+            ms = time_ms(lambda: ops.projection(x, w))
+        mm_ms = time_ms(lambda: quant.int8_mm(xq, wq))
+        # the same product with w's int8 copy column-major (K contiguous:
+        # the layout cuBLASLt's int8 tensor-core kernels read), not what
+        # the port runs: a measurement for its own int8 kernel
+        wq_t = wq.t().contiguous().t()
+        tn_ms = (time_ms(lambda: torch._int_mm(xq, wq_t)) if M > 16 and
+                 K % 8 == 0 and N % 8 == 0 else None)
+        quant_ms = time_ms(lambda: quant.quantize_cols(w.float()))
+        gemm_ms = time_ms(lambda: tile_gemm(x, w))
+        lib_ms = time_ms(lambda: torch.matmul(x, w))
+        n_ops, nbytes = 2 * M * K * N, 2 * (M * K + K * N + M * N)
+        t_ops, t_bytes = n_ops / INT8_PEAK, nbytes / HBM_BYTES_PER_S
+        rows.append({"name": name, "shape": [M, K, N], "ms": ms,
+                     "int_mm_ms": mm_ms, "int_mm_col_major_w_ms": tn_ms,
+                     "quantize_cols_ms": quant_ms,
+                     "tile_gemm_ms": gemm_ms,
+                     "tile_gemm_route": route_of(M, K, N, 1),
+                     "library_ms": lib_ms,
+                     "bound_ms": max(t_ops, t_bytes) * 1e3,
+                     "bound_by": "operations" if t_ops >= t_bytes
+                     else "bytes", "bitwise_rows_cpu": r})
+        say(f"  int8 projection {name} ({M}, {K}) @ ({K}, {N}) bf16: "
+            f"bitwise equal to the CPU path ({r} rows whole, every row's "
+            f"int8 operands, scales, int32 sums and dequantization); "
+            f"{ms:.4f} ms (torch._int_mm alone {mm_ms:.4f}, with w "
+            f"column-major {'-' if tn_ms is None else f'{tn_ms:.4f}'}, "
+            f"quantize_cols {quant_ms:.4f}), tile_gemm bf16 {gemm_ms:.4f} "
+            f"({rows[-1]['tile_gemm_route']}), torch.matmul {lib_ms:.4f}, "
+            f"bound {rows[-1]['bound_ms']:.4f} ms ({rows[-1]['bound_by']}) "
+            f"[{smi}]")
+        del x, w, out, xq, wq, wq_t, acc, xc, wc, cxq, cwq, plain
+        free()
+    return rows
+
+
+def quantized_paths(smi: str, launches: dict, eng, reqs, tokens) -> None:
+    """(c) vilbert-base's forward and starcoder2-7b's serving under
+    quantize_proj: no tile_gemm launch, every MLP product on the int8
+    path, finite logits, parity, tokens in range."""
+    cfg = get_config("vilbert-base")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = ViLBERT(cfg, device="cuda", generator=gen)
+    batch = make_batch(cfg, 2, 4096, gen)
+    base = model(batch, mode=QUANT_MODE)
+    mlps = cfg.num_layers - cfg.num_coattn_layers + 2 * cfg.num_coattn_layers
+    want_int8 = mlps * (3 if cfg.act == "silu" else 2)
+    with runtime.flags(quantize_proj=True):
+        model(batch, mode=QUANT_MODE)                    # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        i0 = quant.int8_mm.launches
+        t0 = time.perf_counter()
+        out, kept = model(batch, mode=QUANT_MODE, return_token_counts=True)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    got = tally(launches)
+    n_int8 = quant.int8_mm.launches - i0
+    if out.shape != (2, 3129) or not torch.isfinite(out).all():
+        fail("vilbert-base under quantize_proj: logits not finite (2, 3129)")
+    if got["tile_gemm"] or n_int8 != want_int8 or kept != EXPECTED_COUNTS \
+            or got["flash_attention"] == 0:
+        fail(f"vilbert-base under quantize_proj: launches {got}, {n_int8} "
+             f"int8 products ({want_int8} expected: {mlps} MLPs), kept "
+             f"{kept}")
+    say(f"  vilbert-base {QUANT_MODE.value} under quantize_proj (B = 2, N = "
+        f"4096, bf16): wall {wall:.1f} ms, launches {got}, {n_int8} int8 "
+        f"products, no tile_gemm; logits' max gap to the bf16 forward "
+        f"{_rel(out.float(), base.float()):.3e} of its largest [{smi}]")
+    del model, batch, base, out
+    free()
+
+    cfg = eng.cfg
+    qeng = Engine(cfg, eng.model, slots=eng.slots, max_len=eng.max_len)
+    for r in reqs:
+        qeng.submit(dataclasses.replace(r, out_tokens=None))
+    reset_counts()
+    i0 = quant.int8_mm.launches
+    with runtime.flags(quantize_proj=True):
+        done = qeng.run()
+    got, routes = counts(), route_counts()
+    tally(launches)
+    n_int8 = quant.int8_mm.launches - i0
+    want_int8 = 2 * cfg.num_layers * (len(reqs) + qeng.decode_batches)
+    qtokens = served_tokens("starcoder2-7b under quantize_proj", cfg, reqs,
+                            done)
+    check_kernel_routes("starcoder2-7b under quantize_proj", routes, got)
+    if got["tile_gemm"] or n_int8 != want_int8:
+        fail(f"starcoder2-7b under quantize_proj: launches {got}, {n_int8} "
+             f"int8 products ({want_int8} expected)")
+    serve_parity("starcoder2-7b under quantize_proj", qeng, reqs)
+    pairs = [(a, b) for rid in tokens for a, b in zip(tokens[rid],
+                                                      qtokens[rid])]
+    same = sum(a == b for a, b in pairs)
+    wall = serve_wall_s(qeng)
+    n = len(pairs)
+    say(f"  starcoder2-7b served under quantize_proj: {n} tokens in "
+        f"{wall:.2f} s ({n / wall:.1f} tokens/s), launches {got}, {n_int8} "
+        f"int8 products, no tile_gemm, parity holds; {same} of {n} greedy "
+        f"tokens ({100 * same / n:.0f}%) equal to the bf16 run's [{smi}]")
+
+
+def run_scripts(smi: str) -> None:
+    """(d) the three examples on the card and the obs CLI, as
+    subprocesses from the checkout root, all started together (the
+    examples' printed times therefore share the card); each must exit 0
+    (the quickstart asserts its three modes within 1e-4 in f32)."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    t0 = time.perf_counter()
+    procs = [(argv, subprocess.Popen(
+        [sys.executable, *argv], cwd=ROOT, env=env, stdout=subprocess.PIPE,
+        stderr=subprocess.PIPE, text=True))
+        for argv in EXAMPLE_RUNS + OBS_RUNS]
+    for argv, proc in procs:
+        what = " ".join(argv)
+        try:
+            out, err = proc.communicate(timeout=600)
+        except subprocess.TimeoutExpired:
+            out, err = "", "no exit within 600 s"
+        if proc.returncode != 0:
+            for _, p in procs:
+                p.kill()
+            fail(f"{what}: exit {proc.returncode}\n{out[-2000:]}\n"
+                 f"{err[-4000:]}")
+        lines = [ln for ln in out.splitlines() if ln.strip()]
+        agree = "all three execution systems agree (allclose) ✓"
+        if argv[0] == "examples/torch_quickstart.py" and agree not in lines:
+            fail(f"{what}: the three modes' check did not run")
+        say(f"  {what}: exit 0, done {time.perf_counter() - t0:.1f} s after "
+            f"the start [{smi}]")
+        for ln in lines[:3] + (["  ..."] if len(lines) > 6 else []) \
+                + lines[max(3, len(lines) - 3):]:
+            say(f"    | {ln}")
+
+
+def rest_of_inference(smi: str, launches: dict, report: dict) -> None:
+    """Phase 21: the launcher, the int8 projection, quantized forwards and
+    serving, the examples and the obs CLI."""
+    t0 = time.perf_counter()
+    eng, reqs, tokens = launcher_serving(smi, launches)
+    say(f"  (a) took {time.perf_counter() - t0:.1f} s")
+    t1 = time.perf_counter()
+    report["int8_projection"] = check_int8(
+        torch.Generator(device="cuda").manual_seed(21), smi)
+    say(f"  (b) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    quantized_paths(smi, launches, eng, reqs, tokens)
+    del eng
+    free()
+    say(f"  (c) took {time.perf_counter() - t1:.1f} s")
+    t1 = time.perf_counter()
+    run_scripts(smi)
+    say(f"  (d) took {time.perf_counter() - t1:.1f} s")
+    say(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
+
+
 def tensor_core_sass() -> str:
     """How many HGMMA (wgmma) instructions the SASS of each attention
     library (forward and backward) holds, from the toolkit's cuobjdump."""
@@ -4747,6 +5106,13 @@ def main() -> None:
     training_checks(smi, FAMILY_CHECKS)
     say(f"  phase 20 took {time.perf_counter() - t0:.1f} s")
     say(f"phases 1-20 took {time.perf_counter() - start:.1f} s")
+    free()
+
+    say("== phase 21: the rest of single-card inference: launch.serve at "
+        "starcoder2-7b's full width, the int8 projection, quantized "
+        "forwards and serving, the examples and the obs CLI")
+    rest_of_inference(smi, launches, report)
+    say(f"phases 1-21 took {time.perf_counter() - start:.1f} s")
 
     rows, gemm_shapes = [], report["tile_gemm"]["shapes"]
     for name in ROUTED:
@@ -4848,7 +5214,8 @@ def main() -> None:
                         report["flash_attention"]["shapes"],
                     **{f"{name}_shapes": report[name]["shapes"]
                        for name in BWD + ("ssd_scan_bwd",
-                                          "flash_attention_bwd_wide")}}))
+                                          "flash_attention_bwd_wide")},
+                    "int8_projection_shapes": report["int8_projection"]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,6 +1,6 @@
-"""Model registry of the port: the architectures ported so far, and the
-model module that runs each family (counterpart of
-``repro/configs/registry.py``)."""
+"""Model registry of the port: the architectures ported so far, the model
+module that runs each family, and the simulator's hardware and energy
+design points (counterpart of ``repro/configs/registry.py``)."""
 from __future__ import annotations
 
 from repro_torch.configs import (deepseek_v3_671b, grok1_314b,
@@ -10,7 +10,9 @@ from repro_torch.configs import (deepseek_v3_671b, grok1_314b,
                                  whisper_base)
 from typing import Dict, Tuple
 
+from repro_torch.configs.hardware import HW_PRESETS, HardwareConfig
 from repro_torch.core.types import Family, ModelConfig, ShapeConfig
+from repro_torch.sim.energy import ENERGY_PRESETS, EnergyModel
 
 _MODULES = {"vilbert-base": vilbert_base, "vilbert-large": vilbert_large,
             "qwen3-32b": qwen3_32b, "starcoder2-7b": starcoder2_7b,
@@ -27,6 +29,22 @@ def get_config(name: str, smoke: bool = False) -> ModelConfig:
         raise KeyError(f"unknown arch {name!r}; ported: {sorted(_MODULES)}")
     mod = _MODULES[name]
     return mod.SMOKE if smoke else mod.CONFIG
+
+
+# CIM design points of the simulator and their energy-cost tables: the
+# same objects as ``configs.hardware.HW_PRESETS`` and
+# ``sim.energy.ENERGY_PRESETS`` (``repro/configs/registry.py:36-78``
+# gives each one's provenance).
+HW_CONFIGS: Dict[str, HardwareConfig] = HW_PRESETS
+ENERGY_CONFIGS: Dict[str, EnergyModel] = ENERGY_PRESETS
+
+
+def get_hw_config(name: str) -> HardwareConfig:
+    return HW_CONFIGS[name]
+
+
+def get_energy_model(name: str) -> EnergyModel:
+    return ENERGY_CONFIGS[name]
 
 
 def model_module(cfg: ModelConfig):

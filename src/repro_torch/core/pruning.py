@@ -70,3 +70,10 @@ def keep_plan(pruning: PruningConfig, num_layers: int,
         plan.append(n)
         prev = n
     return tuple(plan)
+
+
+def pruning_compute_savings(plan: Tuple[int, ...], seq_len: int) -> float:
+    """Fraction of attention FLOPs retained vs no pruning (quadratic term)."""
+    full = len(plan) * seq_len * seq_len
+    kept = sum(n * n for n in plan)
+    return kept / full

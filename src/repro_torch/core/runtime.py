@@ -3,8 +3,8 @@
 ``flags(block_k=...)`` overrides the kv block of the plain attention
 versions, as in the JAX package.  It blocks only those (CPU tensors): the
 CUDA kernels fix their kv tile at 64 keys and do not read it.
-``quantize_proj=True`` is refused: the
-int8 projection path is ROADMAP Queue 1 item 3 and not ported yet.
+``quantize_proj=True`` routes ``ops.projection`` through the int8 path
+(``kernels/quant.py``), as in the JAX package.
 """
 from __future__ import annotations
 
@@ -24,10 +24,6 @@ def get(name: str, default: Any = None) -> Any:
 
 @contextlib.contextmanager
 def flags(**kwargs: Any):
-    if kwargs.get("quantize_proj"):
-        raise NotImplementedError(
-            "quantize_proj: the int8 projection path is not ported yet "
-            "(ROADMAP Queue 1 item 3)")
     cur = dict(_FLAGS.get())
     cur.update(kwargs)
     token = _FLAGS.set(cur)

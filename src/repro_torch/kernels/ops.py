@@ -24,9 +24,9 @@ formulas (``ops.py:247-269``).
 Under autograd (an input that requires grad, grad mode on) the attention
 entry points go through the autograd Functions of ``flash_vjp`` (the
 forward kernels then also emit lse, and the backward kernels run), and
-``projection`` through ``ProjectionFn``; NON_STREAM stays plain PyTorch,
-which autograd differentiates.  Without grad they launch exactly what the
-serving paths launch.
+``projection`` through ``ProjectionFn``; NON_STREAM and the int8 path of
+``quantize_proj`` stay plain PyTorch, which autograd differentiates.
+Without grad they launch exactly what the serving paths launch.
 """
 from __future__ import annotations
 
@@ -136,7 +136,13 @@ class ProjectionFn(torch.autograd.Function):
 
 
 def projection(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """(..., K) @ (K, N) with f32 accumulation, output in x's dtype."""
+    """(..., K) @ (K, N) with f32 accumulation, output in x's dtype.
+    ``runtime.flags(quantize_proj=True)`` routes through the int8 path
+    (``quant.int8_matmul``) instead of ``tile_gemm``, as ops.py:177-179
+    does, under autograd too."""
+    if runtime.get("quantize_proj", False):
+        from repro_torch.kernels.quant import int8_matmul
+        return int8_matmul(x, w.to(x.dtype))
     lead, K = x.shape[:-1], x.shape[-1]
     x2, w2 = x.reshape(-1, K).contiguous(), w.to(x.dtype).contiguous()
     out = (ProjectionFn.apply(x2, w2) if needs_grad(x2, w2)

@@ -17,9 +17,8 @@ Like ``ExecutionPlan``, one ``DecodePlan`` object drives the port's paths:
   ``batched_decode_attention_by_plan`` — the decode attention kernel
   (records ``KernelTrace``s under ``sim.replay``), and
 * ``serve.Engine``                       — the live engine, which compiles
-  one per decode step from its active slots' cache lengths.
-  (``sim.simulate_serve``, the serving-timeline simulator, is not ported:
-  ROADMAP Queue 1 item 7.)
+  one per decode step from its active slots' cache lengths, and
+* ``sim.simulate_serve``                 — the serving-timeline simulator.
 
 Plans serialize (``to_json``) alongside ``ExecutionPlan`` with the same
 versioned-dict discipline, traces included.

@@ -212,6 +212,17 @@ class Engine:
             self._decode_plan_cache.put(key, dp)
         return dp
 
+    def mode_for(self, seq_len: int) -> ExecutionMode:
+        """Planner-resolved prefill mode summary for one admission: the
+        plan's uniform mode, or its first layer's for a heterogeneous plan
+        (prefill still dispatches per layer), for logging."""
+        if self._forced_mode is not None:       # deprecated explicit override
+            return self._forced_mode
+        plan = self.plan_for(seq_len)
+        if plan is None or not plan.layers:
+            return self.cfg.execution_mode
+        return plan.uniform_mode or plan.layers[0].mode
+
     # ------------------------------------------------------------------
     # Execution
     # ------------------------------------------------------------------

@@ -5,8 +5,10 @@ record/replay loop (counterpart of ``repro/sim/__init__.py``).
 ``workload`` are pure-Python copies of the JAX package's modules.
 ``replay`` records the port's kernels (CUDA events on the card, the host
 clock on the CPU) into ``KernelTrace``s that attach to plans and replay
-through ``simulate_plan``.  Not ported: ``serve_sim`` (ROADMAP Queue 1
-item 7) and ``SimResult.critical_path``'s ``obs/critpath.py`` (item 19).
+through ``simulate_plan``.  ``serve_sim`` (a copy too) lowers a
+multi-request continuous-batching schedule through the same schedulers:
+``simulate_serve(...).metrics`` is what ``obs.metrics.assert_serve_parity``
+holds the serving ``Engine.stats()`` to.
 """
 from repro_torch.configs.hardware import (HW_PRESETS, HardwareConfig,
                                           STREAMDCIM_BASE, STREAMDCIM_SMALL,
@@ -24,6 +26,8 @@ from repro_torch.sim.replay import (CalibrationReport, KernelRecorder,
                                     analytic_op_profile, fit_calibration,
                                     record_plan, recorder_for, recording,
                                     resolve_calibration)
+from repro_torch.sim.serve_sim import (ServeSimResult, ServeStepSim,
+                                       simulate_serve)
 from repro_torch.sim.trace import Event, Trace
 from repro_torch.sim.workload import (AttnOp, DecodeOp, GemmOp, Layer,
                                       Workload, build_workload,
@@ -39,6 +43,7 @@ __all__ = [
     "CalibrationReport", "KernelRecorder", "KernelTrace", "active_recorder",
     "analytic_op_profile", "fit_calibration", "record_plan", "recorder_for",
     "recording", "resolve_calibration",
+    "ServeSimResult", "ServeStepSim", "simulate_serve",
     "Event", "Trace", "AttnOp", "DecodeOp", "GemmOp", "Layer", "Workload",
     "build_workload", "decode_workload_from_plan", "workload_from_plan",
 ]

@@ -25,9 +25,7 @@ K+V across heads need ~4x the array), so every scheduler re-streams KV
 tiles per q-block — which is why all three share the same tile schedule.
 
 Copy of ``repro/sim/pipeline.py``, pure Python: the same code, its imports
-pointed at the port's copies (``repro_torch``).  ``SimResult.critical_path``
-needs ``obs/critpath.py``, which is not ported (ROADMAP Queue 1 item 19),
-and raises.
+pointed at the port's copies (``repro_torch``).
 """
 from __future__ import annotations
 
@@ -76,11 +74,10 @@ class SimResult:
         return self.energy(model).edp
 
     def critical_path(self):
-        """Causal critical-path report for this run's trace: needs
-        ``obs/critpath.py``, which the port does not have yet."""
-        raise NotImplementedError(
-            "SimResult.critical_path needs obs/critpath.py, which is not "
-            "ported yet (ROADMAP Queue 1 item 19)")
+        """Causal critical-path report for this run's trace
+        (``repro_torch.obs.critpath``, DESIGN.md §14)."""
+        from repro_torch.obs.critpath import critical_path
+        return critical_path(self.trace)
 
 
 class _Scheduler:

@@ -102,9 +102,20 @@ def test_runtime_block_k_and_int8_flag():
         assert runtime.get("block_k") == 32
         _close(ops.attention_by_mode(*args), base, 1e-5)
     assert runtime.get("block_k") is None
-    with pytest.raises(NotImplementedError, match="Queue 1 item 3"):
-        with runtime.flags(quantize_proj=True):
-            pass
+    # quantize_proj routes ops.projection through the int8 path, scoped
+    rng = np.random.default_rng(6)
+    xp = rng.standard_normal((5, 64)).astype(np.float32)
+    wp = (rng.standard_normal((64, 24)) * 0.1).astype(np.float32)
+    with runtime.flags(quantize_proj=True):
+        assert runtime.get("quantize_proj") is True
+        got = ops.projection(T(xp), T(wp))
+        with runtime.flags(quantize_proj=False):
+            _close(ops.projection(T(xp), T(wp)), jops.projection(xp, wp),
+                   1e-5)
+    assert runtime.get("quantize_proj") is None
+    from repro_torch.kernels.quant import int8_matmul
+    assert torch.equal(got, int8_matmul(T(xp), T(wp)))
+    assert not torch.equal(got, ops.projection(T(xp), T(wp)))
 
 
 def test_resolve_layer_mode_matches_jax():

@@ -119,6 +119,34 @@ def test_training_modules_import_no_jax_and_no_repro():
     assert "BAD []" in res.stdout
 
 
+def test_serving_obs_and_examples_import_no_jax_and_no_repro():
+    """The launcher, the obs CLI, the serving simulator, the int8 path and
+    the three single-card examples (imported from their files)."""
+    code = (
+        "import importlib.util, sys\n"
+        "sys.path.insert(0, '.')\n"
+        "import chip_smoke\n"
+        "import repro_torch.obs.__main__, repro_torch.launch.serve\n"
+        "import repro_torch.sim.serve_sim, repro_torch.kernels.quant\n"
+        "import repro_torch.core.streaming, repro_torch.obs.whatif\n"
+        "for name in ('quickstart', 'crossmodal_pruning', 'serve_batch'):\n"
+        "    spec = importlib.util.spec_from_file_location(\n"
+        "        name, f'examples/torch_{name}.py')\n"
+        "    spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "print('BAD', bad)\n"
+        "assert not bad, bad\n")
+    res = _python("-c", code)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD []" in res.stdout
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
+                         r"from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
+    files = sorted(ROOT.glob("examples/torch_*.py"))
+    assert len(files) == 3
+    assert not [str(f) for f in files if pattern.search(f.read_text())]
+
+
 def test_training_entry_points_raise_without_a_gpu_or_a_named_device():
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device is valid")

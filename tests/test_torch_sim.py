@@ -161,10 +161,18 @@ def test_energy_presets_equal_jax():
 
 
 def test_critical_path_is_not_ported():
+    """``SimResult.critical_path`` gives the JAX package's report: the
+    same path, shares and slack, tiling the makespan."""
     res = sim.simulate_plan(plan_model(get_config("vilbert-base"),
                                        seq_len=256))
-    with pytest.raises(NotImplementedError, match="item 19"):
-        res.critical_path()
+    want = jsim.simulate_plan(jplan_model(jregistry.get_config(
+        "vilbert-base"), seq_len=256)).critical_path()
+    got = res.critical_path()
+    assert got.to_dict() == want.to_dict()
+    assert [(e.task_id, e.start, e.end, e.tag) for e in got.path] == \
+        [(e.task_id, e.start, e.end, e.tag) for e in want.path]
+    assert got.slack == want.slack
+    assert got.path_cycles == got.makespan == res.cycles
 
 
 @pytest.mark.parametrize("arch", SIM_ARCHS + ["vilbert-large"])
