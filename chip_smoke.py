@@ -167,7 +167,14 @@ caught:
      (2 layers) served under a recording with phase 17's request shape,
      each decode call's records attached to its own bucket's DecodePlan
      (two steps of two buckets); the per-slot decode_attention_by_plan
-     recorded once against its plain version;
+     recorded once against its plain version; then the DSE on the card's
+     fit: the TILE_STREAM CalibrationReport written to JSON, read back
+     and swept (``repro_torch.dse.run_sweep``, DSE_POINTS design points)
+     under the analytic and the calibrated timing (the analytic rows
+     equal a sweep without calibration, the calibrated ones finite and
+     positive; both frontiers printed, and the points that move on or off
+     it), and one sharded plan (4 simulated chips) simulated with the same
+     calibration and rendered by ``timeline_from_sharded``: host work;
  19. training of the other families at full width, bf16, TILE_STREAM:
      mamba2-780m, hymba-1.5b, qwen2-vl-2b (image-grid M-RoPE positions)
      and whisper-base at full depth, deepseek-v3 at its 3 dense-prefix
@@ -200,10 +207,23 @@ caught:
      greedy tokens equal to (a)'s; (d) the three examples
      (``examples/torch_*.py``) on the card and ``python -m repro_torch.obs``
      twice, as subprocesses that must exit 0;
+ 22. training of the last four archs at full width, bf16, with phase 19's
+     gates (train_run): vilbert-large at full depth (B = 2, N = 4096,
+     LAYER and TILE; its encoder step as phase 10's), minitron-4b at full
+     depth (1 x 2048), starcoder2-7b at 24 of its 32 layers (1 x 2048; the
+     optimizer's state of all 32 does not fit the card) and
+     h2o-danube3-4b at full depth at 1 x 8192, past its 4096-key window
+     (LAYER and TILE; the decoders' TILE_STREAM resolves to flash); then
+     f32 at 2 layers, kernel against plain gradients within 1e-4:
+     h2o-danube3 at S = 8192 in both modes, the other three in one mode
+     (phase 3 checks the flash backward at h2o-danube3's training shape,
+     hd 120 with whole kv tiles outside the window, and the tc flash
+     backward at qwen3-32b's heads at 4096, 8192 and 16384 keys on four
+     draws of their own);
  then one JSON line of per-kernel numbers, with the routes of
  tile_gemm, flash attention, decode attention, the SSD scan and the
  backward kernels
- over the main paths (phases 4-5, 7-8, 10, 12-17, 19) and their timed
+ over the main paths (phases 4-5, 7-8, 10, 12-17, 19, 21-22) and their timed
  shapes ("tile_gemm_shapes", "decode_attention_shapes",
  "ssd_scan_shapes", "stream_attention_shapes", "flash_attention_shapes",
  the backward kernels', "int8_projection_shapes"); and the last line:
@@ -269,6 +289,12 @@ from repro_torch.sim import (  # noqa: E402
 from repro_torch.serve.engine import Engine, Request  # noqa: E402
 from repro_torch.serve.schedule import ServeRequest  # noqa: E402
 from repro_torch.launch import serve as launch_serve  # noqa: E402
+from repro_torch.dse import run_sweep  # noqa: E402
+from repro_torch.obs.timeline import (  # noqa: E402
+    timeline_from_sharded, validate_timeline)
+from repro_torch.shard import (  # noqa: E402
+    MeshSpec, shard_plan, simulate_sharded_plan)
+from repro_torch.sim.replay import CalibrationReport  # noqa: E402
 from repro_torch.obs.metrics import assert_serve_parity  # noqa: E402
 from repro_torch.configs import registry  # noqa: E402
 from repro_torch.core.types import ShapeConfig  # noqa: E402
@@ -1106,13 +1132,22 @@ STREAM_BWD_CASES = [
 # (2 Hkv hd = 2048 < d 5120).
 PRUNED = sorted({n for pair in EXPECTED_COUNTS[1:] for n in pair},
                 reverse=True)
-MAIN_FLASH_BWD = {  # name: (B, Hq, Hkv, Sq, Sk, hd, causal)
-    "vision self 4096": (2, 8, 8, 4096, 4096, 128, False),
-    "text self 4096": (2, 12, 12, 4096, 4096, 64, False),
-    **{f"vision self/co {n}": (2, 8, 8, n, n, 128, False) for n in PRUNED},
-    **{f"text self/co {n}": (2, 12, 12, n, n, 64, False) for n in PRUNED},
-    "qwen3-32b train 4096": (1, 64, 8, 4096, 4096, 128, True),
+MAIN_FLASH_BWD = {  # name: (B, Hq, Hkv, Sq, Sk, hd, causal, window)
+    "vision self 4096": (2, 8, 8, 4096, 4096, 128, False, 0),
+    "text self 4096": (2, 12, 12, 4096, 4096, 64, False, 0),
+    **{f"vision self/co {n}": (2, 8, 8, n, n, 128, False, 0)
+       for n in PRUNED},
+    **{f"text self/co {n}": (2, 12, 12, n, n, 64, False, 0)
+       for n in PRUNED},
+    "qwen3-32b train 4096": (1, 64, 8, 4096, 4096, 128, True, 0),
+    # phase 22's h2o-danube3-4b at S = 8192: hd 120 and a 4096-key window,
+    # so that whole kv tiles of a query span fall outside the window
+    "h2o-danube3-4b train 8192": (1, 32, 8, 8192, 8192, 120, True, 4096),
 }
+# qwen3-32b's heads past 4096 keys (held on the seeds' draws only): the dQ
+# pass sums up to S / 64 kv tiles a row.
+LONG_FLASH_BWD = {f"qwen3-32b train {S}": (1, 64, 8, S, S, 128, True, 0)
+                  for S in (8192, 16384)}
 MAIN_STREAM_BWD = {  # name: (B, H, Sq, Sk, hd, D)
     f"{stream} {n}": (2, H, n, n, hd, D) for n in (4096, *PRUNED)
     for stream, H, hd, D in (("vision self", 8, 128, 1024),
@@ -1289,27 +1324,35 @@ def limit_share(name: str, got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def check_flash_bwd_seeds():
-    """The tc backward at qwen3-32b's training shape, bf16, against its
-    plain version on the FLASH_BWD_SEEDS draws; prints each gradient's
-    largest error as a share of the limit."""
-    name, key = "flash_attention_bwd", "qwen3-32b train 4096"
-    B, H, Hkv, Sq, Sk, hd, causal = MAIN_FLASH_BWD[key]
-    kw = dict(causal=causal, q_offset=Sk - Sq if causal else 0)
-    shares = []
-    for seed in FLASH_BWD_SEEDS:
-        g = torch.Generator(device="cuda").manual_seed(seed)
-        q, k, v, do = (randn(g, B, n, S, hd, dtype=torch.bfloat16)
-                       for n, S in ((H, Sq), (Hkv, Sk), (Hkv, Sk), (H, Sq)))
-        out, lse = flash_attention(q, k, v, return_lse=True, **kw)
-        got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
-        want = blocked.flash_attention_bwd_plain(q, k, v, out, lse, do, **kw)
-        compare_grads(name, f"bf16 {key} seed {seed}", got, want)
-        shares.append(", ".join(
-            f"d{label} {limit_share(name, a, b):.2f}" for label, a, b in
-            zip(GRAD_NAMES[name], got, want)))
-        del q, k, v, do, out, lse, got, want
-    say(f"  {name} bfloat16 {key}, tc route, seeds {FLASH_BWD_SEEDS}: "
-        f"largest error a share of the limit: " + "; ".join(shares))
+    """The tc backward at qwen3-32b's training shapes, 4096 and past it
+    (LONG_FLASH_BWD), bf16, against its plain version on the
+    FLASH_BWD_SEEDS draws; prints each gradient's largest error as a share
+    of the limit."""
+    name = "flash_attention_bwd"
+    shapes = {"qwen3-32b train 4096": MAIN_FLASH_BWD["qwen3-32b train 4096"],
+              **LONG_FLASH_BWD}
+    for key, (B, H, Hkv, Sq, Sk, hd, causal, _) in shapes.items():
+        kw = dict(causal=causal, q_offset=Sk - Sq if causal else 0)
+        shares = []
+        t0 = time.perf_counter()
+        for seed in FLASH_BWD_SEEDS:
+            g = torch.Generator(device="cuda").manual_seed(seed)
+            q, k, v, do = (randn(g, B, n, S, hd, dtype=torch.bfloat16)
+                           for n, S in ((H, Sq), (Hkv, Sk), (Hkv, Sk),
+                                        (H, Sq)))
+            out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+            got = flash_attention_bwd(q, k, v, out, lse, do, **kw)
+            want = blocked.flash_attention_bwd_plain(q, k, v, out, lse, do,
+                                                     **kw)
+            compare_grads(name, f"bf16 {key} seed {seed}", got, want)
+            shares.append(", ".join(
+                f"d{label} {limit_share(name, a, b):.2f}" for label, a, b in
+                zip(GRAD_NAMES[name], got, want)))
+            del q, k, v, do, out, lse, got, want
+            free()
+        say(f"  {name} bfloat16 {key}, tc route, seeds {FLASH_BWD_SEEDS}: "
+            f"largest error a share of the limit: " + "; ".join(shares)
+            + f" ({time.perf_counter() - t0:.1f} s)")
 
 
 def check_flash_bwd(gen, report):
@@ -1317,8 +1360,9 @@ def check_flash_bwd(gen, report):
     shapes = []
     for dt in DTYPES:
         cases = [(c, False) for c in FLASH_BWD_CASES] + [
-            ((B, H, Hkv, Sq, Sk, hd, hd, causal, 0, None), key)
-            for key, (B, H, Hkv, Sq, Sk, hd, causal) in MAIN_FLASH_BWD.items()]
+            ((B, H, Hkv, Sq, Sk, hd, hd, causal, window, None), key)
+            for key, (B, H, Hkv, Sq, Sk, hd, causal, window)
+            in MAIN_FLASH_BWD.items()]
         for (B, Hq, Hkv, Sq, Sk, hd, hdv, causal, window, kv_len), key \
                 in cases:
             sc = 0.5 if not key else 1.0
@@ -3485,73 +3529,142 @@ def forward_backward(model, cfg, mode, batch) -> dict:
 
 def family_training(smi: str, launches: dict) -> None:
     """Phase 19: each run of FAMILY_TRAIN_RUNS in bf16 at full width on one
-    repeated batch, with exact launch and route gates per step, a falling
-    loss (where the optimizer steps), a profiled step, gradients on every
-    parameter the loss reads, the peak device memory."""
+    repeated batch, in FAMILY_MODE with FAMILY_OPT (train_run)."""
     for arch, cut, B, S, steps, update in FAMILY_TRAIN_RUNS:
-        t0 = time.perf_counter()
-        cfg, model = train_model(arch, cut)
-        batch = family_batch(cfg, B, S)
-        mode = FAMILY_MODE
-        want = train_launches(cfg, mode, "positions" in batch)
-        params = dict(model.named_parameters())
-        n_params = sum(p.numel() for p in params.values())
-        state = OPT.init(params) if update else None
-        step = ST.make_train_step(cfg, FAMILY_OPT, mode=mode)
-        what = f"train {arch} ({cfg.num_layers} layers) {mode.value}"
+        train_run(smi, launches, arch, cut, B, S, steps, FAMILY_MODE,
+                  FAMILY_OPT, update)
+
+
+def train_run(smi: str, launches: dict, arch: str, cut: dict, B: int, S: int,
+              steps: int, mode: ExecutionMode, opt, update: bool = True
+              ) -> None:
+    """``steps`` train steps of ``arch`` (depth cut ``cut``) in bf16 at full
+    width on one repeated batch of B x S, with exact launch and route gates
+    per step, a falling loss (where the optimizer steps: ``update``), a
+    profiled step, gradients on every parameter the loss reads (vilbert:
+    every attention parameter, through encoder_step), the peak device
+    memory."""
+    t0 = time.perf_counter()
+    cfg, model = train_model(arch, cut)
+    batch = family_batch(cfg, B, S)
+    want = train_launches(cfg, mode, "positions" in batch)
+    params = dict(model.named_parameters())
+    n_params = sum(p.numel() for p in params.values())
+    state = OPT.init(params) if update else None
+    step = ST.make_train_step(cfg, opt, mode=mode)
+    what = f"train {arch} ({cfg.num_layers} layers) {mode.value}"
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = [], []
+    for i in range(steps):
+        reset_counts()
+        t1 = time.perf_counter()
+        if update:
+            model, state, m = step(model, state, batch)
+        else:
+            m = forward_backward(model, cfg, mode, batch)
         torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        losses, ms = [], []
-        for i in range(steps):
-            reset_counts()
-            t1 = time.perf_counter()
-            if update:
-                model, state, m = step(model, state, batch)
-            else:
-                m = forward_backward(model, cfg, mode, batch)
-            torch.cuda.synchronize()
-            ms.append((time.perf_counter() - t1) * 1e3)
-            got = tally(launches)
-            if got != want:
-                fail(f"{what} step {i + 1}: launches {got}, expected {want}")
-            if want["tile_gemm"]:
-                check_routes(what, tile_gemm.routes, "wgmma")
-            check_kernel_routes(what, route_counts(), got)
-            check_bwd_routes(f"{what} step {i + 1}", cfg, torch.bfloat16)
-            check_flash_routes(f"{what} step {i + 1}", cfg,
-                               want["flash_attention"])
-            if not (math.isfinite(m["loss"])
-                    and math.isfinite(m["grad_norm"])):
-                fail(f"{what} step {i + 1}: loss {m['loss']}, grad norm "
-                     f"{m['grad_norm']}")
-            losses.append(m["loss"])
-            say(f"  {arch} step {i + 1}: loss {m['loss']:.4f}, grad norm "
-                f"{m['grad_norm']:.3f}, {ms[-1]:.1f} ms")
-        if update and not losses[-1] < losses[0]:
-            fail(f"{what}: the loss on the repeated batch went from "
-                 f"{losses[0]:.4f} to {losses[-1]:.4f}")
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        step_ms = float(np.mean(ms[1:]))
-        tokens = B * S
-        say(f"  {arch} ({cfg.num_layers} layers, {n_params / 1e9:.3f} B "
-            f"parameters) {mode.value}, B = {B}, S = {S}"
-            + ("" if update else ", forward + backward only (the optimizer's "
-               "state of one layer does not fit the card)")
-            + f": step {step_ms:.1f} ms mean of steps 2-{steps}, "
-            f"{tokens / step_ms * 1e3:.0f} tokens/s, peak memory {peak:.2f} "
-            f"GiB, launches a step {want}, routes "
-            f"{ {k: v for k, v in bwd_routes(cfg, torch.bfloat16).items()} }"
-            f", flash {flash_route_of(cfg)} x {want['flash_attention']} "
-            f"[{smi}]")
-        text, live, n = profiled_step(model, cfg, mode, batch, state)
+        ms.append((time.perf_counter() - t1) * 1e3)
+        got = tally(launches)
+        if got != want:
+            fail(f"{what} step {i + 1}: launches {got}, expected {want}")
+        if want["tile_gemm"]:
+            check_routes(what, tile_gemm.routes, "wgmma")
+        check_kernel_routes(what, route_counts(), got)
+        check_bwd_routes(f"{what} step {i + 1}", cfg, torch.bfloat16)
+        check_flash_routes(f"{what} step {i + 1}", cfg,
+                           want["flash_attention"])
+        if not (math.isfinite(m["loss"])
+                and math.isfinite(m["grad_norm"])):
+            fail(f"{what} step {i + 1}: loss {m['loss']}, grad norm "
+                 f"{m['grad_norm']}")
+        losses.append(m["loss"])
+        say(f"  {arch} {mode.value} step {i + 1}: loss {m['loss']:.4f}, "
+            f"grad norm {m['grad_norm']:.3f}, {ms[-1]:.1f} ms")
+    if update and not losses[-1] < losses[0]:
+        fail(f"{what}: the loss on the repeated batch went from "
+             f"{losses[0]:.4f} to {losses[-1]:.4f}")
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = float(np.mean(ms[1:]))
+    rate = (f"{B * S / step_ms * 1e3:.0f} tokens/s"
+            if cfg.family != Family.CROSSMODAL
+            else f"{B / step_ms * 1e3:.2f} samples/s")
+    say(f"  {arch} ({cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+        f"parameters) {mode.value}, B = {B}, S = {S}"
+        + ("" if update else ", forward + backward only (the optimizer's "
+           "state of one layer does not fit the card)")
+        + f": step {step_ms:.1f} ms mean of steps 2-{steps}, {rate}, peak "
+        f"memory {peak:.2f} GiB, launches a step {want}, routes "
+        f"{ {k: v for k, v in bwd_routes(cfg, torch.bfloat16).items()} }"
+        f", flash {flash_route_of(cfg)} x {want['flash_attention']} "
+        f"[{smi}]")
+    text, live, n = profiled_step(model, cfg, mode, batch, state)
+    say(f"    profiled step: {text} [{smi}]")
+    # vilbert at random weights: only the VQA head gets a gradient of the
+    # VQA loss (see check_loss); its encoder step differentiates the
+    # streams and gates every attention parameter
+    if cfg.family == Family.CROSSMODAL:
+        text = encoder_step(model, cfg, mode, batch, launches, want)
+        say(f"    {text} [{smi}]")
+    else:
         unused = [k for k in params if k.split(".")[0] in UNUSED]
-        say(f"    profiled step: {text} [{smi}]")
         if live != n - len(unused):
             fail(f"{what}: {n - len(unused) - live} of {n - len(unused)} "
                  f"parameters the loss reads got no gradient")
-        say(f"  {arch} took {time.perf_counter() - t0:.1f} s")
-        del model, state, batch, params, step
-        free()
+    say(f"  {arch} {mode.value} took {time.perf_counter() - t0:.1f} s")
+    del model, state, batch, params, step
+    free()
+
+
+# ---------------------------------------------------------------------------
+# Phase 22: training of the last four archs (vilbert-large, minitron-4b,
+# starcoder2-7b, h2o-danube3-4b) at full width, then f32 gradient checks
+# ---------------------------------------------------------------------------
+
+# arch, depth cut, B, S, steps, modes, optimizer.  bf16 parameters and
+# gradients with f32 AdamW moments take 12 bytes a parameter:
+# vilbert-large (~0.7 B) runs at full depth as vilbert-base in TRAIN_RUNS
+# (B = 2, N = 4096, TRAIN_OPT); minitron-4b (~4.2 B, ~50 GB) at full
+# depth; starcoder2-7b at 24 of its 32 layers (~5.7 B; at full depth
+# ~7.2 B, ~86 GB, over one card's 80 GB; at 16 layers its step peaked at
+# 45.7 GiB on an H100, and each layer adds ~2.4 GiB); h2o-danube3-4b
+# (~4.0 B, ~48 GB) at full depth and S = 8192, past its 4096-key window.
+# The three decoders' TILE_STREAM attention resolves to flash
+# (2 Hkv hd < d_model, the planner's rule), as qwen3-32b's does;
+# h2o-danube3 runs LAYER_STREAM too.  The decoders step AdamW at phase
+# 19's 1e-4.
+LAST_TRAIN_RUNS = (
+    ("vilbert-large", {}, 2, 4096, 5,
+     (ExecutionMode.LAYER_STREAM, ExecutionMode.TILE_STREAM), TRAIN_OPT),
+    ("minitron-4b", {}, 1, 2048, 5, (ExecutionMode.TILE_STREAM,),
+     FAMILY_OPT),
+    ("starcoder2-7b", {"num_layers": 24}, 1, 2048, 5,
+     (ExecutionMode.TILE_STREAM,), FAMILY_OPT),
+    ("h2o-danube3-4b", {}, 1, 8192, 5,
+     (ExecutionMode.LAYER_STREAM, ExecutionMode.TILE_STREAM), FAMILY_OPT),
+)
+# f32 at 2 layers (vilbert-large at one co-TRM block, as TRAIN_CHECKS'
+# vilbert-base), GRAD_TOL: h2o-danube3 at S = 8192, past its window, in
+# both modes; the other three in one mode each.
+LAST_CHECKS = (
+    ("h2o-danube3-4b", {"num_layers": 2}, 1, 8192,
+     (ExecutionMode.LAYER_STREAM, ExecutionMode.TILE_STREAM), GRAD_TOL),
+    ("vilbert-large", {"num_layers": 2, "num_coattn_layers": 1}, 1, 1024,
+     (ExecutionMode.TILE_STREAM,), GRAD_TOL),
+    ("minitron-4b", {"num_layers": 2}, 1, 1024,
+     (ExecutionMode.TILE_STREAM,), GRAD_TOL),
+    ("starcoder2-7b", {"num_layers": 2}, 1, 1024,
+     (ExecutionMode.TILE_STREAM,), GRAD_TOL),
+)
+
+
+def last_training(smi: str, launches: dict) -> None:
+    """Phase 22: each run of LAST_TRAIN_RUNS in each of its modes
+    (train_run), then LAST_CHECKS' f32 gradients (training_checks)."""
+    for arch, cut, B, S, steps, modes, opt in LAST_TRAIN_RUNS:
+        for mode in modes:
+            train_run(smi, launches, arch, cut, B, S, steps, mode, opt)
+    training_checks(smi, LAST_CHECKS)
 
 
 # ---------------------------------------------------------------------------
@@ -4425,7 +4538,7 @@ def replay_phase(smi: str, report: dict) -> None:
     free()
     cfg = get_config("vilbert-base")
     analytic = compare_modes(cfg, seq_len=REPLAY_N)
-    replayed, self_ms = {}, {}
+    replayed, self_ms, cals = {}, {}, {}
     for mode in ExecutionMode:
         plan = plan_model(cfg, seq_len=REPLAY_N, mode=mode, force_mode=True)
         t0 = time.perf_counter()
@@ -4441,6 +4554,7 @@ def replay_phase(smi: str, report: dict) -> None:
         cal = fit_calibration(traced)
         if not all(math.isfinite(s) and s > 0 for s in cal.scale.values()):
             fail(f"{what}: calibration scales {cal.scale}")
+        cals[mode] = cal
         # How well the fit reproduces the recordings, reported and not
         # gated: the fit (the JAX package's, which the port equals) does
         # not reproduce the card's LAYER_STREAM records (PERF.md), and its
@@ -4483,7 +4597,80 @@ def replay_phase(smi: str, report: dict) -> None:
         f"{report['flash_attention']['ms']:.3f} ms [{smi}]")
     free()
 
+    calibrated_dse(smi, cals[ExecutionMode.TILE_STREAM])
     served_decode_records(smi, report)
+
+
+# The DSE on the card's calibration: design points of the sweep (the three
+# presets first, then the grid), at the recorded plan's N.
+DSE_POINTS = 6
+DSE_CHIPS = 4
+
+
+def calibrated_dse(smi: str, cal) -> None:
+    """The JAX package's record -> calibrate -> sweep workflow on the
+    card's fit: vilbert-base's TILE_STREAM CalibrationReport written to
+    JSON and read back, the DSE swept under the analytic and the
+    calibrated timing (the analytic rows must equal a sweep without
+    calibration, the calibrated ones be finite and positive), both
+    frontiers and the design points that move on or off it; then one
+    sharded plan (TILE_STREAM, DSE_CHIPS simulated chips) simulated with
+    the same calibration and rendered by timeline_from_sharded.  Host
+    work: it touches no device."""
+    t0 = time.perf_counter()
+    path = ROOT / "build" / "calibration_vilbert_tile.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.write_text(cal.to_json(indent=1))
+    back = CalibrationReport.from_json(path.read_text())
+    if back != cal:
+        fail(f"the calibration's JSON round trip differs: {back} vs {cal}")
+    kw = dict(models=["vilbert-base"], points=DSE_POINTS,
+              seq_lens=(REPLAY_N,))
+    res = run_sweep(calibrations=(None, back), **kw)
+    plain = run_sweep(**kw)
+    label = res.calibrations()[1]
+    if [r.to_dict() for r in res.rows if r.calibration == "analytic"] != \
+            [r.to_dict() for r in plain.rows]:
+        fail("the calibrated sweep's analytic rows differ from a sweep "
+             "without calibration")
+    rows = res.rows_for("vilbert-base", calibration=label)
+    if len(rows) != DSE_POINTS or not all(
+            0 < r.latency_cycles and 0 < r.energy_pj < math.inf
+            and math.isfinite(r.edp) for r in rows):
+        fail(f"calibrated DSE rows not finite and positive: "
+             f"{[(r.hw, r.latency_cycles, r.energy_pj) for r in rows]}")
+    fronts = {}
+    for c in res.calibrations():
+        front = res.pareto("vilbert-base", calibration=c)
+        fronts[c] = [r.hw for r in front]
+        say(f"  DSE vilbert-base N = {REPLAY_N}, {c} timing: "
+            + "; ".join(f"{r.hw} {r.latency_cycles} cycles "
+                        f"{r.energy_pj / 1e6:.1f} uJ"
+                        for r in res.rows_for("vilbert-base",
+                                              calibration=c))
+            + f"; frontier {fronts[c]}")
+    on = [h for h in fronts[label] if h not in fronts["analytic"]]
+    off = [h for h in fronts["analytic"] if h not in fronts[label]]
+    say(f"  DSE frontier under the card's calibration ({label}, scale "
+        f"{ {k: round(v, 4) for k, v in back.scale.items()} }): moved on "
+        f"{on}, moved off {off} [{smi}]")
+    plan = plan_model(get_config("vilbert-base"), seq_len=REPLAY_N,
+                      mode=ExecutionMode.TILE_STREAM, force_mode=True)
+    splan = shard_plan(plan, MeshSpec(chips=DSE_CHIPS))
+    sharded = simulate_sharded_plan(splan, calibration=back)
+    analytic = simulate_sharded_plan(splan)
+    tl = timeline_from_sharded(sharded)
+    validate_timeline(tl)
+    procs = {e["args"]["name"] for e in tl["traceEvents"]
+             if e.get("ph") == "M" and e["name"] == "process_name"}
+    if not {f"chip{i}" for i in range(DSE_CHIPS)} | {"noc"} <= procs:
+        fail(f"timeline_from_sharded: processes {sorted(procs)}")
+    say(f"  sharded vilbert-base tile_stream on {DSE_CHIPS} simulated chips "
+        f"({splan.axis} axis): {sharded.cycles} cycles calibrated, "
+        f"{analytic.cycles} analytic, collective bytes "
+        f"{sharded.collective_bytes}; timeline {len(tl['traceEvents'])} "
+        f"events over {len(procs)} processes; DSE and shard took "
+        f"{time.perf_counter() - t0:.1f} s of host time")
 
 
 def calibration_fit(traced, cal) -> dict:
@@ -5113,6 +5300,15 @@ def main() -> None:
         "forwards and serving, the examples and the obs CLI")
     rest_of_inference(smi, launches, report)
     say(f"phases 1-21 took {time.perf_counter() - start:.1f} s")
+    free()
+
+    say("== phase 22: training of vilbert-large, minitron-4b, starcoder2-7b "
+        "(24 of 32 layers) and h2o-danube3-4b (S = 8192, past its window) "
+        "at full width, bf16; then f32 checks at 2 layers")
+    t0 = time.perf_counter()
+    last_training(smi, launches)
+    say(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
+    say(f"phases 1-22 took {time.perf_counter() - start:.1f} s")
 
     rows, gemm_shapes = [], report["tile_gemm"]["shapes"]
     for name in ROUTED:

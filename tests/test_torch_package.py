@@ -44,6 +44,9 @@ def test_import_leaves_no_jax_and_no_repro_module():
         "import repro_torch.sim, repro_torch.sim.replay\n"
         "import repro_torch.configs.minitron_4b\n"
         "import repro_torch.configs.h2o_danube3_4b\n"
+        "import repro_torch.shard, repro_torch.shard.__main__\n"
+        "import repro_torch.dse, repro_torch.dse.__main__\n"
+        "import repro_torch.distributed.sharding\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'repro')]\n"
         "print('BAD', bad)\n"

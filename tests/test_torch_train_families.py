@@ -1,5 +1,7 @@
 """One train step of the SSM, hybrid, VLM, encoder-decoder, MoE and MLA
-families against the JAX package's: the loss, every parameter's gradient
+families, and of the dense sliding-window decoder (h2o-danube3-4b, whose
+smoke window of 16 keys the 32-token batch runs past) and minitron-4b,
+against the JAX package's: the loss, every parameter's gradient
 and the parameters after ``make_train_step``'s update, on each family's
 smoke config in f32 (weights carried across by ``convert``), at
 tests/test_torch_train.py's tolerances.  Each family runs in the modes
@@ -31,7 +33,10 @@ RUNS = [("mamba2-780m", "tile_stream"),
         ("whisper-base", "non_stream"), ("whisper-base", "layer_stream"),
         ("whisper-base", "tile_stream"),
         ("grok-1-314b", "tile_stream"),
-        ("deepseek-v3-671b", "tile_stream")]
+        ("deepseek-v3-671b", "tile_stream"),
+        ("h2o-danube3-4b", "non_stream"), ("h2o-danube3-4b", "layer_stream"),
+        ("h2o-danube3-4b", "tile_stream"),
+        ("minitron-4b", "tile_stream")]
 
 
 def _close(got, want, tol):
@@ -114,7 +119,9 @@ def test_family_train_step_matches_jax(arch, mode):
 
 @pytest.mark.parametrize("arch", ["mamba2-780m", "hymba-1.5b", "qwen2-vl-2b",
                                   "whisper-base", "grok-1-314b",
-                                  "deepseek-v3-671b"])
+                                  "deepseek-v3-671b", "vilbert-large",
+                                  "minitron-4b", "starcoder2-7b",
+                                  "h2o-danube3-4b"])
 def test_launcher_trains_each_family_on_the_cpu(arch, capsys):
     """``python -m repro_torch.launch.train --arch <arch> --smoke
     --device cpu`` builds the family's model and runs its steps."""
