@@ -220,10 +220,27 @@ caught:
      hd 120 with whole kv tiles outside the window, and the tc flash
      backward at qwen3-32b's heads at 4096, 8192 and 16384 keys on four
      draws of their own);
+ 23. multi-GPU on torch.distributed (phase 23, ~70 s): (a) on the
+     one-rank NCCL host mesh (launch.mesh.make_host_mesh), starcoder2-7b
+     and qwen2-vl-2b at full width and depth served by Engine(mesh=...)
+     against Engine(mesh=None), both per-slot (tokens, kernel launches and
+     routes equal), three qwen3-32b train steps at 4 layers (1 x 4096)
+     through loop.train(mesh=...) against mesh=None (losses and every
+     parameter bitwise equal, launches equal), cross_pod_mean_int8 at one
+     pod (the gradients as they are; the quantizer on the card bitwise
+     equal to the CPU's) and gather_matmul_overlapped at world 1 (one
+     tile_gemm launch, bitwise equal to tile_gemm); (c)
+     cost_analysis_cycles of a recorded tile_gemm beside its recorded
+     time; (b) the dry run (launch.dryrun) of one cell per family but the
+     crossmodal one on a fake 256-rank (16, 16) world and one on a fake
+     512-rank (2, 16, 16) world, each in its own process, started before
+     (a): status ok, the JSON round-trips, cross-pod traffic on two pods,
+     and per-device FLOPs, bytes, memory, collective traffic and roofline
+     (on the H100's datasheet rates) printed;
  then one JSON line of per-kernel numbers, with the routes of
  tile_gemm, flash attention, decode attention, the SSD scan and the
  backward kernels
- over the main paths (phases 4-5, 7-8, 10, 12-17, 19, 21-22) and their timed
+ over the main paths (phases 4-5, 7-8, 10, 12-17, 19, 21-23) and their timed
  shapes ("tile_gemm_shapes", "decode_attention_shapes",
  "ssd_scan_shapes", "stream_attention_shapes", "flash_attention_shapes",
  the backward kernels', "int8_projection_shapes"); and the last line:
@@ -5124,6 +5141,292 @@ def rest_of_inference(smi: str, launches: dict, report: dict) -> None:
     say(f"  phase 21 took {time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# Phase 23: multi-GPU on torch.distributed
+# ---------------------------------------------------------------------------
+
+# (a) The one-rank NCCL host mesh on the card: Engine(mesh=...) against
+# Engine(mesh=None) with the same per-slot decode (B = 1 a call, as serving
+# on a mesh keeps it), at full width and depth (phases 14 and 17 serve both
+# archs there), three requests each; train(mesh=...) against
+# train(mesh=None) at phase 10's qwen3-32b cut (4 layers, B = 1, S = 4096).
+MESH_ARCHS = ("starcoder2-7b", "qwen2-vl-2b")
+MESH_REQUESTS = [(0, 1024, 16, 0), (1, 1024, 16, 0), (2, 256, 16, 1)]
+MESH_MAX_LEN = 1024 + 16 + 8
+MESH_TRAIN = ("qwen3-32b", {"num_layers": 4}, 1, 4096, 3)
+# (b) The dry run on the host: one cell per family on the fake (16, 16)
+# world and one on (2, 16, 16), each in its own process, all at once, at
+# full depth with the CLI's defaults.  The crossmodal family (vilbert-base,
+# whose only cell is train_4k) is left out: its trace takes ~65 s of host
+# time, more than this phase's share.
+DRYRUN_CELLS = (("starcoder2-7b", "decode_32k", False),
+                ("deepseek-v3-671b", "decode_32k", False),
+                ("qwen2-vl-2b", "train_4k", False),
+                ("mamba2-780m", "long_500k", False),
+                ("hymba-1.5b", "decode_32k", False),
+                ("whisper-base", "decode_32k", False),
+                ("whisper-base", "train_4k", True))
+DRYRUN_LEFT_OUT = "crossmodal (vilbert-base train_4k)"
+DRYRUN_TIMEOUT_S = 240
+
+
+def start_dryrun(out_dir: Path) -> list:
+    """Start every DRYRUN_CELLS cell as its own process (killed at exit if
+    still running); returns [(cell, Popen)]."""
+    import atexit
+    from repro_torch.launch.dryrun import run_cell_subprocess
+    shutil.rmtree(out_dir, ignore_errors=True)
+    procs = []
+    for arch, shape, multi_pod in DRYRUN_CELLS:
+        p = run_cell_subprocess(arch, shape, multi_pod=multi_pod,
+                                out_dir=str(out_dir))
+        procs.append(((arch, shape, multi_pod), p))
+    atexit.register(lambda: [p.kill() for _, p in procs
+                             if p.poll() is None])
+    return procs
+
+
+def collect_dryrun(procs: list, out_dir: Path, smi: str) -> None:
+    """Wait for the dry-run cells; each must be status ok with the fields
+    of the JAX artifact, and its JSON must round-trip."""
+    keys = ("status", "microbatches", "hlo_flops_per_device",
+            "hlo_bytes_per_device", "model_flops_per_device", "memory",
+            "collectives", "roofline")
+    t0 = time.perf_counter()
+    for (arch, shape, multi_pod), p in procs:
+        try:
+            out, _ = p.communicate(timeout=max(
+                DRYRUN_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        except subprocess.TimeoutExpired:
+            p.kill()
+            fail(f"dry run {arch} {shape}: no result in {DRYRUN_TIMEOUT_S} s")
+        mesh = "2x16x16" if multi_pod else "16x16"
+        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        if p.returncode != 0 or not path.exists():
+            fail(f"dry run {arch} {shape} {mesh}: exit {p.returncode}: "
+                 f"{out[-600:]}")
+        text = path.read_text()
+        r = json.loads(text)
+        if r.get("status") != "ok" or any(k not in r for k in keys):
+            fail(f"dry run {arch} {shape} {mesh}: {text[:600]}")
+        if json.loads(json.dumps(r)) != r:
+            fail(f"dry run {arch} {shape} {mesh}: JSON does not round-trip")
+        m, c, rf = r["memory"], r["collectives"], r["roofline"]
+        if multi_pod and r["collectives"]["dcn_traffic_bytes"] <= 0:
+            fail(f"dry run {arch} {shape} {mesh}: no cross-pod traffic")
+        say(f"  dry run [{mesh}] {arch} {shape} (analysis on the H100's "
+            f"datasheet rates): {r['hlo_flops_per_device']:.4g} FLOPs and "
+            f"{r['hlo_bytes_per_device']:.4g} bytes a device, model "
+            f"{r['model_flops_per_device']:.4g} (useful "
+            f"{r['useful_flop_ratio']:.3f}), microbatches "
+            f"{r['microbatches']}; memory {m['total_bytes'] / 2 ** 30:.2f} "
+            f"GiB a device (arguments {m['argument_bytes'] / 2 ** 30:.2f}, "
+            f"temporaries {m['temp_bytes'] / 2 ** 30:.2f}); collectives "
+            f"{c['counts']}, in-pod {c['ici_traffic_bytes']:.4g} bytes, "
+            f"cross-pod {c['dcn_traffic_bytes']:.4g}; roofline compute "
+            f"{rf['compute_s']:.4g} s, memory {rf['memory_s']:.4g}, "
+            f"collective {rf['collective_s']:.4g}, cross-pod "
+            f"{rf['dcn_s']:.4g}: {rf['bottleneck']}, step "
+            f"{rf['step_time_est_s']:.4g} s, roofline fraction "
+            f"{rf['roofline_fraction']:.4f}; traced in {r['compile_s']} s")
+    say(f"  dry run: {len(procs)} cells ok, families left out: "
+        f"{DRYRUN_LEFT_OUT} [{smi}]")
+
+
+def device_run(fn):
+    """(fn(), device ms, wall ms) of one call under torch.profiler (device
+    activity only), the device time summed from the raw records as in
+    ``profiled_serve``.  The dry run's processes load the host meanwhile,
+    so the wall is taken under that load; the device time is not."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    cuda = torch.autograd.DeviceType.CUDA
+    busy_ns = sum(e.duration_ns() for e in prof.profiler.kineto_results
+                  .events() if e.device_type() == cuda)
+    if busy_ns == 0:
+        fail("torch.profiler recorded no device time for a mesh run")
+    return out, busy_ns / 1e6, wall * 1e3
+
+
+def mesh_serving(arch: str, mesh, smi: str, launches: dict) -> None:
+    """``arch`` served at full width and depth, bf16, by Engine(mesh=None)
+    and by Engine(mesh=mesh), both with per-slot decode: tokens, kernel
+    launches and routes equal, every kernel of the path launched; each
+    run's device time (profiler) beside its wall."""
+    free()
+    cfg = get_config(arch)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    model = Transformer(cfg, device="cuda", generator=gen)
+    fresh = make_requests(cfg, MESH_REQUESTS, gen)
+    runs = {}
+    for name, m in (("mesh=None", None), ("host mesh", mesh)):
+        eng = Engine(cfg, model, slots=4, max_len=MESH_MAX_LEN, mesh=m,
+                     batch_decode=False)
+        for r in fresh():
+            eng.submit(r)
+        reset_counts()
+        done, dev, wall = device_run(eng.run)
+        runs[name] = ({r.rid: list(r.out_tokens) for r in done}, counts(),
+                      route_counts(), (dev, wall), eng.decode_calls)
+        if m is not None:
+            tally(launches)
+        del eng
+    (t0_, c0, r0, w0, d0), (t1, c1, r1, w1, d1) = runs.values()
+    if t1 != t0_ or c1 != c0 or r1 != r0 or d1 != d0:
+        fail(f"{arch} on the host mesh: tokens equal {t1 == t0_}, launches "
+             f"{c1} vs {c0}, routes {r1} vs {r0}, decode calls {d1} vs {d0}")
+    for name in ("tile_gemm", "decode_attention"):
+        if not c1[name]:
+            fail(f"{arch} on the host mesh: {name} never launched ({c1})")
+    if not (c1["flash_attention"] or c1["stream_attention"]):
+        fail(f"{arch} on the host mesh: no prefill attention kernel ({c1})")
+    say(f"  {arch} served on the one-rank NCCL mesh: {sum(map(len, t1.values()))} "
+        f"tokens equal to mesh=None's, launches {c1} equal, {d1} decode "
+        f"calls; serving device {w1[0]:.1f} ms of {w1[1]:.1f} ms wall "
+        f"(mesh=None: device {w0[0]:.1f} of {w0[1]:.1f}; device/mesh=None "
+        f"{w1[0] / w0[0]:.4f}; walls under the dry run's host load) [{smi}]")
+    del model
+    free()
+
+
+def mesh_training(mesh, smi: str, launches: dict) -> None:
+    """MESH_TRAIN through loop.train, mesh=None then on the host mesh:
+    losses, every parameter, launches and routes bitwise or exactly
+    equal."""
+    from repro_torch.train import loop as train_loop
+    arch, cut, B, S, steps = MESH_TRAIN
+    cfg = dataclasses.replace(get_config(arch), **cut)
+    shape = ShapeConfig("mesh_train", S, B, "train")
+    out = {}
+    for name, m in (("mesh=None", None), ("host mesh", mesh)):
+        free()
+        hist = []
+        tcfg = train_loop.TrainConfig(steps=steps, log_every=1,
+                                      opt=TRAIN_OPT)
+        reset_counts()
+        res, dev, wall = device_run(lambda: train_loop.train(
+            cfg, shape, SyntheticLM(cfg, shape, seed=0), tcfg, device="cuda",
+            mesh=m, hooks={"on_log": hist.append}))
+        got, routes = counts(), route_counts()
+        if m is not None:
+            tally(launches)
+        params = {k: p.detach().clone()
+                  for k, p in res["model"].named_parameters()}
+        out[name] = ([h["loss"] for h in hist], params, got, routes,
+                     (dev, wall))
+        del res
+    (l0, p0, c0, r0, ms0), (l1, p1, c1, r1, ms1) = out.values()
+    same = [k for k in p0 if torch.equal(p0[k], p1[k])]
+    if l1 != l0 or len(same) != len(p0) or c1 != c0 or r1 != r0:
+        fail(f"train {arch} on the host mesh: losses {l1} vs {l0}, "
+             f"{len(same)} of {len(p0)} parameters bitwise equal, launches "
+             f"{c1} vs {c0}, routes {r1} vs {r0}")
+    if not (c1["tile_gemm"] and c1["flash_attention_bwd"]
+            + c1["stream_attention_bwd"]):
+        fail(f"train {arch} on the host mesh: kernels not launched ({c1})")
+    say(f"  train {arch} ({cut}, {B} x {S}, {steps} steps) on the one-rank "
+        f"NCCL mesh: losses {l1} and all {len(p0)} parameters bitwise equal "
+        f"to mesh=None's, launches {c1} equal; train() device {ms1[0]:.1f} "
+        f"ms of {ms1[1]:.1f} ms wall (mesh=None: device {ms0[0]:.1f} of "
+        f"{ms0[1]:.1f}; device/mesh=None {ms1[0] / ms0[0]:.4f}; walls under "
+        f"the dry run's host load, both with the model's build) [{smi}]")
+    del out, p0, p1
+    free()
+
+
+def mesh_primitives(smi: str) -> None:
+    """cross_pod_mean_int8 and gather_matmul_overlapped at world 1 on the
+    card, against their single-device meaning; the int8 quantizer on the
+    card against the CPU bitwise."""
+    import repro_torch.distributed.compression as C
+    from repro_torch.core.pipeline import gather_matmul_overlapped
+    from repro_torch.launch.mesh import make_mesh
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    grads = {"w": randn(gen, 4096, 4096, scale=0.02),
+             "b": randn(gen, 4096, scale=0.02)}
+    mesh3 = make_mesh((1, 1, 1), ("pod", "data", "model"))
+    if C.cross_pod_mean_int8(grads, mesh3) is not grads:
+        fail("cross_pod_mean_int8 at one pod did not return its input")
+    for name, g in grads.items():
+        q, sc = C._quantize(g)
+        qc, scc = C._quantize(g.cpu())
+        if not (torch.equal(q.cpu(), qc) and torch.equal(sc.cpu(), scc)):
+            fail(f"int8 quantization of {name} on the card differs from "
+                 f"the CPU's")
+        # half a step of the int8 grid, and the f32 rounding of the
+        # difference (a tie at k + 0.5 lands on the half step)
+        err = (C._dequantize(q, sc) - g).abs().max()
+        if float(err) > float(sc) / 2 + float(g.abs().max()) * 2 ** -22:
+            fail(f"int8 round trip of {name}: {float(err)} > half a step")
+    x = randn(gen, 2048, 5120, dtype=torch.bfloat16)
+    w = randn(gen, 5120, 5120, dtype=torch.bfloat16, scale=5120 ** -0.5)
+    mesh_m = make_mesh((1,), ("model",))
+    before = tile_gemm.launches
+    y = gather_matmul_overlapped(x, w, mesh_m)
+    n = tile_gemm.launches - before
+    if n != 1 or not torch.equal(y, tile_gemm(x, w)):
+        fail(f"gather_matmul_overlapped at world 1: {n} tile_gemm launches "
+             f"or a product that differs from tile_gemm's")
+    say(f"  cross_pod_mean_int8 at one pod: the gradients as they are; int8 "
+        f"quantization on the card bitwise equal to the CPU's; "
+        f"gather_matmul_overlapped (2048 x 5120 x 5120, bf16) at world 1: "
+        f"one tile_gemm launch, bitwise equal to tile_gemm [{smi}]")
+
+
+def cost_cycles(smi: str) -> None:
+    """cost_analysis_cycles of one recorded op (a tile_gemm at
+    vilbert-base's MLP up-projection) beside its recorded time."""
+    from repro_torch.sim.replay import cost_analysis_cycles
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    x = randn(gen, 8192, 768, dtype=torch.bfloat16)
+    w = randn(gen, 768, 3072, dtype=torch.bfloat16, scale=768 ** -0.5)
+    rec = KernelRecorder(iters=5, warmup=2)
+    with recording(rec):
+        tile_gemm(x, w)
+    tr = rec.records[-1]
+    cycles, flops = cost_analysis_cycles(ref.ref_tile_gemm, x, w)
+    if flops != tr.flops or cycles < 1:
+        fail(f"cost_analysis_cycles: {flops} FLOPs, the record {tr.flops}")
+    say(f"  cost_analysis_cycles of tile_gemm (8192 x 768 x 3072, its plain "
+        f"version's FLOPs): {cycles} cycles of streamdcim-base, {flops} "
+        f"FLOPs; recorded on the card {tr.wall_time_s * 1e3:.4f} ms "
+        f"({tr.cycles} cycles at {tr.clock_hz:.0e} Hz, {tr.source}) [{smi}]")
+
+
+def multi_gpu(smi: str, launches: dict) -> None:
+    """Phase 23: the dry run's cells start on the host, then (a) the mesh
+    paths on the one-rank NCCL host mesh, (c) cost_analysis_cycles, and
+    the dry run's results."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_host_mesh
+    out_dir = ROOT / "build" / "dryrun"
+    procs = start_dryrun(out_dir)
+    mesh = make_host_mesh()
+    if dist.get_backend() != "nccl" or mesh.device_type != "cuda":
+        fail(f"make_host_mesh on the card: backend {dist.get_backend()}, "
+             f"device {mesh.device_type}")
+    say(f"  host mesh {tuple(mesh.shape)} {mesh.mesh_dim_names} on "
+        f"{mesh.device_type}, backend {dist.get_backend()}")
+    for arch in MESH_ARCHS:
+        t0 = time.perf_counter()
+        mesh_serving(arch, mesh, smi, launches)
+        say(f"    {arch} took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    mesh_training(mesh, smi, launches)
+    say(f"    training took {time.perf_counter() - t0:.1f} s")
+    mesh_primitives(smi)
+    cost_cycles(smi)
+    t0 = time.perf_counter()
+    collect_dryrun(procs, out_dir, smi)
+    say(f"    waited {time.perf_counter() - t0:.1f} s for the dry run")
+    dist.destroy_process_group()
+
+
 def tensor_core_sass() -> str:
     """How many HGMMA (wgmma) instructions the SASS of each attention
     library (forward and backward) holds, from the toolkit's cuobjdump."""
@@ -5309,6 +5612,14 @@ def main() -> None:
     last_training(smi, launches)
     say(f"  phase 22 took {time.perf_counter() - t0:.1f} s")
     say(f"phases 1-22 took {time.perf_counter() - start:.1f} s")
+
+    say("== phase 23: multi-GPU on torch.distributed: the one-rank NCCL "
+        "mesh (Engine, train, int8 cross-pod mean, ring matmul), "
+        "cost_analysis_cycles, the dry run on fake 256/512-rank worlds")
+    t0 = time.perf_counter()
+    multi_gpu(smi, launches)
+    say(f"  phase 23 took {time.perf_counter() - t0:.1f} s")
+    say(f"phases 1-23 took {time.perf_counter() - start:.1f} s")
 
     rows, gemm_shapes = [], report["tile_gemm"]["shapes"]
     for name in ROUTED:

@@ -1,16 +1,20 @@
-"""Model registry of the port: the architectures ported so far, the model
-module that runs each family, and the simulator's hardware and energy
-design points (counterpart of ``repro/configs/registry.py``)."""
+"""Model registry of the port: the architectures, the model module that
+runs each family, the simulator's hardware and energy design points, and
+shape stand-ins of every (arch x shape) cell built without allocation
+(counterpart of ``repro/configs/registry.py``)."""
 from __future__ import annotations
+
+from typing import Any, Dict, NamedTuple, Optional, Tuple
+
+import torch
 
 from repro_torch.configs import (deepseek_v3_671b, grok1_314b,
                                  h2o_danube3_4b, hymba_1_5b, mamba2_780m,
                                  minitron_4b, qwen2_vl_2b, qwen3_32b,
                                  starcoder2_7b, vilbert_base, vilbert_large,
                                  whisper_base)
-from typing import Dict, Tuple
-
 from repro_torch.configs.hardware import HW_PRESETS, HardwareConfig
+from repro_torch.core import runtime
 from repro_torch.core.types import Family, ModelConfig, ShapeConfig
 from repro_torch.sim.energy import ENERGY_PRESETS, EnergyModel
 
@@ -60,6 +64,76 @@ def model_module(cfg: ModelConfig):
 
 
 ARCHS = tuple(_MODULES)
+ASSIGNED = [a for a in ARCHS if not a.startswith("vilbert")]
+
+# Sub-quadratic archs that run the long_500k cell (DESIGN.md §4); pure
+# full-attention archs skip it.
+LONG_CONTEXT_OK = {"mamba2-780m", "hymba-1.5b", "h2o-danube3-4b"}
+
+
+def cell_supported(arch: str, shape_name: str) -> Optional[str]:
+    """None if the (arch, shape) cell runs; else a skip reason string
+    (registry.py:109)."""
+    cfg = get_config(arch)
+    if shape_name == "long_500k" and arch not in LONG_CONTEXT_OK:
+        return "full-attention arch: 0.5M dense KV out of scope (DESIGN §4)"
+    if cfg.family == Family.CROSSMODAL and "decode" in shape_name:
+        return "encoder-only: no decode step"
+    return None
+
+
+class TensorSpec(NamedTuple):
+    """Shape and dtype of a tensor that is never allocated (the
+    counterpart of ``jax.ShapeDtypeStruct``)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+
+
+def abstract_model(cfg: ModelConfig):
+    """``cfg``'s model under a ``FakeTensorMode``, with nothing drawn
+    (``runtime.flags(abstract_init=True)``): shapes and dtypes only, no
+    allocation, no generator advanced, no device touched.  Returns (model,
+    the mode) -- tensors made from the model need the mode active."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.train.loop import build_model
+    mode = FakeTensorMode(allow_non_fake_inputs=True)
+    with mode, runtime.flags(abstract_init=True):
+        model = build_model(cfg, torch.device("cpu"), 0)
+    return model, mode
+
+
+def _specs(tree) -> Any:
+    if isinstance(tree, dict):
+        return {k: _specs(v) for k, v in tree.items()}
+    if isinstance(tree, torch.Tensor):
+        return TensorSpec(tuple(tree.shape), tree.dtype)
+    return TensorSpec((), torch.int64)          # the cache's "len"
+
+
+def param_specs(cfg: ModelConfig) -> Dict[str, TensorSpec]:
+    """{parameter name: TensorSpec} of ``cfg``'s model (registry.py:170),
+    built without allocation.  Names are the module's
+    (``layers.0.attn.wq``): one entry per layer of a stack."""
+    model, _ = abstract_model(cfg)
+    return {k: TensorSpec(tuple(p.shape), p.dtype)
+            for k, p in model.named_parameters()}
+
+
+def cache_specs(cfg: ModelConfig, shape: ShapeConfig,
+                per_pod_batch: Optional[int] = None) -> Dict[str, Any]:
+    """TensorSpecs of the decode-time cache (registry.py:153), the JAX
+    tree stacked over layers, built without allocation; an
+    encoder-decoder's carries its encoder states ``enc`` (B, S_enc, D)."""
+    B = per_pod_batch or shape.global_batch
+    model, mode = abstract_model(cfg)
+    with mode:
+        if cfg.family == Family.ENCDEC:
+            enc = torch.zeros((B, cfg.encoder_seq, cfg.d_model),
+                              dtype=getattr(torch, cfg.dtype))
+            cache = model.init_cache(B, shape.seq_len, enc)
+        else:
+            cache = model.init_cache(B, shape.seq_len)
+    return _specs(cache)
 
 
 def input_specs(cfg: ModelConfig, shape: ShapeConfig

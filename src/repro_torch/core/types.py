@@ -131,6 +131,55 @@ class ModelConfig:
     def group_size(self) -> int:
         return self.num_heads // max(self.num_kv_heads, 1) if self.num_kv_heads else 1
 
+    def param_count(self) -> int:
+        """Approximate parameter count N (used for MODEL_FLOPS = 6·N·D)."""
+        d, f, L, V = self.d_model, self.d_ff, self.num_layers, self.vocab_size
+        emb = V * d * (1 if self.tie_embeddings else 2)
+        if self.family == Family.SSM:
+            d_inner = self.ssm_expand * d
+            per = (d * (2 * d_inner + 2 * self.ssm_heads)   # in_proj (x,z) + dt/heads
+                   + d_inner * (2 * self.ssm_state)          # B,C projections
+                   + d_inner * d                             # out_proj
+                   + self.conv_kernel * d_inner + 2 * d)
+            return emb + L * per
+        if self.attn_kind == AttnKind.MLA:
+            attn = (d * self.q_lora_rank
+                    + self.q_lora_rank * self.num_heads * (self.qk_nope_head_dim + self.qk_rope_head_dim)
+                    + d * (self.kv_lora_rank + self.qk_rope_head_dim)
+                    + self.kv_lora_rank * self.num_heads * (self.qk_nope_head_dim + self.v_head_dim)
+                    + self.num_heads * self.v_head_dim * d)
+        else:
+            hq, hkv, hd = self.num_heads, self.num_kv_heads, self.head_dim
+            attn = d * hd * (hq + 2 * hkv) + hq * hd * d
+        if self.family == Family.MOE:
+            e_ff = self.moe_d_ff or f
+            moe = (self.num_experts + self.num_shared_experts) * 3 * d * e_ff + d * self.num_experts
+            dense_ff = 3 * d * f
+            per = attn + 2 * d
+            total = emb
+            for i in range(L):
+                total += per + (dense_ff if i < self.first_dense_layers else moe)
+            return total
+        mlp = 3 * d * f if self.act == "silu" else 2 * d * f
+        per = attn + mlp + 2 * d
+        if self.family == Family.HYBRID:
+            d_inner = self.ssm_expand * d
+            per += (d * 2 * d_inner + d_inner * 2 * self.ssm_state + d_inner * d)
+        total = emb + L * per
+        if self.family == Family.ENCDEC:
+            total += self.num_encoder_layers * per + self.num_encoder_layers * 0
+        return total
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE: only routed-in experts count)."""
+        if self.family != Family.MOE:
+            return self.param_count()
+        e_ff = self.moe_d_ff or self.d_ff
+        full = self.param_count()
+        inactive_experts = self.num_experts - self.experts_per_token
+        moe_layers = self.num_layers - self.first_dense_layers
+        return full - moe_layers * inactive_experts * 3 * self.d_model * e_ff
+
 
 @dataclasses.dataclass(frozen=True)
 class ShapeConfig:

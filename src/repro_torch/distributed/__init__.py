@@ -1,4 +1,4 @@
 """``repro_torch.distributed``: the port's counterpart of
-``repro/distributed/``.  Only the sharding rules' shape predicates are here
-so far (``sharding``); the rest of the package comes with multi-GPU
-training (ROADMAP item 13)."""
+``repro/distributed/`` on ``torch.distributed``: the sharding rule table
+and its DTensor placements (``sharding``), activation-sharding hints
+(``hints``) and int8 cross-pod gradient compression (``compression``)."""

@@ -5,13 +5,17 @@
         [--smoke] [--mode tile_stream] [--checkpoint-dir ckpts/run1] \\
         [--microbatches 4] [--device cpu]
 
+    torchrun --nproc_per_node=N -m repro_torch.launch.train --arch ...
+
 Every registry arch trains.  It runs on the card (one device) unless
 ``--device`` names another; with no card and no ``--device cpu`` it
 refuses to start.  ``--smoke`` takes the arch's small config and a small
-shape.  The JAX launcher's
-``--use-pallas`` and ``--multi-pod`` have no counterpart: the kernels run
-whenever the tensors are on the card, and multi-GPU training is ROADMAP
-Queue 1 item 13.
+shape.  Under ``torchrun`` (``WORLD_SIZE`` set) each rank joins the
+process group (``nccl`` on the card, ``gloo`` on the CPU) and trains on a
+mesh: the production mesh at 256 ranks, its two-pod form at 512, the
+host mesh (world, 1) otherwise, as ``repro/launch/train.py:58-59``
+chooses; rank 0 prints the log.  The JAX launcher's ``--use-pallas`` has
+no counterpart: the kernels run whenever the tensors are on the card.
 """
 from __future__ import annotations
 
@@ -53,6 +57,28 @@ def parse(argv: Optional[List[str]] = None) -> argparse.Namespace:
     return ap.parse_args(argv)
 
 
+def launch_mesh(device):
+    """The mesh of a ``torchrun`` world (None outside one): the process
+    group from torchrun's environment, then the production mesh at 256 or
+    512 ranks and the host mesh otherwise."""
+    import os
+    if "WORLD_SIZE" not in os.environ:
+        return None
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import runtime
+    from repro_torch.launch import mesh as M
+    device = runtime.resolve_device(device)
+    if not dist.is_initialized():
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(M.BACKEND[device.type])
+    world = dist.get_world_size()
+    if world in (256, 512):
+        return M.make_production_mesh(multi_pod=world == 512, device=device)
+    return M.make_host_mesh(device)
+
+
 def main(argv: Optional[List[str]] = None) -> dict:
     args = parse(argv)
     cfg = registry.get_config(args.arch, smoke=args.smoke)
@@ -79,13 +105,18 @@ def main(argv: Optional[List[str]] = None) -> dict:
         opt=OPT.OptimizerConfig(learning_rate=args.lr,
                                 decay_steps=args.steps))
 
-    def on_log(m):
-        print(f"step {m['step']:6d}  loss {m['loss']:.4f}  "
-              f"gnorm {m['grad_norm']:.3f}  lr {m['lr']:.2e}  "
-              f"{m['steps_per_s']:.2f} it/s", flush=True)
+    mesh = launch_mesh(args.device)
+    rank0 = mesh is None or mesh.get_coordinate() == (0,) * mesh.ndim
 
-    return L.train(cfg, shape, source, tcfg, device=args.device,
-                   hooks={"on_log": on_log})
+    def on_log(m):
+        if rank0:
+            print(f"step {m['step']:6d}  loss {m['loss']:.4f}  "
+                  f"gnorm {m['grad_norm']:.3f}  lr {m['lr']:.2e}  "
+                  f"{m['steps_per_s']:.2f} it/s", flush=True)
+
+    device = args.device if mesh is None else mesh.device_type
+    return L.train(cfg, shape, source, tcfg, device=device,
+                   hooks={"on_log": on_log}, mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -42,7 +42,7 @@ from repro_torch.kernels import ops
 from repro_torch.models.layers import (MLP, Attention, Embedding, LayerNorm,
                                        attention_forward, dense_init,
                                        embed_lookup, layer_norm, mlp_forward,
-                                       param, torch_dtype, unembed)
+                                       move_to, param, torch_dtype, unembed)
 
 Cache = Dict[str, object]
 #: Rows of the learned decoder position table, enlarged beyond whisper's
@@ -113,7 +113,7 @@ class EncDec(nn.Module):
         self.dec_layers = nn.ModuleList(DecLayer(cfg, g)
                                         for _ in range(cfg.num_layers))
         self.dec_ln = LayerNorm(cfg.d_model, dt, g.device)
-        self.to(device)
+        move_to(self, device)
 
     @property
     def device(self) -> torch.device:

@@ -14,7 +14,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from repro_torch.core import runtime
 from repro_torch.core.types import AttnKind, ExecutionMode, ModelConfig, pad_to
+from repro_torch.distributed.hints import constrain
 from repro_torch.kernels import ops, ref
 
 
@@ -28,11 +30,24 @@ def param(t: torch.Tensor) -> nn.Parameter:
     return nn.Parameter(t, requires_grad=False)
 
 
+def move_to(module: nn.Module, device: torch.device) -> None:
+    """``module.to(device)``, skipped when every tensor of ``module`` is
+    there already: a model built under ``FakeTensorMode`` (the dry run's
+    and ``registry.param_specs``') cannot be moved, and needs no move."""
+    tensors = list(module.parameters()) + list(module.buffers())
+    if any(t.device != device for t in tensors):
+        module.to(device)
+
+
 def dense_init(shape: Sequence[int], dtype: torch.dtype, *,
                generator: torch.Generator, scale: Optional[float] = None
                ) -> torch.Tensor:
     """Normal(0, scale) with scale = fan_in^-0.5 by default (layers.py:31),
     drawn in f32 on the generator's device and cast to ``dtype``."""
+    if runtime.get("abstract_init"):
+        # shapes only (registry.param_specs, the dry run under
+        # FakeTensorMode): nothing drawn, the generator untouched
+        return torch.empty(tuple(shape), dtype=dtype, device=generator.device)
     fan_in = shape[0] if len(shape) >= 2 else shape[-1]
     scale = scale if scale is not None else fan_in ** -0.5
     return (torch.randn(tuple(shape), generator=generator,
@@ -95,7 +110,7 @@ class Embedding(nn.Module):
 
 
 def embed_lookup(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return p.embedding[tokens]
+    return constrain(p.embedding[tokens], "embed_out")
 
 
 #: Vocabulary columns per f32 product in ``unembed`` of a narrower dtype,
@@ -219,10 +234,12 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
             q_sin = sin[q_offset:q_offset + q.shape[2]]
             q_cos = cos[q_offset:q_offset + q.shape[2]]
         q = apply_rope_bsd(q, q_sin, q_cos)
+    q = constrain(q, "attn_q")      # context-parallel hint (hints.py)
     out = ops.attention_by_mode(
         mode, q, x_kv, p.wk, p.wv, sin=sin, cos=cos,
         k_gamma=getattr(p, "k_gamma", None), causal=causal, window=window,
         q_offset=q_offset, norm_eps=cfg.norm_eps)
+    out = constrain(out, "attn_out")
     return torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
 
 
@@ -323,6 +340,8 @@ def _expert_stack(shape: Sequence[int], dtype: torch.dtype,
     no f32 copy of the whole stack exists (15 GB at deepseek-v3's
     (256, 7168, 2048))."""
     out = torch.empty(tuple(shape), dtype=dtype, device=generator.device)
+    if runtime.get("abstract_init"):
+        return out
     for e in range(shape[0]):
         out[e] = dense_init(shape[1:], dtype, generator=generator,
                             scale=shape[0] ** -0.5)
@@ -391,7 +410,6 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     shared expert runs through ``mlp_forward`` (``tile_gemm``).  Under
     autograd the gathers and products differentiate (the router through
     the gate weights); a dropped slot gets no gradient, as in JAX."""
-    from repro_torch.core import runtime
     if capacity_factor is None:
         capacity_factor = runtime.get("moe_capacity", 1.25)
     B, S, D = x.shape
@@ -412,7 +430,8 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     used.scatter_(1, flat, torch.ones_like(flat, dtype=x.dtype))
     xe = torch.gather(xt, 1, token_of_slot[:, :E * cap, None].expand(-1, -1, D))
     xe = (xe * used[:, :E * cap, None]).reshape(groups, E, cap, D)
-    xe = xe.transpose(0, 1).reshape(E, groups * cap, D)
+    xe = constrain(xe.transpose(0, 1), "moe_dispatch")     # (E, G, C, D)
+    xe = xe.reshape(E, groups * cap, D)
     g = torch.bmm(xe, p.w_gate.to(x.dtype))
     u = torch.bmm(xe, p.w_up.to(x.dtype))
     ye = torch.bmm(F.silu(g) * u, p.w_down.to(x.dtype))

@@ -53,10 +53,8 @@ through ``SSDScanFn`` (the ``ssd_scan_bwd`` kernel), MLA's latent
 attention through ``FlashAttentionFn`` (the flash backward's wide route),
 the MoE layer's gathers and batched products through autograd (a dropped
 slot gets no gradient, as in JAX).  The serving entry points keep
-``torch.no_grad()``.
-
-Not ported yet, and refused with ``NotImplementedError``: serving on a
-mesh (ROADMAP Queue 1 item 7).
+``torch.no_grad()``.  Serving on a mesh replicates the model and runs
+these entry points on every rank (``shard.serve``, ``serve.Engine``).
 """
 from __future__ import annotations
 
@@ -75,7 +73,8 @@ from repro_torch.models.layers import (MLP, Attention, Embedding, MoE,
                                        attention_decode, attention_forward,
                                        attention_forward_mrope, dense_init,
                                        embed_lookup, mlp_forward,
-                                       moe_forward, mrope_tables, param,
+                                       moe_forward, move_to, mrope_tables,
+                                       param,
                                        rms_norm, rope_tables_for,
                                        torch_dtype, unembed)
 from repro_torch.models.mla import (MLA, _latent, mla_decode, mla_forward,
@@ -331,7 +330,7 @@ class Transformer(nn.Module):
         if cfg.mtp_depth:
             self.mtp_proj = param(dense_init((2 * cfg.d_model, cfg.d_model),
                                              dt, generator=g))
-        self.to(device)
+        move_to(self, device)
 
     @property
     def blocks(self) -> List[Block]:
@@ -506,7 +505,9 @@ def chunked_xent(model: Transformer, hidden: torch.Tensor,
         args = (model.embed, model.cfg, hidden[:, i:i + c], labels[:, i:i + c])
         total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False)
                          if torch.is_grad_enabled() else _chunk_nll(*args))
-    return total / max(int((labels >= 0).sum()), 1)
+    # the count stays a tensor: no host sync, and a fake tensor (the dry
+    # run's) has no value to read
+    return total / (labels >= 0).sum().clamp(min=1)
 
 
 def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor], *,

@@ -28,7 +28,7 @@ from repro_torch.core.types import ExecutionMode, ModelConfig
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (MLP, Embedding, LayerNorm, dense_init,
                                        embed_lookup, layer_norm, mlp_forward,
-                                       param, torch_dtype)
+                                       move_to, param, torch_dtype)
 from repro_torch.plan.heuristics import resolve_layer_mode
 
 VQA_ANSWERS = 3129   # VQA v2 answer vocabulary
@@ -161,7 +161,7 @@ class ViLBERT(nn.Module):
                                        generator=g))
         self.vqa_head = param(dense_init((cfg.d_model, VQA_ANSWERS), dt,
                                          generator=g))
-        self.to(device)
+        move_to(self, device)
 
     @torch.no_grad()
     def encode(self, batch: Dict[str, torch.Tensor], *,

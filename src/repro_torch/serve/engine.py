@@ -23,9 +23,12 @@ is paged and decoded in buckets, deepseek-v3's latent MLA cache
 
 Differences from the JAX engine: it serves an ``nn.Module`` (the port's
 ``models.transformer.Transformer``) instead of a parameter tree, and
-calls its ``decode_step`` directly where the JAX engine jits it; serving
-on a mesh is not ported (ROADMAP Queue 1 item 7).  The deprecated
-``mode=`` override stays, as in the JAX engine.
+calls its ``decode_step`` directly where the JAX engine jits it.  Under
+``mesh=`` (a ``torch.distributed`` ``DeviceMesh``) the model is replicated
+over the mesh (``shard.serve.replicate``) and every rank runs the
+single-device prefill and decode, with per-slot B = 1 decode, as the JAX engine keeps
+under a mesh.  The deprecated ``mode=`` override stays, as in the JAX
+engine.
 """
 from __future__ import annotations
 
@@ -122,16 +125,15 @@ class Engine:
         Prefill plans and per-step ``DecodePlan``s each get their own LRU
         of ``plan_cache_size`` entries.  ``plan_decode=False`` skips the
         per-step ``DecodePlan``s.  ``mode``: deprecated explicit override
-        that skips the planner.  ``mesh``: not ported, must be None.
+        that skips the planner.  ``mesh``: a ``DeviceMesh``
+        (``launch.mesh``); the model is replicated across it
+        (``shard.serve.replicate``) and prefill and decode run on every
+        rank, decode per slot.
         ``batch_decode``: group equal-KV-length slots into one
         ``decode_step`` call through a paged K/V pool of ``page_size``
         positions per page.  ``clock``: wall-time source
         (``time.perf_counter``-compatible) for the ``"wall"`` stats,
         injectable so that tests can pin percentiles."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "serving on a mesh is not ported yet (ROADMAP Queue 1 "
-                "item 7)")
         check_supported(cfg)
         self.cfg = cfg
         self.model = model
@@ -145,8 +147,18 @@ class Engine:
         # change almost every step, and sharing one LRU would let that
         # churn evict the highly-reusable per-prompt-length prefill plans.
         self._decode_plan_cache = _LRU(plan_cache_size)
+        self.mesh = mesh
+        if mesh is not None and getattr(mesh, "device_type", None) != \
+                model.device.type:
+            raise ValueError(f"Engine: the mesh {mesh!r} is not a DeviceMesh "
+                             f"of {model.device.type} devices")
+        if mesh is not None:
+            from repro_torch.shard.serve import replicate
+            replicate(model, mesh)
         self._decode = model.decode_step
-        self.batch_decode = batch_decode
+        # Batched decode: mesh serving keeps per-slot B = 1 calls, as the
+        # JAX engine does (engine.py:163-167).
+        self.batch_decode = batch_decode and mesh is None
         self.page_size = page_size
         self._pool: Optional[PagedKVCache] = None
         self._clock = clock

@@ -10,8 +10,8 @@ plan -> shard -> simulate -> serve across a StreamDCIM chiplet mesh:
 * ``sim``       — ``simulate_sharded_plan``: per-chip lowering through
   the existing mode schedulers + NoC collectives, byte-exactness
   asserted against the sharded plan.
-* ``serve``     — prefill/decode across a mesh of cards: not ported yet
-  (both raise; ROADMAP item 13).
+* ``serve``     — prefill/decode on every rank of a ``torch.distributed``
+  mesh, the model replicated (``serve.Engine(mesh=...)``).
 * ``sweep``     — the chips x topology x per-chip-hardware system sweep
   (``python -m repro_torch.shard``).
 """

@@ -29,14 +29,17 @@ is capturing a CUDA graph and code that ``torch.compile`` is tracing.
 ``record_plan`` takes a ``device`` where JAX takes ``use_pallas``: CUDA
 tensors run the kernels, CPU tensors their plain versions.
 
-Left out: ``cost_analysis_cycles`` (XLA's cost analysis; the port's
-FLOP count on the meta device is ROADMAP Queue 1 item 14).
+``cost_analysis_cycles`` takes its FLOPs from
+``torch.utils.flop_counter.FlopCounterMode`` over one call, where the JAX
+copy reads XLA's compiled cost analysis (matrix products count the same;
+XLA adds elementwise FLOPs, which the counter leaves out).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
 import json
+import math
 import time
 from typing import (Callable, Dict, Iterator, List, Mapping, Optional,
                     Sequence, Tuple)
@@ -518,3 +521,27 @@ def resolve_calibration(calibration) -> Optional[Mapping[str, float]]:
         raise TypeError(f"calibration must be a CalibrationReport or a "
                         f"resource->factor mapping, got {calibration!r}")
     return scale
+
+
+# ---------------------------------------------------------------------------
+# Optional cost-analysis timing source (FLOP count -> cycles)
+# ---------------------------------------------------------------------------
+
+def cost_analysis_cycles(fn: Callable, *args, hw=None) -> Tuple[int, int]:
+    """(cycles, flops) for one kernel call from a FLOP count instead of
+    wall time (replay.py:499): the FLOPs ``FlopCounterMode`` counts over
+    one call of ``fn(*args)``, divided by the design point's aggregate
+    INT8 MAC throughput (``EnergyModel.macro_ops_per_cycle`` x
+    ``num_macros``).  A deterministic timing source: no clock noise."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs.hardware import STREAMDCIM_BASE
+    from repro_torch.sim.energy import STREAMDCIM_ENERGY_BASE
+
+    hw = hw or STREAMDCIM_BASE
+    with FlopCounterMode(display=False) as fc:
+        fn(*args)
+    flops = int(fc.get_total_flops())
+    per_cycle = (STREAMDCIM_ENERGY_BASE.macro_ops_per_cycle(hw)
+                 * hw.num_macros)
+    return max(1, math.ceil(flops / max(per_cycle, 1.0))), flops

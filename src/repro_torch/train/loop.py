@@ -1,12 +1,13 @@
-"""The training loop on one device (counterpart of ``repro/train/loop.py``):
-deterministic resumable data, asynchronous atomic checkpoints, exact
-restart from the latest complete checkpoint, and metrics.
+"""The training loop (counterpart of ``repro/train/loop.py``), on one
+device or on a ``DeviceMesh``: deterministic resumable data, asynchronous
+atomic sharded checkpoints, exact restart from the latest complete
+checkpoint, and metrics.
 
 Fault-tolerance contract (DESIGN.md §5): a restart resumes from the latest
 complete checkpoint; the data stream is a pure function of (seed, step),
 so the resumed run equals an uninterrupted one; checkpoint writes run off
-the step loop.  Training on a mesh of devices (and the elastic restore
-onto another device count) is ROADMAP Queue 1 item 13.
+the step loop; a restore places each saved tensor on the current mesh,
+whatever mesh saved it (elastic).
 """
 from __future__ import annotations
 
@@ -20,6 +21,7 @@ import torch
 from repro_torch.configs import registry
 from repro_torch.core import runtime
 from repro_torch.core.types import ExecutionMode, Family, ModelConfig, ShapeConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.train import optimizer as OPT
 from repro_torch.train import steps as ST
 from repro_torch.train.checkpoint import Checkpointer
@@ -63,22 +65,39 @@ def to_device(batch: Dict[str, np.ndarray], cfg: ModelConfig,
 
 def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
           device: Optional[Union[str, torch.device]] = None,
-          hooks: Optional[Dict[str, Callable]] = None, mesh: Any = None
-          ) -> Dict[str, Any]:
+          hooks: Optional[Dict[str, Callable]] = None, mesh: Any = None,
+          fsdp_threshold: float = 8e9) -> Dict[str, Any]:
     """Run the loop on one device (the card unless ``device`` names
-    another; without a card and without ``device="cpu"`` this raises).
-    Returns {"model", "opt_state", "metrics"}.  ``hooks["on_log"]`` gets
-    each logged metrics dict."""
-    if mesh is not None or isinstance(device, (list, tuple)):
-        raise NotImplementedError(
-            "train: one device only; training on a mesh is ROADMAP Queue 1 "
-            "item 13 (multi-GPU)")
+    another; without a card and without ``device="cpu"`` this raises), or
+    on a ``DeviceMesh`` of such devices (``launch.mesh``; ``device`` then
+    names the mesh's device type): each parameter and both AdamW moments
+    placed by the rule table (``fsdp_threshold`` as in
+    ``sharding.param_shardings``), the batch by ``batch_shardings``, the
+    gradients reduced over (pod, data) (``steps.MeshTrainStep``); with
+    ``mesh=None`` the single-device step.  Returns {"model", "opt_state",
+    "metrics"} (on a mesh the model holds the whole final parameters and
+    ``opt_state`` the DTensor moments; also "params", the DTensor
+    parameters).  ``hooks["on_log"]`` gets each logged metrics dict."""
     device = runtime.resolve_device(device)
+    if mesh is not None and getattr(mesh, "device_type", None) != \
+            device.type:
+        raise ValueError(f"train: the mesh {mesh!r} is not a DeviceMesh of "
+                         f"{device.type} devices")
     hooks = hooks or {}
     specs = registry.input_specs(cfg, shape)
     model = build_model(cfg, device, tcfg.seed)
-    params = {k: p for k, p in model.named_parameters()}
-    opt_state = OPT.init(params)
+    if mesh is None:
+        params = {k: p for k, p in model.named_parameters()}
+        opt_state = OPT.init(params)
+        step_fn = ST.make_train_step(cfg, tcfg.opt, mode=tcfg.mode,
+                                     microbatches=tcfg.microbatches)
+        bshard = None
+    else:
+        mstep = ST.MeshTrainStep(cfg, model, mesh, tcfg.opt, mode=tcfg.mode,
+                                 microbatches=tcfg.microbatches,
+                                 fsdp_threshold=fsdp_threshold)
+        params, opt_state = mstep.params, mstep.opt_state
+        bshard = SH.batch_shardings(specs, mesh)
     ckpt = Checkpointer(tcfg.checkpoint_dir) if tcfg.checkpoint_dir else None
     start_step = 0
     if ckpt is not None:
@@ -89,10 +108,10 @@ def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
                                           "nu": opt_state.nu}})
             opt_state = OPT.OptState(step=int(state["opt"]["step"]),
                                      mu=opt_state.mu, nu=opt_state.nu)
+            if mesh is not None:
+                mstep.opt_state = opt_state
             start_step = latest
 
-    step_fn = ST.make_train_step(cfg, tcfg.opt, mode=tcfg.mode,
-                                 microbatches=tcfg.microbatches)
     metrics_hist = []
     t_last = time.time()
     for step in range(start_step, tcfg.steps):
@@ -101,8 +120,13 @@ def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
         if got != specs:
             raise ValueError(f"train: the source's batch {got} does not fit "
                              f"{shape.name} ({specs})")
-        batch = to_device(batch, cfg, device)
-        model, opt_state, metrics = step_fn(model, opt_state, batch)
+        if mesh is None:
+            model, opt_state, metrics = step_fn(
+                model, opt_state, to_device(batch, cfg, device))
+        else:
+            metrics = mstep(to_device(ST.local_batch(batch, bshard, mesh),
+                                      cfg, device))
+            opt_state = mstep.opt_state
         if (step + 1) % tcfg.log_every == 0 or step == tcfg.steps - 1:
             m = dict(metrics)
             dt = time.time() - t_last
@@ -119,4 +143,8 @@ def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
                                           "nu": opt_state.nu}})
     if ckpt is not None:
         ckpt.wait()
-    return {"model": model, "opt_state": opt_state, "metrics": metrics_hist}
+    out = {"model": model, "opt_state": opt_state, "metrics": metrics_hist}
+    if mesh is not None:
+        mstep.gather()
+        out["params"] = params
+    return out

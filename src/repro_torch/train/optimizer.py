@@ -10,9 +10,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
+
+from repro_torch.distributed.sharding import jax_path
 
 Tree = Dict[str, torch.Tensor]
 _SLICE = 1 << 26   # elements per slice of a parameter in ``apply``
@@ -66,21 +68,30 @@ def global_norm(tree: Tree) -> torch.Tensor:
 
 
 @torch.no_grad()
-def apply(cfg: OptimizerConfig, params: Tree, grads: Tree, state: OptState
-          ) -> Tuple[Tree, OptState, Dict[str, float]]:
+def update(cfg: OptimizerConfig, params: Tree, grads: Tree, state: OptState,
+           *, gnorm: Optional[torch.Tensor] = None
+           ) -> Tuple[OptState, torch.Tensor, float]:
     """One AdamW step (optimizer.py:59): clip the gradients by their global
     norm, update the f32 moments, bias-correct them, and take a step with
-    decoupled weight decay on tensors of two or more dimensions only; each
-    parameter keeps its dtype.  Returns (params, state, {"grad_norm",
-    "lr"}), the tensors updated in place."""
+    decoupled weight decay on JAX leaves of two or more dimensions only
+    (a layer's vectors in a stack among them: ``jax_path``); each
+    parameter keeps its dtype.  Returns (state, the global norm, the
+    learning rate), the tensors updated in place, nothing read back from
+    the device.  ``gnorm``: the global norm when ``grads`` hold only this
+    rank's blocks (the mesh step computes it over the whole reduced
+    gradients)."""
     step = state.step + 1
-    gnorm = global_norm(grads)
+    if gnorm is None:
+        gnorm = global_norm(grads)
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-9), max=1.0)
     lr = lr_at(cfg, step)
     b1c = 1 - cfg.b1 ** step
     b2c = 1 - cfg.b2 ** step
     for name, p in params.items():
-        decay = cfg.weight_decay if p.dim() >= 2 else 0.0
+        # JAX decays a leaf of two or more dims; one layer of a stack is a
+        # slice of a leaf with the stack dim in front (``jax_path``)
+        ndim = p.dim() + jax_path(name)[1]
+        decay = cfg.weight_decay if ndim >= 2 else 0.0
         flat = [t.view(-1) for t in (p, state.mu[name], state.nu[name])]
         flat.insert(1, grads[name].reshape(-1))
         # in slices, so that the f32 temporaries of a large matrix (the
@@ -94,5 +105,12 @@ def apply(cfg: OptimizerConfig, params: Tree, grads: Tree, state: OptState
             if decay:
                 delta.add_(pp.float(), alpha=decay)
             pp.copy_((pp.float() - lr * delta).to(pp.dtype))
-    return (params, OptState(step=step, mu=state.mu, nu=state.nu),
-            {"grad_norm": float(gnorm), "lr": lr})
+    return OptState(step=step, mu=state.mu, nu=state.nu), gnorm, lr
+
+
+def apply(cfg: OptimizerConfig, params: Tree, grads: Tree, state: OptState,
+          *, gnorm: Optional[torch.Tensor] = None
+          ) -> Tuple[Tree, OptState, Dict[str, float]]:
+    """``update``, returning (params, state, {"grad_norm", "lr"})."""
+    state, gnorm, lr = update(cfg, params, grads, state, gnorm=gnorm)
+    return params, state, {"grad_norm": float(gnorm), "lr": lr}

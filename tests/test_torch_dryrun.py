@@ -1,0 +1,258 @@
+"""The port's dry run against the JAX package's on the CPU
+(``repro_torch.launch.dryrun``, ``launch.op_analysis``,
+``sim.replay.cost_analysis_cycles``): the pure helpers for every arch and
+shape, a qwen3-32b smoke train cell on a fake (2, 2) world with every
+field of the JAX artifact (dryrun.py:397-427), its per-device FLOPs at
+(1, 1) beside ``hlo_analysis.analyze`` of the JAX step compiled on one CPU
+device, the collective traffic formulas (tests/test_hlo_analysis.py:
+104-119) and the cycles of a matmul chain."""
+import json
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import registry as jregistry
+from repro.core.types import SHAPES as JSHAPES
+from repro.launch import hlo_analysis as HA
+from repro.sim import replay as jreplay
+from repro.train import steps as JST
+from repro_torch.configs import registry
+from repro_torch.core.types import SHAPES, ShapeConfig
+from repro_torch.launch import dryrun as D
+from repro_torch.launch import op_analysis as OA
+from repro_torch.sim.replay import cost_analysis_cycles
+
+# repro/launch/dryrun.py sets XLA_FLAGS (512 host devices) when imported:
+# bring the backend up first, and put the variable back after.
+jax.devices()
+_FLAGS = os.environ.get("XLA_FLAGS")
+from repro.launch import dryrun as JD  # noqa: E402
+if _FLAGS is None:
+    os.environ.pop("XLA_FLAGS", None)
+else:
+    os.environ["XLA_FLAGS"] = _FLAGS
+
+ROOT = Path(__file__).resolve().parents[1]
+ARCHS = list(registry.ARCHS)
+SMOKE_SHAPE = ShapeConfig("train_4k", 64, 4, "train")
+# every field of the JAX artifact (dryrun.py:397-427)
+FIELDS = {"arch", "shape", "mesh", "devices", "status", "lower_s",
+          "compile_s", "microbatches", "hlo_flops_per_device",
+          "hlo_bytes_per_device", "raw_flops_uncorrected", "probe_corrected",
+          "model_flops_global", "model_flops_per_device",
+          "useful_flop_ratio", "memory", "collectives", "roofline"}
+MEMORY = {"argument_bytes", "output_bytes", "temp_bytes", "alias_bytes",
+          "total_bytes"}
+ROOFLINE = {"compute_s", "memory_s", "collective_s", "dcn_s", "bottleneck",
+            "step_time_est_s", "roofline_fraction"}
+
+
+class _Sizes:
+    def __init__(self, shape):
+        self.shape = shape
+
+
+@pytest.mark.parametrize("arch", ARCHS)
+def test_pure_helpers_equal_jax(arch):
+    cfg, jcfg = registry.get_config(arch), jregistry.get_config(arch)
+    assert D._stack_depths(cfg) == JD._stack_depths(jcfg)
+    names, plan = D.probe_plan(cfg)
+    assert (names, plan) == JD.probe_plan(jcfg)
+    for depths in plan:
+        a, b = D._with_depths(cfg, depths), JD._with_depths(jcfg, depths)
+        for f in ("num_layers", "num_encoder_layers", "num_coattn_layers",
+                  "first_dense_layers"):
+            assert getattr(a, f) == getattr(b, f), f
+        assert a.param_count() == b.param_count()
+    vals = [3.0 + 7 * i + i * i for i in range(len(plan))]
+    real = D._stack_depths(cfg)
+    assert D.extrapolate(names, plan, vals, real) == \
+        JD.extrapolate(names, plan, vals, real)
+    for name in SHAPES:
+        assert D.model_flops(cfg, SHAPES[name]) == \
+            JD.model_flops(jcfg, JSHAPES[name])
+        for sizes in ({"data": 16, "model": 16},
+                      {"pod": 2, "data": 16, "model": 16},
+                      {"data": 1, "model": 1}):
+            assert D.auto_microbatches(cfg, SHAPES[name], _Sizes(sizes)) \
+                == JD.auto_microbatches(jcfg, JSHAPES[name], _Sizes(sizes))
+
+
+@pytest.fixture
+def no_group():
+    """The fake world must be the process's only group: drop one another
+    test file left in this worker."""
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    yield
+    assert not dist.is_initialized()
+
+
+def _smoke_cell(mesh_shape, **kw):
+    return D.run_cell("qwen3-32b", "train_4k", verbose=False,
+                      cfg=registry.get_config("qwen3-32b", smoke=True),
+                      shape=SMOKE_SHAPE, mesh_shape=mesh_shape,
+                      microbatches=1, **kw)
+
+
+def test_smoke_train_cell_on_a_fake_2x2_world(no_group, tmp_path):
+    r = _smoke_cell((2, 2), out_dir=str(tmp_path))
+    assert r["status"] == "ok", r.get("error")
+    assert FIELDS <= set(r)
+    assert set(r["memory"]) == MEMORY and ROOFLINE <= set(r["roofline"])
+    assert r["devices"] == 4 and r["mesh"] == "2x2"
+    assert r["memory"]["argument_bytes"] > 0
+    # the gradients and the loss reduce over 'data', sharded parameters
+    # gather: all-reduce and all-gather, all inside the one pod
+    counts = r["collectives"]["counts"]
+    assert counts.get("all-reduce", 0) > 0 and counts.get("all-gather", 0)
+    assert r["collectives"]["dcn_traffic_bytes"] == 0
+    saved = json.loads((tmp_path / "qwen3-32b__train_4k__2x2.json")
+                       .read_text())
+    assert saved == json.loads(json.dumps(r))
+
+
+def test_mesh_step_reduce_scatters_the_data_sharded_gradients(no_group):
+    """With every parameter sharded over 'data' where the rules allow
+    (fsdp_threshold=0), the mesh step reduces each such gradient straight
+    to its block (a reduce-scatter) and all-reduces only the others, the
+    loss and the global norm's sum (one a mesh dim); the whole parameters
+    gather once each."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.distributed.tensor import Shard
+    from repro_torch.core import runtime
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import loop as L
+    from repro_torch.train import steps as ST
+    cfg = registry.get_config("qwen3-32b", smoke=True)
+    with D.fake_world(4):
+        mesh = make_mesh((2, 2), ("data", "model"), "cpu")
+        with FakeTensorMode(allow_non_fake_inputs=True):
+            with runtime.flags(abstract_init=True):
+                model = L.build_model(cfg, torch.device("cpu"), 0)
+            step = ST.MeshTrainStep(cfg, model, mesh, fsdp_threshold=0)
+            batch, _ = D._local_inputs(cfg, SMOKE_SHAPE, mesh)
+            _, c = OA.analyze(step.step, batch, world=4)
+    pls = [s.placements for s in step.shardings.values()]
+    on_data = sum(isinstance(p[0], Shard) for p in pls)
+    sharded = sum(any(isinstance(x, Shard) for x in p) for p in pls)
+    assert on_data > 0
+    assert c["counts"]["reduce-scatter"] == on_data
+    assert c["counts"]["all-reduce"] == len(pls) - on_data + 1 + 2
+    assert c["counts"]["all-gather"] >= sharded
+
+
+def _jax_step_flops(remat: bool) -> float:
+    """hlo_analysis.analyze's FLOPs of the JAX train step on one CPU
+    device, qwen3-32b smoke, 4 x 64 tokens."""
+    from repro.train import optimizer as JOPT
+    jcfg = jregistry.get_config("qwen3-32b", smoke=True)
+    pspecs = jregistry.param_specs(jcfg)
+    ospecs = jax.eval_shape(JOPT.init, pspecs)
+    bspecs = {k: jax.ShapeDtypeStruct((4, 64), jnp.int32)
+              for k in ("tokens", "labels")}
+    text = jax.jit(JST.make_train_step(jcfg, remat=remat)).lower(
+        pspecs, ospecs, bspecs).compile().as_text()
+    return HA.analyze(text, total_devices=1, multi_pod=False)["flops"]
+
+
+def test_per_device_flops_at_1x1_match_the_jax_step(no_group):
+    """The port's matmul FLOPs on (1, 1) against the HLO analyzer's count
+    of the JAX train step compiled on one CPU device.  Without remat
+    within 5% (the gap: the port's chunked cross-entropy recomputes its
+    unembed chunk in the backward, 2·T·D·V).  With remat (both steps'
+    default) the port's count exceeds JAX's by that and by at most each
+    layer's o and down projections: torch.utils.checkpoint recomputes a
+    layer whole, where XLA drops recomputed products whose outputs feed
+    no gradient."""
+    cfg = registry.get_config("qwen3-32b", smoke=True)
+    T, D, V = 4 * 64, cfg.d_model, cfg.vocab_size
+    unembed = 2 * T * D * V
+    last = cfg.num_layers * 2 * T * (
+        cfg.num_heads * cfg.head_dim * D + cfg.d_ff * D)
+    plain = _smoke_cell((1, 1), remat=False)["hlo_flops_per_device"]
+    want = _jax_step_flops(remat=False)
+    assert abs(plain - want) <= 0.05 * want and plain - want == unembed
+    got = _smoke_cell((1, 1))["hlo_flops_per_device"]
+    assert 0 < got - _jax_step_flops(remat=True) - unembed <= last
+
+
+def test_failed_and_skipped_cells(no_group):
+    """A cell whose step cannot run is status "error" with the exception
+    (vilbert has no prefill, in JAX either); a cell the registry skips is
+    "skipped" with its reason."""
+    r = D.run_cell("vilbert-base", "prefill_32k", verbose=False,
+                   cfg=registry.get_config("vilbert-base", smoke=True),
+                   shape=ShapeConfig("prefill_32k", 64, 2, "prefill"),
+                   mesh_shape=(1, 1))
+    assert r["status"] == "error" and "prefill" in r["error"]
+    r = D.run_cell("qwen3-32b", "long_500k", verbose=False)
+    assert r["status"] == "skipped"
+    assert r["reason"] == jregistry.cell_supported("qwen3-32b", "long_500k")
+
+
+def test_fake_world_refuses_a_second_group(no_group):
+    with D.fake_world(4):
+        with pytest.raises(RuntimeError, match="own process"):
+            with D.fake_world(4):
+                pass
+
+
+def test_collective_traffic_reproduces_the_hlo_analyzer():
+    """tests/test_hlo_analysis.py:104-119: an all-reduce over groups of 4
+    and an all-gather over groups of 2 of a (16, 16) f32 tensor."""
+    hlo = """
+HloModule m, entry_computation_layout={()->f32[]}
+
+ENTRY %main (p: f32[16,16]) -> f32[16,16] {
+  %p = f32[16,16]{1,0} parameter(0)
+  %ar = f32[16,16]{1,0} all-reduce(%p), replica_groups=[2,4]<=[8], use_global_device_ids=true, to_apply=%add
+  ROOT %ag = f32[16,16]{1,0} all-gather(%ar), replica_groups=[4,2]<=[8], dimensions={0}
+}
+"""
+    size = 16 * 16 * 4
+    want = HA.analyze(hlo, total_devices=8, multi_pod=False)["ici"]
+    got = (OA.collective_traffic("all-reduce", size, 4)
+           + OA.collective_traffic("all-gather", size, 2))
+    assert got == want == 2 * size * 3 / 4 + size / 2
+    for kind in ("reduce-scatter", "all-to-all", "collective-permute"):
+        assert OA.collective_traffic(kind, size, 4) == {
+            "reduce-scatter": size * 3, "all-to-all": size * 3 / 4,
+            "collective-permute": size}[kind]
+
+
+def test_cost_analysis_cycles_equals_jax():
+    """A chain of matmuls: 5,242,880 FLOPs, 15 cycles of streamdcim-base,
+    as the JAX package's XLA cost analysis gives."""
+    shapes = ((64, 128), (128, 256), (256, 32))
+    rng = np.random.default_rng(0)
+    arrays = [rng.standard_normal(s).astype(np.float32) for s in shapes]
+    got = cost_analysis_cycles(lambda a, b, c: (a @ b) @ c,
+                               *map(torch.from_numpy, arrays))
+    want = jreplay.cost_analysis_cycles(lambda a, b, c: (a @ b) @ c,
+                                        *map(jnp.asarray, arrays))
+    assert got == want == (15, 5242880)
+
+
+def test_cli_writes_an_ok_artifact(tmp_path):
+    """One cell through the CLI, in its own process, at depth 1."""
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "whisper-base", "--shape", "decode_32k", "--depth", "1", "--out",
+         str(tmp_path)], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=240)
+    assert res.returncode == 0, res.stdout + res.stderr
+    r = json.loads((tmp_path / "whisper-base__decode_32k__16x16.json")
+                   .read_text())
+    assert r["status"] == "ok" and r["depths"] == {"enc": 1, "dec": 1}
+    assert "[16x16" in res.stdout

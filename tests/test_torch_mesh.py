@@ -1,0 +1,440 @@
+"""The port's mesh paths on ``torch.distributed`` against the JAX package
+and the single-device path on the CPU (gloo): worlds of 4 and 2 ranks
+started by ``torchrun --standalone`` (each rank a process, the
+rendezvous on a free local port), and the one-rank host mesh in this
+process.
+
+* ``cross_pod_mean_int8`` on a (2, 2, 1) (pod, data, model) mesh equals a
+  numpy version of the JAX arithmetic bitwise, and the traffic that
+  ``launch.op_analysis`` counts is below half of an f32 ring all-reduce of
+  the same tree (tests/test_compression_lowering.py:51-57);
+* ``gather_matmul_overlapped`` on a 4-rank 'model' axis equals ``x @ w``
+  within 1e-4, over point-to-point sends and no all-gather
+  (tests/test_pipeline.py:20-26);
+* the Engine on starcoder2-7b and qwen2-vl-2b smoke (JAX weights through
+  ``convert``): the (1, 1) mesh and every rank of a 2-rank world give the
+  JAX Engine's tokens (tests/test_shard.py:266);
+* ``train`` on qwen3-32b smoke for 3 steps on the (1, 1) mesh and on a
+  (2, 2) world at fsdp_threshold=0 matches the single-device run within
+  2e-5 (tests/test_system.py:55-60), and the (1, 1) run from the JAX
+  loop's initial weights matches the JAX package's loop within 2e-5; the
+  launcher trains under torchrun;
+* a checkpoint saved on the (2, 2) world restores bitwise on one process
+  and on a (2, 1) world (tests/test_system.py:63-76).
+"""
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import numpy as np
+import pytest
+import torch
+import torch.distributed as dist
+
+from repro.configs import registry as jregistry
+from repro.core.types import ShapeConfig as JShape
+from repro.serve.engine import Engine as JEngine, Request as JRequest
+from repro_torch.configs import registry
+from repro_torch.convert import transformer_from_jax
+from repro_torch.core.types import ShapeConfig
+from repro_torch.data.pipeline import SyntheticLM
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.serve.engine import Engine, Request
+from repro_torch.train import loop as L
+from repro_torch.train import optimizer as OPT
+from repro_torch.train.checkpoint import Checkpointer
+
+ROOT = Path(__file__).resolve().parents[1]
+SERVE_ARCHS = ["starcoder2-7b", "qwen2-vl-2b"]
+REQUESTS = [(8, 4, 0), (12, 3, 1)]           # prompt length, new, arrival
+SHAPE = ShapeConfig("sys", seq_len=64, global_batch=4, kind="train")
+STEPS = 3
+
+COMMON = textwrap.dedent("""
+    import json, sys
+    import numpy as np, torch, torch.distributed as dist
+    from repro_torch.configs import registry
+    from repro_torch.core.types import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import loop as L, optimizer as OPT
+    dist.init_process_group("gloo")
+    rank, out = dist.get_rank(), sys.argv[1]
+    SHAPE = ShapeConfig("sys", seq_len=64, global_batch=4, kind="train")
+    cfg = registry.get_config("qwen3-32b", smoke=True)
+
+    def tcfg(ckpt=None):
+        return L.TrainConfig(steps=3, log_every=1, checkpoint_every=3,
+                             checkpoint_dir=ckpt,
+                             opt=OPT.OptimizerConfig(learning_rate=1e-3,
+                                                     warmup_steps=5,
+                                                     decay_steps=200))
+
+    def dump(name, obj):
+        with open(f"{out}/{name}_{rank}.json", "w") as f:
+            json.dump(obj, f)
+""")
+
+WORLD4 = COMMON + textwrap.dedent("""
+    from repro_torch.core.pipeline import gather_matmul_overlapped
+    from repro_torch.distributed.compression import cross_pod_mean_int8
+    from repro_torch.launch.op_analysis import analyze
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), "cpu")
+    pod = mesh.get_coordinate()[0]
+    g = np.load(f"{out}/grads.npz")
+    grads = {k: torch.from_numpy(g[f"{k}{pod}"]) for k in ("w", "b")}
+    mean, counts = analyze(cross_pod_mean_int8, grads, mesh, multi_pod=True)
+    np.savez(f"{out}/mean_{rank}.npz", **{k: v.numpy() for k, v in
+                                          mean.items()})
+    dump("compress", counts)
+    m4 = make_mesh((4,), ("model",), "cpu")
+    x = torch.from_numpy(g["x"])
+    w = torch.from_numpy(g["wm"])
+    ring, counts = analyze(gather_matmul_overlapped,
+                           x[rank * 16:(rank + 1) * 16], w, m4)
+    np.save(f"{out}/ring_{rank}.npy", ring.numpy())
+    dump("ring", counts)
+    m22 = make_mesh((2, 2), ("data", "model"), "cpu")
+    res = L.train(cfg, SHAPE, SyntheticLM(cfg, SHAPE, seed=0),
+                  tcfg(f"{out}/ckpt"), device="cpu", mesh=m22,
+                  fsdp_threshold=0)
+    dump("train", {"loss": [m["loss"] for m in res["metrics"]],
+                   "local": {k: list(p.to_local().shape)
+                             for k, p in res["params"].items()}})
+    if rank == 0:
+        np.savez(f"{out}/params22.npz", **{
+            k: p.detach().numpy() for k, p in res["model"].named_parameters()})
+""")
+
+WORLD2 = COMMON + textwrap.dedent("""
+    from repro_torch.convert import transformer_from_jax
+    from repro_torch.launch import train as launcher
+    from repro_torch.serve.engine import Engine, Request
+    from repro_torch.train.checkpoint import Checkpointer
+    from repro_torch.train.steps import MeshTrainStep
+    mesh = make_mesh((2, 1), ("data", "model"), "cpu")
+    tokens = {}
+    for arch in %(archs)r:
+        c = registry.get_config(arch, smoke=True)
+        w = dict(np.load(f"{out}/{arch}.npz"))
+        tree = {}
+        for k, v in w.items():
+            node = tree
+            *heads, last = k.split("/")
+            for h in heads:
+                node = node.setdefault(h, {})
+            node[last] = v
+        model = transformer_from_jax(tree, c, device="cpu")
+        eng = Engine(c, model, slots=2, max_len=48, mesh=mesh)
+        for rid, (plen, new, arr) in enumerate(%(reqs)r):
+            eng.submit(Request(rid=rid, prompt=np.arange(1, plen + 1,
+                                                         dtype=np.int32),
+                               max_new_tokens=new, arrival_step=arr))
+        tokens[arch] = {str(r.rid): list(r.out_tokens) for r in eng.run()}
+    dump("tokens", tokens)
+    model = L.build_model(cfg, torch.device("cpu"), 1)
+    step = MeshTrainStep(cfg, model, mesh, fsdp_threshold=0)
+    ck = Checkpointer(f"{out}/ckpt")
+    ck.restore(3, {"params": step.params})
+    step.gather()
+    if rank == 0:
+        np.savez(f"{out}/restored21.npz", **{
+            k: p.detach().numpy() for k, p in model.named_parameters()})
+    res = launcher.main(["--arch", "qwen3-32b", "--smoke", "--steps", "2",
+                         "--seq-len", "16", "--global-batch", "2",
+                         "--layers", "1", "--device", "cpu"])
+    dump("launcher", [m["loss"] for m in res["metrics"]])
+""") % {"archs": SERVE_ARCHS, "reqs": REQUESTS}
+
+
+def _torchrun(n: int, script: str, out: Path) -> None:
+    path = out / f"world{n}.py"
+    path.write_text(script)
+    env = {k: v for k, v in os.environ.items() if k != "JAX_PLATFORMS"}
+    env["PYTHONPATH"] = str(ROOT / "src")
+    res = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         f"--nproc_per_node={n}", str(path), str(out)],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, (res.stdout + res.stderr)[-3000:]
+
+
+def _load(out: Path, name: str, n: int) -> list:
+    return [json.loads((out / f"{name}_{r}.json").read_text())
+            for r in range(n)]
+
+
+def _flat(tree, prefix=""):
+    out = {}
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, dict):
+            out.update(_flat(v, path))
+        else:
+            out[path] = np.asarray(v)
+    return out
+
+
+def _requests(cls):
+    return [cls(rid=rid, prompt=np.arange(1, plen + 1, dtype=np.int32),
+                max_new_tokens=new, arrival_step=arr)
+            for rid, (plen, new, arr) in enumerate(REQUESTS)]
+
+
+def _tokens(eng, cls):
+    for r in _requests(cls):
+        eng.submit(r)
+    return {r.rid: list(r.out_tokens) for r in eng.run()}
+
+
+def _train(mesh=None, **kw):
+    cfg = registry.get_config("qwen3-32b", smoke=True)
+    tcfg = L.TrainConfig(steps=STEPS, log_every=1,
+                         opt=OPT.OptimizerConfig(learning_rate=1e-3,
+                                                 warmup_steps=5,
+                                                 decay_steps=200))
+    return L.train(cfg, SHAPE, SyntheticLM(cfg, SHAPE, seed=0), tcfg,
+                   device="cpu", mesh=mesh, **kw)
+
+
+def _jax_loop():
+    """The JAX package's loop (repro/train/loop.py) on its host mesh, on
+    the config, source, seed and optimizer of ``_train``: its initial
+    weights, losses and final weights as numpy trees."""
+    from repro.data.pipeline import SyntheticLM as JSyntheticLM
+    from repro.launch.mesh import make_host_mesh as jmesh
+    from repro.train import loop as JL
+    from repro.train import optimizer as JOPT
+    jcfg = jregistry.get_config("qwen3-32b", smoke=True)
+    jshape = JShape("sys", seq_len=64, global_batch=4, kind="train")
+    tcfg = JL.TrainConfig(steps=STEPS, log_every=1,
+                          opt=JOPT.OptimizerConfig(learning_rate=1e-3,
+                                                   warmup_steps=5,
+                                                   decay_steps=200))
+    init = jregistry.model_module(jcfg).init(jax.random.PRNGKey(tcfg.seed),
+                                             jcfg)
+    res = JL.train(jcfg, jshape, JSyntheticLM(jcfg, jshape, seed=0),
+                   jmesh(), tcfg)
+    return {"init": jax.tree.map(np.asarray, init),
+            "losses": [m["loss"] for m in res["metrics"]],
+            "params": jax.tree.map(np.asarray, res["params"])}
+
+
+@pytest.fixture(scope="module")
+def worlds(tmp_path_factory):
+    """Inputs made here (the JAX weights and Engine tokens, the gradients
+    per pod), the 4- and 2-rank worlds run, and the one-rank host mesh in
+    this process (its group destroyed at the end)."""
+    out = tmp_path_factory.mktemp("worlds")
+    rng = np.random.default_rng(0)
+    np.savez(out / "grads.npz",
+             **{f"w{p}": rng.standard_normal((256, 256)).astype(np.float32)
+                * 0.02 for p in (0, 1)},
+             **{f"b{p}": rng.standard_normal(1024).astype(np.float32)
+                for p in (0, 1)},
+             x=rng.standard_normal((64, 32)).astype(np.float32),
+             wm=(rng.standard_normal((32, 48)) * 0.1).astype(np.float32))
+    jtokens, weights = {}, {}
+    for arch in SERVE_ARCHS:
+        cfg = jregistry.get_config(arch, smoke=True)
+        params = jregistry.model_module(cfg).init(jax.random.PRNGKey(0), cfg)
+        weights[arch] = jax.tree.map(np.asarray, params)
+        np.savez(out / f"{arch}.npz", **_flat(weights[arch]))
+        jtokens[arch] = _tokens(JEngine(cfg, params, slots=2, max_len=48),
+                                JRequest)
+    _torchrun(4, WORLD4, out)
+    _torchrun(2, WORLD2, out)
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    mesh = make_host_mesh("cpu")
+    local = {"tokens": {}}
+    for arch in SERVE_ARCHS:
+        model = transformer_from_jax(weights[arch],
+                                     registry.get_config(arch, smoke=True),
+                                     device="cpu")
+        cfg = registry.get_config(arch, smoke=True)
+        local["tokens"][arch] = {
+            m: _tokens(Engine(cfg, model, slots=2, max_len=48, mesh=mm),
+                       Request)
+            for m, mm in (("none", None), ("mesh", mesh))}
+    local["single"] = _train()
+    local["mesh11"] = _train(mesh)
+    local["jax_loop"] = _jax_loop()
+    with pytest.MonkeyPatch.context() as mp:
+        # the JAX loop's initial weights, carried across by convert
+        mp.setattr(L, "build_model", lambda cfg, device, seed:
+                   transformer_from_jax(local["jax_loop"]["init"], cfg,
+                                        device=device).requires_grad_(True))
+        local["mesh11_jax_init"] = _train(mesh)
+    from torch.distributed.tensor import DTensor, Replicate
+    from repro_torch.core import runtime
+    from repro_torch.distributed.hints import constrain
+    x = DTensor.from_local(torch.ones(4, 6, 8), mesh, (Replicate(),) * 2)
+    with runtime.flags(sharding_hints={"embed_out": (mesh, (("data",), None,
+                                                            "model"))}):
+        local["hinted"] = constrain(x, "embed_out").placements
+    ck = Checkpointer(str(out / "ckpt"))
+    model = L.build_model(registry.get_config("qwen3-32b", smoke=True),
+                          torch.device("cpu"), 1)
+    params = dict(model.named_parameters())
+    ck.restore(3, {"params": params})
+    local["restored1"] = {k: p.detach().numpy() for k, p in params.items()}
+    dist.destroy_process_group()
+    yield out, jtokens, local
+
+
+def _ring_mean(g: np.ndarray, others: list) -> np.ndarray:
+    """The JAX arithmetic (compression.py:25-63) in numpy f32: quantize
+    each pod's tensor, sum the dequantized payloads own first, then the
+    ring's, and divide by the pods."""
+    def quant(x):
+        scale = np.float32(np.abs(x).max()) / np.float32(127.0) \
+            + np.float32(1e-12)
+        q = np.clip(np.round(x / scale), -127, 127).astype(np.int8)
+        return q, np.float32(scale)
+
+    def deq(q, s):
+        return q.astype(np.float32) * s
+    total = deq(*quant(g))
+    for o in others:
+        total = total + deq(*quant(o))
+    return (total / np.float32(1 + len(others))).astype(np.float32)
+
+
+def test_cross_pod_mean_int8_equals_numpy_and_halves_traffic(worlds):
+    out, _, _ = worlds
+    g = np.load(out / "grads.npz")
+    for rank in range(4):
+        pod = rank // 2
+        got = np.load(out / f"mean_{rank}.npz")
+        for k in ("w", "b"):
+            want = _ring_mean(g[f"{k}{pod}"], [g[f"{k}{1 - pod}"]])
+            np.testing.assert_array_equal(got[k], want)
+    full = (256 * 256 + 1024) * 4
+    f32_ring = 2 * full * (2 - 1) / 2
+    for c in _load(out, "compress", 4):
+        assert c["counts"] == {"collective-permute": 4}
+        assert c["ici"] + c["dcn"] < 0.5 * f32_ring
+        assert c["dcn"] > 0                 # the pods' ring crosses pods
+
+
+def test_ring_matmul_equals_matmul_over_p2p(worlds):
+    out, _, _ = worlds
+    g = np.load(out / "grads.npz")
+    want = g["x"] @ g["wm"]
+    for rank, c in enumerate(_load(out, "ring", 4)):
+        np.testing.assert_allclose(np.load(out / f"ring_{rank}.npy"), want,
+                                   atol=1e-4, rtol=1e-4)
+        assert c["counts"] == {"collective-permute": 3}
+        assert "all-gather" not in c["counts"]
+
+
+@pytest.mark.parametrize("arch", SERVE_ARCHS)
+def test_engine_on_meshes_gives_the_jax_tokens(worlds, arch):
+    out, jtokens, local = worlds
+    want = jtokens[arch]
+    assert local["tokens"][arch]["none"] == want
+    assert local["tokens"][arch]["mesh"] == want
+    for ranked in _load(out, "tokens", 2):
+        assert {int(k): v for k, v in ranked[arch].items()} == want
+
+
+def _close(a, b, tol=2e-5):
+    np.testing.assert_allclose(np.asarray(a), np.asarray(b), atol=tol,
+                               rtol=tol)
+
+
+def test_train_on_meshes_matches_single_device(worlds):
+    out, _, local = worlds
+    single = local["single"]
+    want = {k: p.detach().numpy()
+            for k, p in single["model"].named_parameters()}
+    losses = [m["loss"] for m in single["metrics"]]
+    for m in ("mesh11",):
+        got = local[m]
+        _close([x["loss"] for x in got["metrics"]], losses)
+        for k, p in got["model"].named_parameters():
+            _close(p.detach().numpy(), want[k])
+    p22 = np.load(out / "params22.npz")
+    for k, v in want.items():
+        _close(p22[k], v)
+    for r in _load(out, "train", 4):
+        _close(r["loss"], losses)
+    # fsdp_threshold=0 on (2, 2): the embedding splits over both axes
+    shapes = _load(out, "train", 4)[0]["local"]
+    full = want["embed.embedding"].shape
+    assert tuple(shapes["embed.embedding"]) == (full[0] // 2, full[1] // 2)
+
+
+def test_train_on_the_host_mesh_matches_the_jax_loop(worlds):
+    """train(mesh=(1, 1)) from the JAX loop's initial weights (through
+    convert) against the JAX package's loop on its host mesh, 3 steps of
+    the same config, source and optimizer: losses and final parameters
+    within 2e-5 (tests/test_system.py:55-60)."""
+    _, _, local = worlds
+    jloop, got = local["jax_loop"], local["mesh11_jax_init"]
+    _close([m["loss"] for m in got["metrics"]], jloop["losses"])
+    cfg = registry.get_config("qwen3-32b", smoke=True)
+    want = dict(transformer_from_jax(jloop["params"], cfg, device="cpu")
+                .named_parameters())
+    for k, p in got["model"].named_parameters():
+        _close(p.detach().numpy(), want[k].detach().numpy())
+
+
+def test_checkpoint_restores_bitwise_on_one_process_and_on_2x1(worlds):
+    out, _, local = worlds
+    saved = np.load(out / "params22.npz")
+    restored21 = np.load(out / "restored21.npz")
+    for k in saved.files:
+        np.testing.assert_array_equal(local["restored1"][k], saved[k])
+        np.testing.assert_array_equal(restored21[k], saved[k])
+    manifests = sorted(p.name for p in (out / "ckpt" / "step_00000003")
+                       .iterdir() if p.name.startswith("manifest_"))
+    assert manifests == [f"manifest_{r:05d}.json" for r in range(4)]
+
+
+def test_hints_redistribute_a_dtensor(worlds):
+    """hints.constrain with a table: a DTensor takes the hinted placements
+    (rows over 'data', the last dim over 'model'); the divisibility test
+    that leaves a shape the axes do not divide as it is (hints.py:30-38)
+    at production sizes."""
+    from torch.distributed.tensor import Shard
+    from repro_torch.distributed import sharding as SH
+    _, _, local = worlds
+    assert local["hinted"] == (Shard(0), Shard(2))
+    prod = SH._SimulatedMesh({"data": 16, "model": 16})
+    assert SH.spec_divides((("data",), None, "model"), (32, 6, 64), prod)
+    assert not SH.spec_divides((("data",), None, "model"), (3, 6, 64), prod)
+
+
+def test_launcher_trains_under_torchrun(worlds):
+    out, _, _ = worlds
+    losses = _load(out, "launcher", 2)
+    assert losses[0] == losses[1] and len(losses[0]) == 2
+    assert all(np.isfinite(losses[0]))
+
+
+def test_vlm_microbatches_split_positions_on_their_batch_dim():
+    """A repair: microbatches of a VLM batch slice the positions (3, B, S)
+    on dim 1, as steps.py:35-41 split them; the step equals the whole
+    batch's within f32 summation order."""
+    from repro_torch.train import steps as ST
+    cfg = registry.get_config("qwen2-vl-2b", smoke=True)
+    shape = ShapeConfig("mb", 16, 4, "train")
+    batch = L.to_device(SyntheticLM(cfg, shape, seed=0).batch(0), cfg,
+                        torch.device("cpu"))
+    assert batch["positions"].shape == (3, 4, 16)
+    grads = []
+    for mb in (1, 2):
+        model = L.build_model(cfg, torch.device("cpu"), 0)
+        params = {k: p for k, p in model.named_parameters()}
+        loss, g = ST.make_loss_and_grads(cfg, microbatches=mb)(
+            model, params, batch)
+        grads.append((float(loss), g))
+    assert abs(grads[0][0] - grads[1][0]) < 2e-5
+    for a, b in zip(grads[0][1], grads[1][1]):
+        _close(a.float().numpy(), b.float().numpy(), 1e-4)

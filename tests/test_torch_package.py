@@ -146,7 +146,7 @@ def test_serving_obs_and_examples_import_no_jax_and_no_repro():
     pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
                          r"from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
     files = sorted(ROOT.glob("examples/torch_*.py"))
-    assert len(files) == 3
+    assert len(files) == 4          # and torch_train_lm.py (multi-GPU)
     assert not [str(f) for f in files if pattern.search(f.read_text())]
 
 
@@ -199,3 +199,36 @@ def test_ssd_scan_under_grad_records_its_backward():
     assert type(y.grad_fn).__name__ == "SSDScanFnBackward"
     with torch.no_grad():
         assert call()[0].grad_fn is None
+
+
+def test_multi_gpu_modules_import_no_jax_no_repro_and_no_fake_tools():
+    """The distributed layer, the mesh builders, the dry run and its op
+    counter, the ring matmul, shard.serve and the training example import
+    neither JAX nor the JAX package, and load neither the fake process
+    group's store nor MemTracker (the dry run imports them in a cell)."""
+    code = (
+        "import importlib.util, sys\n"
+        "import repro_torch\n"
+        "import repro_torch.distributed.sharding\n"
+        "import repro_torch.distributed.hints\n"
+        "import repro_torch.distributed.compression\n"
+        "import repro_torch.launch.mesh, repro_torch.launch.dryrun\n"
+        "import repro_torch.launch.op_analysis, repro_torch.core.pipeline\n"
+        "import repro_torch.shard.serve, repro_torch.train.steps\n"
+        "spec = importlib.util.spec_from_file_location(\n"
+        "    'train_lm', 'examples/torch_train_lm.py')\n"
+        "spec.loader.exec_module(importlib.util.module_from_spec(spec))\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in "
+        "('jax', 'jaxlib', 'repro')]\n"
+        "tools = [m for m in sys.modules if m in ("
+        "'torch.testing._internal.distributed.fake_pg', "
+        "'torch.distributed._tools.mem_tracker')]\n"
+        "print('BAD', bad, 'TOOLS', tools)\n"
+        "assert not bad and not tools, (bad, tools)\n")
+    res = _python("-c", code)
+    assert res.returncode == 0, res.stdout + res.stderr
+    assert "BAD [] TOOLS []" in res.stdout
+    pattern = re.compile(r"^\s*(import\s+(jax|repro)\b(?!_torch)|"
+                         r"from\s+(jax|repro)(\.|\s)(?!_torch))", re.M)
+    assert not pattern.search((ROOT / "examples" / "torch_train_lm.py")
+                              .read_text())

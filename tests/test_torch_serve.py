@@ -363,7 +363,9 @@ def test_engine_refuses_what_is_not_ported():
                      jT.init(jax.random.PRNGKey(0),
                              jregistry.get_config("qwen3-32b", smoke=True))),
         cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # serving on a mesh is ported (tests/test_torch_mesh.py); a mesh that
+    # is not a DeviceMesh of the model's device is refused
+    with pytest.raises(ValueError, match="not a DeviceMesh of cpu"):
         Engine(cfg, model, mesh=object())
     with pytest.raises(NotImplementedError):
         Engine(get_config("vilbert-base", smoke=True), model)

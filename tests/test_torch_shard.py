@@ -1,8 +1,8 @@
 """The port's chiplet-mesh scale-out (``repro_torch.shard``: ``noc``,
 ``partition``, ``sim``, ``sweep``, the CLI; copies of the JAX package's)
 against the JAX one on the CPU, on the cases of ``tests/test_shard.py``
-but its two mesh-serving tests (multi-card serving is not ported; the
-port's ``shard.serve`` raises): the sharded plans, their simulation and
+but its two mesh-serving tests (tests/test_torch_mesh.py holds mesh
+serving on gloo meshes): the sharded plans, their simulation and
 sweep equal JAX's by ``to_dict`` and field by field, the checks raise as
 JAX's do, ``obs.timeline_from_sharded`` equals JAX's event for event, and
 ``python -m repro_torch.shard --json`` writes JAX's artifact."""
@@ -339,8 +339,19 @@ def test_cli_writes_jax_artifact(tmp_path, capsys):
 
 
 def test_mesh_serving_raises_citing_item_13():
+    """Mesh serving is ported (the name is from when both functions raised,
+    citing ROADMAP item 13): replicated, each rank's prefill is the
+    model's own, and its decode step is ``model.decode_step``
+    (tests/test_torch_mesh.py serves with the Engine, which replicates
+    the model and then makes the same two calls, on gloo meshes)."""
+    import numpy as np
+    import torch
+    from repro_torch.models.transformer import Transformer
     from repro_torch.shard import mesh_decode_fn, mesh_prefill
-    with pytest.raises(NotImplementedError, match="item 13"):
-        mesh_prefill(None, None, None, {}, mesh=None, max_len=8)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        mesh_decode_fn(None, None, None)
+    cfg = registry.get_config("qwen2-vl-2b", smoke=True)
+    model = Transformer(cfg, device="cpu")
+    batch = {"tokens": torch.from_numpy(np.arange(1, 17)[None, :])}
+    got, cache = mesh_prefill(model, batch, mesh=None, max_len=32, plan=None)
+    want, _ = model.prefill(batch, max_len=32)
+    assert torch.equal(got, want) and cache["len"] == 16
+    assert mesh_decode_fn(model, None) == model.decode_step

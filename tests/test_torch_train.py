@@ -86,6 +86,38 @@ def test_optimizer_apply_matches_jax(warmup):
     assert ts.step == int(js.step) == 3
 
 
+def test_optimizer_decays_a_stacked_layers_vectors_as_jax():
+    """A repair: JAX decays by the ndim of its stacked leaf, so a layer's
+    norm weight (L, D) in a stack is decayed while the final norm (D,) is
+    not; the port's per-layer (D,) tensor follows the stacked leaf
+    (1e-6 after three steps)."""
+    rng = np.random.default_rng(3)
+    w = rng.standard_normal((2, 8)).astype(np.float32) + 1.0
+    f = rng.standard_normal(8).astype(np.float32) + 1.0
+    gs = [(rng.standard_normal((2, 8)).astype(np.float32) * 0.1,
+           rng.standard_normal(8).astype(np.float32) * 0.1) for _ in range(3)]
+    cfg = dict(learning_rate=1e-2, warmup_steps=0, weight_decay=0.5)
+    jp = {"layers": {"ln1": {"weight": jnp.asarray(w)}},
+          "final_norm": {"weight": jnp.asarray(f)}}
+    js = JOPT.init(jp)
+    names = ("layers.0.ln1.weight", "layers.1.ln1.weight",
+             "final_norm.weight")
+    tp = dict(zip(names, (torch.from_numpy(w[0].copy()),
+                          torch.from_numpy(w[1].copy()),
+                          torch.from_numpy(f.copy()))))
+    ts = OPT.init(tp)
+    for gw, gf in gs:
+        jp, js, _ = JOPT.apply(JOPT.OptimizerConfig(**cfg), jp, {
+            "layers": {"ln1": {"weight": jnp.asarray(gw)}},
+            "final_norm": {"weight": jnp.asarray(gf)}}, js)
+        tp, ts, _ = OPT.apply(OPT.OptimizerConfig(**cfg), tp, dict(zip(
+            names, (torch.from_numpy(gw[0]), torch.from_numpy(gw[1]),
+                    torch.from_numpy(gf)))), ts)
+    for i in (0, 1):
+        _close(tp[names[i]], jp["layers"]["ln1"]["weight"][i], 1e-6)
+    _close(tp["final_norm.weight"], jp["final_norm"]["weight"], 1e-6)
+
+
 @pytest.mark.parametrize("step", [0, 1, 50, 99, 100, 5000, 10_000, 20_000])
 def test_lr_schedule_matches_jax(step):
     cfg = dict(warmup_steps=100, decay_steps=10_000)
@@ -321,10 +353,14 @@ def test_launcher_trains_on_the_cpu_when_asked(capsys):
 
 
 def test_train_refuses_a_mesh():
+    """Training on a mesh is ported (tests/test_torch_mesh.py); a mesh that
+    is not a DeviceMesh of the run's device is refused."""
+    import types
     cfg = registry.get_config("qwen3-32b", smoke=True)
-    with pytest.raises(NotImplementedError, match="item 13"):
-        L.train(cfg, SHAPE, SyntheticLM(cfg, SHAPE), L.TrainConfig(steps=1),
-                device="cpu", mesh=object())
+    for mesh in (object(), types.SimpleNamespace(device_type="cuda")):
+        with pytest.raises(ValueError, match="not a DeviceMesh of cpu"):
+            L.train(cfg, SHAPE, SyntheticLM(cfg, SHAPE),
+                    L.TrainConfig(steps=1), device="cpu", mesh=mesh)
 
 
 @pytest.mark.parametrize("arch", ["whisper-base", "qwen2-vl-2b"])
