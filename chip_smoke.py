@@ -220,23 +220,36 @@ caught:
      hd 120 with whole kv tiles outside the window, and the tc flash
      backward at qwen3-32b's heads at 4096, 8192 and 16384 keys on four
      draws of their own);
- 23. multi-GPU on torch.distributed (phase 23, ~70 s): (a) on the
+ 23. multi-GPU on torch.distributed (phase 23, ~85 s): (a) on the
      one-rank NCCL host mesh (launch.mesh.make_host_mesh), starcoder2-7b
      and qwen2-vl-2b at full width and depth served by Engine(mesh=...)
      against Engine(mesh=None), both per-slot (tokens, kernel launches and
      routes equal), three qwen3-32b train steps at 4 layers (1 x 4096)
-     through loop.train(mesh=...) against mesh=None (losses and every
-     parameter bitwise equal, launches equal), cross_pod_mean_int8 at one
-     pod (the gradients as they are; the quantizer on the card bitwise
-     equal to the CPU's) and gather_matmul_overlapped at world 1 (one
-     tile_gemm launch, bitwise equal to tile_gemm); (c)
-     cost_analysis_cycles of a recorded tile_gemm beside its recorded
-     time; (b) the dry run (launch.dryrun) of one cell per family but the
-     crossmodal one on a fake 256-rank (16, 16) world and one on a fake
-     512-rank (2, 16, 16) world, each in its own process, started before
-     (a): status ok, the JSON round-trips, cross-pod traffic on two pods,
-     and per-device FLOPs, bytes, memory, collective traffic and roofline
-     (on the H100's datasheet rates) printed;
+     through loop.train(mesh=...), the sharded step, against mesh=None
+     (losses and every parameter bitwise equal, launches equal),
+     cross_pod_mean_int8 at one pod (the gradients as they are; the
+     quantizer on the card bitwise equal to the CPU's) and
+     gather_matmul_overlapped at world 1 (one tile_gemm launch, bitwise
+     equal to tile_gemm); (b) each of the 16 'model' ranks of the
+     production mesh in turn on the card (distributed.parallel.rank_view),
+     one layer's attention and MLP forward and backward on the rank's
+     blocks through the kernels, qwen3-32b at 4096 tokens and
+     h2o-danube3-4b at 8192, f32 and bf16, LAYER_STREAM and TILE_STREAM
+     (the planner's rule forced): every rank's launches exact, the ranks'
+     sums against the whole layer (f32 within 1e-4; bf16 no farther from
+     the f32 numbers than twice the whole is), in bf16 one rank's device
+     ms against the whole's over 16; (d) cost_analysis_cycles of a recorded
+     tile_gemm beside its recorded time; (c) the dry run (launch.dryrun)
+     of one cell per family but the crossmodal one on a fake 256-rank
+     (16, 16) world, qwen3-32b's train_4k there at full depth (one
+     microbatch), and one cell on a fake 512-rank (2, 16, 16) world, each
+     in its own process, started before (a): status ok, the JSON
+     round-trips, no train cell a gathered step, cross-pod traffic on two
+     pods, the qwen3-32b train cell sharded (nothing replicated over
+     'model', reduce-scatters, FLOPs a device within 2.5x the model's,
+     arguments within 1% of the rule table's blocks), and per-device
+     FLOPs, bytes, memory, collective traffic and roofline (on the H100's
+     datasheet rates) printed;
  then one JSON line of per-kernel numbers, with the routes of
  tile_gemm, flash attention, decode attention, the SSD scan and the
  backward kernels
@@ -5159,15 +5172,24 @@ MESH_TRAIN = ("qwen3-32b", {"num_layers": 4}, 1, 4096, 3)
 # full depth with the CLI's defaults.  The crossmodal family (vilbert-base,
 # whose only cell is train_4k) is left out: its trace takes ~65 s of host
 # time, more than this phase's share.
+# qwen3-32b's train_4k cell, the production mesh's training arch, runs at
+# full depth with one microbatch: the automatic count (16) traces every
+# layer 16 times, ~16x the trace time, for the same FLOPs a device.
 DRYRUN_CELLS = (("starcoder2-7b", "decode_32k", False),
                 ("deepseek-v3-671b", "decode_32k", False),
                 ("qwen2-vl-2b", "train_4k", False),
                 ("mamba2-780m", "long_500k", False),
                 ("hymba-1.5b", "decode_32k", False),
                 ("whisper-base", "decode_32k", False),
-                ("whisper-base", "train_4k", True))
+                ("whisper-base", "train_4k", True),
+                ("qwen3-32b", "train_4k", False))
+DRYRUN_MICROBATCHES = {("qwen3-32b", "train_4k"): 1}
 DRYRUN_LEFT_OUT = "crossmodal (vilbert-base train_4k)"
-DRYRUN_TIMEOUT_S = 240
+DRYRUN_TIMEOUT_S = 300
+# the qwen3-32b train cell's gates: FLOPs a device at most this many times
+# the model's (the step that gathered whole parameters: 18.4x at 4
+# layers), arguments within 1% of the rule table's blocks
+DRYRUN_FLOP_RATIO = 2.5
 
 
 def start_dryrun(out_dir: Path) -> list:
@@ -5178,8 +5200,9 @@ def start_dryrun(out_dir: Path) -> list:
     shutil.rmtree(out_dir, ignore_errors=True)
     procs = []
     for arch, shape, multi_pod in DRYRUN_CELLS:
-        p = run_cell_subprocess(arch, shape, multi_pod=multi_pod,
-                                out_dir=str(out_dir))
+        p = run_cell_subprocess(
+            arch, shape, multi_pod=multi_pod, out_dir=str(out_dir),
+            microbatches=DRYRUN_MICROBATCHES.get((arch, shape), 0))
         procs.append(((arch, shape, multi_pod), p))
     atexit.register(lambda: [p.kill() for _, p in procs
                              if p.poll() is None])
@@ -5214,6 +5237,12 @@ def collect_dryrun(procs: list, out_dir: Path, smi: str) -> None:
         m, c, rf = r["memory"], r["collectives"], r["roofline"]
         if multi_pod and r["collectives"]["dcn_traffic_bytes"] <= 0:
             fail(f"dry run {arch} {shape} {mesh}: no cross-pod traffic")
+        if "gathered_step" in r:
+            fail(f"dry run {arch} {shape} {mesh}: a gathered step")
+        if (arch, shape) == ("qwen3-32b", "train_4k"):
+            sharded_train_cell(r, smi)
+        axes = ", ".join(f"{a} {b:.4g}"
+                         for a, b in c["traffic_by_axis"].items())
         say(f"  dry run [{mesh}] {arch} {shape} (analysis on the H100's "
             f"datasheet rates): {r['hlo_flops_per_device']:.4g} FLOPs and "
             f"{r['hlo_bytes_per_device']:.4g} bytes a device, model "
@@ -5223,7 +5252,8 @@ def collect_dryrun(procs: list, out_dir: Path, smi: str) -> None:
             f"GiB a device (arguments {m['argument_bytes'] / 2 ** 30:.2f}, "
             f"temporaries {m['temp_bytes'] / 2 ** 30:.2f}); collectives "
             f"{c['counts']}, in-pod {c['ici_traffic_bytes']:.4g} bytes, "
-            f"cross-pod {c['dcn_traffic_bytes']:.4g}; roofline compute "
+            f"cross-pod {c['dcn_traffic_bytes']:.4g} (by axis {axes}); "
+            f"roofline compute "
             f"{rf['compute_s']:.4g} s, memory {rf['memory_s']:.4g}, "
             f"collective {rf['collective_s']:.4g}, cross-pod "
             f"{rf['dcn_s']:.4g}: {rf['bottleneck']}, step "
@@ -5231,6 +5261,47 @@ def collect_dryrun(procs: list, out_dir: Path, smi: str) -> None:
             f"{rf['roofline_fraction']:.4f}; traced in {r['compile_s']} s")
     say(f"  dry run: {len(procs)} cells ok, families left out: "
         f"{DRYRUN_LEFT_OUT} [{smi}]")
+
+
+def shard_bytes(cfg, sizes: dict) -> int:
+    """The rule table's blocks of ``cfg``'s parameters at ``sizes``, each
+    in its dtype and with two f32 AdamW moments."""
+    from repro_torch.distributed import sharding as SH
+    specs = registry.param_specs(cfg)
+    sh = SH.param_shardings(specs, cfg, axis_sizes=sizes)
+    total = 0
+    for k, spec in specs.items():
+        n = 1
+        for d, entry in zip(spec.shape, sh[k].spec):
+            n *= d // math.prod(sizes[a] for a in SH._axes(entry))
+        total += n * (torch.empty((), dtype=spec.dtype).element_size() + 8)
+    return total
+
+
+def sharded_train_cell(r: dict, smi: str) -> None:
+    """The qwen3-32b train_4k cell's gates: nothing the rules split over
+    'model' computed replicated, the data-sharded gradients
+    reduce-scattered, FLOPs a device within DRYRUN_FLOP_RATIO of the
+    model's, arguments within 1% of the rule table's blocks (and the
+    batch)."""
+    cfg = get_config("qwen3-32b")
+    want = shard_bytes(cfg, {"data": 16, "model": 16}) + 2 * 16 * 4096 * 8
+    got = r["memory"]["argument_bytes"]
+    ratio = r["hlo_flops_per_device"] / r["model_flops_per_device"]
+    counts_ = r["collectives"]["counts"]
+    if (r.get("replicated_over_model") != [] or not r.get("fsdp")
+            or counts_.get("reduce-scatter", 0) < 1
+            or ratio > DRYRUN_FLOP_RATIO or abs(got - want) > 0.01 * want):
+        fail(f"dry run qwen3-32b train_4k: replicated over 'model' "
+             f"{r.get('replicated_over_model')}, fsdp {r.get('fsdp')}, "
+             f"collectives {counts_}, FLOPs {ratio:.3f}x the model's, "
+             f"arguments {got} against the rule table's {want}")
+    say(f"  dry run qwen3-32b train_4k [16x16], full depth, sharded step: "
+        f"FLOPs a device {ratio:.4f}x the model's (the gathered step: "
+        f"18.4x at 4 layers), arguments {got} bytes = the rule table's "
+        f"blocks {want} ({got / want - 1:+.5f}), nothing replicated over "
+        f"'model', {counts_.get('reduce-scatter', 0)} reduce-scatters "
+        f"[{smi}]")
 
 
 def device_run(fn):
@@ -5311,7 +5382,7 @@ def mesh_training(mesh, smi: str, launches: dict) -> None:
         reset_counts()
         res, dev, wall = device_run(lambda: train_loop.train(
             cfg, shape, SyntheticLM(cfg, shape, seed=0), tcfg, device="cuda",
-            mesh=m, hooks={"on_log": hist.append}))
+            mesh=m, hooks={"on_log": hist.append}, gather_model=True))
         got, routes = counts(), route_counts()
         if m is not None:
             tally(launches)
@@ -5337,6 +5408,185 @@ def mesh_training(mesh, smi: str, launches: dict) -> None:
         f"the dry run's host load, both with the model's build) [{smi}]")
     del out, p0, p1
     free()
+
+
+# (b) One 'model' rank of the production mesh at full width: each of its
+# 16 ranks in turn on the one card (parallel.rank_view: the rank's blocks,
+# the sums over 'model' left to the caller), one layer's attention and MLP
+# sublayers, forward and backward, in LAYER_STREAM and (the planner's rule
+# forced) TILE_STREAM.  The ranks' outputs and input gradients summed, the
+# split weights' gradients joined and the replicated ones' summed (in f32)
+# against the whole sublayers on the kernel path, max |difference| / max
+# |value| of each: in f32 within GRAD_TOL; in bf16, where both sides round
+# each product to bf16 in other places, each held to the f32 numbers of
+# the same bf16 weights and inputs: the ranks' sum no farther from them
+# than twice the whole bf16 layer is (or half a bf16 ulp of the largest
+# value, 2**-9, where the whole is closer).  qwen3-32b at 4096 tokens: 4 of
+# 64 query heads over kv head r // 2, d_ff 1600 of 25600; h2o-danube3-4b
+# at 8192, past its 4096-key window: 2 of 32 query heads over kv head
+# r // 2 (its 8 kv heads do not divide over 16), d_ff 640 of 10240.
+MODEL_RANKS = (("qwen3-32b", 4096), ("h2o-danube3-4b", 8192))
+MODEL_AXIS = 16
+RANK_FLOOR = 2.0 ** -9
+
+
+@contextlib.contextmanager
+def tile_stream_forced():
+    """The planner's profitability rule held true, so that TILE_STREAM
+    runs the stream kernel where it would resolve to flash."""
+    from repro_torch.plan import heuristics
+    rule = heuristics.tile_stream_profitable
+    heuristics.tile_stream_profitable = lambda *a, **k: True
+    try:
+        yield
+    finally:
+        heuristics.tile_stream_profitable = rule
+
+
+def _gap(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| / max |want|, in f32."""
+    w = want.detach().float()
+    return float((got.detach().float() - w).abs().max() / w.abs().max())
+
+
+def rank_sums(blk, cfg, h, dy, rope, mode, names, want_n, what,
+              timed: bool):
+    """The whole sublayers of ``blk`` and the sum of its MODEL_AXIS ranks,
+    forward and backward: ([y, dh, the gradient of each of ``names``] of
+    the whole, the same of the ranks (outputs and dh summed, split
+    gradients joined, replicated ones summed), and where ``timed`` rank
+    0's device ms and the whole's (``device_ms``: the profiler's mean of
+    each kernel over 3 calls, which a dropped event does not move; one
+    profiled call lost a third of a call's kernels now and then));
+    every call's launches must be ``want_n``."""
+    from repro_torch.distributed import parallel as PL
+    params = dict(blk.named_parameters())
+
+    def run(ps):
+        y = (model_layers.attention_forward(blk.attn, cfg, h, sin=rope[0],
+                                            cos=rope[1], causal=True,
+                                            mode=mode)
+             + model_layers.mlp_forward(blk.mlp, h))
+        return [y, *torch.autograd.grad(y, [h] + ps, dy)]
+
+    reset_counts()
+    whole = run([params[n] for n in names])
+    if counts() != want_n:
+        fail(f"{what}: the whole layer launched {counts()}")
+    parts = [[] for _ in whole]
+    for r in range(MODEL_AXIS):
+        with PL.rank_view(blk, "layers", cfg, r, MODEL_AXIS) as t:
+            reset_counts()
+            got = run([t[n] for n in names])
+            if counts() != want_n:
+                fail(f"{what}: rank {r} launched {counts()}")
+        for acc, g in zip(parts, got):
+            acc.append(g.detach())
+        del got
+    ranks = []
+    for acc, w in zip(parts, whole):
+        if acc[0].shape == w.shape:          # partial sums
+            total = acc[0].float()
+            for g in acc[1:]:
+                total += g.float()
+            ranks.append(total)
+        else:                                # the ranks' blocks
+            d = next(i for i, (a, b) in enumerate(zip(acc[0].shape,
+                                                      w.shape)) if a != b)
+            ranks.append(torch.cat(acc, d))
+        acc.clear()
+    ms_rank = ms_whole = None
+    if timed:
+        ms_whole = device_ms(lambda: run([params[n] for n in names]),
+                             reps=3)[0]
+        with PL.rank_view(blk, "layers", cfg, 0, MODEL_AXIS) as t:
+            ms_rank = device_ms(lambda: run([t[n] for n in names]),
+                                reps=3)[0]
+    return [w.detach() for w in whole], ranks, ms_rank, ms_whole
+
+
+def model_ranks(smi: str) -> None:
+    """Phase 23 (b): MODEL_RANKS in f32 and bf16 on the same (bf16-valued)
+    weights and inputs, each rank's launches exact (tile_gemm 3, the
+    mode's attention kernel and its backward once), the gates of the
+    comment above, and in bf16 (the training dtype) one rank's device ms
+    against the whole's over 16."""
+    from repro_torch.models.transformer import Block
+    for arch, S in MODEL_RANKS:
+        cfg = dataclasses.replace(get_config(arch), num_layers=1)
+        gen = torch.Generator(device="cuda").manual_seed(28)
+        blk16 = Block(cfg, gen).requires_grad_(True)
+        h16 = randn(gen, 1, S, cfg.d_model, dtype=torch.bfloat16)
+        dy16 = randn(gen, 1, S, cfg.d_model, dtype=torch.bfloat16)
+        rope = model_layers.rope_tables_for(cfg, S, device="cuda")
+        names = ["y", "dh"] + [n for n, _ in blk16.named_parameters()
+                               if not n.startswith("norm")]
+        shapes = (f"{cfg.num_heads // MODEL_AXIS} of {cfg.num_heads} query "
+                  f"heads, d_ff {cfg.d_ff // MODEL_AXIS} of {cfg.d_ff}")
+        for mode in (ExecutionMode.LAYER_STREAM, ExecutionMode.TILE_STREAM):
+            attn = ("flash_attention" if mode == ExecutionMode.LAYER_STREAM
+                    else "stream_attention")
+            want_n = {k: 0 for k in KERNELS}
+            want_n.update({"tile_gemm": 3, attn: 1, f"{attn}_bwd": 1})
+            ref32 = None
+            for dt in (torch.float32, torch.bfloat16):
+                dname = str(dt).split(".")[-1]
+                what = (f"{arch} {dname} {mode.value}, {MODEL_AXIS} 'model' "
+                        f"ranks")
+                c = dataclasses.replace(cfg, dtype=dname, param_dtype=dname)
+                blk = blk16 if dt == torch.bfloat16 else copy_block(blk16, dt)
+                h = h16.to(dt).requires_grad_(True)
+                with (tile_stream_forced() if mode == ExecutionMode
+                      .TILE_STREAM else contextlib.nullcontext()):
+                    whole, ranks, ms_rank, ms_whole = rank_sums(
+                        blk, c, h, dy16.to(dt), rope, mode, names[2:],
+                        want_n, what, timed=dt == torch.bfloat16)
+                gaps = {n: _gap(r, w) for n, r, w in zip(names, ranks, whole)}
+                worst = max(gaps, key=gaps.get)
+                if dt == torch.float32:
+                    ref32 = whole
+                    gate = f"f32 within {GRAD_TOL}"
+                    if gaps[worst] > GRAD_TOL:
+                        fail(f"{what}: the ranks' sum is {gaps[worst]:.3g} "
+                             f"from the whole at {worst} ({gaps})")
+                else:
+                    to32 = {n: (_gap(r, w32), _gap(w, w32)) for n, r, w, w32
+                            in zip(names, ranks, whole, ref32)}
+                    bad = {n: v for n, v in to32.items()
+                           if v[0] > max(2 * v[1], RANK_FLOOR)}
+                    if bad:
+                        fail(f"{what}: the ranks' sum farther from the f32 "
+                             f"numbers than twice the whole (ranks, whole): "
+                             f"{bad}")
+                    far = max(to32, key=lambda n: to32[n][0])
+                    gate = (f"from the f32 numbers at most {to32[far][0]:.3g} "
+                            f"({far}; the whole {to32[far][1]:.3g})")
+                del whole, ranks
+                timing = "" if ms_rank is None else (
+                    f"; device ms forward + backward (mean of 3 calls): one "
+                    f"rank {ms_rank:.3f}, the whole {ms_whole:.3f} "
+                    f"(/{MODEL_AXIS} = {ms_whole / MODEL_AXIS:.3f}; rank / "
+                    f"(whole / {MODEL_AXIS}) "
+                    f"{ms_rank * MODEL_AXIS / ms_whole:.3f})")
+                say(f"  {what} ({S} tokens; {shapes}): the ranks' sum "
+                    f"{gaps[worst]:.3g} from the whole ({worst}; y "
+                    f"{gaps['y']:.3g}, dh {gaps['dh']:.3g}), {gate}; each "
+                    f"rank 3 tile_gemm, 1 {attn}, 1 {attn}_bwd{timing} "
+                    f"[{smi}]")
+                if dt == torch.float32:
+                    del blk
+                free()
+            del ref32
+            free()
+        del blk16, h16, dy16
+        free()
+
+
+def copy_block(blk, dt: torch.dtype):
+    """A copy of ``blk`` in ``dt``, its parameters requiring grad."""
+    import copy
+    out = copy.deepcopy(blk).to(dt)
+    return out.requires_grad_(True)
 
 
 def mesh_primitives(smi: str) -> None:
@@ -5400,8 +5650,9 @@ def cost_cycles(smi: str) -> None:
 
 def multi_gpu(smi: str, launches: dict) -> None:
     """Phase 23: the dry run's cells start on the host, then (a) the mesh
-    paths on the one-rank NCCL host mesh, (c) cost_analysis_cycles, and
-    the dry run's results."""
+    paths on the one-rank NCCL host mesh, (b) the 16 'model' ranks of a
+    layer in turn on the card, (d) cost_analysis_cycles, and (c) the dry
+    run's results."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_host_mesh
     out_dir = ROOT / "build" / "dryrun"
@@ -5419,6 +5670,9 @@ def multi_gpu(smi: str, launches: dict) -> None:
     t0 = time.perf_counter()
     mesh_training(mesh, smi, launches)
     say(f"    training took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    model_ranks(smi)
+    say(f"    the 16 'model' ranks took {time.perf_counter() - t0:.1f} s")
     mesh_primitives(smi)
     cost_cycles(smi)
     t0 = time.perf_counter()
@@ -5614,7 +5868,8 @@ def main() -> None:
     say(f"phases 1-22 took {time.perf_counter() - start:.1f} s")
 
     say("== phase 23: multi-GPU on torch.distributed: the one-rank NCCL "
-        "mesh (Engine, train, int8 cross-pod mean, ring matmul), "
+        "mesh (Engine, the sharded train step, int8 cross-pod mean, ring "
+        "matmul), a layer's 16 'model' ranks in turn on the card, "
         "cost_analysis_cycles, the dry run on fake 256/512-rank worlds")
     t0 = time.perf_counter()
     multi_gpu(smi, launches)

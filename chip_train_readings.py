@@ -23,12 +23,26 @@ to bf16, held against the plain path as the kernel path is.  Exits 1 if a
 control stays within chip_smoke.WHISPER_GRAD_TOL: the limit would then
 pass a kernel that computes its products from bf16 operands.
 
-No arguments: both.  Prints the card's name and power limit first.
+steps: the single-device train steps of phases 10, 19 and 22 that run
+the transformer's embedding, layer loop and loss, and vilbert-base's
+(``STEP_RUNS``: bf16, full width, the phases' depths, batches, modes and
+optimizers): per arch, one warm-up step, ``STEP_REPS`` steps timed on the
+host's clock (synchronized), then one step under torch.profiler: its
+device time, its wall time, the device time of the embedding's backward
+(``aten::embedding_dense_backward``, or ``aten::_index_put_impl_`` of an
+indexing lookup) and the kernels that took the most device time.  One
+JSON line an arch.  It times the tree whose ``chip_smoke.py`` it imports:
+copied into the root of another checkout and run there, it times that
+checkout, so that two trees compare within one call.
+
+No arguments: lr and whisper.  Prints the card's name and power limit
+first.
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import json
 import subprocess
 import sys
 import time
@@ -72,6 +86,59 @@ def lr_readings(smi: str) -> None:
                       + f" [{smi}]", flush=True)
                 del model, state, batch, step
                 c.free()
+
+
+# arch, depth cut, B, S, mode, optimizer (the phases' own)
+STEP_RUNS = (
+    ("qwen3-32b", {"num_layers": 4}, 1, 4096,
+     c.ExecutionMode.LAYER_STREAM, c.TRAIN_OPT),
+    ("vilbert-base", {}, 2, 4096, c.ExecutionMode.LAYER_STREAM, c.TRAIN_OPT),
+    ("mamba2-780m", {}, 1, 2048, c.FAMILY_MODE, c.FAMILY_OPT),
+    ("hymba-1.5b", {}, 1, 2048, c.FAMILY_MODE, c.FAMILY_OPT),
+)
+STEP_REPS = 8
+EMBED_BWD = ("aten::embedding_dense_backward", "aten::_index_put_impl_")
+
+
+def step_readings(smi: str) -> None:
+    from torch.profiler import ProfilerActivity, profile
+    for arch, cut, B, S, mode, opt in STEP_RUNS:
+        cfg, model = c.train_model(arch, cut)
+        batch = c.family_batch(cfg, B, S)
+        state = c.OPT.init(dict(model.named_parameters()))
+        step = c.ST.make_train_step(cfg, opt, mode=mode)
+        model, state, _ = step(model, state, batch)
+        ms = []
+        for _ in range(STEP_REPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            model, state, _ = step(model, state, batch)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            model, state, _ = step(model, state, batch)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+        events = prof.key_averages()
+        kernels = {e.key: e.self_device_time_total / 1e3 for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA}
+        embed = {e.key: e.device_time_total / 1e3 for e in events
+                 if e.key in EMBED_BWD}
+        top = sorted(kernels.items(), key=lambda kt: -kt[1])[:8]
+        print(json.dumps({
+            "arch": arch, "layers": cfg.num_layers, "mode": mode.value,
+            "B": B, "S": S, "step_ms": [round(x, 3) for x in ms],
+            "step_ms_mean": round(sum(ms) / len(ms), 3),
+            "profiled_wall_ms": round(wall, 3),
+            "profiled_device_ms": round(sum(kernels.values()), 3),
+            "embed_bwd_device_ms": {k: round(v, 4)
+                                    for k, v in embed.items()},
+            "top": [[k[:60], round(v, 3)] for k, v in top],
+            "card": smi}), flush=True)
+        del model, state, batch, step
+        c.free()
 
 
 def _rounded(t):
@@ -166,8 +233,10 @@ def main() -> None:
             lr_readings(smi)
         elif part == "whisper":
             rc |= whisper_readings(smi)
+        elif part == "steps":
+            step_readings(smi)
         else:
-            c.fail(f"unknown part {part!r}: lr or whisper")
+            c.fail(f"unknown part {part!r}: lr, whisper or steps")
         print(f"{part} took {time.perf_counter() - t0:.1f} s", flush=True)
     sys.exit(rc)
 

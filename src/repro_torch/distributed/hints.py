@@ -10,10 +10,12 @@ not divide) and ``moe_dispatch`` (the experts' dispatched tokens,
 redistributed to the hinted placements; a plain tensor, or a shape that
 the hinted axes do not divide, is left as it is (hints.py:30-38).
 
-No entry point installs a table yet: the port's train step computes on
-plain (gathered) tensors, where a table would change nothing.  The hook
-is where column-, row- or context-parallel modules will pin their
-activations (ROADMAP item 27).
+No entry point installs a table yet.  The mesh train step computes on
+plain tensors, the rank's blocks: its tensor parallelism over 'model'
+(dense attention's heads, the MLP's d_ff, the vocabulary) is explicit,
+at the ``ops`` boundary (``distributed.parallel``), and needs no hint.
+The hook is where context-parallel attention, for the archs whose head
+count the model axis does not divide, will pin its activations.
 """
 from __future__ import annotations
 

@@ -1,0 +1,380 @@
+"""Tensor parallelism over the 'model' axis at the ``ops`` boundary: the
+port's explicit counterpart of what GSPMD does to the JAX train step
+(``repro/train/loop.py:49-74`` jits it with the rule table's
+``in_shardings``, and XLA partitions the compute by them).
+
+A ``ModelParallel`` is the 'model' axis as the layers see it: this rank's
+index on it, its size, its process group, and the parameters that the
+active train step handed to the layers as this rank's block (``local``:
+the rule table splits them over 'model' and ``computes_local`` says the
+layers compute on the block).  While one is active (``using``):
+
+* ``copy`` (identity forward, sum over 'model' backward) enters a
+  column-parallel region: the activations are replicated, each rank's
+  input gradient covers only its columns, and the sum makes it whole;
+* ``reduce`` (sum over 'model' forward, identity backward) leaves a
+  row-parallel one: each rank's product covers its rows of the
+  contraction;
+* between them, the layers run ``ops.projection`` (``tile_gemm``) on the
+  rank's block (``layers.mlp_forward``: ``w_gate``/``w_up`` by columns,
+  ``w_down`` by rows): no library matmul runs a sharded projection, and no
+  DTensor reaches an aten product;
+* ``vocab_embed`` looks tokens up in the rank's vocabulary rows, zeroes
+  the rows outside them and sums over 'model'; ``vocab_nll`` is the
+  cross-entropy of the rank's f32 logit columns, its max and its sum of
+  exponentials reduced over 'model', so that no rank holds the whole
+  (B, S, vocab) logits.
+
+The collectives are the functional ones that DTensor's redistributions
+call (``_c10d_functional``), inside autograd Functions whose backward is
+the transpose for a loss that every rank of the axis computes alike.
+(``torch.distributed.nn.functional.all_reduce`` differentiates the sum
+of every rank's loss instead: its backward would be m times too large.)
+
+The active context is process-wide, not a contextvar: autograd runs the
+recomputation of a checkpointed layer on its own device thread, where a
+contextvar set by the step is not visible.
+
+A context without a group (``group=None``) stands for one rank of the
+axis on its own: ``copy`` and ``reduce`` are the identity, so that the
+caller can sum the ranks' partial outputs and input gradients
+(``rank_view``: the 16 'model' ranks of one layer run in turn on one
+card).
+
+``unit`` and ``run_unit`` are where the model code lets the active train
+step gather a unit of parameters over the batch axes (FSDP) for its
+forward: the step's ``gathered`` context, a no-op without a step.
+"""
+from __future__ import annotations
+
+import contextlib
+from typing import Iterable, Mapping, Optional, Sequence, Set, Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from repro_torch.core.types import AttnKind, Family, ModelConfig
+
+_ACTIVE: Optional["ModelParallel"] = None
+
+#: Families whose layers the step computes replicated over 'model' (their
+#: own co-attention and encoder-decoder layers; a later slice).
+REPLICATED_FAMILIES = (Family.ENCDEC, Family.CROSSMODAL)
+
+
+def active() -> Optional["ModelParallel"]:
+    """The active 'model'-axis context, or None."""
+    return _ACTIVE
+
+
+@contextlib.contextmanager
+def using(tp: Optional["ModelParallel"]):
+    """Make ``tp`` the active context (process-wide) for the block."""
+    global _ACTIVE
+    prev, _ACTIVE = _ACTIVE, tp
+    try:
+        yield tp
+    finally:
+        _ACTIVE = prev
+
+
+def _all_reduce(t: torch.Tensor, op: str, group) -> torch.Tensor:
+    import torch.distributed._functional_collectives as funcol
+    out = funcol.all_reduce(t, op, group)
+    return funcol.wait_tensor(out) if isinstance(
+        out, funcol.AsyncCollectiveTensor) else out
+
+
+class _Copy(torch.autograd.Function):
+    """Identity forward, the sum over the group backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), "sum", ctx.group), None
+
+
+class _Reduce(torch.autograd.Function):
+    """The sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return _all_reduce(x.contiguous(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class ModelParallel:
+    """The 'model' axis of the active step (module docstring): ``rank``
+    and ``size`` on it, its ``group`` (None: one rank on its own), and
+    ``local``, the (module, parameter name) pairs the layers take as the
+    rank's block; ``gatherer`` the step whose units ``unit`` gathers."""
+
+    def __init__(self, rank: int, size: int, group=None,
+                 local: Iterable[Tuple[nn.Module, str]] = (),
+                 gatherer=None):
+        self.rank, self.size, self.group = rank, size, group
+        self._local: Set[Tuple[int, str]] = {(id(m), n) for m, n in local}
+        self.gatherer = gatherer
+
+    def local(self, module: nn.Module, name: str) -> bool:
+        """Whether ``module.<name>`` is this rank's 'model' block."""
+        return (id(module), name) in self._local
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is None or self.size == 1:
+            return x
+        return _Copy.apply(x, self.group)
+
+    def reduce(self, x: torch.Tensor) -> torch.Tensor:
+        if self.group is None or self.size == 1:
+            return x
+        return _Reduce.apply(x, self.group)
+
+    def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
+        """A plain (not differentiated) all-reduce over the group."""
+        if self.group is None or self.size == 1:
+            return t
+        return _all_reduce(t.contiguous(), op, self.group)
+
+
+# ---------------------------------------------------------------------------
+# What the layers compute on their block
+# ---------------------------------------------------------------------------
+
+def attention_split(cfg: ModelConfig, m: int) -> bool:
+    """Whether dense attention runs on the rank's query heads at 'model'
+    size ``m``: the heads divide (the rule table's ``heads_shardable``),
+    and each rank's query heads read a whole kv head group (the kv heads
+    divide too, or a group's query heads fall on a whole number of
+    ranks)."""
+    if (m <= 1 or not cfg.num_heads or cfg.num_heads % m
+            or cfg.attn_kind in (AttnKind.MLA, AttnKind.NONE)
+            or cfg.family in REPLICATED_FAMILIES):
+        return False
+    if cfg.num_kv_heads % m == 0:
+        return True
+    return (cfg.num_heads // cfg.num_kv_heads) % (cfg.num_heads // m) == 0
+
+
+def _splits_over_model(path: str, shape: Sequence[int], cfg: ModelConfig,
+                       sizes: Mapping[str, int]) -> bool:
+    """Whether the rule table splits the parameter at JAX path ``path``
+    over 'model'."""
+    from repro_torch.distributed import sharding as SH
+    spec = SH.spec_for_param(path, tuple(shape), cfg,
+                             SH._SimulatedMesh(sizes), False)
+    return any("model" in SH._axes(e) for e in spec)
+
+
+def _takes_block(path: str, shape: Sequence[int], cfg: ModelConfig,
+                 m: int) -> bool:
+    """Whether the layers compute on a 'model' block of the parameter at
+    ``path``, given that the rules split it: the vocabulary (embedding,
+    unembed), a dense MLP's (a shared expert's too), and dense attention's
+    under ``attention_split``."""
+    if cfg.family in REPLICATED_FAMILIES:
+        return False
+    leaf, nd = path.split("/")[-1], len(shape)
+    if leaf in ("embedding", "unembed"):
+        return True
+    if leaf in ("w_gate", "w_up", "w_down") and nd == 2:
+        return True
+    if leaf in ("wq", "wk", "wv", "wo") and nd == 3:
+        return attention_split(cfg, m)
+    return False
+
+
+def computes_local(path: str, shape: Sequence[int], cfg: ModelConfig,
+                   sizes: Mapping[str, int]) -> bool:
+    """Whether the layers compute on this rank's 'model' block of the
+    parameter at JAX path ``path``: the rule table splits it over 'model'
+    and ``_takes_block`` holds.  The rest that the rules split (MoE
+    experts, MLA, SSM projections, and every parameter of the
+    encoder-decoder and crossmodal families) is gathered whole over
+    'model' and computed replicated."""
+    m = sizes.get("model", 1)
+    return (m > 1 and _takes_block(path, shape, cfg, m)
+            and _splits_over_model(path, shape, cfg, sizes))
+
+
+def local_names(shapes: Mapping[str, Sequence[int]], cfg: ModelConfig,
+                sizes: Mapping[str, int]) -> Set[str]:
+    """The parameter names (the port's, ``layers.3.mlp.w_up``) whose
+    'model' block the layers compute on."""
+    from repro_torch.distributed.sharding import jax_path
+    return {k for k, s in shapes.items()
+            if computes_local(jax_path(k)[0], s, cfg, sizes)}
+
+
+def replicated_over_model(shapes: Mapping[str, Sequence[int]],
+                          cfg: ModelConfig, sizes: Mapping[str, int]
+                          ) -> list:
+    """The JAX paths whose rule splits them over 'model' but whose
+    compute the step still repeats on every 'model' rank (gathered
+    whole over 'model'), one entry per path."""
+    from repro_torch.distributed.sharding import jax_path
+    m = sizes.get("model", 1)
+    if m <= 1:
+        return []
+    out = set()
+    for k, s in shapes.items():
+        path = jax_path(k)[0]
+        if (not _takes_block(path, s, cfg, m)
+                and _splits_over_model(path, s, cfg, sizes)):
+            out.add(path)
+    return sorted(out)
+
+
+def model_block(t: torch.Tensor, path: str, cfg: ModelConfig, rank: int,
+                size: int) -> torch.Tensor:
+    """Rank ``rank``'s block of ``t`` over a 'model' axis of ``size``, by
+    the rule table (a view; ``t`` itself where the rule replicates it)."""
+    from repro_torch.distributed import sharding as SH
+    spec = SH.spec_for_param(path, tuple(t.shape), cfg,
+                             SH._SimulatedMesh({"model": size}), False)
+    for d, e in enumerate(spec):
+        if "model" in SH._axes(e):
+            n = t.shape[d] // size
+            return t.narrow(d, rank * n, n)
+    return t
+
+
+# ---------------------------------------------------------------------------
+# The primitives
+# ---------------------------------------------------------------------------
+
+def head_block(tp: ModelParallel, p: nn.Module, cfg: ModelConfig):
+    """(wk, wv, q_gamma, k_gamma) for the rank's query heads of the dense
+    attention ``p`` (``p.wq`` holds them, (D, Hq/m, hd)): the K/V
+    projections of the kv heads they read (the rank's block where the kv
+    heads divide, else the replicated weights sliced to the rank's group,
+    whose gradients are then partial sums over 'model'), and the qk-norm
+    gains, whose gradients are too."""
+    if tp.local(p, "wk"):
+        wk, wv = p.wk, p.wv
+    else:
+        hl, g = p.wq.shape[1], cfg.num_heads // cfg.num_kv_heads
+        k0, k1 = tp.rank * hl // g, ((tp.rank + 1) * hl - 1) // g + 1
+        wk, wv = tp.copy(p.wk)[:, k0:k1], tp.copy(p.wv)[:, k0:k1]
+    gains = [tp.copy(getattr(p, n)) if hasattr(p, n) else None
+             for n in ("q_gamma", "k_gamma")]
+    return wk, wv, gains[0], gains[1]
+
+
+def vocab_embed(tp: ModelParallel, emb: torch.Tensor,
+                tokens: torch.Tensor) -> torch.Tensor:
+    """The rows of ``tokens`` from the rank's vocabulary rows ``emb``
+    (V/m, D): rows outside the slice zeroed, then summed over 'model'
+    (one non-zero term a row: the sum is exact)."""
+    n = emb.shape[0]
+    local = tokens - tp.rank * n
+    inside = (local >= 0) & (local < n)
+    x = F.embedding(local.clamp(0, n - 1), emb) * inside[..., None].to(
+        emb.dtype)
+    return tp.reduce(x)
+
+
+class _VocabNLL(torch.autograd.Function):
+    """The negative log-likelihood of ``labels`` under f32 logits of which
+    this rank holds the vocabulary columns [rank·n, (rank+1)·n)."""
+
+    @staticmethod
+    def forward(ctx, logits, labels, tp):
+        n = logits.shape[-1]
+        mx = tp.all_reduce(logits.max(dim=-1).values, "max")
+        e = torch.exp(logits - mx[..., None])
+        local = labels - tp.rank * n
+        inside = (local >= 0) & (local < n)
+        idx = local.clamp(0, n - 1)[..., None]
+        tgt = torch.gather(logits, -1, idx)[..., 0] * inside
+        sums = tp.all_reduce(torch.stack([e.sum(dim=-1), tgt]), "sum")
+        nll = torch.log(sums[0]) - (sums[1] - mx)
+        e /= sums[0][..., None]
+        ctx.save_for_backward(e, idx, inside)
+        return nll
+
+    @staticmethod
+    def backward(ctx, g):
+        p, idx, inside = ctx.saved_tensors
+        d = p * g[..., None]
+        d.scatter_add_(-1, idx, -(g * inside)[..., None])
+        return d, None, None
+
+
+def vocab_nll(tp: ModelParallel, logits: torch.Tensor,
+              labels: torch.Tensor) -> torch.Tensor:
+    """Per-position NLL (labels' shape) from the rank's f32 logit columns
+    (module docstring); a label of -1 gets log(sum exp) - max, which the
+    caller masks, as the single-device loss masks its label-0 term."""
+    return _VocabNLL.apply(logits, labels, tp)
+
+
+# ---------------------------------------------------------------------------
+# Units of the active step, and one rank on its own
+# ---------------------------------------------------------------------------
+
+def unit(root: nn.Module, names: Optional[Sequence[str]] = None):
+    """A context in which the active step's gathered tensors of ``root``'s
+    parameters ``names`` (all of them: None) stand in its modules; a
+    no-op without a step."""
+    tp = _ACTIVE
+    if tp is None or tp.gatherer is None:
+        return contextlib.nullcontext()
+    return tp.gatherer.gathered(root, names)
+
+
+def run_unit(module: nn.Module, fn, *args, **kwargs):
+    """fn(module, *args, **kwargs) inside ``unit(module)``: what a layer
+    loop checkpoints, so that the recomputation gathers the unit again."""
+    with unit(module):
+        return fn(module, *args, **kwargs)
+
+
+@contextlib.contextmanager
+def swapped(module: nn.Module, tensors: Mapping[str, torch.Tensor]):
+    """``module``'s parameters ``tensors`` (names relative to it) replaced
+    by these tensors for the block, then put back."""
+    saved = []
+    for name, t in tensors.items():
+        owner, _, leaf = name.rpartition(".")
+        sub = module.get_submodule(owner) if owner else module
+        saved.append((sub, leaf, sub._parameters[leaf]))
+        sub._parameters[leaf] = t
+    try:
+        yield
+    finally:
+        for sub, leaf, p in reversed(saved):
+            sub._parameters[leaf] = p
+
+
+@contextlib.contextmanager
+def rank_view(module: nn.Module, path_prefix: str, cfg: ModelConfig,
+              rank: int, size: int):
+    """One 'model' rank of ``size`` on its own (module docstring): in the
+    block, ``module``'s parameters (a ``Block`` or one of its sublayers;
+    ``path_prefix`` their JAX path's head, "layers" or "layers/attn")
+    that ``computes_local`` splits are the rank's blocks, fresh leaves
+    that require grad; the others stay.  Yields {name: the tensor the
+    rank computes on}, the blocks and the replicated parameters, whose
+    gradients after a backward are the rank's blocks and partial sums."""
+    sizes = {"model": size}
+    blocks, local = {}, []
+    for name, p in module.named_parameters():
+        path = f"{path_prefix}/{name.replace('.', '/')}"
+        if computes_local(path, p.shape, cfg, sizes):
+            blocks[name] = model_block(p.detach(), path, cfg, rank,
+                                       size).clone().requires_grad_(True)
+            owner, _, leaf = name.rpartition(".")
+            local.append((module.get_submodule(owner) if owner else module,
+                          leaf))
+    tp = ModelParallel(rank, size, None, local)
+    with swapped(module, blocks), using(tp):
+        yield {**dict(module.named_parameters()), **blocks}

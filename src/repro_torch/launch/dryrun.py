@@ -7,8 +7,10 @@ step it would run there, once, as rank 0 of a *fake* process group of
 return at once) on the production mesh (``launch.mesh``), under
 ``FakeTensorMode`` (shapes and dtypes, nothing allocated): the mesh train
 step (``train.steps.MeshTrainStep``: parameters and AdamW moments placed
-by the rule table, the batch by ``batch_shardings``), or the prefill or
-decode step the engine serves, on the rank's block of the batch.  It
+by the rule table, built as ``train.loop.build_sharded`` builds them, the
+batch by ``batch_shardings``; the layers compute on their 'model' blocks
+and gather a unit at a time over 'data'), or the prefill or decode step
+the engine serves, on the rank's block of the batch.  It
 counts the per-device FLOPs, bytes and collective traffic at the
 dispatcher (``launch.op_analysis``, the counterpart of
 ``hlo_analysis.py``), the peak memory with
@@ -19,13 +21,17 @@ fields of dryrun.py:397-427 per cell.  Each cell runs in its own process
 the step would read from the device (a data-dependent shape, ``.item()``)
 fails the cell: ``status: "error"`` with the exception, never a guess.
 
-What the counts mean for this port (PERF.md): ranks of one 'model' row
-compute the same step on whole gathered parameters (no tensor-parallel
-compute yet), so the per-device FLOPs are the model's on the rank's
-batch block; attention FLOPs are those of the plain blocked version the
-CPU runs (every kv block, masked ones included); bytes are eager, with
-nothing fused.  The roofline divides them by the H100 SXM's datasheet
-rates below, not by measurements.
+What the counts mean for this port (PERF.md): a train cell's FLOPs are
+the rank's share of the layers that ``distributed.parallel`` splits over
+'model' (dense attention, MLP, vocabulary) and the whole of the rest,
+which every 'model' rank repeats (``replicated_over_model`` lists it);
+attention FLOPs are those of the plain blocked version the CPU runs
+(every kv block, masked ones included); bytes are eager, with nothing
+fused.  A cell cut in depth (``depth``) keeps the whole config's FSDP
+choice (``fsdp``), so that its placements are the production ones.
+Decode and prefill cells run the model replicated on every rank, as the
+engine serves it.  The roofline divides the counts by the H100 SXM's
+datasheet rates below, not by measurements.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b \\
         --shape train_4k [--multi-pod] [--out artifacts/dryrun_torch]
@@ -200,29 +206,35 @@ def _local_inputs(cfg, shape: ShapeConfig, mesh, seq_sharded: bool = False
 
 
 def build_cell(cfg, shape: ShapeConfig, mesh, *, microbatches: int = 1,
-               remat: bool = True):
+               remat: bool = True, fsdp_threshold: float = 8e9):
     """(model, the step as a no-argument callable, the per-device argument
     tensors) for one cell; call under a FakeTensorMode, on the fake world.
     train: ``MeshTrainStep`` on the rank's batch block (each layer
-    recomputed in the backward unless ``remat`` is False); prefill: the
-    model's prefill of its block at ``max_len`` = seq_len; decode: one
-    ``decode_step`` on a cache of seq_len positions (batch over (pod,
-    data); a batch-1 cell replicates the row)."""
+    recomputed in the backward unless ``remat`` is False; the model's
+    parameters on ``meta``, the rank's blocks as ``build_sharded`` keeps
+    them); prefill: the model's prefill of its block at ``max_len`` =
+    seq_len; decode: one ``decode_step`` on a cache of seq_len positions
+    (batch over (pod, data); a batch-1 cell replicates the row)."""
     import torch
     from repro_torch.train import loop as L
     from repro_torch.train import steps as ST
-    with runtime.flags(abstract_init=True):
-        model = L.build_model(cfg, torch.device("cpu"), 0)
     if shape.kind == "train":
+        with runtime.flags(abstract_init=True):
+            model, blocks = L.build_sharded(cfg, torch.device("cpu"), 0,
+                                            mesh, fsdp_threshold)
         step = ST.MeshTrainStep(cfg, model, mesh, microbatches=microbatches,
-                                remat=remat)
+                                remat=remat, fsdp_threshold=fsdp_threshold,
+                                blocks=blocks)
+        del blocks
         batch, _ = _local_inputs(cfg, shape, mesh)
         state = [p.to_local() for p in step.params.values()]
         state += [t.to_local() for tree in (step.opt_state.mu,
                                             step.opt_state.nu)
                   for t in tree.values()]
-        return model, (lambda: step.step(batch)), state + list(
+        return None, (lambda: step.step(batch)), state + list(
             batch.values())
+    with runtime.flags(abstract_init=True):
+        model = L.build_model(cfg, torch.device("cpu"), 0)
     params = [p.detach() for p in model.parameters()]
     model.requires_grad_(False)
     if shape.kind == "prefill":
@@ -259,7 +271,8 @@ def _leaves(tree):
 def _measure(cfg, shape: ShapeConfig, mesh, *, multi_pod: bool,
              microbatches: int,
              extra_flags: Optional[Dict[str, Any]] = None,
-             remat: bool = True) -> Dict[str, Any]:
+             remat: bool = True,
+             fsdp_threshold: float = 8e9) -> Dict[str, Any]:
     """Build and run one cell under a FakeTensorMode; its counts."""
     import torch
     from torch._subclasses.fake_tensor import FakeTensorMode
@@ -270,11 +283,13 @@ def _measure(cfg, shape: ShapeConfig, mesh, *, multi_pod: bool,
     with FakeTensorMode(allow_non_fake_inputs=True):
         t0 = time.time()
         model, run, args = build_cell(cfg, shape, mesh,
-                                      microbatches=microbatches, remat=remat)
+                                      microbatches=microbatches, remat=remat,
+                                      fsdp_threshold=fsdp_threshold)
         t_build = time.time() - t0
         tracker = MemTracker()
-        tracker.track_external(model, *[a for a in args
-                                        if isinstance(a, torch.Tensor)])
+        tracker.track_external(*([model] if model is not None else []),
+                               *[a for a in args
+                                 if isinstance(a, torch.Tensor)])
         with runtime.flags(**(extra_flags or {})):
             with tracker:
                 out, counts = OA.analyze(run, world=world,
@@ -292,19 +307,44 @@ def _measure(cfg, shape: ShapeConfig, mesh, *, multi_pod: bool,
 
 
 def probe_corrected_costs(cfg, shape: ShapeConfig, mesh, *,
-                          multi_pod: bool) -> Dict[str, Any]:
+                          multi_pod: bool,
+                          fsdp_threshold: Optional[float] = None
+                          ) -> Dict[str, Any]:
     """Counts at depth 1 and 2 of each layer stack, extrapolated to the
     config's depths (cost = base + sum slope_i * depth_i), as the JAX
     probes do (dryrun.py:200-223) -- a cross-check of the full-depth run,
     and its stand-in where full depth is too slow to trace."""
     names, plan = probe_plan(cfg)
     vals = [_measure(_with_depths(cfg, depths), shape, mesh,
-                     multi_pod=multi_pod, microbatches=1)
+                     multi_pod=multi_pod, microbatches=1,
+                     fsdp_threshold=_fsdp_threshold(cfg) if fsdp_threshold
+                     is None else fsdp_threshold)
             for depths in plan]
     real = _stack_depths(cfg)
     out = {key: extrapolate(names, plan, [v[key] for v in vals], real)
            for key in ("flops", "bytes", "ici", "dcn")}
     out["probe_counts"] = vals[0]["counts"]
+    return out
+
+
+def _fsdp_threshold(cfg) -> float:
+    """The threshold that gives a config cut in depth its whole config's
+    FSDP choice (``sharding.param_shardings``: at or over its default of
+    8e9 parameters, they shard over 'data')."""
+    return 0.0 if cfg.param_count() >= 8e9 else math.inf
+
+
+def _by_axis(by_stride: Dict[int, float], names, mesh_shape
+             ) -> Dict[str, float]:
+    """Collective traffic a device by the mesh axis its group spans (the
+    rank stride of an axis is the product of the sizes after it; "other"
+    for a group that is no one axis)."""
+    strides = {int(math.prod(mesh_shape[i + 1:])): n
+               for i, n in enumerate(names) if mesh_shape[i] > 1}
+    out: Dict[str, float] = {}
+    for stride, traffic in sorted(by_stride.items()):
+        axis = strides.get(stride, "other")
+        out[axis] = out.get(axis, 0.0) + traffic
     return out
 
 
@@ -340,6 +380,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              else ("data", "model"))
     try:
         cfg = cfg or registry.get_config(arch)
+        fsdp = _fsdp_threshold(cfg)
         if depth:
             cfg = _with_depths(cfg, {k: min(v, depth) for k, v in
                                      _stack_depths(cfg).items()})
@@ -349,13 +390,14 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
             mesh = make_mesh(mesh_shape, names, "cpu")
             mb = microbatches or auto_microbatches(cfg, shape, mesh)
             m = _measure(cfg, shape, mesh, multi_pod=multi_pod,
-                         microbatches=mb,
-                         extra_flags=extra_flags, remat=remat)
+                         microbatches=mb, extra_flags=extra_flags,
+                         remat=remat, fsdp_threshold=fsdp)
             corr = None
             if probes:
                 try:
                     corr = probe_corrected_costs(cfg, shape, mesh,
-                                                 multi_pod=multi_pod)
+                                                 multi_pod=multi_pod,
+                                                 fsdp_threshold=fsdp)
                 except Exception as e:  # noqa: BLE001
                     result["probe_error"] = f"{type(e).__name__}: {e}"[:500]
     except Exception as e:  # noqa: BLE001 - dry-run failures are findings
@@ -376,11 +418,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     bottleneck = max(terms, key=terms.get)
     temp = max(m["peak_bytes"] - m["argument_bytes"], 0)
     if shape.kind == "train":
-        # MeshTrainStep computes on gathered parameters (train/steps.py)
-        result["gathered_step"] = (
-            "every rank holds the whole parameters and gradients for the "
-            "step: memory and collectives are not comparable to the JAX "
-            "artifact's")
+        from repro_torch.distributed import parallel as PL
+        sizes = dict(zip(names, mesh_shape))
+        result["fsdp"] = fsdp == 0.0 and sizes.get("data", 1) > 1
+        result["replicated_over_model"] = PL.replicated_over_model(
+            {k: v.shape for k, v in registry.param_specs(cfg).items()}, cfg,
+            sizes)
     result.update({
         "status": "ok",
         "lower_s": round(m["build_s"], 1),      # model build and placement
@@ -403,7 +446,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         "collectives": {"counts": m["counts"],
                         "ici_traffic_bytes": m["ici"],
                         "dcn_traffic_bytes": m["dcn"],
-                        "num_ops": m["num_ops"]},
+                        "num_ops": m["num_ops"],
+                        "traffic_by_axis": _by_axis(
+                            m["by_stride"], names, mesh_shape)},
         "roofline": {**terms, "bottleneck": bottleneck,
                      "step_time_est_s": max(terms.values()),
                      "roofline_fraction":

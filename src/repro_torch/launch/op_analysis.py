@@ -116,6 +116,10 @@ class OpCounter(TorchDispatchMode):
         self.dcn = 0.0
         self.counts: Dict[str, int] = {}
         self.ops: List[Dict[str, Any]] = []
+        # traffic by the rank stride of the group (a mesh axis: the
+        # stride is the product of the sizes of the axes after it); a
+        # send's under its peer distance
+        self.by_stride: Dict[int, float] = {}
 
     def _collective(self, kind: str, nbytes: int, ranks: List[int],
                     peer: Optional[int] = None) -> None:
@@ -126,6 +130,8 @@ class OpCounter(TorchDispatchMode):
             gs, span = len(ranks), ranks
         crosses = min(span) < self.pod <= max(span)
         traffic = collective_traffic(kind, nbytes, gs)
+        stride = abs(span[1] - span[0]) if len(span) > 1 else 0
+        self.by_stride[stride] = self.by_stride.get(stride, 0.0) + traffic
         self.counts[kind] = self.counts.get(kind, 0) + 1
         self.ops.append({"kind": kind, "bytes": nbytes, "group": gs,
                          "traffic": traffic, "cross_pod": crosses})
@@ -157,14 +163,17 @@ class OpCounter(TorchDispatchMode):
 
     def result(self) -> Dict[str, Any]:
         return {"bytes": self.bytes, "ici": self.ici, "dcn": self.dcn,
-                "counts": dict(self.counts), "num_ops": len(self.ops)}
+                "counts": dict(self.counts), "num_ops": len(self.ops),
+                "by_stride": dict(self.by_stride)}
 
 
 def analyze(fn: Callable, *args, world: Optional[int] = None,
             multi_pod: bool = False, **kwargs) -> Tuple[Any, Dict[str, Any]]:
     """Run ``fn(*args, **kwargs)`` once under the counters; returns (its
-    result, {"flops", "bytes", "ici", "dcn", "counts", "num_ops"}), the
-    per-device numbers of this rank (``hlo_analysis.analyze``'s keys)."""
+    result, {"flops", "bytes", "ici", "dcn", "counts", "num_ops",
+    "by_stride"}), the per-device numbers of this rank
+    (``hlo_analysis.analyze``'s keys, and the collective traffic by the
+    rank stride of its group)."""
     import torch.distributed as dist
     from torch.utils.flop_counter import FlopCounterMode
     if world is None:

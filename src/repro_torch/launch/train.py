@@ -14,8 +14,11 @@ shape.  Under ``torchrun`` (``WORLD_SIZE`` set) each rank joins the
 process group (``nccl`` on the card, ``gloo`` on the CPU) and trains on a
 mesh: the production mesh at 256 ranks, its two-pod form at 512, the
 host mesh (world, 1) otherwise, as ``repro/launch/train.py:58-59``
-chooses; rank 0 prints the log.  The JAX launcher's ``--use-pallas`` has
-no counterpart: the kernels run whenever the tensors are on the card.
+chooses; rank 0 prints the log.  On a mesh no rank holds the whole
+model: each builds only its blocks (``train.loop.build_sharded``) and the
+step computes sharded (``train.steps.MeshTrainStep``).  The JAX
+launcher's ``--use-pallas`` has no counterpart: the kernels run whenever
+the tensors are on the card.
 """
 from __future__ import annotations
 

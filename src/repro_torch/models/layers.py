@@ -16,6 +16,7 @@ from torch import nn
 
 from repro_torch.core import runtime
 from repro_torch.core.types import AttnKind, ExecutionMode, ModelConfig, pad_to
+from repro_torch.distributed import parallel
 from repro_torch.distributed.hints import constrain
 from repro_torch.kernels import ops, ref
 
@@ -26,16 +27,24 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def param(t: torch.Tensor) -> nn.Parameter:
     """A parameter, created without gradient: the serving paths never need
-    one, and the train loop switches them on (``requires_grad_(True)``)."""
+    one, and the train loop switches them on (``requires_grad_(True)``).
+    Under ``runtime.flags(param_hook=f)`` the parameter is ``f(t)``: the
+    sharded build (``train.loop.build_sharded``) keeps only the rank's
+    block of each parameter as it is drawn."""
+    hook = runtime.get("param_hook")
+    if hook is not None:
+        return hook(t)
     return nn.Parameter(t, requires_grad=False)
 
 
 def move_to(module: nn.Module, device: torch.device) -> None:
     """``module.to(device)``, skipped when every tensor of ``module`` is
-    there already: a model built under ``FakeTensorMode`` (the dry run's
-    and ``registry.param_specs``') cannot be moved, and needs no move."""
+    there already or on ``meta``: a model built under ``FakeTensorMode``
+    (the dry run's and ``registry.param_specs``') cannot be moved, and
+    needs no move; one whose parameters the mesh step holds as blocks
+    (``train.loop.build_sharded``) keeps them on ``meta``."""
     tensors = list(module.parameters()) + list(module.buffers())
-    if any(t.device != device for t in tensors):
+    if any(t.device != device and t.device.type != "meta" for t in tensors):
         module.to(device)
 
 
@@ -110,7 +119,15 @@ class Embedding(nn.Module):
 
 
 def embed_lookup(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
-    return constrain(p.embedding[tokens], "embed_out")
+    """The rows of ``tokens``; vocabulary-parallel (``parallel.vocab_embed``)
+    where the active mesh step hands the layers the rank's rows.  Through
+    ``F.embedding``, whose gradient on the CPU sums a row's tokens in one
+    order every call (an index's accumulating scatter does not)."""
+    tp = parallel.active()
+    if tp is not None and tp.local(p, "embedding"):
+        return constrain(parallel.vocab_embed(tp, p.embedding, tokens),
+                         "embed_out")
+    return constrain(F.embedding(tokens, p.embedding), "embed_out")
 
 
 #: Vocabulary columns per f32 product in ``unembed`` of a narrower dtype,
@@ -119,10 +136,21 @@ def embed_lookup(p: Embedding, tokens: torch.Tensor) -> torch.Tensor:
 UNEMBED_CHUNK = 16384
 
 
+def unembed_weight(p: Embedding, cfg: ModelConfig) -> torch.Tensor:
+    """The (dim, vocab) output matrix: the unembed, or the embedding's
+    transpose when they are tied."""
+    return p.embedding.t() if cfg.tie_embeddings else p.unembed
+
+
 def unembed(p: Embedding, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits in f32 (layers.py:84-90): x and the matrix in x's dtype, the
     products and sums in f32."""
-    w = p.embedding.t() if cfg.tie_embeddings else p.unembed
+    return unembed_with(unembed_weight(p, cfg), x)
+
+
+def unembed_with(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``unembed`` by the (dim, vocab) matrix ``w``: a rank's vocabulary
+    columns give that rank's logit columns."""
     w = w.to(x.dtype)
     if x.dtype == torch.float32:
         return torch.matmul(x, w)
@@ -217,8 +245,22 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
                       mode: Optional[ExecutionMode] = None,
                       q_offset: int = 0) -> torch.Tensor:
     """Full attention sublayer on pre-normed x (layers.py:165); x_kv
-    defaults to x.  The mode goes through the planner's per-layer rule."""
+    defaults to x.  The mode goes through the planner's per-layer rule
+    (at the config's head counts).  Where the active mesh step hands the
+    layers the rank's query heads (``p.wq`` (D, Hq/m, hd),
+    ``parallel.attention_split``), self-attention runs on them: the
+    kernels see Hq/m query heads over the kv heads they read
+    (``parallel.head_block``), and ``wo`` is row-parallel."""
     from repro_torch.plan.heuristics import resolve_layer_mode
+    tp = parallel.active()
+    split = x_kv is None and tp is not None and tp.local(p, "wq")
+    if split:
+        x = tp.copy(x)
+        wk, wv, q_gamma, k_gamma = parallel.head_block(tp, p, cfg)
+    else:
+        wk, wv = p.wk, p.wv
+        q_gamma = getattr(p, "q_gamma", None)
+        k_gamma = getattr(p, "k_gamma", None)
     x_kv = x if x_kv is None else x_kv
     mode = resolve_layer_mode(
         ExecutionMode(mode or cfg.execution_mode), d_kv=x_kv.shape[-1],
@@ -227,7 +269,7 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     window = cfg.sliding_window if cfg.attn_kind == AttnKind.SLIDING else 0
     q = torch.einsum("bsd,dhe->bhse", x, p.wq.to(x.dtype))
     if cfg.use_qk_norm:
-        q = ref.rms_norm(q, p.q_gamma, eps=cfg.norm_eps)
+        q = ref.rms_norm(q, q_gamma, eps=cfg.norm_eps)
     if sin is not None:
         q_sin, q_cos = sin, cos
         if q_offset or q.shape[2] != x_kv.shape[1]:
@@ -236,11 +278,12 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         q = apply_rope_bsd(q, q_sin, q_cos)
     q = constrain(q, "attn_q")      # context-parallel hint (hints.py)
     out = ops.attention_by_mode(
-        mode, q, x_kv, p.wk, p.wv, sin=sin, cos=cos,
-        k_gamma=getattr(p, "k_gamma", None), causal=causal, window=window,
-        q_offset=q_offset, norm_eps=cfg.norm_eps)
+        mode, q, x_kv, wk, wv, sin=sin, cos=cos, k_gamma=k_gamma,
+        causal=causal, window=window, q_offset=q_offset,
+        norm_eps=cfg.norm_eps)
     out = constrain(out, "attn_out")
-    return torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
+    out = torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
+    return tp.reduce(out) if split else out
 
 
 def attention_forward_mrope(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -251,14 +294,23 @@ def attention_forward_mrope(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     any kernel and attention runs through ``ops.multi_head_attention``,
     the flash kernel, whatever the execution mode, as in the JAX function
     (which takes a ``mode`` and does not read it).  The stream kernel
-    takes only (Sk, hd//2) tables."""
+    takes only (Sk, hd//2) tables.  On the rank's query heads as
+    ``attention_forward``'s."""
+    tp = parallel.active()
+    split = tp is not None and tp.local(p, "wq")
+    if split:
+        x = tp.copy(x)
+        wk, wv, _, _ = parallel.head_block(tp, p, cfg)
+    else:
+        wk, wv = p.wk, p.wv
     q = torch.einsum("bsd,dhe->bhse", x, p.wq.to(x.dtype))
-    k = torch.einsum("bsd,dhe->bhse", x, p.wk.to(x.dtype))
-    v = torch.einsum("bsd,dhe->bhse", x, p.wv.to(x.dtype))
+    k = torch.einsum("bsd,dhe->bhse", x, wk.to(x.dtype))
+    v = torch.einsum("bsd,dhe->bhse", x, wv.to(x.dtype))
     q = apply_rope_bsd(q, sin_b, cos_b)
     k = apply_rope_bsd(k, sin_b, cos_b)
     out = ops.multi_head_attention(q, k, v, causal=causal)
-    return torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
+    out = torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
+    return tp.reduce(out) if split else out
 
 
 def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -319,6 +371,14 @@ class MLP(nn.Module):
 
 
 def mlp_forward(p: MLP, x: torch.Tensor) -> torch.Tensor:
+    """The MLP through ``ops.projection``; where the active mesh step hands
+    the layers the rank's d_ff block, ``w_gate``/``w_up`` column-parallel
+    (x enters by ``copy``) and ``w_down`` row-parallel (its partial
+    products summed by ``reduce``)."""
+    tp = parallel.active()
+    split = tp is not None and tp.local(p, "w_up")
+    if split:
+        x = tp.copy(x)
     if hasattr(p, "w_gate"):
         g = ops.projection(x, p.w_gate)
         u = ops.projection(x, p.w_up)
@@ -326,7 +386,8 @@ def mlp_forward(p: MLP, x: torch.Tensor) -> torch.Tensor:
     else:
         # jax.nn.gelu defaults to the tanh approximation.
         h = F.gelu(ops.projection(x, p.w_up), approximate="tanh")
-    return ops.projection(h, p.w_down)
+    out = ops.projection(h, p.w_down)
+    return tp.reduce(out) if split else out
 
 
 # ---------------------------------------------------------------------------

@@ -55,6 +55,11 @@ the MoE layer's gathers and batched products through autograd (a dropped
 slot gets no gradient, as in JAX).  The serving entry points keep
 ``torch.no_grad()``.  Serving on a mesh replicates the model and runs
 these entry points on every rank (``shard.serve``, ``serve.Engine``).
+Training on a mesh (``train.steps.MeshTrainStep``) gathers the
+parameters a unit at a time where the loss asks for them
+(``distributed.parallel.unit``: the embedding, each layer, the final norm
+with the output matrix), and the layers compute on the rank's 'model'
+blocks where the step hands them blocks (``distributed.parallel``).
 """
 from __future__ import annotations
 
@@ -67,6 +72,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import runtime
 from repro_torch.core.types import AttnKind, ExecutionMode, Family, ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import (MLP, Attention, Embedding, MoE,
                                        RMSNorm, apply_rope_bsd,
@@ -76,7 +82,8 @@ from repro_torch.models.layers import (MLP, Attention, Embedding, MoE,
                                        moe_forward, move_to, mrope_tables,
                                        param,
                                        rms_norm, rope_tables_for,
-                                       torch_dtype, unembed)
+                                       torch_dtype, unembed, unembed_weight,
+                                       unembed_with)
 from repro_torch.models.mla import (MLA, _latent, mla_decode, mla_forward,
                                     mla_init_cache)
 from repro_torch.models.ssm import (SSM, ssm_decode, ssm_forward,
@@ -341,15 +348,55 @@ class Transformer(nn.Module):
     def device(self) -> torch.device:
         return self.embed.embedding.device
 
-    def _rope(self, seq_len: int):
+    def _rope(self, seq_len: int, device=None):
         """RoPE tables (``qk_rope_head_dim`` wide for MLA), or (None, None)
-        for attention-free models."""
+        for attention-free models; on ``device`` (the model's by
+        default)."""
         cfg = self.cfg
         if not cfg.num_heads or cfg.attn_kind == AttnKind.NONE:
             return None, None
         hd = (cfg.qk_rope_head_dim if cfg.attn_kind == AttnKind.MLA
               else cfg.head_dim)
-        return rope_tables_for(cfg, seq_len, head_dim=hd, device=self.device)
+        return rope_tables_for(cfg, seq_len, head_dim=hd,
+                               device=device or self.device)
+
+    def unit_names(self) -> List[str]:
+        """The parameters that ``loss_fn`` asks the mesh step for a unit at
+        a time where it reads them (``_trunk``, ``head_names``): all of
+        them (``mtp_proj``, which it never reads, is never gathered)."""
+        return [k for k, _ in self.named_parameters()]
+
+    def head_names(self) -> Tuple[str, ...]:
+        """The head unit's parameters: the final norm and the output
+        matrix."""
+        return ("final_norm.gamma", "embed.embedding"
+                if self.cfg.tie_embeddings else "embed.unembed")
+
+    def _trunk(self, batch: Dict[str, torch.Tensor], *,
+               mode: Optional[ExecutionMode] = None,
+               remat: bool = False) -> torch.Tensor:
+        """The embedding and every layer, before the final norm.  Each is a
+        unit of the active mesh step (``parallel.unit``): the embedding's
+        rows are gathered for the lookup, each layer's parameters for its
+        forward and, under ``remat``, again for its recomputation."""
+        cfg = self.cfg
+        mode = mode or cfg.execution_mode
+        with parallel.unit(self, ("embed.embedding",)):
+            x = embed_lookup(self.embed, batch["tokens"])
+        sin = cos = mrope_tabs = None
+        if (cfg.family == Family.VLM and cfg.mrope_sections
+                and "positions" in batch):
+            mrope_tabs = mrope_tables(cfg, batch["positions"])
+        else:
+            sin, cos = self._rope(x.shape[1], x.device)
+        kw = dict(sin=sin, cos=cos, mode=mode, mrope_tabs=mrope_tabs)
+        for p in self.blocks:
+            if remat and torch.is_grad_enabled():
+                x = checkpoint(parallel.run_unit, p, _layer_apply, cfg, x,
+                               use_reentrant=False, **kw)
+            else:
+                x = parallel.run_unit(p, _layer_apply, cfg, x, **kw)
+        return x
 
     def hidden(self, batch: Dict[str, torch.Tensor], *,
                mode: Optional[ExecutionMode] = None,
@@ -360,23 +407,8 @@ class Transformer(nn.Module):
         backward (its kernels then launch twice a step).  A VLM batch
         with "positions" (3, B, S) takes M-RoPE tables
         (transformer.py:160-163)."""
-        cfg = self.cfg
-        mode = mode or cfg.execution_mode
-        x = embed_lookup(self.embed, batch["tokens"])
-        sin = cos = mrope_tabs = None
-        if (cfg.family == Family.VLM and cfg.mrope_sections
-                and "positions" in batch):
-            mrope_tabs = mrope_tables(cfg, batch["positions"])
-        else:
-            sin, cos = self._rope(x.shape[1])
-        kw = dict(sin=sin, cos=cos, mode=mode, mrope_tabs=mrope_tabs)
-        for p in self.blocks:
-            if remat and torch.is_grad_enabled():
-                x = checkpoint(_layer_apply, p, cfg, x, use_reentrant=False,
-                               **kw)
-            else:
-                x = _layer_apply(p, cfg, x, **kw)
-        return rms_norm(self.final_norm, x, eps=cfg.norm_eps)
+        x = self._trunk(batch, mode=mode, remat=remat)
+        return rms_norm(self.final_norm, x, eps=self.cfg.norm_eps)
 
     @torch.no_grad()
     def forward_hidden(self, batch: Dict[str, torch.Tensor], *,
@@ -479,14 +511,19 @@ class Transformer(nn.Module):
 # Training: the loss (transformer.py:177-214)
 # ---------------------------------------------------------------------------
 
-def _chunk_nll(embed: Embedding, cfg: ModelConfig, h: torch.Tensor,
-               labels: torch.Tensor) -> torch.Tensor:
-    """Summed negative log-likelihood of one sequence chunk; labels -1 are
-    masked."""
-    logits = unembed(embed, h, cfg)
+def _chunk_nll(w: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
+               tp: Optional[parallel.ModelParallel]) -> torch.Tensor:
+    """Summed negative log-likelihood of one sequence chunk under the
+    output matrix ``w``; labels -1 are masked.  With ``tp``, ``w`` holds
+    the rank's vocabulary columns and the loss is vocabulary-parallel
+    (``parallel.vocab_nll``)."""
+    logits = unembed_with(w, h)
     valid = labels >= 0
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
+    if tp is not None:
+        nll = parallel.vocab_nll(tp, logits.float(), labels)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
     return (nll * valid).sum()
 
 
@@ -495,14 +532,25 @@ def chunked_xent(model: Transformer, hidden: torch.Tensor,
     """Cross-entropy with the unembed computed per sequence chunk of
     ``chunk`` positions (the whole sequence when it does not divide).  Each
     chunk's f32 logits are recomputed in the backward, so the (B, S, vocab)
-    logits never exist at once, not even as saved residuals."""
+    logits never exist at once, not even as saved residuals.  The output
+    matrix is read once and handed to every chunk, so that the chunks'
+    recomputations (in the same order on every rank) read the tensor the
+    forward read.  Where the active mesh step hands the layers the rank's
+    vocabulary columns, every chunk's loss is vocabulary-parallel."""
     B, S, _ = hidden.shape
     c = min(chunk, S)
     if S % c:
         c = S
+    w = unembed_weight(model.embed, model.cfg)
+    tp = parallel.active()
+    name = "embedding" if model.cfg.tie_embeddings else "unembed"
+    if tp is not None and tp.local(model.embed, name):
+        hidden = tp.copy(hidden)
+    else:
+        tp = None
     total = hidden.new_zeros((), dtype=torch.float32)
     for i in range(0, S, c):
-        args = (model.embed, model.cfg, hidden[:, i:i + c], labels[:, i:i + c])
+        args = (w, hidden[:, i:i + c], labels[:, i:i + c], tp)
         total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False)
                          if torch.is_grad_enabled() else _chunk_nll(*args))
     # the count stays a tensor: no host sync, and a fake tensor (the dry
@@ -514,6 +562,9 @@ def loss_fn(model: Transformer, batch: Dict[str, torch.Tensor], *,
             mode: Optional[ExecutionMode] = None,
             remat: bool = True) -> torch.Tensor:
     """Next-token cross-entropy of ``batch`` ({"tokens", "labels"} (B, S));
-    labels == -1 are masked."""
-    hidden = model.hidden(batch, mode=mode, remat=remat)
-    return chunked_xent(model, hidden, batch["labels"])
+    labels == -1 are masked.  The final norm and the loss are the head
+    unit of the active mesh step."""
+    x = model._trunk(batch, mode=mode, remat=remat)
+    with parallel.unit(model, model.head_names()):
+        h = rms_norm(model.final_norm, x, eps=model.cfg.norm_eps)
+        return chunked_xent(model, h, batch["labels"])

@@ -12,7 +12,10 @@ Structure and order are those of vilbert.py:147-211.  ``logits`` is the
 forward recorded by autograd (remat of the text-only layers and of each
 co-TRM block as the JAX ``pre_step``/``co_body``), and ``loss_fn`` the VQA
 cross-entropy (vilbert.py:214); the pruning's token choice is not
-differentiated, its gather is.
+differentiated, its gather is.  Each text-only layer and each co-TRM
+block (both streams) is a unit of the mesh train step
+(``distributed.parallel.unit``), gathered for its forward, for its
+recomputation, and for the pruning scores that read it.
 """
 from __future__ import annotations
 
@@ -25,6 +28,7 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.core import pruning as P
 from repro_torch.core import runtime
 from repro_torch.core.types import ExecutionMode, ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (MLP, Embedding, LayerNorm, dense_init,
                                        embed_lookup, layer_norm, mlp_forward,
@@ -121,6 +125,15 @@ def _co_block(px: StreamBlock, py: StreamBlock, cfg: ModelConfig,
             _stream_block(py, cfg, y, x, mode))
 
 
+def _co_unit(model: "ViLBERT", i: int, cfg: ModelConfig, x: torch.Tensor,
+             y: torch.Tensor, mode: ExecutionMode):
+    """Co-TRM block ``i`` inside its unit: what the block loop
+    checkpoints, so that the recomputation gathers it again."""
+    names = model.co_names(i) if parallel.active() else None
+    with parallel.unit(model, names):
+        return _co_block(model.co_x[i], model.co_y[i], cfg, x, y, mode)
+
+
 def _dtpu_cross_scores(p: StreamBlock, x: torch.Tensor, y: torch.Tensor,
                        stride: int = 8) -> torch.Tensor:
     """Rank y's tokens by the attention mass x's queries pay them."""
@@ -163,6 +176,18 @@ class ViLBERT(nn.Module):
                                          generator=g))
         move_to(self, device)
 
+    def co_names(self, i: int) -> list:
+        """Co-TRM block ``i``'s parameters, both streams (one unit)."""
+        return [f"{side}.{i}.{n}" for side in ("co_x", "co_y")
+                for n, _ in getattr(self, side)[i].named_parameters()]
+
+    def unit_names(self) -> list:
+        """The parameters the encoder asks the mesh step for a unit at a
+        time: the text-only layers' and the co-TRM blocks' (the
+        embeddings, projections and heads are gathered for the step)."""
+        return [k for k, _ in self.named_parameters()
+                if k.split(".")[0] in ("text_pre", "co_x", "co_y")]
+
     @torch.no_grad()
     def encode(self, batch: Dict[str, torch.Tensor], *,
                mode: Optional[ExecutionMode] = None):
@@ -185,8 +210,10 @@ class ViLBERT(nn.Module):
         y = y + self.text_pos[:y.shape[1]].to(y.dtype)[None]
 
         for lp in self.text_pre:
-            y = (checkpoint(_text_layer, lp, cfg, y, mode, use_reentrant=False)
-                 if remat else _text_layer(lp, cfg, y, mode))
+            y = (checkpoint(parallel.run_unit, lp, _text_layer, cfg, y, mode,
+                            use_reentrant=False)
+                 if remat else parallel.run_unit(lp, _text_layer, cfg, y,
+                                                 mode))
 
         # Co-TRM blocks with DTPU pruning between blocks (static keep plan).
         n_co = cfg.num_coattn_layers
@@ -199,17 +226,17 @@ class ViLBERT(nn.Module):
         for i, (px, py) in enumerate(zip(self.co_x, self.co_y)):
             # the token choice is not differentiated; the gather is
             if on and plan_x[i] < x.shape[1]:
-                with torch.no_grad():
+                with torch.no_grad(), parallel.unit(py):
                     sx = _dtpu_cross_scores(py, y, x)   # X tokens scored by Y
                 x, _, _ = P.prune_stream(x, sx, plan_x[i])
             if on and plan_y[i] < y.shape[1]:
-                with torch.no_grad():
+                with torch.no_grad(), parallel.unit(px):
                     sy = _dtpu_cross_scores(px, x, y)   # Y tokens scored by X
                 y, _, _ = P.prune_stream(y, sy, plan_y[i])
             counts.append((x.shape[1], y.shape[1]))
-            x, y = (checkpoint(_co_block, px, py, cfg, x, y, mode,
+            x, y = (checkpoint(_co_unit, self, i, cfg, x, y, mode,
                                use_reentrant=False)
-                    if remat else _co_block(px, py, cfg, x, y, mode))
+                    if remat else _co_unit(self, i, cfg, x, y, mode))
         return x, y, tuple(counts)
 
     @torch.no_grad()

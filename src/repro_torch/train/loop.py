@@ -51,6 +51,46 @@ def build_model(cfg: ModelConfig, device: torch.device, seed: int):
     return cls(cfg, device=device, generator=gen).requires_grad_(True)
 
 
+def build_sharded(cfg: ModelConfig, device: torch.device, seed: int, mesh,
+                  fsdp_threshold: float = 8e9):
+    """``build_model``'s weights, of which only this rank's blocks are
+    kept: (the model with its parameters on ``meta``, requiring grad,
+    {name: the rank's block on ``device``}), the blocks placed by the rule
+    table (``sharding.param_shardings`` at ``fsdp_threshold``).  A first
+    build that allocates nothing (``FakeTensorMode``, nothing drawn) reads
+    the order in which the model creates its parameters
+    (``layers.param``); the second draws them from ``seed`` on
+    ``device`` in that order, as ``build_model`` does (the same values),
+    and keeps each one's block as it is drawn, so that no whole model
+    exists on the rank (at most one whole parameter at a time)."""
+    from torch import nn
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    order = []
+
+    def record(t):
+        order.append(nn.Parameter(t, requires_grad=False))
+        return order[-1]
+    with FakeTensorMode(allow_non_fake_inputs=True), runtime.flags(
+            abstract_init=True, param_hook=record):
+        shape_model = build_model(cfg, torch.device("cpu"), seed)
+    names = {id(p): k for k, p in shape_model.named_parameters()}
+    order = [names[id(p)] for p in order]
+    shardings = SH.param_shardings(shape_model, cfg, mesh,
+                                   fsdp_threshold=fsdp_threshold)
+    blocks, calls = {}, iter(order)
+
+    def keep(t):
+        name = next(calls)
+        pl = shardings[name].placements
+        blocks[name] = t[SH.local_index(t.shape, mesh, pl)].clone(
+            memory_format=torch.contiguous_format)
+        return nn.Parameter(torch.empty(t.shape, dtype=t.dtype,
+                                        device="meta"), requires_grad=False)
+    with runtime.flags(param_hook=keep):
+        model = build_model(cfg, device, seed)
+    return model.requires_grad_(True), blocks
+
+
 def to_device(batch: Dict[str, np.ndarray], cfg: ModelConfig,
               device: torch.device) -> Dict[str, torch.Tensor]:
     """A numpy batch as tensors on ``device``: integers as int64 (indices),
@@ -66,7 +106,8 @@ def to_device(batch: Dict[str, np.ndarray], cfg: ModelConfig,
 def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
           device: Optional[Union[str, torch.device]] = None,
           hooks: Optional[Dict[str, Callable]] = None, mesh: Any = None,
-          fsdp_threshold: float = 8e9) -> Dict[str, Any]:
+          fsdp_threshold: float = 8e9,
+          gather_model: bool = False) -> Dict[str, Any]:
     """Run the loop on one device (the card unless ``device`` names
     another; without a card and without ``device="cpu"`` this raises), or
     on a ``DeviceMesh`` of such devices (``launch.mesh``; ``device`` then
@@ -74,10 +115,14 @@ def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
     placed by the rule table (``fsdp_threshold`` as in
     ``sharding.param_shardings``), the batch by ``batch_shardings``, the
     gradients reduced over (pod, data) (``steps.MeshTrainStep``); with
-    ``mesh=None`` the single-device step.  Returns {"model", "opt_state",
-    "metrics"} (on a mesh the model holds the whole final parameters and
-    ``opt_state`` the DTensor moments; also "params", the DTensor
-    parameters).  ``hooks["on_log"]`` gets each logged metrics dict."""
+    ``mesh=None`` the single-device step.  On a mesh no rank holds the
+    whole model: it is built with only the rank's blocks
+    (``build_sharded``), and the step gathers them a unit at a time.
+    Returns {"model", "opt_state", "metrics"}; on a mesh also "params",
+    the DTensor parameters, ``opt_state`` holds the DTensor moments, and
+    the model the whole final parameters only with ``gather_model``
+    (otherwise its parameters stay on ``meta``).  ``hooks["on_log"]``
+    gets each logged metrics dict."""
     device = runtime.resolve_device(device)
     if mesh is not None and getattr(mesh, "device_type", None) != \
             device.type:
@@ -85,17 +130,20 @@ def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
                          f"{device.type} devices")
     hooks = hooks or {}
     specs = registry.input_specs(cfg, shape)
-    model = build_model(cfg, device, tcfg.seed)
     if mesh is None:
+        model = build_model(cfg, device, tcfg.seed)
         params = {k: p for k, p in model.named_parameters()}
         opt_state = OPT.init(params)
         step_fn = ST.make_train_step(cfg, tcfg.opt, mode=tcfg.mode,
                                      microbatches=tcfg.microbatches)
         bshard = None
     else:
+        model, blocks = build_sharded(cfg, device, tcfg.seed, mesh,
+                                      fsdp_threshold)
         mstep = ST.MeshTrainStep(cfg, model, mesh, tcfg.opt, mode=tcfg.mode,
                                  microbatches=tcfg.microbatches,
-                                 fsdp_threshold=fsdp_threshold)
+                                 fsdp_threshold=fsdp_threshold, blocks=blocks)
+        del blocks
         params, opt_state = mstep.params, mstep.opt_state
         bshard = SH.batch_shardings(specs, mesh)
     ckpt = Checkpointer(tcfg.checkpoint_dir) if tcfg.checkpoint_dir else None
@@ -145,6 +193,7 @@ def train(cfg: ModelConfig, shape: ShapeConfig, source, tcfg: TrainConfig, *,
         ckpt.wait()
     out = {"model": model, "opt_state": opt_state, "metrics": metrics_hist}
     if mesh is not None:
-        mstep.gather()
+        if gather_model:
+            mstep.gather()
         out["params"] = params
     return out

@@ -5,24 +5,43 @@
 On a mesh (``MeshTrainStep``) every parameter and both AdamW moments are
 stored as DTensors placed by the rule table
 (``distributed.sharding.param_shardings``): each rank holds its blocks
-(ZeRO-3 over 'data' above the FSDP threshold, 'model' by the rules).  A
-step gathers them into the model's parameters (``full_tensor``), runs the
-single-device forward and backward on the rank's block of the batch
-(``batch_shardings``: rows over (pod, data)), reduces each gradient over
-(pod, data) straight to its parameter's placements (Partial -> Shard, a
-reduce-scatter, where the parameter is sharded over a batch axis;
-Partial -> Replicate, an all-reduce, where it is not), takes the mean
-over the data-parallel ranks, the global norm from the blocks, and
-updates the rank's blocks.  The compute runs on whole (gathered)
-tensors, so the model's kernels launch as on one device, and on a
-(1, 1) mesh every number is the single-device step's.  Not yet done:
-gathering per layer and freeing after use (the gathered copy of the
-parameters, and the backward's whole gradients, live for the step) and
-tensor- or context-parallel compute over 'model' (ranks of one 'model'
-row compute the same step).
+(ZeRO-3 over 'data' above the FSDP threshold, 'model' by the rules).  The
+step computes sharded, as GSPMD partitions the JAX step
+(``repro/train/loop.py:49-74``):
+
+* over 'model', the layers compute on the rank's blocks where
+  ``distributed.parallel`` splits them (dense attention's heads, the MLP's
+  d_ff, the vocabulary): nothing of them is gathered over 'model';
+* over the batch axes, the parameters are gathered a unit at a time, as
+  the model code asks for them (``parallel.unit``): one layer, the
+  embedding, or the final norm with the output matrix.  A unit is gathered
+  just before its forward and freed after it, and gathered again for its
+  recomputation in the backward.  Under ``remat`` (the default) a rank
+  then holds at most two gathered units beside its blocks
+  (``max_live_units``); without it autograd keeps every unit's gathered
+  tensors for the backward, so that the whole model can sit gathered.
+  A gradient of a parameter sharded over a batch axis goes straight to
+  its block through the gather's backward, a reduce-scatter each
+  microbatch: no whole gradient of a sharded parameter is formed.  A
+  parameter replicated over the batch axes keeps the rank's own gradient
+  through the microbatches and is all-reduced once a step.  Both are the
+  mean over the data-parallel ranks.
+  Parameters outside every unit (``unit_names`` of the model: the
+  encoder-decoder family's, whose layers are no units yet, the
+  crossmodal family's embeddings, projections and heads) are gathered
+  for the whole step; what the layers do not compute on their 'model'
+  block is gathered whole over 'model'
+  (``parallel.replicated_over_model``).
+
+The loss is reduced over the batch axes, the global norm taken from the
+blocks, and AdamW updates the rank's blocks.  On a (1, 1) mesh nothing is
+gathered or reduced: the layers read the blocks, and every number is the
+single-device step's.
 """
 from __future__ import annotations
 
+import contextlib
+import weakref
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -112,82 +131,228 @@ def local_batch(batch: Dict[str, np.ndarray], shardings, mesh
             for k, v in batch.items()}
 
 
+class _Gather(torch.autograd.Function):
+    """A parameter's block (stored placements) -> the tensor its layers
+    compute on (``MeshTrainStep._gathered_pl``); backward: the rank's
+    gradient of that tensor -> its share of the mean gradient, at the
+    stored placements (``MeshTrainStep._reduce``)."""
+
+    @staticmethod
+    def forward(ctx, block, step, name):
+        ctx.step, ctx.name = step, name
+        return step._gather(block, name)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.step._reduce(g, ctx.name), None, None
+
+
 class MeshTrainStep:
     """The train step on a ``DeviceMesh`` (the module docstring):
     ``self.params`` and ``self.opt_state`` hold the DTensor state, placed
     by ``self.shardings``; calling it with the rank's block of a batch
     (``local_batch``) trains one step and returns the metrics, the same
-    keys as ``make_train_step``'s.  ``gather()`` writes the state's values
-    into the model's parameters."""
+    keys as ``make_train_step``'s.  ``blocks`` ({name: the rank's block}),
+    when given, is the state's initial values and ``model`` only its
+    structure (``loop.build_sharded``: parameters on ``meta``); otherwise
+    each block is cut from ``model``'s parameters.  ``gather()`` writes
+    the state's whole values into the model's parameters."""
 
     def __init__(self, cfg: ModelConfig, model, mesh,
                  ocfg: Optional[opt.OptimizerConfig] = None, *,
                  mode: Optional[ExecutionMode] = None, remat: bool = True,
-                 microbatches: int = 1, fsdp_threshold: float = 8e9):
-        from torch.distributed.tensor import DTensor, Partial, Replicate
+                 microbatches: int = 1, fsdp_threshold: float = 8e9,
+                 blocks: Optional[Dict[str, torch.Tensor]] = None):
+        from torch.distributed.tensor import (DTensor, Partial, Replicate,
+                                              Shard)
+        from repro_torch.distributed import parallel as PL
         from repro_torch.distributed import sharding as SH
         self.cfg, self.model, self.mesh = cfg, model, mesh
         self.ocfg = ocfg or opt.OptimizerConfig()
         self.loss_and_grads = make_loss_and_grads(
             cfg, mode=mode, remat=remat, microbatches=microbatches)
-        self.names = [k for k, p in model.named_parameters()
-                      if p.requires_grad]
+        params = dict(model.named_parameters())
+        self.names = [k for k, p in params.items() if p.requires_grad]
         self.shardings = SH.param_shardings(model, cfg, mesh,
                                             fsdp_threshold=fsdp_threshold)
         self.batch_axes = SH.batch_axes(mesh)
         sizes = SH.axis_sizes(mesh)
         self.dp = int(np.prod([sizes[a] for a in self.batch_axes]))
-        self._partial = tuple(
-            Partial() if a in self.batch_axes else Replicate()
-            for a in mesh.mesh_dim_names)
+        self.local = PL.local_names(
+            {k: tuple(params[k].shape) for k in self.names}, cfg, sizes)
+        dims = mesh.mesh_dim_names
         self._replicate = (Replicate(),) * mesh.ndim
+        self._partial = tuple(Partial() if a in self.batch_axes
+                              else Replicate() for a in dims)
+
+        def target(k, partial):
+            # the placements a parameter's layers compute on (gathered
+            # over every axis but 'model' where they take its block), or
+            # those of its rank's gradient (Partial over the batch axes)
+            stored = self.shardings[k].placements
+            return tuple(
+                st if a == "model" and k in self.local else
+                Partial() if partial and a in self.batch_axes else
+                Replicate() for a, st in zip(dims, stored))
+        self._gathered_pl = {k: target(k, False) for k in self.names}
+        self._partial_pl = {k: target(k, True) for k in self.names}
+        # the parameters replicated over every batch axis: their
+        # gradients stay Partial over those axes through the microbatches
+        # (at the stored placements over 'model') and are summed once a
+        # step (``_sum_held``); ``_held_now`` names those that got one
+        self._held_pl = {
+            k: tuple(Partial() if a in self.batch_axes else st
+                     for a, st in zip(dims, self.shardings[k].placements))
+            for k in self.names
+            if not any(isinstance(st, Shard) for a, st in
+                       zip(dims, self.shardings[k].placements)
+                       if a in self.batch_axes)}
+        self._held_now: set = set()
         # ranks holding each parameter's block: the sizes of the mesh dims
         # it is replicated over
         self._copies = {k: int(np.prod([
             mesh.size(d) for d, pl in enumerate(self.shardings[k].placements)
             if isinstance(pl, Replicate)])) for k in self.names}
-        params = dict(model.named_parameters())
 
-        def place(t: torch.Tensor, name: str):
-            pl = self.shardings[name].placements
-            block = t[SH.local_index(t.shape, mesh, pl)]
-            return DTensor.from_local(block.detach().clone(
-                memory_format=torch.contiguous_format), mesh, pl,
-                run_check=False)
+        def block_of(k):
+            if blocks is not None:
+                return blocks[k]
+            t = params[k]
+            return t[SH.local_index(t.shape, mesh,
+                                    self.shardings[k].placements)].detach(
+                ).clone(memory_format=torch.contiguous_format)
+        # the rank's blocks: the leaves the step differentiates, and the
+        # storage of ``self.params``
+        self.blocks = {k: block_of(k).requires_grad_(True)
+                       for k in self.names}
+        self.params = {k: DTensor.from_local(
+            self.blocks[k].detach(), mesh, self.shardings[k].placements,
+            run_check=False) for k in self.names}
+        self.opt_state = opt.OptState(step=0, mu=self._zeros(),
+                                      nu=self._zeros())
+        # units: the model's parameters by module, and those no unit of
+        # the model code covers (gathered for the whole step)
+        self._prefix = {id(m): n for n, m in model.named_modules()}
+        units = set(model.unit_names()) if hasattr(model, "unit_names") \
+            else set()
+        self.resident = [k for k in self.names if k not in units]
+        coord = mesh.get_coordinate()
+        m = sizes.get("model", 1)
+        group = mesh.get_group("model") if m > 1 else None
+        self.tp = PL.ModelParallel(
+            coord[dims.index("model")] if "model" in dims else 0, m, group,
+            [self._owner(k) for k in self.local], gatherer=self)
+        # gathered units: alive now, at most at once, and in all
+        self.live_units = self.max_live_units = self.units_gathered = 0
 
-        self.params = {k: place(params[k], k) for k in self.names}
+    def _zeros(self) -> Dict[str, object]:
+        from torch.distributed.tensor import DTensor
+        return {k: DTensor.from_local(
+            torch.zeros(b.shape, dtype=torch.float32, device=b.device),
+            self.mesh, self.shardings[k].placements, run_check=False)
+            for k, b in self.blocks.items()}
 
-        def zeros():
-            out = {}
-            for k in self.names:
-                pl = self.shardings[k].placements
-                idx = SH.local_index(params[k].shape, mesh, pl)
-                out[k] = DTensor.from_local(torch.zeros(
-                    [s.stop - s.start for s in idx], dtype=torch.float32,
-                    device=params[k].device), mesh, pl, run_check=False)
+    def _owner(self, name: str):
+        owner, _, leaf = name.rpartition(".")
+        return self.model.get_submodule(owner), leaf
+
+    # -- gathering ------------------------------------------------------
+
+    def _gather(self, block: torch.Tensor, name: str) -> torch.Tensor:
+        """The block redistributed to the placements its layers compute on
+        (an all-gather over each batch axis it is sharded on, and over
+        'model' where the layers do not take its 'model' block)."""
+        from torch.distributed.tensor import DTensor
+        return DTensor.from_local(
+            block.detach(), self.mesh, self.shardings[name].placements,
+            run_check=False).redistribute(
+            self.mesh, self._gathered_pl[name]).to_local()
+
+    def _reduce(self, g: torch.Tensor, name: str) -> torch.Tensor:
+        """This rank's block, by the stored placements, of the mean over
+        the data-parallel ranks of each rank's gradient ``g`` (Partial
+        over the batch axes): a reduce-scatter on a sharded batch axis, a
+        local slice over 'model' where the layers computed on the whole
+        tensor.  A parameter replicated over the batch axes keeps ``g``
+        Partial over them (``_sum_held`` reduces it once a step)."""
+        from torch.distributed.tensor import DTensor
+        held = self._held_pl.get(name)
+        out = DTensor.from_local(
+            g.contiguous(), self.mesh, self._partial_pl[name],
+            run_check=False).redistribute(
+            self.mesh, held or self.shardings[name].placements).to_local()
+        if held:
+            self._held_now.add(name)
             return out
-        self.opt_state = opt.OptState(step=0, mu=zeros(), nu=zeros())
+        return out / self.dp if self.dp > 1 else out
+
+    def _sum_held(self, g: torch.Tensor, name: str) -> torch.Tensor:
+        """The mean over the data-parallel ranks of a replicated
+        parameter's gradient ``g``, summed over the step's microbatches:
+        one all-reduce over the batch axes."""
+        from torch.distributed.tensor import DTensor
+        out = DTensor.from_local(
+            g.contiguous(), self.mesh, self._held_pl[name],
+            run_check=False).redistribute(
+            self.mesh, self.shardings[name].placements).to_local()
+        return out / self.dp if self.dp > 1 else out
+
+    def _track(self, tensors) -> None:
+        """Count a gathered unit live until every tensor of it is freed."""
+        left = [len(tensors)]
+
+        def freed():
+            left[0] -= 1
+            if left[0] == 0:
+                self.live_units -= 1
+        self.live_units += 1
+        self.units_gathered += 1
+        self.max_live_units = max(self.max_live_units, self.live_units)
+        for t in tensors:
+            weakref.finalize(t, freed)
+
+    @contextlib.contextmanager
+    def gathered(self, root, names=None):
+        """``root``'s parameters ``names`` (relative to ``root``; all of
+        them: None) gathered (``_Gather``) and standing in the model's
+        modules for the block; on a one-rank mesh the blocks themselves."""
+        from repro_torch.distributed.parallel import swapped
+        prefix = self._prefix[id(root)]
+        if names is None:
+            names = [n for n, _ in root.named_parameters()]
+        full = {n: f"{prefix}.{n}" if prefix else n for n in names}
+        if self.mesh.size() == 1:
+            tensors = {n: self.blocks[k] for n, k in full.items()}
+        else:
+            tensors = {n: _Gather.apply(self.blocks[k], self, k)
+                       for n, k in full.items()}
+            self._track(list(tensors.values()))
+        with swapped(root, tensors):
+            yield
+
+    # -- the step -------------------------------------------------------
 
     @torch.no_grad()
     def gather(self) -> None:
         """Write the (sharded) parameter state into the model's whole
-        parameters: an all-gather per sharded tensor."""
+        parameters: an all-gather per sharded tensor.  A model on ``meta``
+        (``loop.build_sharded``) gets storage on the blocks' device
+        first."""
+        device = next(iter(self.blocks.values())).device
+        if any(p.is_meta for p in self.model.parameters()):
+            self.model.to_empty(device=device)
         params = dict(self.model.named_parameters())
         for k in self.names:
             params[k].copy_(self.params[k].full_tensor())
 
-    def _reduce(self, t: torch.Tensor, placements) -> torch.Tensor:
-        """This rank's block, by ``placements``, of the mean over the
-        data-parallel ranks of each rank's ``t``: Partial over (pod, data)
-        redistributed to the target placements (a reduce-scatter on a
-        sharded mesh dim, an all-reduce on a replicated one, a local slice
-        over 'model')."""
+    def _reduce_loss(self, loss: torch.Tensor) -> torch.Tensor:
+        """The mean over the data-parallel ranks of each rank's loss."""
         from torch.distributed.tensor import DTensor
         if self.mesh.size() == 1:
-            return t
-        out = DTensor.from_local(t, self.mesh, self._partial,
+            return loss
+        out = DTensor.from_local(loss, self.mesh, self._partial,
                                  run_check=False).redistribute(
-            self.mesh, placements).to_local()
+            self.mesh, self._replicate).to_local()
         return out / self.dp if self.dp > 1 else out
 
     def _global_norm(self, local: Dict[str, torch.Tensor]) -> torch.Tensor:
@@ -211,18 +376,22 @@ class MeshTrainStep:
              ) -> Tuple[torch.Tensor, torch.Tensor, float]:
         """One step, nothing read back from the device: (the loss, the
         global gradient norm, the learning rate)."""
-        self.gather()
-        params = dict(self.model.named_parameters())
-        params = {k: params[k] for k in self.names}
-        loss, grads = self.loss_and_grads(self.model, params, batch)
-        loss = self._reduce(loss, self._replicate)
-        local = {k: self._reduce(g, self.shardings[k].placements)
-                 for k, g in zip(self.names, grads)}
+        from repro_torch.distributed import parallel as PL
+        resident = (self.gathered(self.model, self.resident)
+                    if self.resident else contextlib.nullcontext())
+        with PL.using(self.tp), resident:
+            loss, grads = self.loss_and_grads(self.model, self.blocks, batch)
+        loss = self._reduce_loss(loss)
+        local = dict(zip(self.names, grads))
         del grads
+        # in the parameters' order, the same on every rank
+        for k in [k for k in self.names if k in self._held_now]:
+            local[k] = self._sum_held(local[k], k)
+        self._held_now.clear()
         gnorm = self._global_norm(local)
         st = self.opt_state
         new, gnorm, lr = opt.update(
-            self.ocfg, {k: p.to_local() for k, p in self.params.items()},
+            self.ocfg, {k: b.detach() for k, b in self.blocks.items()},
             local, opt.OptState(step=st.step,
                                 mu={k: m.to_local() for k, m in st.mu.items()},
                                 nu={k: v.to_local() for k, v in st.nu.items()}),
@@ -233,4 +402,3 @@ class MeshTrainStep:
     def __call__(self, batch: Dict[str, torch.Tensor]) -> Dict[str, float]:
         loss, gnorm, lr = self.step(batch)
         return {"grad_norm": float(gnorm), "lr": lr, "loss": float(loss)}
-

@@ -6,6 +6,7 @@ field of the JAX artifact (dryrun.py:397-427), its per-device FLOPs at
 (1, 1) beside ``hlo_analysis.analyze`` of the JAX step compiled on one CPU
 device, the collective traffic formulas (tests/test_hlo_analysis.py:
 104-119) and the cycles of a matmul chain."""
+import dataclasses
 import json
 import os
 import subprocess
@@ -26,6 +27,7 @@ from repro.sim import replay as jreplay
 from repro.train import steps as JST
 from repro_torch.configs import registry
 from repro_torch.core.types import SHAPES, ShapeConfig
+from repro_torch.distributed import sharding as SH
 from repro_torch.launch import dryrun as D
 from repro_torch.launch import op_analysis as OA
 from repro_torch.sim.replay import cost_analysis_cycles
@@ -96,9 +98,9 @@ def no_group():
     assert not dist.is_initialized()
 
 
-def _smoke_cell(mesh_shape, **kw):
+def _smoke_cell(mesh_shape, cfg=None, **kw):
     return D.run_cell("qwen3-32b", "train_4k", verbose=False,
-                      cfg=registry.get_config("qwen3-32b", smoke=True),
+                      cfg=cfg or registry.get_config("qwen3-32b", smoke=True),
                       shape=SMOKE_SHAPE, mesh_shape=mesh_shape,
                       microbatches=1, **kw)
 
@@ -110,10 +112,22 @@ def test_smoke_train_cell_on_a_fake_2x2_world(no_group, tmp_path):
     assert set(r["memory"]) == MEMORY and ROOFLINE <= set(r["roofline"])
     assert r["devices"] == 4 and r["mesh"] == "2x2"
     assert r["memory"]["argument_bytes"] > 0
-    # the gradients and the loss reduce over 'data', sharded parameters
-    # gather: all-reduce and all-gather, all inside the one pod
+    # the gradients and the loss reduce over 'data', the 'model' ranks sum
+    # their row-parallel products: all-reduces, all inside the one pod.
+    # Below the FSDP threshold nothing is sharded over 'data', and every
+    # parameter the rules split over 'model' is computed on its block:
+    # nothing is gathered
     counts = r["collectives"]["counts"]
-    assert counts.get("all-reduce", 0) > 0 and counts.get("all-gather", 0)
+    assert counts.get("all-reduce", 0) > 0
+    assert "all-gather" not in counts and "reduce-scatter" not in counts
+    assert r["replicated_over_model"] == [] and r["fsdp"] is False
+    assert "gathered_step" not in r
+    # the traffic by axis: the gradients' and the loss's sums over
+    # 'data', the row-parallel sums over 'model'; together the in-pod bytes
+    by_axis = r["collectives"]["traffic_by_axis"]
+    assert set(by_axis) == {"data", "model"}
+    assert sum(by_axis.values()) == pytest.approx(
+        r["collectives"]["ici_traffic_bytes"])
     assert r["collectives"]["dcn_traffic_bytes"] == 0
     saved = json.loads((tmp_path / "qwen3-32b__train_4k__2x2.json")
                        .read_text())
@@ -124,8 +138,18 @@ def test_mesh_step_reduce_scatters_the_data_sharded_gradients(no_group):
     """With every parameter sharded over 'data' where the rules allow
     (fsdp_threshold=0), the mesh step reduces each such gradient straight
     to its block (a reduce-scatter) and all-reduces only the others, the
-    loss and the global norm's sum (one a mesh dim); the whole parameters
-    gather once each."""
+    loss and the global norm's sum (one a mesh dim), beside the 'model'
+    axis's own sums.  It gathers a unit at a time over 'data': the
+    embedding and the head once, each layer's parameters twice (the
+    forward and the recomputation), and nothing whole over 'model'.
+
+    The 'model' sums of qwen3-32b smoke's 2 layers: the embedding's rows,
+    each layer's attention and MLP outputs in the forward and in the
+    recomputation, but the last one of the recomputation (checkpoint stops
+    once the saved tensors are back), the vocabulary-parallel loss's max
+    and sums (forward and recomputation), and in the backward each layer's
+    attention and MLP inputs, its two qk-norm gains, and the unembed's
+    input: 1 + 2 * (4 - 1) + 4 + 2 * 4 + 1."""
     from torch._subclasses.fake_tensor import FakeTensorMode
     from torch.distributed.tensor import Shard
     from repro_torch.core import runtime
@@ -141,13 +165,128 @@ def test_mesh_step_reduce_scatters_the_data_sharded_gradients(no_group):
             step = ST.MeshTrainStep(cfg, model, mesh, fsdp_threshold=0)
             batch, _ = D._local_inputs(cfg, SMOKE_SHAPE, mesh)
             _, c = OA.analyze(step.step, batch, world=4)
-    pls = [s.placements for s in step.shardings.values()]
-    on_data = sum(isinstance(p[0], Shard) for p in pls)
-    sharded = sum(any(isinstance(x, Shard) for x in p) for p in pls)
-    assert on_data > 0
-    assert c["counts"]["reduce-scatter"] == on_data
-    assert c["counts"]["all-reduce"] == len(pls) - on_data + 1 + 2
-    assert c["counts"]["all-gather"] >= sharded
+    pls = {k: s.placements for k, s in step.shardings.items()}
+    on_data = {k for k, p in pls.items() if isinstance(p[0], Shard)}
+    assert on_data
+    assert c["counts"]["reduce-scatter"] == len(on_data)
+    layers = cfg.num_layers
+    model_sums = 1 + layers * (4 - 1) + 4 + layers * 4 + 1
+    assert c["counts"]["all-reduce"] == len(pls) - len(on_data) + 1 + 2 \
+        + model_sums
+    in_layers = sum(k.startswith("layers.") for k in on_data)
+    assert c["counts"]["all-gather"] == 2 * in_layers + len(
+        on_data) - in_layers
+
+
+@pytest.mark.parametrize("fsdp_threshold", [0.0, float("inf")])
+def test_replicated_gradients_reduce_once_a_step(no_group, fsdp_threshold):
+    """On a fake (2, 1) world (no 'model' sums), a step of 2 microbatches
+    reduce-scatters each data-sharded gradient once a microbatch and
+    all-reduces each gradient replicated over 'data' once a step: as many
+    all-reduces as a step of one microbatch, twice its reduce-scatters.
+    Below the FSDP threshold (inf) nothing is sharded over 'data', at 0
+    everything."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from repro_torch.core import runtime
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import loop as L
+    from repro_torch.train import steps as ST
+    cfg = registry.get_config("qwen3-32b", smoke=True)
+    counts = {}
+    with D.fake_world(2):
+        mesh = make_mesh((2, 1), ("data", "model"), "cpu")
+        for mb in (1, 2):
+            with FakeTensorMode(allow_non_fake_inputs=True):
+                with runtime.flags(abstract_init=True):
+                    model = L.build_model(cfg, torch.device("cpu"), 0)
+                step = ST.MeshTrainStep(cfg, model, mesh, microbatches=mb,
+                                        fsdp_threshold=fsdp_threshold)
+                batch, _ = D._local_inputs(cfg, SMOKE_SHAPE, mesh)
+                _, c = OA.analyze(step.step, batch, world=2)
+            counts[mb] = c["counts"]
+    n = len(step.names)
+    held = len(step._held_pl)
+    # at threshold 0 every parameter of qwen3-32b smoke shards over 'data'
+    assert held == (n if fsdp_threshold == float("inf") else 0)
+    # each replicated gradient, the loss and the norm's sum (over 'data':
+    # the one-rank 'model' dim needs none)
+    assert counts[1]["all-reduce"] == counts[2]["all-reduce"] == held + 2
+    assert counts[2].get("reduce-scatter", 0) == 2 * counts[1].get(
+        "reduce-scatter", 0) == 2 * (n - held)
+
+
+def _shard_bytes(cfg, sizes, batch_bytes: int = 0,
+                 fsdp_threshold: float = 8e9) -> int:
+    """The rule table's blocks of every parameter at ``sizes``
+    (``param_shardings`` at those axis sizes), each in the parameter's
+    dtype plus its two f32 AdamW moments, and the rank's batch."""
+    specs = registry.param_specs(cfg)
+    sh = SH.param_shardings(specs, cfg, axis_sizes=sizes,
+                            fsdp_threshold=fsdp_threshold)
+    total = 0
+    for k, spec in specs.items():
+        n = 1
+        for d, entry in zip(spec.shape, sh[k].spec):
+            div = 1
+            for a in SH._axes(entry):
+                div *= sizes[a]
+            n *= d // div
+        total += n * (torch.empty((), dtype=spec.dtype).element_size() + 8)
+    return total + batch_bytes
+
+
+def test_qwen3_32b_train_cell_computes_sharded(no_group):
+    """The production qwen3-32b train_4k cell on the fake (16, 16) world, cut
+    to one layer (the rules and the FSDP choice are the whole model's):
+    no gathered step, nothing the rules split over 'model' computed
+    replicated, the arguments the rule table's blocks (bf16 parameters and
+    f32 moments, within 1%), the data-sharded gradients reduce-scattered,
+    and at most 2.5x the model's FLOPs a device (the step that gathered
+    whole parameters: 18.4x at 4 layers)."""
+    r = D.run_cell("qwen3-32b", "train_4k", verbose=False, depth=1,
+                   extra_flags={"block_k": D.BLOCK_K})
+    assert r["status"] == "ok", r.get("error")
+    assert "gathered_step" not in r and r["replicated_over_model"] == []
+    assert r["fsdp"] is True and r["microbatches"] == 1
+    cfg = D._with_depths(registry.get_config("qwen3-32b"), {"layers": 1})
+    sizes = {"data": 16, "model": 16}
+    # the whole model's 32.8 B parameters are over the FSDP threshold
+    want = _shard_bytes(cfg, sizes, batch_bytes=2 * 16 * 4096 * 8,
+                        fsdp_threshold=0)
+    assert abs(r["memory"]["argument_bytes"] - want) <= 0.01 * want
+    assert r["collectives"]["counts"].get("reduce-scatter", 0) >= 1
+    assert r["hlo_flops_per_device"] <= 2.5 * r["model_flops_per_device"]
+
+
+def test_per_layer_arithmetic_and_memory_on_small_meshes(no_group):
+    """qwen3-32b smoke at 1 and 2 layers on fake (1, 1), (1, 4) and (2, 2)
+    worlds.  A layer's FLOPs a device on (2, 2) (heads, kv heads and d_ff
+    halved, the batch halved) are a quarter of (1, 1)'s exactly; on (1, 4)
+    a quarter too but for the K/V projections of the 2 kv heads, which 4
+    does not divide: each rank projects the kv head its 2 query heads
+    read, a half.  Those projections count five times a step (forward,
+    recomputation, the stream backward's regeneration, dW, dX).  The
+    arguments are the rule table's blocks and the batch, to the byte."""
+    from repro_torch.distributed import sharding as SHD
+    cfg = registry.get_config("qwen3-32b", smoke=True)
+    flops, args = {}, {}
+    for mesh_shape in ((1, 1), (1, 4), (2, 2)):
+        for layers in (1, 2):
+            c = dataclasses.replace(cfg, num_layers=layers)
+            r = _smoke_cell(mesh_shape, cfg=c)
+            assert r["status"] == "ok", r.get("error")
+            flops[mesh_shape, layers] = r["hlo_flops_per_device"]
+            args[mesh_shape, layers] = r["memory"]["argument_bytes"]
+            sizes = dict(zip(("data", "model"), mesh_shape))
+            dp = sizes["data"]
+            assert args[mesh_shape, layers] == _shard_bytes(
+                c, sizes, batch_bytes=2 * (4 // dp) * 64 * 8)
+    layer = {m: flops[m, 2] - flops[m, 1] for m in ((1, 1), (1, 4), (2, 2))}
+    assert layer[2, 2] == layer[1, 1] / 4
+    T = 4 * 64
+    kv = 5 * 2 * 2 * T * cfg.d_model * cfg.num_kv_heads * cfg.head_dim
+    assert layer[1, 4] == layer[1, 1] / 4 + kv * (1 / 2 - 1 / 4)
+    assert SHD.kv_heads_shardable(cfg, SHD._SimulatedMesh({"model": 2}))
 
 
 def _jax_step_flops(remat: bool) -> float:

@@ -19,6 +19,20 @@ process.
   2e-5 (tests/test_system.py:55-60), and the (1, 1) run from the JAX
   loop's initial weights matches the JAX package's loop within 2e-5; the
   launcher trains under torchrun;
+* on the (2, 2) world at fsdp_threshold=0 the step gathers a unit at a
+  time (each layer for its forward and its recomputation, the embedding,
+  the head) and never holds more than two gathered units at once;
+  vilbert-base (a layer a unit) and whisper-base (its whole model one
+  unit) train there with the single-device losses and gradient norms;
+* a (1, 4) ("data", "model") world computes tensor-parallel: qwen3-32b
+  smoke (8 query heads split, its 2 kv heads replicated and sliced),
+  h2o-danube3-4b smoke (a sliding window) and one arch of every other
+  decoder family (``TP_ARCHS``) train within 2e-5 of the single-device
+  run, qwen3-32b from the JAX loop's initial weights within
+  2e-5 of the JAX loop's losses, and a rank's step counts at most 0.35 of
+  the single-device step's FLOPs (FlopCounterMode);
+* 2 microbatches a step on the (2, 2) world match the single-device run
+  of 2 microbatches within 2e-5;
 * a checkpoint saved on the (2, 2) world restores bitwise on one process
   and on a (2, 1) world (tests/test_system.py:63-76).
 """
@@ -50,6 +64,14 @@ from repro_torch.train.checkpoint import Checkpointer
 
 ROOT = Path(__file__).resolve().parents[1]
 SERVE_ARCHS = ["starcoder2-7b", "qwen2-vl-2b"]
+# trained on the (1, 4) world: dense GQA (qwen3-32b: kv heads sliced;
+# h2o-danube3-4b: a window), M-RoPE with tied embeddings (qwen2-vl-2b),
+# SSM with tied embeddings (mamba2-780m: the vocabulary alone splits), a
+# hybrid whose 5 heads 4 does not divide (hymba-1.5b), MoE with split
+# attention and replicated experts (grok-1-314b), MLA and MoE with a dense
+# prefix and a shared expert (deepseek-v3-671b)
+TP_ARCHS = ["qwen3-32b", "h2o-danube3-4b", "qwen2-vl-2b", "mamba2-780m",
+            "hymba-1.5b", "grok-1-314b", "deepseek-v3-671b"]
 REQUESTS = [(8, 4, 0), (12, 3, 1)]           # prompt length, new, arrival
 SHAPE = ShapeConfig("sys", seq_len=64, global_batch=4, kind="train")
 STEPS = 3
@@ -101,7 +123,50 @@ WORLD4 = COMMON + textwrap.dedent("""
     m22 = make_mesh((2, 2), ("data", "model"), "cpu")
     res = L.train(cfg, SHAPE, SyntheticLM(cfg, SHAPE, seed=0),
                   tcfg(f"{out}/ckpt"), device="cpu", mesh=m22,
-                  fsdp_threshold=0)
+                  fsdp_threshold=0, gather_model=True)
+    from repro_torch.distributed.sharding import batch_shardings
+    from repro_torch.train.steps import MeshTrainStep, local_batch
+    model, blocks = L.build_sharded(cfg, torch.device("cpu"), 0, m22, 0)
+    step = MeshTrainStep(cfg, model, m22, fsdp_threshold=0, blocks=blocks)
+    bs = batch_shardings(registry.input_specs(cfg, SHAPE), m22)
+    for i in range(2):
+        step(L.to_device(local_batch(SyntheticLM(cfg, SHAPE, seed=0)
+                                     .batch(i), bs, m22), cfg,
+                         torch.device("cpu")))
+    dump("units", {"max_live": step.max_live_units,
+                   "live": step.live_units, "gathered": step.units_gathered})
+    # 2 microbatches below the FSDP threshold: every gradient is held
+    # through the microbatches and all-reduced once a step
+    tc = tcfg()
+    tc.microbatches = 2
+    rmb = L.train(cfg, SHAPE, SyntheticLM(cfg, SHAPE, seed=0), tc,
+                  device="cpu", mesh=m22, gather_model=True)
+    dump("train_mb", [m["loss"] for m in rmb["metrics"]])
+    if rank == 0:
+        np.savez(f"{out}/params22_mb.npz", **{
+            k: p.detach().numpy() for k, p in rmb["model"].named_parameters()})
+    # the families whose layers compute replicated over 'model': vilbert
+    # gathers a layer (a co-TRM block: both streams) at a time, whisper
+    # its whole model for the step
+    other = {}
+    for arch in ("vilbert-base", "whisper-base"):
+        c = registry.get_config(arch, smoke=True)
+        r = L.train(c, SHAPE, SyntheticLM(c, SHAPE, seed=0), tcfg(),
+                    device="cpu", mesh=m22, fsdp_threshold=0,
+                    gather_model=True)
+        model, blocks = L.build_sharded(c, torch.device("cpu"), 0, m22, 0)
+        st = MeshTrainStep(c, model, m22, fsdp_threshold=0, blocks=blocks)
+        st(L.to_device(local_batch(SyntheticLM(c, SHAPE, seed=0).batch(0),
+                                   batch_shardings(registry.input_specs(
+                                       c, SHAPE), m22), m22), c,
+                       torch.device("cpu")))
+        other[arch] = {"metrics": r["metrics"], "max_live":
+                       st.max_live_units, "gathered": st.units_gathered,
+                       "resident": len(st.resident)}
+        if rank == 0:
+            np.savez(f"{out}/params22_{arch}.npz", **{
+                k: p.detach().numpy() for k, p in r["model"].named_parameters()})
+    dump("other22", other)
     dump("train", {"loss": [m["loss"] for m in res["metrics"]],
                    "local": {k: list(p.to_local().shape)
                              for k, p in res["params"].items()}})
@@ -109,6 +174,55 @@ WORLD4 = COMMON + textwrap.dedent("""
         np.savez(f"{out}/params22.npz", **{
             k: p.detach().numpy() for k, p in res["model"].named_parameters()})
 """)
+
+WORLD14 = COMMON + textwrap.dedent("""
+    from torch.utils.flop_counter import FlopCounterMode
+    from repro_torch.convert import transformer_from_jax
+    from repro_torch.distributed.sharding import batch_shardings
+    from repro_torch.train.steps import (MeshTrainStep, local_batch,
+                                         make_train_step)
+    mesh = make_mesh((1, 4), ("data", "model"), "cpu")
+    res = {}
+    for arch in %(tp_archs)r:
+        c = registry.get_config(arch, smoke=True)
+        r = L.train(c, SHAPE, SyntheticLM(c, SHAPE, seed=0), tcfg(),
+                    device="cpu", mesh=mesh, gather_model=True)
+        res[arch] = [m["loss"] for m in r["metrics"]]
+        if rank == 0:
+            np.savez(f"{out}/params14_{arch}.npz", **{
+                k: p.detach().numpy()
+                for k, p in r["model"].named_parameters()})
+    # the JAX loop's initial weights (its losses are the JAX leg's)
+    w = dict(np.load(f"{out}/jax_init.npz"))
+    tree = {}
+    for k, v in w.items():
+        node = tree
+        *heads, last = k.split("/")
+        for h in heads:
+            node = node.setdefault(h, {})
+        node[last] = v
+    L.build_sharded = lambda c, device, seed, mesh, thr: (
+        transformer_from_jax(tree, c, device=device).requires_grad_(True),
+        None)
+    r = L.train(cfg, SHAPE, SyntheticLM(cfg, SHAPE, seed=0), tcfg(),
+                device="cpu", mesh=mesh)
+    res["jax_init"] = [m["loss"] for m in r["metrics"]]
+    # FLOPs of one step: this rank's against the single-device step's
+    batch = SyntheticLM(cfg, SHAPE, seed=0).batch(0)
+    cpu = torch.device("cpu")
+    step = MeshTrainStep(cfg, L.build_model(cfg, cpu, 0), mesh)
+    with FlopCounterMode(display=False) as fc:
+        step(L.to_device(local_batch(batch, batch_shardings(
+            registry.input_specs(cfg, SHAPE), mesh), mesh), cfg, cpu))
+    res["flops"] = fc.get_total_flops()
+    single = L.build_model(cfg, cpu, 0)
+    with FlopCounterMode(display=False) as fc:
+        make_train_step(cfg)(single, OPT.init(dict(
+            single.named_parameters())), L.to_device(batch, cfg, cpu))
+    res["flops_single"] = fc.get_total_flops()
+    res["local"] = {k: list(b.shape) for k, b in step.blocks.items()}
+    dump("world14", res)
+""") % {"tp_archs": TP_ARCHS}
 
 WORLD2 = COMMON + textwrap.dedent("""
     from repro_torch.convert import transformer_from_jax
@@ -191,9 +305,9 @@ def _tokens(eng, cls):
     return {r.rid: list(r.out_tokens) for r in eng.run()}
 
 
-def _train(mesh=None, **kw):
-    cfg = registry.get_config("qwen3-32b", smoke=True)
-    tcfg = L.TrainConfig(steps=STEPS, log_every=1,
+def _train(mesh=None, arch="qwen3-32b", microbatches=1, **kw):
+    cfg = registry.get_config(arch, smoke=True)
+    tcfg = L.TrainConfig(steps=STEPS, log_every=1, microbatches=microbatches,
                          opt=OPT.OptimizerConfig(learning_rate=1e-3,
                                                  warmup_steps=5,
                                                  decay_steps=200))
@@ -246,7 +360,10 @@ def worlds(tmp_path_factory):
         np.savez(out / f"{arch}.npz", **_flat(weights[arch]))
         jtokens[arch] = _tokens(JEngine(cfg, params, slots=2, max_len=48),
                                 JRequest)
+    jax_loop = _jax_loop()
+    np.savez(out / "jax_init.npz", **_flat(jax_loop["init"]))
     _torchrun(4, WORLD4, out)
+    _torchrun(4, WORLD14, out)
     _torchrun(2, WORLD2, out)
     if dist.is_initialized():
         dist.destroy_process_group()
@@ -262,14 +379,21 @@ def worlds(tmp_path_factory):
                        Request)
             for m, mm in (("none", None), ("mesh", mesh))}
     local["single"] = _train()
-    local["mesh11"] = _train(mesh)
-    local["jax_loop"] = _jax_loop()
+    local["single_mb"] = _train(microbatches=2)
+    local["single_other"] = {arch: _train(arch=arch) for arch in
+                             ("vilbert-base", "whisper-base")}
+    local["single_tp"] = {arch: _train(arch=arch) for arch in TP_ARCHS[1:]}
+    local["single_tp"]["qwen3-32b"] = local["single"]
+    local["mesh11"] = _train(mesh, gather_model=True)
+    local["jax_loop"] = jax_loop
     with pytest.MonkeyPatch.context() as mp:
-        # the JAX loop's initial weights, carried across by convert
-        mp.setattr(L, "build_model", lambda cfg, device, seed:
-                   transformer_from_jax(local["jax_loop"]["init"], cfg,
-                                        device=device).requires_grad_(True))
-        local["mesh11_jax_init"] = _train(mesh)
+        # the JAX loop's initial weights, carried across by convert (the
+        # mesh path cuts its blocks from the whole model)
+        mp.setattr(L, "build_sharded", lambda cfg, device, seed, mesh, thr:
+                   (transformer_from_jax(local["jax_loop"]["init"], cfg,
+                                         device=device).requires_grad_(True),
+                    None))
+        local["mesh11_jax_init"] = _train(mesh, gather_model=True)
     from torch.distributed.tensor import DTensor, Replicate
     from repro_torch.core import runtime
     from repro_torch.distributed.hints import constrain
@@ -368,6 +492,99 @@ def test_train_on_meshes_matches_single_device(worlds):
     shapes = _load(out, "train", 4)[0]["local"]
     full = want["embed.embedding"].shape
     assert tuple(shapes["embed.embedding"]) == (full[0] // 2, full[1] // 2)
+
+
+def test_microbatches_on_2x2_match_single_device(worlds):
+    """2 microbatches a step on (2, 2) below the FSDP threshold (each
+    gradient held through the microbatches, then all-reduced once):
+    losses and final parameters within 2e-5 of the single-device run of
+    2 microbatches."""
+    out, _, local = worlds
+    single = local["single_mb"]
+    losses = [m["loss"] for m in single["metrics"]]
+    for r in _load(out, "train_mb", 4):
+        _close(r, losses)
+    got = np.load(out / "params22_mb.npz")
+    for k, p in single["model"].named_parameters():
+        _close(got[k], p.detach().numpy())
+
+
+def test_mesh_step_gathers_a_unit_at_a_time_on_2x2(worlds):
+    """fsdp_threshold=0 on (2, 2): every parameter is sharded over 'data'
+    where the rules allow, and two steps gather, on every rank, each of
+    the 2 layers twice (its forward and its recomputation), the embedding
+    and the head once a step, 2 * (2 * 2 + 2) units; the weakref count of
+    gathered units that are still alive never exceeds two, and is zero
+    after the steps."""
+    out, _, _ = worlds
+    for r in _load(out, "units", 4):
+        assert r["gathered"] == 2 * (2 * 2 + 2)
+        assert 1 <= r["max_live"] <= 2
+        assert r["live"] == 0
+
+
+@pytest.mark.parametrize("arch", ["vilbert-base", "whisper-base"])
+def test_the_other_families_train_on_2x2(worlds, arch):
+    """fsdp_threshold=0 on (2, 2), 3 steps: losses and gradient norms
+    within 2e-5 of the single-device run.  whisper-base (its layers not
+    yet units) gathers its whole model for the step, one unit, and its
+    parameters end within 2e-5.  vilbert-base gathers each text-only
+    layer and each co-TRM block, its 6 other parameters for the step
+    (2 units at most at once: the step's and a layer's); its parameters
+    are not compared: at random weights its pooler's tanh saturates, and
+    AdamW turns the summation order's noise in those near-zero gradients
+    into steps of the learning rate's size (ROADMAP, facts about the
+    reference)."""
+    out, _, local = worlds
+    single = local["single_other"][arch]["metrics"]
+    for r in _load(out, "other22", 4):
+        got = r[arch]
+        for key in ("loss", "grad_norm"):
+            _close([m[key] for m in got["metrics"]],
+                   [m[key] for m in single])
+        if arch == "whisper-base":
+            assert got["gathered"] == 1 and got["max_live"] == 1
+        else:
+            assert got["resident"] == 6 and 2 < got["gathered"]
+            assert got["max_live"] == 2
+    if arch == "whisper-base":
+        p = np.load(out / f"params22_{arch}.npz")
+        for k, v in local["single_other"][arch]["model"].named_parameters():
+            _close(p[k], v.detach().numpy())
+
+
+@pytest.mark.parametrize("arch", TP_ARCHS)
+def test_train_on_a_1x4_world_matches_single_device(worlds, arch):
+    """Tensor parallelism over a 'model' axis of 4: losses and final
+    parameters within 2e-5 of the single-device run (h2o-danube3-4b smoke:
+    4 query heads, 2 kv heads, a 16-key window over 64 tokens; the other
+    families as ``TP_ARCHS`` says)."""
+    out, _, local = worlds
+    single = local["single_tp"][arch]
+    losses = [m["loss"] for m in single["metrics"]]
+    for r in _load(out, "world14", 4):
+        _close(r[arch], losses)
+    got = np.load(out / f"params14_{arch}.npz")
+    for k, p in single["model"].named_parameters():
+        _close(got[k], p.detach().numpy())
+
+
+def test_1x4_world_splits_heads_and_matches_the_jax_loop(worlds):
+    """On (1, 4) qwen3-32b smoke's query heads, d_ff and vocabulary split
+    over 'model' (8 / 4 heads, 256 / 4, 512 / 4), its 2 kv heads (which 4
+    does not divide) stay whole; from the JAX loop's initial weights the
+    losses are the JAX loop's within 2e-5; and each rank's step counts at
+    most 0.35 of the single-device step's FLOPs (the replicated K/V
+    projections keep it above a quarter)."""
+    out, _, local = worlds
+    for r in _load(out, "world14", 4):
+        _close(r["jax_init"], local["jax_loop"]["losses"])
+        shapes = r["local"]
+        assert shapes["layers.0.attn.wq"] == [128, 2, 32]
+        assert shapes["layers.0.attn.wk"] == [128, 2, 32]
+        assert shapes["layers.0.mlp.w_up"] == [128, 64]
+        assert shapes["embed.unembed"] == [128, 128]
+        assert 0.25 < r["flops"] / r["flops_single"] <= 0.35
 
 
 def test_train_on_the_host_mesh_matches_the_jax_loop(worlds):

@@ -312,6 +312,26 @@ def test_checkpoint_restart_exact_resume(tmp_path):
         _close(m, full["opt_state"].mu[name], 2e-5)
 
 
+def test_gradients_are_bitwise_reproducible_on_the_cpu():
+    """A repair: the embedding's gradient summed a row's tokens in another
+    order from call to call (an index's accumulating scatter), which made
+    the restart test above fail now and then; eight gradients of one batch
+    are bitwise equal."""
+    cfg = registry.get_config("starcoder2-7b", smoke=True)
+    shape = ShapeConfig("det", 64, 4, "train")
+    batch = L.to_device(SyntheticLM(cfg, shape, seed=0).batch(0), cfg,
+                        torch.device("cpu"))
+    model = L.build_model(cfg, torch.device("cpu"), 0)
+    params = dict(model.named_parameters())
+    first = None
+    for _ in range(8):
+        _, grads = ST.make_loss_and_grads(cfg)(model, params, batch)
+        if first is None:
+            first = grads
+        for a, b in zip(first, grads):
+            assert torch.equal(a, b)
+
+
 def test_checkpoint_atomicity_partial_write_ignored(tmp_path):
     """test_system.py:82: a crashed write (a leftover .tmp) is skipped."""
     ck = Checkpointer(str(tmp_path))
