@@ -232,24 +232,33 @@ caught:
      gather_matmul_overlapped at world 1 (one tile_gemm launch, bitwise
      equal to tile_gemm); (b) each of the 16 'model' ranks of the
      production mesh in turn on the card (distributed.parallel.rank_view),
-     one layer's attention and MLP forward and backward on the rank's
-     blocks through the kernels, qwen3-32b at 4096 tokens and
-     h2o-danube3-4b at 8192, f32 and bf16, LAYER_STREAM and TILE_STREAM
-     (the planner's rule forced): every rank's launches exact, the ranks'
-     sums against the whole layer (f32 within 1e-4; bf16 no farther from
-     the f32 numbers than twice the whole is), in bf16 one rank's device
-     ms against the whole's over 16; (d) cost_analysis_cycles of a recorded
-     tile_gemm beside its recorded time; (c) the dry run (launch.dryrun)
-     of one cell per family but the crossmodal one on a fake 256-rank
-     (16, 16) world, qwen3-32b's train_4k there at full depth (one
-     microbatch), and one cell on a fake 512-rank (2, 16, 16) world, each
-     in its own process, started before (a): status ok, the JSON
-     round-trips, no train cell a gathered step, cross-pod traffic on two
-     pods, the qwen3-32b train cell sharded (nothing replicated over
-     'model', reduce-scatters, FLOPs a device within 2.5x the model's,
-     arguments within 1% of the rule table's blocks), and per-device
-     FLOPs, bytes, memory, collective traffic and roofline (on the H100's
-     datasheet rates) printed;
+     one layer's attention and MLP (or MoE) forward and backward on the
+     rank's blocks through the kernels, f32 and bf16: qwen3-32b at 4096
+     tokens and h2o-danube3-4b at 8192 (query heads), starcoder2-7b at
+     4096 under the attn_q hint (context-parallel: the rank's query rows
+     against the whole K/V), each in LAYER_STREAM and TILE_STREAM (the
+     planner's rule forced); grok-1-314b at 1024 (3 of 48 heads,
+     expert-TP) and deepseek-v3-671b's MoE layer at 1024 (MLA on 8 of 128
+     heads, 16 of 256 experts; its f32 check with the experts cut to 32):
+     every rank's launches exact, the ranks' sums (context-parallel rows
+     joined) against the whole layer (f32 within 1e-4; bf16 no farther
+     from the f32 numbers than twice the whole is), in bf16 rank 0's
+     device ms (and rank 15's for context parallelism) against the
+     whole's over 16; (d) cost_analysis_cycles of a recorded tile_gemm
+     beside its recorded time; (c) the dry run (launch.dryrun) of one cell
+     per family but the crossmodal one on a fake 256-rank (16, 16) world,
+     qwen3-32b's train_4k there at full depth (one microbatch),
+     deepseek-v3's train_4k at depth 4, grok-1's at depth 2 and
+     starcoder2-7b's at depth 4 with --optimized, and one cell on a fake
+     512-rank (2, 16, 16) world, each in its own process, started before
+     (a): status ok, the JSON round-trips, no train cell a gathered step,
+     cross-pod traffic on two pods, the qwen3-32b train cell sharded
+     (nothing replicated over 'model', reduce-scatters, FLOPs a device
+     within 2.5x the model's, arguments within 1% of the rule table's
+     blocks), the three cut train cells with nothing replicated over
+     'model' and FLOPs a device within 3.0x (deepseek-v3) or 2.5x of the
+     model's, and per-device FLOPs, bytes, memory, collective traffic and
+     roofline (on the H100's datasheet rates) printed;
  then one JSON line of per-kernel numbers, with the routes of
  tile_gemm, flash attention, decode attention, the SSD scan and the
  backward kernels
@@ -4035,11 +4044,12 @@ def record_routing():
     (K+1)-th (T,)) per call of ``layers.moe_route``."""
     real, seen = model_layers.moe_route, []
 
-    def recording(p, cfg, xt, cap):
-        out = real(p, cfg, xt, cap)
+    def recording(p, cfg, xt, cap, router=None):
+        out = real(p, cfg, xt, cap, router)
         K = cfg.experts_per_token
+        router = p.router if router is None else router
         gates = torch.softmax(torch.einsum("gtd,de->gte", xt.float(),
-                                           p.router.float()), dim=-1)
+                                           router.float()), dim=-1)
         top = torch.topk(gates, K + 1, dim=-1).values.reshape(-1, K + 1)
         seen.append((out[2].reshape(-1, K).sort(-1).values,
                      top[:, K - 1] - top[:, K]))
@@ -5182,8 +5192,21 @@ DRYRUN_CELLS = (("starcoder2-7b", "decode_32k", False),
                 ("hymba-1.5b", "decode_32k", False),
                 ("whisper-base", "decode_32k", False),
                 ("whisper-base", "train_4k", True),
-                ("qwen3-32b", "train_4k", False))
+                ("qwen3-32b", "train_4k", False),
+                ("deepseek-v3-671b", "train_4k", False),
+                ("grok-1-314b", "train_4k", False),
+                ("starcoder2-7b", "train_4k", False))
 DRYRUN_MICROBATCHES = {("qwen3-32b", "train_4k"): 1}
+# the train cells of the MoE family and of context-parallel attention, cut
+# in depth (their FLOPs a device against the model's do not depend on it
+# much): each its options for run_cell_subprocess and the most FLOPs a
+# device it may count, in multiples of the model's (the parent's, which
+# computed experts, MLA and starcoder2's attention whole on every 'model'
+# rank: 27.79x, 15.68x, 6.70x)
+DRYRUN_OPTIONS = {("deepseek-v3-671b", "train_4k"): ({"depth": 4}, 3.0),
+                  ("grok-1-314b", "train_4k"): ({"depth": 2}, 2.5),
+                  ("starcoder2-7b", "train_4k"): (
+                      {"depth": 4, "optimized": True}, 2.5)}
 DRYRUN_LEFT_OUT = "crossmodal (vilbert-base train_4k)"
 DRYRUN_TIMEOUT_S = 300
 # the qwen3-32b train cell's gates: FLOPs a device at most this many times
@@ -5200,9 +5223,10 @@ def start_dryrun(out_dir: Path) -> list:
     shutil.rmtree(out_dir, ignore_errors=True)
     procs = []
     for arch, shape, multi_pod in DRYRUN_CELLS:
+        opts = DRYRUN_OPTIONS.get((arch, shape), ({}, None))[0]
         p = run_cell_subprocess(
             arch, shape, multi_pod=multi_pod, out_dir=str(out_dir),
-            microbatches=DRYRUN_MICROBATCHES.get((arch, shape), 0))
+            microbatches=DRYRUN_MICROBATCHES.get((arch, shape), 0), **opts)
         procs.append(((arch, shape, multi_pod), p))
     atexit.register(lambda: [p.kill() for _, p in procs
                              if p.poll() is None])
@@ -5224,7 +5248,9 @@ def collect_dryrun(procs: list, out_dir: Path, smi: str) -> None:
             p.kill()
             fail(f"dry run {arch} {shape}: no result in {DRYRUN_TIMEOUT_S} s")
         mesh = "2x16x16" if multi_pod else "16x16"
-        path = out_dir / f"{arch}__{shape}__{mesh}.json"
+        opts, most = DRYRUN_OPTIONS.get((arch, shape), ({}, None))
+        tag = "__optimized" if opts.get("optimized") else ""
+        path = out_dir / f"{arch}__{shape}__{mesh}{tag}.json"
         if p.returncode != 0 or not path.exists():
             fail(f"dry run {arch} {shape} {mesh}: exit {p.returncode}: "
                  f"{out[-600:]}")
@@ -5241,6 +5267,8 @@ def collect_dryrun(procs: list, out_dir: Path, smi: str) -> None:
             fail(f"dry run {arch} {shape} {mesh}: a gathered step")
         if (arch, shape) == ("qwen3-32b", "train_4k"):
             sharded_train_cell(r, smi)
+        if most is not None:
+            split_train_cell(r, most, smi)
         axes = ", ".join(f"{a} {b:.4g}"
                          for a, b in c["traffic_by_axis"].items())
         say(f"  dry run [{mesh}] {arch} {shape} (analysis on the H100's "
@@ -5302,6 +5330,23 @@ def sharded_train_cell(r: dict, smi: str) -> None:
         f"blocks {want} ({got / want - 1:+.5f}), nothing replicated over "
         f"'model', {counts_.get('reduce-scatter', 0)} reduce-scatters "
         f"[{smi}]")
+
+
+def split_train_cell(r: dict, most: float, smi: str) -> None:
+    """A DRYRUN_OPTIONS train cell's gates: nothing the rules split over
+    'model' computed replicated, FLOPs a device at most ``most`` times the
+    model's."""
+    ratio = r["hlo_flops_per_device"] / r["model_flops_per_device"]
+    what = (f"dry run {r['arch']} {r['shape']} [{r['mesh']}] depths "
+            f"{r.get('depths')}, hints {r.get('hints')}")
+    if r.get("replicated_over_model") != [] or ratio > most:
+        fail(f"{what}: replicated over 'model' "
+             f"{r.get('replicated_over_model')}, FLOPs {ratio:.3f}x the "
+             f"model's (at most {most})")
+    say(f"  {what}, {r['microbatches']} microbatches: FLOPs a device "
+        f"{ratio:.4f}x the model's (at most {most}), nothing replicated "
+        f"over 'model', temporaries "
+        f"{r['memory']['temp_bytes'] / 2 ** 30:.2f} GiB [{smi}]")
 
 
 def device_run(fn):
@@ -5412,20 +5457,48 @@ def mesh_training(mesh, smi: str, launches: dict) -> None:
 
 # (b) One 'model' rank of the production mesh at full width: each of its
 # 16 ranks in turn on the one card (parallel.rank_view: the rank's blocks,
-# the sums over 'model' left to the caller), one layer's attention and MLP
-# sublayers, forward and backward, in LAYER_STREAM and (the planner's rule
-# forced) TILE_STREAM.  The ranks' outputs and input gradients summed, the
-# split weights' gradients joined and the replicated ones' summed (in f32)
-# against the whole sublayers on the kernel path, max |difference| / max
-# |value| of each: in f32 within GRAD_TOL; in bf16, where both sides round
-# each product to bf16 in other places, each held to the f32 numbers of
-# the same bf16 weights and inputs: the ranks' sum no farther from them
-# than twice the whole bf16 layer is (or half a bf16 ulp of the largest
-# value, 2**-9, where the whole is closer).  qwen3-32b at 4096 tokens: 4 of
-# 64 query heads over kv head r // 2, d_ff 1600 of 25600; h2o-danube3-4b
-# at 8192, past its 4096-key window: 2 of 32 query heads over kv head
-# r // 2 (its 8 kv heads do not divide over 16), d_ff 640 of 10240.
-MODEL_RANKS = (("qwen3-32b", 4096), ("h2o-danube3-4b", 8192))
+# the sums over 'model' left to the caller, a context-parallel rank's rows
+# among zeros), one layer's attention and MLP (or MoE) sublayers, forward
+# and backward.  The ranks' outputs and input gradients summed (for
+# context-parallel attention: its rows joined), the split weights'
+# gradients joined and the replicated ones' summed (in f32), each against
+# the whole sublayers on the kernel path, max |difference| / max |value|
+# of each, compared a rank at a time: in f32 within GRAD_TOL; in bf16,
+# where both sides round each product to bf16 in other places, each held
+# to the f32 numbers of the same bf16 weights and inputs: the ranks' sum
+# no farther from them than twice the whole bf16 layer is (or half a
+# bf16 ulp of the largest value, 2**-9, where the whole is closer).  The
+# MoE layers route in f32 from the same (bf16-valued) input, so the whole,
+# the ranks and both dtypes route every token alike.
+#  * qwen3-32b at 4096 tokens: 4 of 64 query heads over kv head r // 2,
+#    d_ff 1600 of 25600; h2o-danube3-4b at 8192, past its 4096-key window:
+#    2 of 32 query heads over kv head r // 2 (its 8 kv heads do not divide
+#    over 16), d_ff 640 of 10240; both in LAYER_STREAM and (the planner's
+#    rule forced) TILE_STREAM;
+#  * starcoder2-7b at 4096 under the attn_q hint: its 36 heads do not
+#    divide over 16, so each rank attends with query rows 256·r … 256·r +
+#    255 against the whole K/V (context parallelism, contiguous as JAX's
+#    hint makes it: rank 15 reads ~31x rank 0's live keys), d_ff 1152 of
+#    18432; LAYER and forced TILE; rank 0's and rank 15's device ms;
+#  * grok-1-314b at 1024: 3 of 48 query heads, expert-TP (8 experts do not
+#    divide over 16): every expert on d_ff 2048 of 32768;
+#  * deepseek-v3-671b, one MoE layer at 1024: MLA on 8 of 128 heads, 16 of
+#    256 experts (EP), the shared expert's d_ff 128 of 2048.  Its whole
+#    f32 layer does not fit the card (~45 GB of f32 experts and as much of
+#    gradients): both gates run with the routed experts cut to 32 (2 a
+#    rank) at the published widths; then the bf16 layer at all 256 holds
+#    its ranks' sum to its whole within three times the cut bf16 whole's
+#    distance from its f32 numbers, quantity by quantity (what the cut's
+#    gate allows: the ranks within twice that distance of the f32
+#    numbers, so within three times it of the whole).
+# (arch, tokens, under the attn_q hint, config cut of the f32 check, modes)
+MODEL_RANKS = (
+    ("qwen3-32b", 4096, False, {}, ("layer_stream", "tile_stream")),
+    ("h2o-danube3-4b", 8192, False, {}, ("layer_stream", "tile_stream")),
+    ("starcoder2-7b", 4096, True, {}, ("layer_stream", "tile_stream")),
+    ("grok-1-314b", 1024, False, {}, ("layer_stream",)),
+    ("deepseek-v3-671b", 1024, False, {"num_experts": 32},
+     ("layer_stream",)))
 MODEL_AXIS = 16
 RANK_FLOOR = 2.0 ** -9
 
@@ -5449,137 +5522,280 @@ def _gap(got: torch.Tensor, want: torch.Tensor) -> float:
     return float((got.detach().float() - w).abs().max() / w.abs().max())
 
 
-def rank_sums(blk, cfg, h, dy, rope, mode, names, want_n, what,
-              timed: bool):
-    """The whole sublayers of ``blk`` and the sum of its MODEL_AXIS ranks,
-    forward and backward: ([y, dh, the gradient of each of ``names``] of
-    the whole, the same of the ranks (outputs and dh summed, split
-    gradients joined, replicated ones summed), and where ``timed`` rank
-    0's device ms and the whole's (``device_ms``: the profiler's mean of
-    each kernel over 3 calls, which a dropped event does not move; one
-    profiled call lost a third of a call's kernels now and then));
-    every call's launches must be ``want_n``."""
+def sublayers(blk, cfg, h, tabs, mode):
+    """The attention (MLA's for MLA) and the MLP (or MoE) of the
+    pre-normed ``h``, summed."""
+    from repro_torch.models.mla import mla_forward
+    if cfg.attn_kind == AttnKind.MLA:
+        y = mla_forward(blk.attn, cfg, h, sin=tabs[0], cos=tabs[1])
+    else:
+        y = model_layers.attention_forward(blk.attn, cfg, h, sin=tabs[0],
+                                           cos=tabs[1], causal=True,
+                                           mode=mode)
+    if hasattr(blk, "moe"):
+        return y + model_layers.moe_forward(blk.moe, cfg, h)
+    return y + model_layers.mlp_forward(blk.mlp, h)
+
+
+class RankGaps:
+    """The ranks' sum against the whole, kept a rank at a time so that no
+    rank's gradients outlive its turn: for each output (y, dh, then each
+    gradient) the split ones' largest |difference| from the whole's block
+    (and from the f32 numbers' block), the summed ones' running f32
+    sums."""
+
+    def __init__(self, names, whole, ref=None):
+        self.names, self.whole, self.ref = names, whole, ref
+        self.diff = [0.0] * len(whole)
+        self.diff_ref = [0.0] * len(whole)
+        self.whole_ref = [0.0] * len(whole)
+        self.ref_max = [0.0] * len(whole)
+        self.sums = [None] * len(whole)
+
+    def add(self, r: int, got) -> None:
+        for i, (g, w) in enumerate(zip(got, self.whole)):
+            if g.shape == w.shape:                    # partial sums
+                self.sums[i] = (g.float() if self.sums[i] is None
+                                else self.sums[i] + g.float())
+                continue
+            d = next(j for j, (x, y) in enumerate(zip(g.shape, w.shape))
+                     if x != y)
+            n = g.shape[d]
+            wb = w.narrow(d, r * n, n).float()
+            self.diff[i] = max(self.diff[i],
+                               float((g.float() - wb).abs().max()))
+            if self.ref is not None:
+                ref = self.ref[i].narrow(d, r * n, n).float()
+                self.diff_ref[i] = max(self.diff_ref[i],
+                                       float((g.float() - ref).abs().max()))
+                self.whole_ref[i] = max(self.whole_ref[i],
+                                        float((wb - ref).abs().max()))
+                self.ref_max[i] = max(self.ref_max[i],
+                                      float(ref.abs().max()))
+
+    def gaps(self) -> dict:
+        """{name: the ranks' gap to the whole}."""
+        out = {}
+        for i, n in enumerate(self.names):
+            if self.sums[i] is not None:
+                out[n] = _gap(self.sums[i], self.whole[i])
+            else:
+                out[n] = self.diff[i] / float(self.whole[i].float().abs()
+                                              .max())
+        return out
+
+    def to_ref(self) -> dict:
+        """{name: (the ranks' gap to the f32 numbers, the whole's)}."""
+        out = {}
+        for i, n in enumerate(self.names):
+            if self.sums[i] is not None:
+                out[n] = (_gap(self.sums[i], self.ref[i]),
+                          _gap(self.whole[i], self.ref[i]))
+            else:
+                top = self.ref_max[i]
+                out[n] = (self.diff_ref[i] / top, self.whole_ref[i] / top)
+        return out
+
+
+def rank_sums(blk, cfg, h, dy, tabs, mode, names, want_n, what, ref=None):
+    """The whole sublayers of ``blk`` and its MODEL_AXIS ranks, forward
+    and backward, compared a rank at a time (``RankGaps``: y, dh and the
+    gradient of each of ``names``; ``ref``: the f32 numbers of the
+    whole).  Every call's launches must be ``want_n``.  Returns the gaps
+    and the whole's results."""
     from repro_torch.distributed import parallel as PL
     params = dict(blk.named_parameters())
 
     def run(ps):
-        y = (model_layers.attention_forward(blk.attn, cfg, h, sin=rope[0],
-                                            cos=rope[1], causal=True,
-                                            mode=mode)
-             + model_layers.mlp_forward(blk.mlp, h))
-        return [y, *torch.autograd.grad(y, [h] + ps, dy)]
+        y = sublayers(blk, cfg, h, tabs, mode)
+        return [y.detach(), *(g.detach() for g in torch.autograd.grad(
+            y, [h] + ps, dy))]
 
     reset_counts()
     whole = run([params[n] for n in names])
     if counts() != want_n:
         fail(f"{what}: the whole layer launched {counts()}")
-    parts = [[] for _ in whole]
+    gaps = RankGaps(["y", "dh"] + names, whole, ref)
     for r in range(MODEL_AXIS):
         with PL.rank_view(blk, "layers", cfg, r, MODEL_AXIS) as t:
             reset_counts()
             got = run([t[n] for n in names])
             if counts() != want_n:
                 fail(f"{what}: rank {r} launched {counts()}")
-        for acc, g in zip(parts, got):
-            acc.append(g.detach())
+        gaps.add(r, got)
         del got
-    ranks = []
-    for acc, w in zip(parts, whole):
-        if acc[0].shape == w.shape:          # partial sums
-            total = acc[0].float()
-            for g in acc[1:]:
-                total += g.float()
-            ranks.append(total)
-        else:                                # the ranks' blocks
-            d = next(i for i, (a, b) in enumerate(zip(acc[0].shape,
-                                                      w.shape)) if a != b)
-            ranks.append(torch.cat(acc, d))
-        acc.clear()
-    ms_rank = ms_whole = None
-    if timed:
-        ms_whole = device_ms(lambda: run([params[n] for n in names]),
-                             reps=3)[0]
-        with PL.rank_view(blk, "layers", cfg, 0, MODEL_AXIS) as t:
-            ms_rank = device_ms(lambda: run([t[n] for n in names]),
-                                reps=3)[0]
-    return [w.detach() for w in whole], ranks, ms_rank, ms_whole
+    return gaps, whole
+
+
+def rank_ms(blk, cfg, h, dy, tabs, mode, names, ranks) -> tuple:
+    """(device ms of the whole sublayers forward + backward, [the same of
+    each of ``ranks``]): ``device_ms``, the profiler's mean of each kernel
+    over 3 calls, which a dropped event does not move (one profiled call
+    lost a third of a call's kernels now and then)."""
+    from repro_torch.distributed import parallel as PL
+    params = dict(blk.named_parameters())
+
+    def run(ps):
+        y = sublayers(blk, cfg, h, tabs, mode)
+        torch.autograd.grad(y, [h] + ps, dy)
+
+    whole = device_ms(lambda: run([params[n] for n in names]), reps=3)[0]
+    out = []
+    for r in ranks:
+        with PL.rank_view(blk, "layers", cfg, r, MODEL_AXIS) as t:
+            out.append(device_ms(lambda: run([t[n] for n in names]),
+                                 reps=3)[0])
+    return whole, out
+
+
+def layer_shapes(cfg, hinted: bool) -> str:
+    """What a rank of ``cfg``'s layer computes on, for the log."""
+    m = MODEL_AXIS
+    if cfg.attn_kind == AttnKind.MLA:
+        attn = f"MLA on {cfg.num_heads // m} of {cfg.num_heads} heads"
+    elif hinted:
+        attn = (f"all {cfg.num_heads} heads on query rows r·S/{m} … "
+                f"(r+1)·S/{m} - 1 against the whole K/V")
+    else:
+        attn = f"{cfg.num_heads // m} of {cfg.num_heads} query heads"
+    if cfg.family == Family.MOE:
+        E, f = cfg.num_experts, cfg.moe_d_ff
+        ffn = (f"{E // m} of {E} experts" if E % m == 0 else
+               f"all {E} experts on d_ff {f // m} of {f}")
+        if cfg.num_shared_experts:
+            sf = f * cfg.num_shared_experts
+            ffn += f", the shared expert's d_ff {sf // m} of {sf}"
+    else:
+        ffn = f"d_ff {cfg.d_ff // m} of {cfg.d_ff}"
+    return f"{attn}, {ffn}"
 
 
 def model_ranks(smi: str) -> None:
     """Phase 23 (b): MODEL_RANKS in f32 and bf16 on the same (bf16-valued)
-    weights and inputs, each rank's launches exact (tile_gemm 3, the
-    mode's attention kernel and its backward once), the gates of the
-    comment above, and in bf16 (the training dtype) one rank's device ms
-    against the whole's over 16."""
+    weights and inputs, each rank's launches exact (tile_gemm 3 a SwiGLU
+    MLP or shared expert, 2 a GELU one, none for grok-1's MoE; the mode's
+    attention kernel and its backward once), the gates of the comment
+    above, and in bf16 (the training dtype) rank 0's device ms (and rank
+    15's for context parallelism) against the whole's over 16."""
+    from repro_torch.distributed import parallel as PL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.hints import hint_shardings
     from repro_torch.models.transformer import Block
-    for arch, S in MODEL_RANKS:
+    table = hint_shardings(["attn_q", "attn_out"], SH._SimulatedMesh(
+        {"data": 16, "model": MODEL_AXIS}))
+    for arch, S, hinted, cut, modes in MODEL_RANKS:
+        t_arch = time.perf_counter()
         cfg = dataclasses.replace(get_config(arch), num_layers=1)
+        moe = cfg.family == Family.MOE
+        if hinted and not PL.context_split(cfg, MODEL_AXIS, table):
+            fail(f"{arch}: the attn_q hint does not make its attention "
+                 f"context-parallel")
+        hd = cfg.qk_rope_head_dim if cfg.attn_kind == AttnKind.MLA else None
+        tabs = model_layers.rope_tables_for(cfg, S, head_dim=hd,
+                                            device="cuda")
         gen = torch.Generator(device="cuda").manual_seed(28)
-        blk16 = Block(cfg, gen).requires_grad_(True)
+        blk16 = Block(cfg, gen, moe=moe).requires_grad_(True)
         h16 = randn(gen, 1, S, cfg.d_model, dtype=torch.bfloat16)
         dy16 = randn(gen, 1, S, cfg.d_model, dtype=torch.bfloat16)
-        rope = model_layers.rope_tables_for(cfg, S, device="cuda")
-        names = ["y", "dh"] + [n for n, _ in blk16.named_parameters()
-                               if not n.startswith("norm")]
-        shapes = (f"{cfg.num_heads // MODEL_AXIS} of {cfg.num_heads} query "
-                  f"heads, d_ff {cfg.d_ff // MODEL_AXIS} of {cfg.d_ff}")
-        for mode in (ExecutionMode.LAYER_STREAM, ExecutionMode.TILE_STREAM):
-            attn = ("flash_attention" if mode == ExecutionMode.LAYER_STREAM
-                    else "stream_attention")
+        mlp = cfg.num_shared_experts if moe else 1
+        n_gemm = (3 if cfg.act == "silu" else 2) if mlp else 0
+        for mname in modes:
+            mode = ExecutionMode(mname)
+            attn = ("stream_attention" if mode == ExecutionMode.TILE_STREAM
+                    and cfg.attn_kind != AttnKind.MLA else "flash_attention")
             want_n = {k: 0 for k in KERNELS}
-            want_n.update({"tile_gemm": 3, attn: 1, f"{attn}_bwd": 1})
-            ref32 = None
-            for dt in (torch.float32, torch.bfloat16):
-                dname = str(dt).split(".")[-1]
-                what = (f"{arch} {dname} {mode.value}, {MODEL_AXIS} 'model' "
-                        f"ranks")
-                c = dataclasses.replace(cfg, dtype=dname, param_dtype=dname)
-                blk = blk16 if dt == torch.bfloat16 else copy_block(blk16, dt)
-                h = h16.to(dt).requires_grad_(True)
-                with (tile_stream_forced() if mode == ExecutionMode
-                      .TILE_STREAM else contextlib.nullcontext()):
-                    whole, ranks, ms_rank, ms_whole = rank_sums(
-                        blk, c, h, dy16.to(dt), rope, mode, names[2:],
-                        want_n, what, timed=dt == torch.bfloat16)
-                gaps = {n: _gap(r, w) for n, r, w in zip(names, ranks, whole)}
-                worst = max(gaps, key=gaps.get)
-                if dt == torch.float32:
-                    ref32 = whole
-                    gate = f"f32 within {GRAD_TOL}"
-                    if gaps[worst] > GRAD_TOL:
-                        fail(f"{what}: the ranks' sum is {gaps[worst]:.3g} "
-                             f"from the whole at {worst} ({gaps})")
-                else:
-                    to32 = {n: (_gap(r, w32), _gap(w, w32)) for n, r, w, w32
-                            in zip(names, ranks, whole, ref32)}
-                    bad = {n: v for n, v in to32.items()
-                           if v[0] > max(2 * v[1], RANK_FLOOR)}
-                    if bad:
-                        fail(f"{what}: the ranks' sum farther from the f32 "
-                             f"numbers than twice the whole (ranks, whole): "
-                             f"{bad}")
-                    far = max(to32, key=lambda n: to32[n][0])
-                    gate = (f"from the f32 numbers at most {to32[far][0]:.3g} "
-                            f"({far}; the whole {to32[far][1]:.3g})")
-                del whole, ranks
-                timing = "" if ms_rank is None else (
-                    f"; device ms forward + backward (mean of 3 calls): one "
-                    f"rank {ms_rank:.3f}, the whole {ms_whole:.3f} "
-                    f"(/{MODEL_AXIS} = {ms_whole / MODEL_AXIS:.3f}; rank / "
-                    f"(whole / {MODEL_AXIS}) "
-                    f"{ms_rank * MODEL_AXIS / ms_whole:.3f})")
-                say(f"  {what} ({S} tokens; {shapes}): the ranks' sum "
-                    f"{gaps[worst]:.3g} from the whole ({worst}; y "
-                    f"{gaps['y']:.3g}, dh {gaps['dh']:.3g}), {gate}; each "
-                    f"rank 3 tile_gemm, 1 {attn}, 1 {attn}_bwd{timing} "
-                    f"[{smi}]")
-                if dt == torch.float32:
-                    del blk
-                free()
-            del ref32
-            free()
+            want_n.update({"tile_gemm": n_gemm, attn: 1, f"{attn}_bwd": 1})
+            forced = (tile_stream_forced() if mode == ExecutionMode.TILE_STREAM
+                      else contextlib.nullcontext())
+            hints = runtime.flags(sharding_hints=table if hinted else None)
+            runs = [(torch.float32, cut), (torch.bfloat16, cut)]
+            if cut:
+                runs.append((torch.bfloat16, {}))
+            with forced, hints:
+                ref32 = bound = None
+                for dt, ccut in runs:
+                    dname = str(dt).split(".")[-1]
+                    c = dataclasses.replace(cfg, dtype=dname,
+                                            param_dtype=dname, **ccut)
+                    what = (f"{arch} {dname} {mode.value}, {MODEL_AXIS} "
+                            f"'model' ranks")
+                    if ccut:               # the cut layer's own draw
+                        blk = copy_block(Block(dataclasses.replace(
+                            cfg, **ccut), torch.Generator(device="cuda")
+                            .manual_seed(28), moe=moe), dt)
+                    elif dt == torch.bfloat16:
+                        blk = blk16
+                    else:
+                        blk = copy_block(blk16, dt)
+                    names = [n for n, _ in blk.named_parameters()
+                             if not n.startswith("norm")]
+                    h = h16.to(dt).requires_grad_(True)
+                    gaps, whole = rank_sums(
+                        blk, c, h, dy16.to(dt), tabs, mode, names, want_n,
+                        what, ref=None if dt == torch.float32 else ref32)
+                    g = gaps.gaps()
+                    worst = max(g, key=g.get)
+                    cut_note = f" (cut to {ccut})" if ccut else ""
+                    if dt == torch.float32:
+                        gate = f"f32 within {GRAD_TOL}{cut_note}"
+                        if g[worst] > GRAD_TOL:
+                            fail(f"{what}: the ranks' sum is {g[worst]:.3g} "
+                                 f"from the whole at {worst} ({g})")
+                        ref32 = whole
+                    elif ref32 is not None:
+                        to32 = gaps.to_ref()
+                        bad = {n: v for n, v in to32.items()
+                               if v[0] > max(2 * v[1], RANK_FLOOR)}
+                        if bad:
+                            fail(f"{what}: the ranks' sum farther from the "
+                                 f"f32 numbers than twice the whole (ranks, "
+                                 f"whole): {bad}")
+                        far = max(to32, key=lambda n: to32[n][0])
+                        gate = (f"from the f32 numbers at most "
+                                f"{to32[far][0]:.3g} ({far}; the whole "
+                                f"{to32[far][1]:.3g}){cut_note}")
+                        # what this gate allows the ranks' distance to
+                        # the whole: the full layer's bound
+                        bound = {n: max(3 * v[1], RANK_FLOOR)
+                                 for n, v in to32.items()}
+                        ref32 = None
+                    else:                  # the full layer after its cut
+                        bad = {n: (v, bound[n]) for n, v in g.items()
+                               if v > bound[n]}
+                        if bad:
+                            fail(f"{what}: the ranks' sum farther from the "
+                                 f"whole than three times the cut layer's "
+                                 f"whole is from its f32 numbers (ranks, "
+                                 f"bound): {bad}")
+                        close = max(g, key=lambda n: g[n] / bound[n])
+                        gate = (f"within three times the cut layer's "
+                                f"whole-to-f32 gap ({close}: {g[close]:.3g} "
+                                f"of {bound[close]:.3g})")
+                    del gaps, whole
+                    free()
+                    timing = ""
+                    if (dt, ccut) == runs[-1]:
+                        ranks = (0, MODEL_AXIS - 1) if hinted else (0,)
+                        ms_whole, ms_ranks = rank_ms(blk, c, h, dy16, tabs,
+                                                     mode, names, ranks)
+                        each = ", ".join(f"rank {r} {ms:.3f}" for r, ms
+                                         in zip(ranks, ms_ranks))
+                        timing = (
+                            f"; device ms forward + backward (mean of 3 "
+                            f"calls): {each}, the whole {ms_whole:.3f} "
+                            f"(/{MODEL_AXIS} = {ms_whole / MODEL_AXIS:.3f}; "
+                            f"rank 0 / (whole / {MODEL_AXIS}) "
+                            f"{ms_ranks[0] * MODEL_AXIS / ms_whole:.3f})")
+                    say(f"  {what} ({S} tokens; {layer_shapes(c, hinted)}"
+                        f"): the ranks' sum {g[worst]:.3g} from the whole "
+                        f"({worst}; y {g['y']:.3g}, dh {g['dh']:.3g}), "
+                        f"{gate}; each rank {n_gemm} tile_gemm, 1 {attn}, 1 "
+                        f"{attn}_bwd{timing} [{smi}]")
+                    del blk, h
+                    free()
         del blk16, h16, dy16
         free()
+        say(f"    {arch} took {time.perf_counter() - t_arch:.1f} s")
 
 
 def copy_block(blk, dt: torch.dtype):

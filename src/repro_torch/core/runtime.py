@@ -5,6 +5,11 @@ versions, as in the JAX package.  It blocks only those (CPU tensors): the
 CUDA kernels fix their kv tile at 64 keys and do not read it.
 ``quantize_proj=True`` routes ``ops.projection`` through the int8 path
 (``kernels/quant.py``), as in the JAX package.
+
+The flags live in a contextvar, which a thread starts without: autograd
+runs the backward of CUDA tensors, and so the recomputation of a
+checkpointed layer, on a device thread of its own.  ``snapshot`` and
+``call_with`` carry the flags of a forward into its recomputation.
 """
 from __future__ import annotations
 
@@ -29,6 +34,20 @@ def flags(**kwargs: Any):
     token = _FLAGS.set(cur)
     try:
         yield
+    finally:
+        _FLAGS.reset(token)
+
+
+def snapshot() -> Dict[str, Any]:
+    """The flags in force here, to hand to ``call_with``."""
+    return dict(_FLAGS.get())
+
+
+def call_with(flags_: Dict[str, Any], fn, *args: Any, **kwargs: Any) -> Any:
+    """fn(*args, **kwargs) under exactly the flags ``flags_``."""
+    token = _FLAGS.set(dict(flags_))
+    try:
+        return fn(*args, **kwargs)
     finally:
         _FLAGS.reset(token)
 

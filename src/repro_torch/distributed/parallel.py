@@ -1,7 +1,8 @@
 """Tensor parallelism over the 'model' axis at the ``ops`` boundary: the
 port's explicit counterpart of what GSPMD does to the JAX train step
 (``repro/train/loop.py:49-74`` jits it with the rule table's
-``in_shardings``, and XLA partitions the compute by them).
+``in_shardings``, and XLA partitions the compute by them and by the
+activation hints the dry run installs).
 
 A ``ModelParallel`` is the 'model' axis as the layers see it: this rank's
 index on it, its size, its process group, and the parameters that the
@@ -11,14 +12,26 @@ layers compute on the block).  While one is active (``using``):
 
 * ``copy`` (identity forward, sum over 'model' backward) enters a
   column-parallel region: the activations are replicated, each rank's
-  input gradient covers only its columns, and the sum makes it whole;
+  input gradient covers only its columns, and the sum makes it whole.
+  A replicated weight that feeds only the rank's share of the work (the
+  K/V projections a kv group shares, context-parallel attention's
+  weights, the MoE router) enters by ``copy`` too: its gradient is the
+  rank's partial sum.  MLA enters at its latent activations instead, so
+  that its low-rank weights get whole gradients;
 * ``reduce`` (sum over 'model' forward, identity backward) leaves a
   row-parallel one: each rank's product covers its rows of the
   contraction;
-* between them, the layers run ``ops.projection`` (``tile_gemm``) on the
-  rank's block (``layers.mlp_forward``: ``w_gate``/``w_up`` by columns,
-  ``w_down`` by rows): no library matmul runs a sharded projection, and no
-  DTensor reaches an aten product;
+* ``gather_rows`` (all-gather along the sequence forward, the rank's
+  rows backward) leaves a context-parallel one: each rank computed its
+  block of query rows;
+* between them, the layers run ``ops.projection`` (``tile_gemm``) and
+  the attention kernels on the rank's block: ``layers.mlp_forward``
+  (``w_gate``/``w_up`` by columns, ``w_down`` by rows), dense attention
+  on the rank's query heads (``attention_split``) or, under the
+  ``attn_q`` hint, on its query rows against the whole K/V
+  (``context_split``), MLA on its heads, the MoE on its experts (EP) or
+  on each expert's d_ff block (expert-TP).  No library matmul runs a
+  sharded projection, and no DTensor reaches an aten product;
 * ``vocab_embed`` looks tokens up in the rank's vocabulary rows, zeroes
   the rows outside them and sums over 'model'; ``vocab_nll`` is the
   cross-entropy of the rank's f32 logit columns, its max and its sum of
@@ -36,7 +49,8 @@ recomputation of a checkpointed layer on its own device thread, where a
 contextvar set by the step is not visible.
 
 A context without a group (``group=None``) stands for one rank of the
-axis on its own: ``copy`` and ``reduce`` are the identity, so that the
+axis on its own: ``copy`` and ``reduce`` are the identity, and
+``gather_rows`` puts the rank's rows in place among zeros, so that the
 caller can sum the ranks' partial outputs and input gradients
 (``rank_view``: the 16 'model' ranks of one layer run in turn on one
 card).
@@ -59,7 +73,8 @@ from repro_torch.core.types import AttnKind, Family, ModelConfig
 _ACTIVE: Optional["ModelParallel"] = None
 
 #: Families whose layers the step computes replicated over 'model' (their
-#: own co-attention and encoder-decoder layers; a later slice).
+#: own co-attention and encoder-decoder layers; a later slice).  The SSM
+#: projections of the SSM and hybrid families are replicated too.
 REPLICATED_FAMILIES = (Family.ENCDEC, Family.CROSSMODAL)
 
 
@@ -111,6 +126,25 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
+class _GatherRows(torch.autograd.Function):
+    """The ranks' blocks of rows (dim 1) gathered in rank order forward,
+    the rank's rows of the gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, rank, group):
+        import torch.distributed._functional_collectives as funcol
+        ctx.rank, ctx.n = rank, x.shape[1]
+        gather = (getattr(funcol, "all_gather_single", None)
+                  or funcol.all_gather_tensor)
+        out = gather(x.contiguous(), 1, group)
+        return funcol.wait_tensor(out) if isinstance(
+            out, funcol.AsyncCollectiveTensor) else out
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(1, ctx.rank * ctx.n, ctx.n), None, None
+
+
 class ModelParallel:
     """The 'model' axis of the active step (module docstring): ``rank``
     and ``size`` on it, its ``group`` (None: one rank on its own), and
@@ -138,6 +172,19 @@ class ModelParallel:
             return x
         return _Reduce.apply(x, self.group)
 
+    def gather_rows(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole (B, m·n, ...) from each rank's rows (B, n, ...): an
+        all-gather on dim 1; without a group, the rank's rows in place
+        among zeros (the caller sums the ranks)."""
+        if self.size == 1:
+            return x
+        if self.group is None:
+            n = x.shape[1]
+            pad = [0, 0] * (x.dim() - 2)
+            return F.pad(x, pad + [self.rank * n,
+                                   (self.size - 1 - self.rank) * n])
+        return _GatherRows.apply(x, self.rank, self.group)
+
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
         """A plain (not differentiated) all-reduce over the group."""
         if self.group is None or self.size == 1:
@@ -164,6 +211,23 @@ def attention_split(cfg: ModelConfig, m: int) -> bool:
     return (cfg.num_heads // cfg.num_kv_heads) % (cfg.num_heads // m) == 0
 
 
+def context_split(cfg: ModelConfig, m: int, hints) -> bool:
+    """Whether dense attention runs context-parallel at 'model' size
+    ``m`` under the hint table ``hints`` (``runtime.flags(sharding_hints
+    =...)``, as ``hints.hint_shardings`` builds it): the table names
+    ``attn_q`` (the query sequence over 'model', hints.py), the heads do
+    not split (``attention_split``), and the family's layers are not
+    computed replicated.  Each rank then takes its block of query rows
+    against the whole K/V (``layers.attention_forward``); a sequence that
+    ``m`` does not divide stays replicated, as JAX's ``constrain`` leaves
+    a shape it cannot split."""
+    return (m > 1 and bool(hints) and "attn_q" in hints
+            and bool(cfg.num_heads)
+            and cfg.attn_kind not in (AttnKind.MLA, AttnKind.NONE)
+            and cfg.family not in REPLICATED_FAMILIES
+            and not attention_split(cfg, m))
+
+
 def _splits_over_model(path: str, shape: Sequence[int], cfg: ModelConfig,
                        sizes: Mapping[str, int]) -> bool:
     """Whether the rule table splits the parameter at JAX path ``path``
@@ -178,15 +242,19 @@ def _takes_block(path: str, shape: Sequence[int], cfg: ModelConfig,
                  m: int) -> bool:
     """Whether the layers compute on a 'model' block of the parameter at
     ``path``, given that the rules split it: the vocabulary (embedding,
-    unembed), a dense MLP's (a shared expert's too), and dense attention's
+    unembed), a dense MLP's (a shared expert's too), the MoE's experts
+    (their expert dim where ``experts_shardable`` holds, else each
+    expert's d_ff), MLA's per-head projections, and dense attention's
     under ``attention_split``."""
     if cfg.family in REPLICATED_FAMILIES:
         return False
     leaf, nd = path.split("/")[-1], len(shape)
     if leaf in ("embedding", "unembed"):
         return True
-    if leaf in ("w_gate", "w_up", "w_down") and nd == 2:
-        return True
+    if leaf in ("w_gate", "w_up", "w_down"):
+        return nd in (2, 3)
+    if cfg.attn_kind == AttnKind.MLA and nd == 3:
+        return leaf in ("wq_b", "wk_b", "wv_b", "wo")
     if leaf in ("wq", "wk", "wv", "wo") and nd == 3:
         return attention_split(cfg, m)
     return False
@@ -196,10 +264,10 @@ def computes_local(path: str, shape: Sequence[int], cfg: ModelConfig,
                    sizes: Mapping[str, int]) -> bool:
     """Whether the layers compute on this rank's 'model' block of the
     parameter at JAX path ``path``: the rule table splits it over 'model'
-    and ``_takes_block`` holds.  The rest that the rules split (MoE
-    experts, MLA, SSM projections, and every parameter of the
-    encoder-decoder and crossmodal families) is gathered whole over
-    'model' and computed replicated."""
+    and ``_takes_block`` holds.  The rest that the rules split (the SSM
+    projections, and every parameter of the encoder-decoder and
+    crossmodal families) is gathered whole over 'model' and computed
+    replicated."""
     m = sizes.get("model", 1)
     return (m > 1 and _takes_block(path, shape, cfg, m)
             and _splits_over_model(path, shape, cfg, sizes))
@@ -219,7 +287,8 @@ def replicated_over_model(shapes: Mapping[str, Sequence[int]],
                           ) -> list:
     """The JAX paths whose rule splits them over 'model' but whose
     compute the step still repeats on every 'model' rank (gathered
-    whole over 'model'), one entry per path."""
+    whole over 'model'), one entry per path: the SSM ``in_proj`` and
+    ``out_proj``, and the encoder-decoder and crossmodal families'."""
     from repro_torch.distributed.sharding import jax_path
     m = sizes.get("model", 1)
     if m <= 1:

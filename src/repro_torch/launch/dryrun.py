@@ -21,20 +21,34 @@ fields of dryrun.py:397-427 per cell.  Each cell runs in its own process
 the step would read from the device (a data-dependent shape, ``.item()``)
 fails the cell: ``status: "error"`` with the exception, never a guess.
 
+The activation-hint table (``distributed.hints.hint_shardings``: its
+names from ``--hints``, or the ``--optimized`` preset of JAX's dry run,
+dryrun.py:475-527) is installed around the traced step, as dryrun.py:355
+installs it, and the result carries ``hints`` and ``tag`` (the tag also
+suffixes the artifact's name).  ``--moe-groups`` and ``--block-k`` set
+the runtime flags of those names.
+
 What the counts mean for this port (PERF.md): a train cell's FLOPs are
-the rank's share of the layers that ``distributed.parallel`` splits over
-'model' (dense attention, MLP, vocabulary) and the whole of the rest,
-which every 'model' rank repeats (``replicated_over_model`` lists it);
-attention FLOPs are those of the plain blocked version the CPU runs
-(every kv block, masked ones included); bytes are eager, with nothing
-fused.  A cell cut in depth (``depth``) keeps the whole config's FSDP
-choice (``fsdp``), so that its placements are the production ones.
-Decode and prefill cells run the model replicated on every rank, as the
-engine serves it.  The roofline divides the counts by the H100 SXM's
-datasheet rates below, not by measurements.
+the rank's share of what ``distributed.parallel`` splits over 'model'
+(dense attention on its heads or, under the ``attn_q`` hint where the
+heads do not split, on its query rows; the MLP; the MoE's experts or
+their d_ff; MLA's heads; the vocabulary) and the whole of the rest,
+which every 'model' rank repeats: the routing, MLA's latent
+projections, the SSM projections (``replicated_over_model`` lists the
+split weights among these), and attention whose heads do not split
+where no hint asks for context parallelism.  Attention FLOPs are those
+of the plain blocked version the CPU runs (every kv block, masked ones
+included); bytes are eager, with nothing fused.  A cell cut in depth
+(``depth``) keeps the whole config's FSDP choice (``fsdp``), so that its
+placements are the production ones.  Decode and prefill cells run the
+model replicated on every rank, as the engine serves it: a hint there is
+recorded and changes nothing.  The roofline divides the counts by the
+H100 SXM's datasheet rates below, not by measurements.
 
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-32b \\
         --shape train_4k [--multi-pod] [--out artifacts/dryrun_torch]
+    PYTHONPATH=src python -m repro_torch.launch.dryrun --arch \\
+        starcoder2-7b --shape train_4k --optimized --depth 4
     PYTHONPATH=src python -m repro_torch.launch.dryrun --all
 """
 from __future__ import annotations
@@ -54,6 +68,7 @@ from repro_torch.configs import registry
 from repro_torch.core import runtime
 from repro_torch.core.types import Family, SHAPES, ShapeConfig
 from repro_torch.distributed import sharding as SH
+from repro_torch.distributed.hints import hint_shardings
 
 # --- H100 SXM rates (roofline denominators), from NVIDIA's H100 Tensor
 # Core GPU datasheet: dense bf16 tensor-core peak (989 TFLOP/s; the
@@ -353,7 +368,8 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
              verbose: bool = True, probes: bool = False,
              extra_flags: Optional[Dict[str, Any]] = None, cfg=None,
              depth: int = 0, mesh_shape: Optional[Tuple[int, ...]] = None,
-             shape: Optional[ShapeConfig] = None, remat: bool = True
+             shape: Optional[ShapeConfig] = None, remat: bool = True,
+             hints: Optional[List[str]] = None, tag: str = ""
              ) -> Dict[str, Any]:
     """One cell on a fake world of 256 (or, ``multi_pod``, 512) ranks: the
     fields of dryrun.py:397-427.  ``cfg`` and ``shape`` override the
@@ -361,7 +377,9 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     ``mesh_shape`` the production mesh ((pod,) data, model); ``depth``
     cuts every layer stack to that many layers (recorded in the result);
     ``remat=False`` keeps a train step's activations instead of
-    recomputing each layer."""
+    recomputing each layer; ``hints`` names the activation hints whose
+    table the step runs under (``hint_shardings`` on the cell's mesh),
+    and ``tag`` marks the result and its artifact, as JAX's do."""
     from repro_torch.launch.mesh import make_mesh
     mesh_shape = mesh_shape or ((2, 16, 16) if multi_pod else (16, 16))
     total = 1
@@ -370,11 +388,15 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     mesh_name = "x".join(map(str, mesh_shape))
     result: Dict[str, Any] = {"arch": arch, "shape": shape_name,
                               "mesh": mesh_name, "devices": total}
+    if tag:
+        result["tag"] = tag
+    if hints:
+        result["hints"] = list(hints)
     skip = registry.cell_supported(arch, shape_name)
     if skip:
         result["status"] = "skipped"
         result["reason"] = skip
-        _emit(result, out_dir, verbose)
+        _emit(result, out_dir, verbose, tag)
         return result
     names = (("pod", "data", "model") if len(mesh_shape) == 3
              else ("data", "model"))
@@ -389,8 +411,10 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
         with fake_world(total):
             mesh = make_mesh(mesh_shape, names, "cpu")
             mb = microbatches or auto_microbatches(cfg, shape, mesh)
+            flags = dict(extra_flags or {})
+            flags["sharding_hints"] = hint_shardings(hints or [], mesh)
             m = _measure(cfg, shape, mesh, multi_pod=multi_pod,
-                         microbatches=mb, extra_flags=extra_flags,
+                         microbatches=mb, extra_flags=flags,
                          remat=remat, fsdp_threshold=fsdp)
             corr = None
             if probes:
@@ -403,7 +427,7 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     except Exception as e:  # noqa: BLE001 - dry-run failures are findings
         result["status"] = "error"
         result["error"] = f"{type(e).__name__}: {e}"[:2000]
-        _emit(result, out_dir, verbose)
+        _emit(result, out_dir, verbose, tag)
         return result
     if corr:
         result["probe_flops"] = corr["flops"]
@@ -454,11 +478,12 @@ def run_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
                      "roofline_fraction":
                          compute_s / max(max(terms.values()), 1e-30)},
     })
-    _emit(result, out_dir, verbose)
+    _emit(result, out_dir, verbose, tag)
     return result
 
 
-def _emit(result: Dict[str, Any], out_dir: Optional[str], verbose: bool):
+def _emit(result: Dict[str, Any], out_dir: Optional[str], verbose: bool,
+          tag: str = ""):
     if verbose:
         status = result["status"]
         line = (f"[{result['mesh']:8s}] {result['arch']:18s} "
@@ -479,18 +504,23 @@ def _emit(result: Dict[str, Any], out_dir: Optional[str], verbose: bool):
         print(line, flush=True)
     if out_dir:
         os.makedirs(out_dir, exist_ok=True)
+        suffix = f"__{tag}" if tag else ""
         path = os.path.join(
             out_dir, f"{result['arch']}__{result['shape']}__{result['mesh']}"
-            ".json")
+            f"{suffix}.json")
         with open(path, "w") as f:
             json.dump(result, f, indent=1)
 
 
 def run_cell_subprocess(arch: str, shape_name: str, *, multi_pod: bool,
-                        out_dir: str, depth: int = 0, microbatches: int = 0
+                        out_dir: str, depth: int = 0, microbatches: int = 0,
+                        hints: Optional[List[str]] = None, tag: str = "",
+                        optimized: bool = False, moe_groups: int = 1
                         ) -> subprocess.Popen:
     """Start one cell as ``python -m repro_torch.launch.dryrun`` in its
-    own process (its artifact lands in ``out_dir``); returns the Popen."""
+    own process (its artifact lands in ``out_dir``, suffixed by the tag);
+    ``hints``, ``tag``, ``optimized`` and ``moe_groups`` are the CLI's
+    switches of those names.  Returns the Popen."""
     src = os.path.dirname(os.path.dirname(os.path.dirname(
         os.path.abspath(__file__))))
     env = dict(os.environ)
@@ -500,8 +530,43 @@ def run_cell_subprocess(arch: str, shape_name: str, *, multi_pod: bool,
            "--depth", str(depth), "--microbatches", str(microbatches)]
     if multi_pod:
         cmd.append("--multi-pod")
+    if hints:
+        cmd += ["--hints", ",".join(hints)]
+    if tag:
+        cmd += ["--tag", tag]
+    if optimized:
+        cmd.append("--optimized")
+    if moe_groups > 1:
+        cmd += ["--moe-groups", str(moe_groups)]
     return subprocess.Popen(cmd, env=env, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
+
+
+def cell_options(arch: str, *, hints: List[str], tag: str, moe_groups: int,
+                 block_k: int, optimized: bool, multi_pod: bool
+                 ) -> Tuple[List[str], str, Dict[str, Any]]:
+    """(hints, tag, runtime flags) of one cell from the CLI's switches,
+    with JAX's meaning (dryrun.py:503-523): ``optimized`` adds the
+    ``embed_out`` hint, ``attn_q``/``attn_out`` where the heads do not
+    divide a 'model' axis of 16, ``moe_groups`` = the data-parallel size
+    (16, or 32 across two pods) for MoE archs, kv blocks of 2048 and the
+    tag "optimized", unless given."""
+    hints = list(hints)
+    extra: Dict[str, Any] = {"block_k": block_k}
+    if moe_groups > 1:
+        extra["moe_groups"] = moe_groups
+    if optimized:
+        cfg = registry.get_config(arch)
+        if "embed_out" not in hints:
+            hints.append("embed_out")
+        if cfg.num_heads and not SH.heads_shardable(
+                cfg, SH._SimulatedMesh({"data": 16, "model": 16})):
+            hints += [h for h in ("attn_q", "attn_out") if h not in hints]
+        if cfg.num_experts:
+            extra.setdefault("moe_groups", 32 if multi_pod else 16)
+        extra["block_k"] = 2048
+        tag = tag or "optimized"
+    return hints, tag, extra
 
 
 def main(argv: Optional[List[str]] = None) -> int:
@@ -524,7 +589,18 @@ def main(argv: Optional[List[str]] = None) -> int:
                     help="kv block of the plain attention the trace runs "
                          "(its FLOPs do not depend on it; its op count, "
                          "bytes and temporaries do)")
+    ap.add_argument("--hints", default="",
+                    help="comma-separated activation-sharding hints "
+                         "(embed_out,attn_q,attn_out,moe_dispatch)")
+    ap.add_argument("--tag", default="",
+                    help="artifact filename suffix (perf-iteration runs)")
+    ap.add_argument("--moe-groups", type=int, default=1)
+    ap.add_argument("--optimized", action="store_true",
+                    help="apply the hillclimbed preset: embed_out hint, "
+                         "context-parallel attention for non-divisible-"
+                         "head archs, grouped MoE dispatch, block_k=2048")
     args = ap.parse_args(argv)
+    hints = [h for h in args.hints.split(",") if h]
 
     if args.all:
         failures = 0
@@ -532,7 +608,10 @@ def main(argv: Optional[List[str]] = None) -> int:
             for shape in SHAPES:
                 p = run_cell_subprocess(arch, shape, multi_pod=args.multi_pod,
                                         out_dir=args.out, depth=args.depth,
-                                        microbatches=args.microbatches)
+                                        microbatches=args.microbatches,
+                                        hints=hints, tag=args.tag,
+                                        optimized=args.optimized,
+                                        moe_groups=args.moe_groups)
                 out, _ = p.communicate()
                 print(out.strip().splitlines()[-1] if out.strip() else
                       f"{arch} {shape}: no output", flush=True)
@@ -540,10 +619,14 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1 if failures else 0
     if not args.arch or not args.shape:
         ap.error("--arch and --shape required unless --all")
+    hints, tag, extra = cell_options(
+        args.arch, hints=hints, tag=args.tag, moe_groups=args.moe_groups,
+        block_k=args.block_k, optimized=args.optimized,
+        multi_pod=args.multi_pod)
     r = run_cell(args.arch, args.shape, multi_pod=args.multi_pod,
                  out_dir=args.out, microbatches=args.microbatches,
-                 probes=args.probes,
-                 extra_flags={"block_k": args.block_k}, depth=args.depth)
+                 probes=args.probes, extra_flags=extra, depth=args.depth,
+                 hints=hints, tag=tag)
     return 1 if r["status"] == "error" else 0
 
 

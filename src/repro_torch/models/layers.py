@@ -237,6 +237,22 @@ class Attention(nn.Module):
             self.k_gamma = param(torch.ones(hd, dtype=dt, device=g.device))
 
 
+def _context_rows(tp, cfg: ModelConfig, x: torch.Tensor) -> bool:
+    """Whether this sublayer runs context-parallel (``parallel.
+    context_split`` under the active hint table, and a sequence that the
+    'model' size divides)."""
+    return (tp is not None and x.shape[1] % tp.size == 0
+            and parallel.context_split(cfg, tp.size,
+                                       runtime.get("sharding_hints")))
+
+
+def _replicated(tp, p: nn.Module, names: Sequence[str]) -> list:
+    """``p``'s parameters ``names`` (None where absent), each entering by
+    ``copy``: the rank's work gives each a partial gradient."""
+    return [tp.copy(getattr(p, n)) if hasattr(p, n) else None
+            for n in names]
+
+
 def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
                       x_kv: Optional[torch.Tensor] = None,
                       sin: Optional[torch.Tensor] = None,
@@ -250,24 +266,43 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     layers the rank's query heads (``p.wq`` (D, Hq/m, hd),
     ``parallel.attention_split``), self-attention runs on them: the
     kernels see Hq/m query heads over the kv heads they read
-    (``parallel.head_block``), and ``wo`` is row-parallel."""
+    (``parallel.head_block``), and ``wo`` is row-parallel.  Where it runs
+    context-parallel (``parallel.context_split``: the ``attn_q`` hint,
+    heads that do not split, a sequence S that the 'model' size m
+    divides), rank r projects Q for rows r·S/m … (r+1)·S/m of x (whole
+    after ``copy``), attends at ``q_offset`` r·S/m with its rope rows
+    against the whole K/V (which the stream kernel generates from the
+    whole x), applies ``wo`` to its rows and gathers them
+    (``gather_rows``); the weights enter by ``copy``."""
     from repro_torch.plan.heuristics import resolve_layer_mode
     tp = parallel.active()
-    split = x_kv is None and tp is not None and tp.local(p, "wq")
+    self_attn = x_kv is None and tp is not None
+    split = self_attn and tp.local(p, "wq")
+    rows = self_attn and not split and _context_rows(tp, cfg, x)
+    wq, wo = p.wq, p.wo
     if split:
         x = tp.copy(x)
         wk, wv, q_gamma, k_gamma = parallel.head_block(tp, p, cfg)
+    elif rows:
+        x = tp.copy(x)
+        wq, wk, wv, wo, q_gamma, k_gamma = _replicated(
+            tp, p, ("wq", "wk", "wv", "wo", "q_gamma", "k_gamma"))
     else:
         wk, wv = p.wk, p.wv
         q_gamma = getattr(p, "q_gamma", None)
         k_gamma = getattr(p, "k_gamma", None)
     x_kv = x if x_kv is None else x_kv
+    xq = x
+    if rows:
+        n = x.shape[1] // tp.size
+        q_offset += tp.rank * n
+        xq = x[:, tp.rank * n:(tp.rank + 1) * n]
     mode = resolve_layer_mode(
         ExecutionMode(mode or cfg.execution_mode), d_kv=x_kv.shape[-1],
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
         attn_kind=cfg.attn_kind, fuse_kv_generation=cfg.fuse_kv_generation)
     window = cfg.sliding_window if cfg.attn_kind == AttnKind.SLIDING else 0
-    q = torch.einsum("bsd,dhe->bhse", x, p.wq.to(x.dtype))
+    q = torch.einsum("bsd,dhe->bhse", xq, wq.to(x.dtype))
     if cfg.use_qk_norm:
         q = ref.rms_norm(q, q_gamma, eps=cfg.norm_eps)
     if sin is not None:
@@ -282,8 +317,10 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         causal=causal, window=window, q_offset=q_offset,
         norm_eps=cfg.norm_eps)
     out = constrain(out, "attn_out")
-    out = torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
-    return tp.reduce(out) if split else out
+    out = torch.einsum("bhse,hed->bsd", out, wo.to(x.dtype))
+    if split:
+        return tp.reduce(out)
+    return tp.gather_rows(out) if rows else out
 
 
 def attention_forward_mrope(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -294,23 +331,38 @@ def attention_forward_mrope(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     any kernel and attention runs through ``ops.multi_head_attention``,
     the flash kernel, whatever the execution mode, as in the JAX function
     (which takes a ``mode`` and does not read it).  The stream kernel
-    takes only (Sk, hd//2) tables.  On the rank's query heads as
+    takes only (Sk, hd//2) tables.  On the rank's query heads, or
+    context-parallel on its query rows (the tables' rows of Q sliced on
+    their sequence dim, ``q_offset`` at the block), as
     ``attention_forward``'s."""
     tp = parallel.active()
     split = tp is not None and tp.local(p, "wq")
+    rows = tp is not None and not split and _context_rows(tp, cfg, x)
+    wq, wo, q_offset = p.wq, p.wo, 0
     if split:
         x = tp.copy(x)
         wk, wv, _, _ = parallel.head_block(tp, p, cfg)
+    elif rows:
+        x = tp.copy(x)
+        wq, wk, wv, wo = _replicated(tp, p, ("wq", "wk", "wv", "wo"))
     else:
         wk, wv = p.wk, p.wv
-    q = torch.einsum("bsd,dhe->bhse", x, p.wq.to(x.dtype))
+    xq, q_sin, q_cos = x, sin_b, cos_b
+    if rows:
+        n = x.shape[1] // tp.size
+        q_offset = tp.rank * n
+        xq = x[:, q_offset:q_offset + n]
+        q_sin, q_cos = (t[:, q_offset:q_offset + n] for t in (sin_b, cos_b))
+    q = torch.einsum("bsd,dhe->bhse", xq, wq.to(x.dtype))
     k = torch.einsum("bsd,dhe->bhse", x, wk.to(x.dtype))
     v = torch.einsum("bsd,dhe->bhse", x, wv.to(x.dtype))
-    q = apply_rope_bsd(q, sin_b, cos_b)
+    q = apply_rope_bsd(q, q_sin, q_cos)
     k = apply_rope_bsd(k, sin_b, cos_b)
-    out = ops.multi_head_attention(q, k, v, causal=causal)
-    out = torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
-    return tp.reduce(out) if split else out
+    out = ops.multi_head_attention(q, k, v, causal=causal, q_offset=q_offset)
+    out = torch.einsum("bhse,hed->bsd", out, wo.to(x.dtype))
+    if split:
+        return tp.reduce(out)
+    return tp.gather_rows(out) if rows else out
 
 
 def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -435,16 +487,19 @@ def moe_capacity(tokens: int, cfg: ModelConfig,
     return min(pad_to(cap, 4), tokens)
 
 
-def moe_route(p: MoE, cfg: ModelConfig, xt: torch.Tensor, cap: int
+def moe_route(p: MoE, cfg: ModelConfig, xt: torch.Tensor, cap: int,
+              router: Optional[torch.Tensor] = None
               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Routing of token groups xt (G, Tg, D): the f32 router's softmax, its
     top-k renormalised, and each (token, k) pair's slot ``e·cap + pos``
     (G, Tg, K), where pos counts the earlier pairs of the group that chose
     expert e in (token, k) order; a pair past capacity is dropped and
-    gets slot E·cap.  Returns (slot, weights (G, Tg, K) f32, topi)."""
+    gets slot E·cap.  Returns (slot, weights (G, Tg, K) f32, topi).
+    ``router`` stands in for ``p.router``."""
     E, K = cfg.num_experts, cfg.experts_per_token
     G, Tg, _ = xt.shape
-    logits = torch.einsum("gtd,de->gte", xt.float(), p.router.float())
+    router = p.router if router is None else router
+    logits = torch.einsum("gtd,de->gte", xt.float(), router.float())
     gates = torch.softmax(logits, dim=-1)
     topw, topi = torch.topk(gates, K, dim=-1)
     topw = topw / topw.sum(-1, keepdim=True).clamp(min=1e-9)
@@ -470,9 +525,22 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     sums them in f32 in k order (deterministic: no scatter-add).  The
     shared expert runs through ``mlp_forward`` (``tile_gemm``).  Under
     autograd the gathers and products differentiate (the router through
-    the gate weights); a dropped slot gets no gradient, as in JAX."""
+    the gate weights); a dropped slot gets no gradient, as in JAX.
+
+    Where the active mesh step hands the layers the rank's experts (their
+    (E/m, ...) block: EP) or each expert's d_ff block (expert-TP), every
+    rank routes all of its data shard's tokens alike (the same capacity
+    and slots; x and the router enter by ``copy``), dispatches and runs
+    only its experts' slots (EP) or every slot on its d_ff block, and its
+    f32 partial combine is summed over 'model' (``reduce``) before the
+    cast to x's dtype."""
     if capacity_factor is None:
         capacity_factor = runtime.get("moe_capacity", 1.25)
+    tp = parallel.active()
+    split = tp is not None and tp.local(p, "w_up")
+    x_in, router = x, p.router
+    if split:
+        x, router = tp.copy(x), tp.copy(p.router)
     B, S, D = x.shape
     E, K = cfg.num_experts, cfg.experts_per_token
     groups = runtime.get("moe_groups", 1)
@@ -481,31 +549,41 @@ def moe_forward(p: MoE, cfg: ModelConfig, x: torch.Tensor, *,
     Tg = B * S // groups
     xt = x.reshape(groups, Tg, D)
     cap = moe_capacity(Tg, cfg, capacity_factor)
-    slot, topw, _ = moe_route(p, cfg, xt, cap)
+    slot, topw, _ = moe_route(p, cfg, xt, cap, router)
     flat = slot.reshape(groups, Tg * K)
+    # the experts this rank runs: [e0, e0 + El) (all of them but under EP)
+    El = p.w_up.shape[0]
+    e0 = tp.rank * El if split and El < E else 0
+    lo, n_loc = e0 * cap, El * cap
     pairs = torch.arange(Tg * K, device=x.device).expand(groups, -1)
     token_of_slot = torch.zeros((groups, E * cap + 1), dtype=torch.long,
                                 device=x.device)
     token_of_slot.scatter_(1, flat, pairs // K)
     used = torch.zeros((groups, E * cap + 1), dtype=x.dtype, device=x.device)
     used.scatter_(1, flat, torch.ones_like(flat, dtype=x.dtype))
-    xe = torch.gather(xt, 1, token_of_slot[:, :E * cap, None].expand(-1, -1, D))
-    xe = (xe * used[:, :E * cap, None]).reshape(groups, E, cap, D)
+    xe = torch.gather(xt, 1, token_of_slot[:, lo:lo + n_loc, None].expand(
+        -1, -1, D))
+    xe = (xe * used[:, lo:lo + n_loc, None]).reshape(groups, El, cap, D)
     xe = constrain(xe.transpose(0, 1), "moe_dispatch")     # (E, G, C, D)
-    xe = xe.reshape(E, groups * cap, D)
+    xe = xe.reshape(El, groups * cap, D)
     g = torch.bmm(xe, p.w_gate.to(x.dtype))
     u = torch.bmm(xe, p.w_up.to(x.dtype))
     ye = torch.bmm(F.silu(g) * u, p.w_down.to(x.dtype))
-    ye = ye.reshape(E, groups, cap, D).transpose(0, 1).reshape(
-        groups, E * cap, D)
-    ye = torch.cat([ye, ye.new_zeros(groups, 1, D)], dim=1)   # dropped
-    parts = torch.gather(ye, 1, flat[..., None].expand(-1, -1, D))
+    ye = ye.reshape(El, groups, cap, D).transpose(0, 1).reshape(
+        groups, n_loc, D)
+    ye = torch.cat([ye, ye.new_zeros(groups, 1, D)], dim=1)  # not run here
+    local = flat - lo
+    local = torch.where((local >= 0) & (local < n_loc), local,
+                        torch.full_like(local, n_loc))
+    parts = torch.gather(ye, 1, local[..., None].expand(-1, -1, D))
     parts = (parts.reshape(groups, Tg, K, D)
              * topw.to(x.dtype)[..., None]).float()
     y = parts[:, :, 0]
     for k in range(1, K):
         y = y + parts[:, :, k]
+    if split:
+        y = tp.reduce(y)
     out = y.to(x.dtype).reshape(B, S, D)
     if hasattr(p, "shared"):
-        out = out + mlp_forward(p.shared, x)
+        out = out + mlp_forward(p.shared, x_in)
     return out

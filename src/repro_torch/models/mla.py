@@ -10,6 +10,15 @@ CUDA tensors; under autograd its backward takes the flash backward's
 wide route).  K and V never exist as tensors: the latent is the cache.
 Decode keeps the absorbed form in plain PyTorch, in f32, as the JAX
 function does (it reaches no kernel there).
+
+Where the active mesh step hands the layers the rank's heads (the rule
+table splits ``wq_b``, ``wk_b``, ``wv_b`` and ``wo`` on their head dim),
+the prefill runs on them: the latent and the query's low-rank projection
+are computed whole on every rank, the latent activations (``cq``, ``c``,
+``k_rope``) enter the split region by ``copy`` (their gradients, partial
+over the rank's heads, are summed there, so that the low-rank weights get
+whole gradients on every rank), the latent attention runs at H/m query
+heads, and ``wo`` is row-parallel.
 """
 from __future__ import annotations
 
@@ -19,6 +28,7 @@ import torch
 from torch import nn
 
 from repro_torch.core.types import ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels import ops, ref
 from repro_torch.models.layers import dense_init, param, rope_at, torch_dtype
 
@@ -51,12 +61,16 @@ class MLA(nn.Module):
         self.wo = w(H, dv, d)
 
 
-def _project_q(p: MLA, cfg: ModelConfig, x: torch.Tensor, sin, cos
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(q_nope (B, H, S, dn), q_rope (B, H, S, dr)) (mla.py:44)."""
+def _project_q(p: MLA, cfg: ModelConfig, x: torch.Tensor, sin, cos,
+               enter=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(q_nope (B, H, S, dn), q_rope (B, H, S, dr)) (mla.py:44); ``enter``
+    (the active step's ``copy``) takes the normed latent query before
+    ``wq_b``."""
     dn = cfg.qk_nope_head_dim
     cq = torch.matmul(x, p.wq_a.to(x.dtype))
     cq = ref.rms_norm(cq, p.q_norm, eps=cfg.norm_eps)
+    if enter is not None:
+        cq = enter(cq)
     q = torch.einsum("bsr,rhe->bhse", cq, p.wq_b.to(x.dtype))
     q_nope, q_rope = q[..., :dn], q[..., dn:]
     if sin is not None:
@@ -85,12 +99,19 @@ def mla_forward(p: MLA, cfg: ModelConfig, x: torch.Tensor, *,
     q_lat = q_nope wk_b^T, so attention is MQA over the key [c ; k_rope]
     and the value c.  q_cat arrives scaled so that attention at the
     default hd^-0.5 of its width kvr + dr gives the model's
-    (dn + dr)^-0.5.  There is no mode here: every execution mode runs
-    this path, as in JAX (whose ``mode`` argument is not read)."""
+    (dn + dr)^-0.5 (a factor of the widths alone: the same at H/m heads).
+    There is no mode here: every execution mode runs this path, as in JAX
+    (whose ``mode`` argument is not read).  On the rank's heads where the
+    active mesh step hands them to the layers (module docstring)."""
     dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     kvr = cfg.kv_lora_rank
-    q_nope, q_rope = _project_q(p, cfg, x, sin, cos)
+    tp = parallel.active()
+    split = tp is not None and tp.local(p, "wq_b")
+    q_nope, q_rope = _project_q(p, cfg, x, sin, cos,
+                                tp.copy if split else None)
     c, k_rope = _latent(p, cfg, x, sin, cos)
+    if split:
+        c, k_rope = tp.copy(c), tp.copy(k_rope)
     q_lat = torch.einsum("bhse,rhe->bhsr", q_nope, p.wk_b.to(x.dtype))
     rescale = (dn + dr) ** -0.5 * (kvr + dr) ** 0.5
     q_cat = torch.cat([q_lat, q_rope], dim=-1) * rescale
@@ -99,7 +120,8 @@ def mla_forward(p: MLA, cfg: ModelConfig, x: torch.Tensor, *,
         q_cat, k_cat.to(q_cat.dtype), c[:, None].to(q_cat.dtype),
         causal=causal)                                   # (B, H, S, kvr)
     out = torch.einsum("bhsr,rhe->bhse", ctx_lat, p.wv_b.to(x.dtype))
-    return torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
+    out = torch.einsum("bhse,hed->bsd", out, p.wo.to(x.dtype))
+    return tp.reduce(out) if split else out
 
 
 def mla_init_cache(cfg: ModelConfig, layers: int, batch: int, max_len: int,

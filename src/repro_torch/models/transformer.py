@@ -378,7 +378,8 @@ class Transformer(nn.Module):
         """The embedding and every layer, before the final norm.  Each is a
         unit of the active mesh step (``parallel.unit``): the embedding's
         rows are gathered for the lookup, each layer's parameters for its
-        forward and, under ``remat``, again for its recomputation."""
+        forward and, under ``remat``, again for its recomputation, which
+        runs under the forward's ``runtime`` flags."""
         cfg = self.cfg
         mode = mode or cfg.execution_mode
         with parallel.unit(self, ("embed.embedding",)):
@@ -390,10 +391,14 @@ class Transformer(nn.Module):
         else:
             sin, cos = self._rope(x.shape[1], x.device)
         kw = dict(sin=sin, cos=cos, mode=mode, mrope_tabs=mrope_tabs)
+        # the recomputation runs under the forward's flags (moe_groups,
+        # the hint table), also on autograd's device thread
+        flags = runtime.snapshot()
         for p in self.blocks:
             if remat and torch.is_grad_enabled():
-                x = checkpoint(parallel.run_unit, p, _layer_apply, cfg, x,
-                               use_reentrant=False, **kw)
+                x = checkpoint(runtime.call_with, flags, parallel.run_unit,
+                               p, _layer_apply, cfg, x, use_reentrant=False,
+                               **kw)
             else:
                 x = parallel.run_unit(p, _layer_apply, cfg, x, **kw)
         return x

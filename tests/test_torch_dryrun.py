@@ -5,7 +5,11 @@ shape, a qwen3-32b smoke train cell on a fake (2, 2) world with every
 field of the JAX artifact (dryrun.py:397-427), its per-device FLOPs at
 (1, 1) beside ``hlo_analysis.analyze`` of the JAX step compiled on one CPU
 device, the collective traffic formulas (tests/test_hlo_analysis.py:
-104-119) and the cycles of a matmul chain."""
+104-119) and the cycles of a matmul chain; the hint table
+(``hint_shardings``) against JAX's specs, the CLI's ``--hints``,
+``--tag``, ``--moe-groups`` and ``--optimized`` with JAX's meaning, and
+smoke train cells of the MoE family (EP, expert-TP, MLA's heads) and of
+context-parallel attention."""
 import dataclasses
 import json
 import os
@@ -395,3 +399,100 @@ def test_cli_writes_an_ok_artifact(tmp_path):
                    .read_text())
     assert r["status"] == "ok" and r["depths"] == {"enc": 1, "dec": 1}
     assert "[16x16" in res.stdout
+
+
+def test_hint_shardings_give_the_jax_specs():
+    """The four names' specs on small meshes of ("data", "model") and
+    ("pod", "data", "model") axes, against dryrun.py:308-322's."""
+    from jax.sharding import Mesh
+    from repro_torch.distributed.hints import hint_shardings
+    names = ["embed_out", "attn_q", "attn_out", "moe_dispatch"]
+    for axes in (("data", "model"), ("pod", "data", "model")):
+        jmesh = Mesh(np.array(jax.devices()[:1]).reshape((1,) * len(axes)),
+                     axes)
+        want = {k: tuple(v.spec) for k, v in JD.hint_shardings(
+            names, jmesh).items()}
+        got = hint_shardings(names, SH._SimulatedMesh(
+            {a: 2 for a in axes}))
+        assert {k: spec for k, (_, spec) in got.items()} == want
+        assert hint_shardings([], jmesh) == {}
+
+
+def test_cli_switches_reach_run_cell(monkeypatch):
+    """--hints, --tag and --moe-groups reach run_cell as given;
+    --optimized adds JAX's preset (dryrun.py:503-523): embed_out, attn_q
+    and attn_out for heads that 16 does not divide, moe_groups = 16 (32 on
+    two pods) for MoE archs, block_k 2048, the tag "optimized"."""
+    seen = []
+
+    def fake(arch, shape, **kw):
+        seen.append((arch, kw))
+        return {"status": "ok"}
+    monkeypatch.setattr(D, "run_cell", fake)
+    assert D.main(["--arch", "qwen3-32b", "--shape", "train_4k", "--hints",
+                   "attn_q,attn_out", "--tag", "cp", "--moe-groups",
+                   "4"]) == 0
+    kw = seen[-1][1]
+    assert kw["hints"] == ["attn_q", "attn_out"] and kw["tag"] == "cp"
+    assert kw["extra_flags"] == {"block_k": D.BLOCK_K, "moe_groups": 4}
+    for arch, multi_pod, want, groups in (
+            ("starcoder2-7b", False, ["embed_out", "attn_q", "attn_out"],
+             None),
+            ("qwen3-32b", False, ["embed_out"], None),
+            ("deepseek-v3-671b", False, ["embed_out"], 16),
+            ("grok-1-314b", True, ["embed_out"], 32)):
+        argv = ["--arch", arch, "--shape", "train_4k", "--optimized"]
+        assert D.main(argv + ["--multi-pod"] * multi_pod) == 0
+        kw = seen[-1][1]
+        assert kw["hints"] == want and kw["tag"] == "optimized"
+        assert kw["extra_flags"].get("moe_groups") == groups
+        assert kw["extra_flags"]["block_k"] == 2048
+
+
+@pytest.mark.parametrize("arch,mesh_shape", [("deepseek-v3-671b", (1, 4)),
+                                             ("grok-1-314b", (1, 8))])
+def test_moe_smoke_train_cells_compute_on_their_blocks(no_group, arch,
+                                                       mesh_shape, tmp_path):
+    """deepseek-v3 smoke on a 'model' axis of 4 (EP: 2 of 8 experts; MLA:
+    1 of 4 heads) and grok-1 smoke on 8 (expert-TP: 4 experts, each
+    expert's d_ff over 8): nothing the rules split is computed replicated,
+    and under the hints the result carries them and its tag (and the
+    artifact's name); a rank counts under half of one device's FLOPs."""
+    cfg = registry.get_config(arch, smoke=True)
+    r = D.run_cell(arch, "train_4k", verbose=False, cfg=cfg,
+                   shape=SMOKE_SHAPE, mesh_shape=mesh_shape, microbatches=1,
+                   hints=["embed_out", "moe_dispatch"], tag="hinted",
+                   out_dir=str(tmp_path))
+    assert r["status"] == "ok", r.get("error")
+    assert r["replicated_over_model"] == []
+    assert r["hints"] == ["embed_out", "moe_dispatch"] and r["tag"] == "hinted"
+    m = mesh_shape[1]
+    saved = json.loads((tmp_path / f"{arch}__train_4k__1x{m}__hinted.json")
+                       .read_text())
+    assert saved["tag"] == "hinted"
+    # a rank computes its share of most of the step (experts or their
+    # d_ff, MLA's heads, the MLPs, the vocabulary): under half of one
+    # device's step
+    one = D.run_cell(arch, "train_4k", verbose=False, cfg=cfg,
+                     shape=SMOKE_SHAPE, mesh_shape=(1, 1), microbatches=1)
+    assert r["hlo_flops_per_device"] < one["hlo_flops_per_device"] / 2
+
+
+def test_context_parallel_smoke_cell_counts_fewer_flops(no_group):
+    """minitron-4b smoke (6 heads, which 4 does not divide) on a fake
+    (1, 4) world: under --optimized's hints (attn_q: context-parallel
+    attention) a rank counts fewer FLOPs than without them, where every
+    rank runs the whole attention."""
+    cfg = registry.get_config("minitron-4b", smoke=True)
+    hints, tag, extra = D.cell_options(
+        "minitron-4b", hints=[], tag="", moe_groups=1, block_k=D.BLOCK_K,
+        optimized=True, multi_pod=False)
+    assert "attn_q" in hints and tag == "optimized"
+    flops = {}
+    for h in ([], hints):
+        r = D.run_cell("minitron-4b", "train_4k", verbose=False, cfg=cfg,
+                       shape=SMOKE_SHAPE, mesh_shape=(1, 4), microbatches=1,
+                       hints=h, extra_flags=extra)
+        assert r["status"] == "ok", r.get("error")
+        flops[bool(h)] = r["hlo_flops_per_device"]
+    assert flops[True] < flops[False]

@@ -27,8 +27,11 @@ process.
 * a (1, 4) ("data", "model") world computes tensor-parallel: qwen3-32b
   smoke (8 query heads split, its 2 kv heads replicated and sliced),
   h2o-danube3-4b smoke (a sliding window) and one arch of every other
-  decoder family (``TP_ARCHS``) train within 2e-5 of the single-device
-  run, qwen3-32b from the JAX loop's initial weights within
+  decoder family (``TP_ARCHS``: deepseek-v3 smoke on 2 of its 8
+  experts and 1 of its 4 MLA heads a rank), and under the attn_q hint
+  minitron-4b and hymba-1.5b smoke with context-parallel attention
+  (``CP_ARCHS``), train within 2e-5 of the single-device run in losses
+  and every parameter, qwen3-32b from the JAX loop's initial weights within
   2e-5 of the JAX loop's losses, and a rank's step counts at most 0.35 of
   the single-device step's FLOPs (FlopCounterMode);
 * 2 microbatches a step on the (2, 2) world match the single-device run
@@ -68,10 +71,15 @@ SERVE_ARCHS = ["starcoder2-7b", "qwen2-vl-2b"]
 # h2o-danube3-4b: a window), M-RoPE with tied embeddings (qwen2-vl-2b),
 # SSM with tied embeddings (mamba2-780m: the vocabulary alone splits), a
 # hybrid whose 5 heads 4 does not divide (hymba-1.5b), MoE with split
-# attention and replicated experts (grok-1-314b), MLA and MoE with a dense
-# prefix and a shared expert (deepseek-v3-671b)
+# attention and one expert a rank (grok-1-314b), MLA on a head a rank and
+# MoE on 2 experts a rank with a dense prefix and a shared expert
+# (deepseek-v3-671b)
 TP_ARCHS = ["qwen3-32b", "h2o-danube3-4b", "qwen2-vl-2b", "mamba2-780m",
             "hymba-1.5b", "grok-1-314b", "deepseek-v3-671b"]
+# trained on the (1, 4) world under the hint table's attn_q: attention
+# context-parallel (heads that 4 does not divide: minitron-4b's 6,
+# hymba-1.5b's 5 with its 16-key window)
+CP_ARCHS = ["minitron-4b", "hymba-1.5b"]
 REQUESTS = [(8, 4, 0), (12, 3, 1)]           # prompt length, new, arrival
 SHAPE = ShapeConfig("sys", seq_len=64, global_batch=4, kind="train")
 STEPS = 3
@@ -181,15 +189,23 @@ WORLD14 = COMMON + textwrap.dedent("""
     from repro_torch.distributed.sharding import batch_shardings
     from repro_torch.train.steps import (MeshTrainStep, local_batch,
                                          make_train_step)
+    from repro_torch.core import runtime
+    from repro_torch.distributed.hints import hint_shardings
     mesh = make_mesh((1, 4), ("data", "model"), "cpu")
-    res = {}
-    for arch in %(tp_archs)r:
+    res = {"blocks": {}}
+    table = hint_shardings(["attn_q", "attn_out"], mesh)
+    runs = [(a, a, None) for a in %(tp_archs)r]
+    runs += [(a, a + "+cp", table) for a in %(cp_archs)r]
+    for arch, key, hints in runs:
         c = registry.get_config(arch, smoke=True)
-        r = L.train(c, SHAPE, SyntheticLM(c, SHAPE, seed=0), tcfg(),
-                    device="cpu", mesh=mesh, gather_model=True)
-        res[arch] = [m["loss"] for m in r["metrics"]]
+        with runtime.flags(sharding_hints=hints):
+            r = L.train(c, SHAPE, SyntheticLM(c, SHAPE, seed=0), tcfg(),
+                        device="cpu", mesh=mesh, gather_model=True)
+        res[key] = [m["loss"] for m in r["metrics"]]
+        res["blocks"][key] = {k: list(p.to_local().shape)
+                              for k, p in r["params"].items()}
         if rank == 0:
-            np.savez(f"{out}/params14_{arch}.npz", **{
+            np.savez(f"{out}/params14_{key}.npz", **{
                 k: p.detach().numpy()
                 for k, p in r["model"].named_parameters()})
     # the JAX loop's initial weights (its losses are the JAX leg's)
@@ -222,7 +238,7 @@ WORLD14 = COMMON + textwrap.dedent("""
     res["flops_single"] = fc.get_total_flops()
     res["local"] = {k: list(b.shape) for k, b in step.blocks.items()}
     dump("world14", res)
-""") % {"tp_archs": TP_ARCHS}
+""") % {"tp_archs": TP_ARCHS, "cp_archs": CP_ARCHS}
 
 WORLD2 = COMMON + textwrap.dedent("""
     from repro_torch.convert import transformer_from_jax
@@ -384,6 +400,9 @@ def worlds(tmp_path_factory):
                              ("vilbert-base", "whisper-base")}
     local["single_tp"] = {arch: _train(arch=arch) for arch in TP_ARCHS[1:]}
     local["single_tp"]["qwen3-32b"] = local["single"]
+    for arch in CP_ARCHS:
+        local["single_tp"][arch + "+cp"] = local["single_tp"].get(
+            arch) or _train(arch=arch)
     local["mesh11"] = _train(mesh, gather_model=True)
     local["jax_loop"] = jax_loop
     with pytest.MonkeyPatch.context() as mp:
@@ -553,12 +572,14 @@ def test_the_other_families_train_on_2x2(worlds, arch):
             _close(p[k], v.detach().numpy())
 
 
-@pytest.mark.parametrize("arch", TP_ARCHS)
+@pytest.mark.parametrize("arch", TP_ARCHS + [a + "+cp" for a in CP_ARCHS])
 def test_train_on_a_1x4_world_matches_single_device(worlds, arch):
     """Tensor parallelism over a 'model' axis of 4: losses and final
     parameters within 2e-5 of the single-device run (h2o-danube3-4b smoke:
     4 query heads, 2 kv heads, a 16-key window over 64 tokens; the other
-    families as ``TP_ARCHS`` says)."""
+    families as ``TP_ARCHS`` says; "+cp": under the attn_q hint, as
+    ``CP_ARCHS`` says).  A replicated weight whose gradient were the
+    rank's partial sum alone would end its steps elsewhere."""
     out, _, local = worlds
     single = local["single_tp"][arch]
     losses = [m["loss"] for m in single["metrics"]]
@@ -567,6 +588,35 @@ def test_train_on_a_1x4_world_matches_single_device(worlds, arch):
     got = np.load(out / f"params14_{arch}.npz")
     for k, p in single["model"].named_parameters():
         _close(got[k], p.detach().numpy())
+
+
+def test_1x4_world_blocks_of_the_other_decoder_families(worlds):
+    """The rank's blocks on (1, 4): deepseek-v3 smoke's experts (2 of 8:
+    EP), MLA's per-head weights (1 of 4 heads: wq_b, wk_b, wv_b, wo, in
+    the dense prefix too) and its shared expert's d_ff, its router and
+    latent projections whole; grok-1 smoke's experts (1 of 4: EP); under
+    the hint, minitron-4b's and hymba-1.5b's attention weights whole
+    (context-parallel) beside their MLPs' d_ff blocks."""
+    out, _, _ = worlds
+    for r in _load(out, "world14", 4):
+        ds = r["blocks"]["deepseek-v3-671b"]
+        assert ds["layers.0.moe.w_up"] == [2, 96, 64]
+        assert ds["layers.0.moe.w_down"] == [2, 64, 96]
+        assert ds["layers.0.moe.router"] == [96, 8]
+        assert ds["layers.0.moe.shared.w_up"] == [96, 16]
+        for k in ("layers.0.attn", "dense_layers.0.attn"):
+            assert ds[f"{k}.wq_b"] == [48, 1, 32]
+            assert ds[f"{k}.wk_b"] == [32, 1, 16]
+            assert ds[f"{k}.wv_b"] == [32, 1, 16]
+            assert ds[f"{k}.wo"] == [1, 16, 96]
+            assert ds[f"{k}.wkv_a"] == [96, 48]
+        assert r["blocks"]["grok-1-314b"]["layers.0.moe.w_up"] == [1, 96, 128]
+        for arch, (H, hd, d) in (("minitron-4b", (6, 16, 96)),
+                                 ("hymba-1.5b", (5, 20, 100))):
+            b = r["blocks"][arch + "+cp"]
+            assert b["layers.0.attn.wq"] == [d, H, hd]
+            assert b["layers.0.attn.wo"] == [H, hd, d]
+            assert b["layers.0.mlp.w_up"] == [d, 192 // 4]
 
 
 def test_1x4_world_splits_heads_and_matches_the_jax_loop(worlds):
@@ -580,6 +630,7 @@ def test_1x4_world_splits_heads_and_matches_the_jax_loop(worlds):
     for r in _load(out, "world14", 4):
         _close(r["jax_init"], local["jax_loop"]["losses"])
         shapes = r["local"]
+        assert shapes == r["blocks"]["qwen3-32b"]
         assert shapes["layers.0.attn.wq"] == [128, 2, 32]
         assert shapes["layers.0.attn.wk"] == [128, 2, 32]
         assert shapes["layers.0.mlp.w_up"] == [128, 64]

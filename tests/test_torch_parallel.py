@@ -1,14 +1,24 @@
 """The 'model'-axis primitives (``repro_torch.distributed.parallel``) on the
 CPU, without a process group:
 
-* one layer's attention and MLP sublayers, run in turn as each of the 4
-  ranks of a 'model' axis on the rank's blocks (``rank_view``: ``copy``
-  and ``reduce`` are the identity), sum to the whole sublayers: outputs
-  and input gradients summed, the split weights' gradients the blocks of
-  the whole ones, the replicated K/V weights' and qk-norm gains' the sums
-  of the ranks' partial ones; qwen3-32b smoke (8 query heads over 2 kv
-  heads: each rank's 2 read one) and h2o-danube3-4b smoke (a sliding
-  window) in the three execution modes, within 1e-5 of the largest value;
+* one layer's attention and MLP (or MoE) sublayers, run in turn as each
+  of the m ranks of a 'model' axis on the rank's blocks (``rank_view``:
+  ``copy`` and ``reduce`` are the identity, ``gather_rows`` puts the
+  rank's rows among zeros), sum to the whole sublayers: outputs and input
+  gradients summed, the split weights' gradients the blocks of the whole
+  ones, the replicated weights' the sums of the ranks' partial ones,
+  within 1e-5 of the largest value, in the three execution modes where
+  the split attention reads the mode:
+  qwen3-32b smoke (8 query heads over 2 kv heads: each rank's 2 read one)
+  and h2o-danube3-4b smoke (a sliding window) at 4; deepseek-v3 smoke at
+  4 (EP: 2 of 8 experts a rank; MLA: 1 of 4 heads; the shared expert's
+  d_ff); grok-1 smoke at 8 (expert-TP: 4 experts do not divide 8, each
+  expert's d_ff does; its 4 heads stay whole); under the ``attn_q`` hint
+  minitron-4b (6 heads) and hymba-1.5b (5 heads, a 16-key window) at 4
+  and qwen2-vl-2b (M-RoPE) at 8, context-parallel; a sequence of 30,
+  which 4 does not divide, stays replicated;
+* a layer's recomputation under remat runs under the forward's runtime
+  flags, also on another thread (autograd's device thread on the card);
 * the vocabulary-parallel loss and lookup at one rank are the plain ones;
 * which parameters the layers compute on their block, against the rule
   table at production axis sizes, for every arch;
@@ -21,58 +31,144 @@ import torch
 import torch.distributed as dist
 
 from repro_torch.configs import registry
-from repro_torch.core.types import ExecutionMode, Family
+from repro_torch.core import runtime
+from repro_torch.core.types import AttnKind, ExecutionMode, Family
 from repro_torch.distributed import parallel as PL
 from repro_torch.distributed import sharding as SH
-from repro_torch.models.layers import (attention_forward, embed_lookup,
-                                       mlp_forward, rope_tables_for)
+from repro_torch.distributed.hints import hint_shardings
+from repro_torch.models.layers import (attention_forward,
+                                       attention_forward_mrope, embed_lookup,
+                                       mlp_forward, moe_forward,
+                                       mrope_tables, rope_tables_for)
+from repro_torch.models.mla import mla_forward
 from repro_torch.models.transformer import Block, _chunk_nll
 from repro_torch.train import loop as L
 
 PROD = {"data": 16, "model": 16}
+# id: (arch, 'model' size, under the attn_q hint, sequence length)
+CASES = {"qwen3-32b": ("qwen3-32b", 4, False, 32),
+         "h2o-danube3-4b": ("h2o-danube3-4b", 4, False, 32),
+         "deepseek-v3-671b": ("deepseek-v3-671b", 4, False, 32),
+         "grok-1-314b": ("grok-1-314b", 8, False, 32),
+         "minitron-4b-cp": ("minitron-4b", 4, True, 32),
+         "hymba-1.5b-cp": ("hymba-1.5b", 4, True, 32),
+         "qwen2-vl-2b-cp": ("qwen2-vl-2b", 8, True, 32),
+         "minitron-4b-cp-seq30": ("minitron-4b", 4, True, 30)}
 
 
-def _sublayers(blk, cfg, h, sin, cos, mode):
-    return (attention_forward(blk.attn, cfg, h, sin=sin, cos=cos,
+def _sublayers(blk, cfg, h, tabs, mode):
+    """(attention, MLP or MoE) of the pre-normed h."""
+    if cfg.attn_kind == AttnKind.MLA:
+        a = mla_forward(blk.attn, cfg, h, sin=tabs[0], cos=tabs[1])
+    elif cfg.family == Family.VLM:
+        a = attention_forward_mrope(blk.attn, cfg, h, sin_b=tabs[0],
+                                    cos_b=tabs[1])
+    else:
+        a = attention_forward(blk.attn, cfg, h, sin=tabs[0], cos=tabs[1],
                               causal=True, mode=mode)
-            + mlp_forward(blk.mlp, h))
+    f = (moe_forward(blk.moe, cfg, h) if hasattr(blk, "moe")
+         else mlp_forward(blk.mlp, h))
+    return a, f
+
+
+def _want_shapes(cfg, m):
+    """The rank's shapes of the parameters that tell its split apart."""
+    d, H = cfg.d_model, cfg.num_heads
+    if cfg.family == Family.MOE:
+        E, f = cfg.num_experts, cfg.moe_d_ff
+        ep = E % m == 0
+        want = {"moe.w_up": (E // m, d, f) if ep else (E, d, f // m),
+                "moe.w_down": (E // m, f, d) if ep else (E, f // m, d),
+                "moe.router": (d, E)}
+    else:
+        want = {"mlp.w_up": (d, cfg.d_ff // m)}
+    if cfg.attn_kind == AttnKind.MLA:
+        want.update({"attn.wq_b": (cfg.q_lora_rank, H // m,
+                                   cfg.qk_nope_head_dim
+                                   + cfg.qk_rope_head_dim),
+                     "attn.wo": (H // m, cfg.v_head_dim, d),
+                     "attn.wq_a": (d, cfg.q_lora_rank)})
+    else:
+        split = PL.attention_split(cfg, m)
+        kv = cfg.num_kv_heads
+        want["attn.wq"] = (d, H // m if split else H, cfg.head_dim)
+        # K/V on their heads only where the kv heads divide too
+        want["attn.wk"] = (d, kv // m if split and kv % m == 0 else kv,
+                           cfg.head_dim)
+    return want
 
 
 def _rel(got, want):
     return float((got - want).detach().abs().max() / want.abs().max())
 
 
-@pytest.mark.parametrize("mode", list(ExecutionMode))
-@pytest.mark.parametrize("arch", ["qwen3-32b", "h2o-danube3-4b"])
+def _case_modes():
+    """Every mode where the split attention reads it; one for MLA and
+    M-RoPE (they read no mode), expert-TP (the split is the MoE's; the
+    attention stays whole) and the sequence that stays replicated."""
+    blind = ("deepseek-v3-671b", "grok-1-314b", "qwen2-vl-2b-cp",
+             "minitron-4b-cp-seq30")
+    return [pytest.param(a, m, id=f"{a}-{m.value}") for a in CASES
+            for m in ExecutionMode
+            if a not in blind or m == ExecutionMode.LAYER_STREAM]
+
+
+@pytest.mark.parametrize("arch,mode", _case_modes())
 def test_ranks_sum_to_the_whole_layer(arch, mode):
-    cfg = registry.get_config(arch, smoke=True)
+    name, m, hinted, S = CASES[arch]
+    cfg = registry.get_config(name, smoke=True)
     rng = np.random.default_rng(0)
-    blk = Block(cfg, torch.Generator().manual_seed(0)).requires_grad_(True)
-    B, S, m = 2, 32, 4
+    blk = Block(cfg, torch.Generator().manual_seed(0),
+                moe=cfg.family == Family.MOE).requires_grad_(True)
+    B = 2
     h = torch.from_numpy(rng.standard_normal(
         (B, S, cfg.d_model)).astype(np.float32)).requires_grad_(True)
     dy = torch.from_numpy(rng.standard_normal(
         (B, S, cfg.d_model)).astype(np.float32))
-    sin, cos = rope_tables_for(cfg, S)
+    if cfg.family == Family.VLM:
+        tabs = mrope_tables(cfg, torch.from_numpy(
+            rng.integers(0, 8, (3, B, S))))
+    else:
+        tabs = rope_tables_for(cfg, S, head_dim=cfg.qk_rope_head_dim
+                               if cfg.attn_kind == AttnKind.MLA else None)
+    hints = hint_shardings(["attn_q", "attn_out"], SH._SimulatedMesh(
+        {"data": 1, "model": m})) if hinted else None
+    rows = (hinted and S % m == 0
+            and PL.context_split(cfg, m, hints))
+    # neither the heads nor the rows split: every rank runs the whole
+    # attention, of which it contributes 1/m (m a power of two: exact)
+    whole_attn = not (rows or PL.attention_split(cfg, m)
+                      or cfg.attn_kind == AttnKind.MLA)
+    assert rows == (hinted and S % m == 0)
     names = [n for n, _ in blk.named_parameters()]
-    y = _sublayers(blk, cfg, h, sin, cos, mode)
-    whole = torch.autograd.grad(y, [h, *blk.parameters()], dy,
-                                allow_unused=True)
-    want = {n: g for n, g in zip(names, whole[1:]) if g is not None}
-    ys, dh, parts = 0, 0, {}
-    for r in range(m):
-        with PL.rank_view(blk, "layers", cfg, r, m) as t:
-            assert t["attn.wq"].shape[1] == cfg.num_heads // m
-            assert t["mlp.w_up"].shape[1] == cfg.d_ff // m
-            assert t["attn.wk"].shape == blk.attn.wk.shape   # 2 kv heads
-            yr = _sublayers(blk, cfg, h, sin, cos, mode)
-            keys = list(t)
-            got = torch.autograd.grad(yr, [h, *(t[k] for k in keys)], dy,
-                                      allow_unused=True)
-        ys, dh = ys + yr, dh + got[0]
-        for k, g in zip(keys, got[1:]):
-            if g is not None:
-                parts.setdefault(k, []).append(g)
+    with runtime.flags(sharding_hints=hints):
+        a, f = _sublayers(blk, cfg, h, tabs, mode)
+        whole = torch.autograd.grad(a + f, [h, *blk.parameters()], dy,
+                                    allow_unused=True)
+        want = {n: g for n, g in zip(names, whole[1:]) if g is not None}
+        ys, dh, parts = 0, 0, {}
+        n = S // m
+        for r in range(m):
+            with PL.rank_view(blk, "layers", cfg, r, m) as t:
+                for k, shape in _want_shapes(cfg, m).items():
+                    assert tuple(t[k].shape) == shape, k
+                ar, fr = _sublayers(blk, cfg, h, tabs, mode)
+                if whole_attn:
+                    assert torch.equal(ar, a)
+                    ar = ar / m
+                elif rows:           # the rank's rows, zeros elsewhere
+                    outside = torch.cat([ar[:, :r * n], ar[:, (r + 1) * n:]],
+                                        1)
+                    assert not outside.any()
+                yr = ar + fr
+                keys = list(t)
+                got = torch.autograd.grad(yr, [h, *(t[k] for k in keys)], dy,
+                                          allow_unused=True)
+            ys, dh = ys + yr, dh + got[0]
+            for k, g in zip(keys, got[1:]):
+                if g is not None:
+                    parts.setdefault(k, []).append(g)
+    y = a + f
     assert _rel(ys, y) < 1e-5 and _rel(dh, whole[0]) < 1e-5
     assert set(parts) == set(want)
     for k, gs in parts.items():
@@ -84,6 +180,45 @@ def test_ranks_sum_to_the_whole_layer(arch, mode):
                      if a != b)
             got = torch.cat(gs, d)
         assert _rel(got, want[k]) < 1e-5, k
+
+
+def test_recomputation_runs_under_the_forward_flags():
+    """A repair: under remat a layer's recomputation ran under the flags
+    of the thread that runs the backward (on the card, autograd's device
+    thread, which starts with none), so that ``moe_groups`` and the hint
+    table were lost and the recomputed layer differed from its forward.
+    grok-1 smoke with 4 token groups at a capacity that drops tokens: the
+    backward on another thread gives the gradients of the step without
+    remat."""
+    import threading
+    from repro_torch.core.types import ShapeConfig
+    from repro_torch.data.pipeline import SyntheticLM
+    from repro_torch.models.transformer import loss_fn
+    cfg = registry.get_config("grok-1-314b", smoke=True)
+    shape = ShapeConfig("t", 32, 2, "train")
+    cpu = torch.device("cpu")
+    batch = L.to_device(SyntheticLM(cfg, shape, seed=0).batch(0), cfg, cpu)
+    model = L.build_model(cfg, cpu, 0)
+    params = [p for p in model.parameters() if p.requires_grad]
+
+    def grads(remat, thread):
+        with runtime.flags(moe_groups=4, moe_capacity=0.5):
+            loss = loss_fn(model, batch, remat=remat)
+        out = {}
+
+        def backward():
+            out["g"] = torch.autograd.grad(loss, params, allow_unused=True)
+        if thread:
+            t = threading.Thread(target=backward)
+            t.start()
+            t.join()
+        else:
+            backward()
+        return out["g"]
+    for a, b in zip(grads(False, False), grads(True, True)):
+        assert (a is None) == (b is None)
+        if a is not None:
+            torch.testing.assert_close(b, a, rtol=1e-6, atol=1e-7)
 
 
 def test_mrope_attention_ranks_sum_to_the_whole():
@@ -143,9 +278,10 @@ def test_what_the_layers_compute_on_their_block(arch):
     """At (16, 16): every parameter computed on its block is one the rule
     table splits over 'model' (its block is what the step stores), and
     everything the rules split is either computed on its block or listed
-    as replicated over 'model'.  qwen3-32b, the dense decoders and
-    qwen2-vl (whose split attention the rules do not allow at 16) list
-    none; the families whose layers are a later slice list theirs."""
+    as replicated over 'model'.  The dense decoders, qwen2-vl (whose
+    attention the rules keep whole at 16) and the MoE family (experts and
+    MLA on their blocks) list none; the SSM projections and the families
+    whose layers are a later slice list theirs."""
     cfg = registry.get_config(arch)
     shapes = {k: v.shape for k, v in registry.param_specs(cfg).items()}
     local = PL.local_names(shapes, cfg, PROD)
@@ -155,9 +291,13 @@ def test_what_the_layers_compute_on_their_block(arch):
         on_model = any("model" in SH._axes(e) for e in s.spec)
         path = SH.jax_path(k)[0]
         assert (k in local) + (path in listed) == on_model, k
-    dense = ("qwen3-32b", "starcoder2-7b", "minitron-4b", "h2o-danube3-4b",
-             "qwen2-vl-2b")
-    assert (not listed) == (arch in dense)
+    # every decoder family's layers compute on their blocks but the SSM
+    # projections (item 32); vilbert's and whisper's compute replicated
+    ssm = cfg.family in (Family.SSM, Family.HYBRID)
+    assert (not listed) == (not ssm and cfg.family
+                            not in PL.REPLICATED_FAMILIES)
+    if ssm:
+        assert {p.split("/")[-1] for p in listed} <= {"in_proj", "out_proj"}
     if cfg.family in PL.REPLICATED_FAMILIES:
         assert not local
     else:
@@ -166,7 +306,17 @@ def test_what_the_layers_compute_on_their_block(arch):
                                                     "grok-1-314b",
                                                     "h2o-danube3-4b"))
     if cfg.family == Family.MOE:
-        assert all("moe/w_" in p or "attn" in p for p in listed)
+        assert {"layers.0.moe.w_up", "layers.0.moe.w_down"} <= local
+        assert "layers.0.moe.router" not in local
+    if cfg.attn_kind == AttnKind.MLA:
+        assert {"layers.0.attn.wq_b", "dense_layers.0.attn.wo"} <= local
+        assert "layers.0.attn.wkv_a" not in local
+    # the attn_q hint makes attention context-parallel where the heads do
+    # not split over 'model'
+    hints = hint_shardings(["attn_q", "attn_out"], SH._SimulatedMesh(PROD))
+    assert PL.context_split(cfg, 16, hints) == (arch in (
+        "starcoder2-7b", "minitron-4b", "qwen2-vl-2b", "hymba-1.5b"))
+    assert not PL.context_split(cfg, 16, None)
 
 
 def test_build_sharded_keeps_build_model_values_in_each_block():
