@@ -209,18 +209,19 @@ caught:
      twice, as subprocesses that must exit 0;
  22. training of the last four archs at full width, bf16, with phase 19's
      gates (train_run): vilbert-large at full depth (B = 2, N = 4096,
-     LAYER and TILE; its encoder step as phase 10's), minitron-4b at full
-     depth (1 x 2048), starcoder2-7b at 24 of its 32 layers (1 x 2048; the
-     optimizer's state of all 32 does not fit the card) and
-     h2o-danube3-4b at full depth at 1 x 8192, past its 4096-key window
-     (LAYER and TILE; the decoders' TILE_STREAM resolves to flash); then
+     LAYER and TILE; its encoder step as phase 10's), minitron-4b at 16
+     of its 32 layers (1 x 2048), starcoder2-7b at 24 of its 32 layers
+     (1 x 2048; the optimizer's state of all 32 does not fit the card)
+     and h2o-danube3-4b at 12 of its 24 layers at 1 x 8192, past its
+     4096-key window (LAYER and TILE; the decoders' TILE_STREAM resolves
+     to flash); then
      f32 at 2 layers, kernel against plain gradients within 1e-4:
      h2o-danube3 at S = 8192 in both modes, the other three in one mode
      (phase 3 checks the flash backward at h2o-danube3's training shape,
      hd 120 with whole kv tiles outside the window, and the tc flash
      backward at qwen3-32b's heads at 4096, 8192 and 16384 keys on four
      draws of their own);
- 23. multi-GPU on torch.distributed (phase 23, ~85 s): (a) on the
+ 23. multi-GPU on torch.distributed (phase 23, ~130 s): (a) on the
      one-rank NCCL host mesh (launch.mesh.make_host_mesh), starcoder2-7b
      and qwen2-vl-2b at full width and depth served by Engine(mesh=...)
      against Engine(mesh=None), both per-slot (tokens, kernel launches and
@@ -244,20 +245,30 @@ caught:
      joined) against the whole layer (f32 within 1e-4; bf16 no farther
      from the f32 numbers than twice the whole is), in bf16 rank 0's
      device ms (and rank 15's for context parallelism) against the
-     whole's over 16; (d) cost_analysis_cycles of a recorded tile_gemm
-     beside its recorded time; (c) the dry run (launch.dryrun) of one cell
-     per family but the crossmodal one on a fake 256-rank (16, 16) world,
-     qwen3-32b's train_4k there at full depth (one microbatch),
-     deepseek-v3's train_4k at depth 4, grok-1's at depth 2 and
-     starcoder2-7b's at depth 4 with --optimized, and one cell on a fake
+     whole's over 16; then the same of mamba2-780m's SSM mixer at 4096
+     (3 of 48 heads: the in-projection's gathered columns and the gated
+     norm's sum through a parallel.Exchange, ssd_scan and its backward on
+     the rank's heads), vilbert-large's co-TRM block at N = 4096 (both
+     streams, 1 of 16 heads a stream, LAYER and TILE: the stream kernel
+     generating the rank's head's K/V from the other modality) and
+     whisper-base's decoder layer at 4096 tokens over 1500 encoder frames
+     under the attn_q hint (context-parallel self- and cross-attention,
+     LAYER and TILE), each row's rank 0 kernel routes printed; (d)
+     cost_analysis_cycles of a recorded tile_gemm beside its recorded
+     time; (c) the dry run (launch.dryrun) of one cell per family on a
+     fake 256-rank (16, 16) world, qwen3-32b's train_4k there at full
+     depth (one microbatch), deepseek-v3's train_4k at depth 4, grok-1's
+     at depth 2, starcoder2-7b's at depth 4 with --optimized, and
+     mamba2-780m's, whisper-base's (--optimized) and vilbert-large's at
+     depth 1, and one cell on a fake
      512-rank (2, 16, 16) world, each in its own process, started before
      (a): status ok, the JSON round-trips, no train cell a gathered step,
      cross-pod traffic on two pods, the qwen3-32b train cell sharded
      (nothing replicated over 'model', reduce-scatters, FLOPs a device
      within 2.5x the model's, arguments within 1% of the rule table's
-     blocks), the three cut train cells with nothing replicated over
-     'model' and FLOPs a device within 3.0x (deepseek-v3) or 2.5x of the
-     model's, and per-device FLOPs, bytes, memory, collective traffic and
+     blocks), the six cut train cells with nothing replicated over
+     'model' and FLOPs a device within their DRYRUN_OPTIONS multiple of
+     the model's, and per-device FLOPs, bytes, memory, collective traffic and
      roofline (on the H100's datasheet rates) printed;
  then one JSON line of per-kernel numbers, with the routes of
  tile_gemm, flash attention, decode attention, the SSD scan and the
@@ -3663,11 +3674,15 @@ def train_run(smi: str, launches: dict, arch: str, cut: dict, B: int, S: int,
 # arch, depth cut, B, S, steps, modes, optimizer.  bf16 parameters and
 # gradients with f32 AdamW moments take 12 bytes a parameter:
 # vilbert-large (~0.7 B) runs at full depth as vilbert-base in TRAIN_RUNS
-# (B = 2, N = 4096, TRAIN_OPT); minitron-4b (~4.2 B, ~50 GB) at full
-# depth; starcoder2-7b at 24 of its 32 layers (~5.7 B; at full depth
-# ~7.2 B, ~86 GB, over one card's 80 GB; at 16 layers its step peaked at
-# 45.7 GiB on an H100, and each layer adds ~2.4 GiB); h2o-danube3-4b
-# (~4.0 B, ~48 GB) at full depth and S = 8192, past its 4096-key window.
+# (B = 2, N = 4096, TRAIN_OPT); minitron-4b at 16 of its 32 layers;
+# starcoder2-7b at 24 of its 32 layers (~5.7 B; at full depth ~7.2 B,
+# ~86 GB, over one card's 80 GB; at 16 layers its step peaked at 45.7 GiB
+# on an H100, and each layer adds ~2.4 GiB); h2o-danube3-4b at 12 of its
+# 24 layers and S = 8192, past its 4096-key window.  minitron-4b and
+# h2o-danube3-4b ran at full depth (~4.2 B, ~50 GB; ~4.0 B, ~48 GB; 18 s
+# and 2 x 17 s of the run) until phase 23's rows of the SSM, vilbert and
+# whisper took that time: each layer of a stack repeats the same kernels
+# at the same shapes.
 # The three decoders' TILE_STREAM attention resolves to flash
 # (2 Hkv hd < d_model, the planner's rule), as qwen3-32b's does;
 # h2o-danube3 runs LAYER_STREAM too.  The decoders step AdamW at phase
@@ -3675,11 +3690,11 @@ def train_run(smi: str, launches: dict, arch: str, cut: dict, B: int, S: int,
 LAST_TRAIN_RUNS = (
     ("vilbert-large", {}, 2, 4096, 5,
      (ExecutionMode.LAYER_STREAM, ExecutionMode.TILE_STREAM), TRAIN_OPT),
-    ("minitron-4b", {}, 1, 2048, 5, (ExecutionMode.TILE_STREAM,),
-     FAMILY_OPT),
+    ("minitron-4b", {"num_layers": 16}, 1, 2048, 5,
+     (ExecutionMode.TILE_STREAM,), FAMILY_OPT),
     ("starcoder2-7b", {"num_layers": 24}, 1, 2048, 5,
      (ExecutionMode.TILE_STREAM,), FAMILY_OPT),
-    ("h2o-danube3-4b", {}, 1, 8192, 5,
+    ("h2o-danube3-4b", {"num_layers": 12}, 1, 8192, 5,
      (ExecutionMode.LAYER_STREAM, ExecutionMode.TILE_STREAM), FAMILY_OPT),
 )
 # f32 at 2 layers (vilbert-large at one co-TRM block, as TRAIN_CHECKS'
@@ -5177,11 +5192,10 @@ MESH_ARCHS = ("starcoder2-7b", "qwen2-vl-2b")
 MESH_REQUESTS = [(0, 1024, 16, 0), (1, 1024, 16, 0), (2, 256, 16, 1)]
 MESH_MAX_LEN = 1024 + 16 + 8
 MESH_TRAIN = ("qwen3-32b", {"num_layers": 4}, 1, 4096, 3)
-# (b) The dry run on the host: one cell per family on the fake (16, 16)
+# (c) The dry run on the host: one cell per family on the fake (16, 16)
 # world and one on (2, 16, 16), each in its own process, all at once, at
-# full depth with the CLI's defaults.  The crossmodal family (vilbert-base,
-# whose only cell is train_4k) is left out: its trace takes ~65 s of host
-# time, more than this phase's share.
+# full depth with the CLI's defaults; the train cells of DRYRUN_OPTIONS
+# cut in depth.
 # qwen3-32b's train_4k cell, the production mesh's training arch, runs at
 # full depth with one microbatch: the automatic count (16) traces every
 # layer 16 times, ~16x the trace time, for the same FLOPs a device.
@@ -5195,19 +5209,28 @@ DRYRUN_CELLS = (("starcoder2-7b", "decode_32k", False),
                 ("qwen3-32b", "train_4k", False),
                 ("deepseek-v3-671b", "train_4k", False),
                 ("grok-1-314b", "train_4k", False),
-                ("starcoder2-7b", "train_4k", False))
-DRYRUN_MICROBATCHES = {("qwen3-32b", "train_4k"): 1}
-# the train cells of the MoE family and of context-parallel attention, cut
-# in depth (their FLOPs a device against the model's do not depend on it
-# much): each its options for run_cell_subprocess and the most FLOPs a
-# device it may count, in multiples of the model's (the parent's, which
+                ("starcoder2-7b", "train_4k", False),
+                ("mamba2-780m", "train_4k", False),
+                ("whisper-base", "train_4k", False),
+                ("vilbert-large", "train_4k", False))
+DRYRUN_MICROBATCHES = {("qwen3-32b", "train_4k", False): 1}
+# the train cells of the MoE family, of context-parallel attention and of
+# the families split over 'model' since the SSM projections, cut in depth
+# (their FLOPs a device against the model's do not depend on it much):
+# each its options for run_cell_subprocess and the most FLOPs a device it
+# may count, in multiples of the model's (the parent trees', which
 # computed experts, MLA and starcoder2's attention whole on every 'model'
-# rank: 27.79x, 15.68x, 6.70x)
-DRYRUN_OPTIONS = {("deepseek-v3-671b", "train_4k"): ({"depth": 4}, 3.0),
-                  ("grok-1-314b", "train_4k"): ({"depth": 2}, 2.5),
-                  ("starcoder2-7b", "train_4k"): (
-                      {"depth": 4, "optimized": True}, 2.5)}
-DRYRUN_LEFT_OUT = "crossmodal (vilbert-base train_4k)"
+# rank: 27.79x, 15.68x, 6.70x; and the SSM projections, whisper and
+# vilbert: 4.640x, 19.126x, 9.936x)
+DRYRUN_OPTIONS = {
+    ("deepseek-v3-671b", "train_4k", False): ({"depth": 4}, 3.0),
+    ("grok-1-314b", "train_4k", False): ({"depth": 2}, 2.5),
+    ("starcoder2-7b", "train_4k", False): (
+        {"depth": 4, "optimized": True}, 2.5),
+    ("mamba2-780m", "train_4k", False): ({"depth": 1}, 2.0),
+    ("whisper-base", "train_4k", False): (
+        {"depth": 1, "optimized": True}, 3.0),
+    ("vilbert-large", "train_4k", False): ({"depth": 1}, 1.5)}
 DRYRUN_TIMEOUT_S = 300
 # the qwen3-32b train cell's gates: FLOPs a device at most this many times
 # the model's (the step that gathered whole parameters: 18.4x at 4
@@ -5223,10 +5246,11 @@ def start_dryrun(out_dir: Path) -> list:
     shutil.rmtree(out_dir, ignore_errors=True)
     procs = []
     for arch, shape, multi_pod in DRYRUN_CELLS:
-        opts = DRYRUN_OPTIONS.get((arch, shape), ({}, None))[0]
+        cell = (arch, shape, multi_pod)
+        opts = DRYRUN_OPTIONS.get(cell, ({}, None))[0]
         p = run_cell_subprocess(
             arch, shape, multi_pod=multi_pod, out_dir=str(out_dir),
-            microbatches=DRYRUN_MICROBATCHES.get((arch, shape), 0), **opts)
+            microbatches=DRYRUN_MICROBATCHES.get(cell, 0), **opts)
         procs.append(((arch, shape, multi_pod), p))
     atexit.register(lambda: [p.kill() for _, p in procs
                              if p.poll() is None])
@@ -5248,7 +5272,8 @@ def collect_dryrun(procs: list, out_dir: Path, smi: str) -> None:
             p.kill()
             fail(f"dry run {arch} {shape}: no result in {DRYRUN_TIMEOUT_S} s")
         mesh = "2x16x16" if multi_pod else "16x16"
-        opts, most = DRYRUN_OPTIONS.get((arch, shape), ({}, None))
+        opts, most = DRYRUN_OPTIONS.get((arch, shape, multi_pod),
+                                        ({}, None))
         tag = "__optimized" if opts.get("optimized") else ""
         path = out_dir / f"{arch}__{shape}__{mesh}{tag}.json"
         if p.returncode != 0 or not path.exists():
@@ -5287,8 +5312,7 @@ def collect_dryrun(procs: list, out_dir: Path, smi: str) -> None:
             f"{rf['dcn_s']:.4g}: {rf['bottleneck']}, step "
             f"{rf['step_time_est_s']:.4g} s, roofline fraction "
             f"{rf['roofline_fraction']:.4f}; traced in {r['compile_s']} s")
-    say(f"  dry run: {len(procs)} cells ok, families left out: "
-        f"{DRYRUN_LEFT_OUT} [{smi}]")
+    say(f"  dry run: {len(procs)} cells ok, every family's [{smi}]")
 
 
 def shard_bytes(cfg, sizes: dict) -> int:
@@ -5597,55 +5621,95 @@ class RankGaps:
         return out
 
 
-def rank_sums(blk, cfg, h, dy, tabs, mode, names, want_n, what, ref=None):
-    """The whole sublayers of ``blk`` and its MODEL_AXIS ranks, forward
-    and backward, compared a rank at a time (``RankGaps``: y, dh and the
-    gradient of each of ``names``; ``ref``: the f32 numbers of the
-    whole).  Every call's launches must be ``want_n``.  Returns the gaps
-    and the whole's results."""
+def rank_sums(blk, prefix, cfg, fwd, inputs: dict, dy, names, want_n,
+                 what, ref=None, exchange: bool = False):
+    """The whole ``fwd()`` of ``blk`` and its MODEL_AXIS ranks
+    (``rank_view`` with JAX path head ``prefix``), forward and backward,
+    compared a rank at a time (``RankGaps``: y, the gradient of each of
+    ``inputs`` ({name: tensor}) and of each of ``names``; ``ref``: the f32
+    numbers of the whole).  With ``exchange``, the ranks run in passes
+    of a ``parallel.Exchange`` until it holds, the last compared.  Every
+    call's launches must be ``want_n``.  Returns the gaps, the whole's
+    results, the passes and rank 0's routes (of its last pass)."""
     from repro_torch.distributed import parallel as PL
     params = dict(blk.named_parameters())
+    xs = list(inputs.values())
 
     def run(ps):
-        y = sublayers(blk, cfg, h, tabs, mode)
+        y = fwd()
         return [y.detach(), *(g.detach() for g in torch.autograd.grad(
-            y, [h] + ps, dy))]
+            y, xs + ps, dy))]
 
     reset_counts()
     whole = run([params[n] for n in names])
     if counts() != want_n:
         fail(f"{what}: the whole layer launched {counts()}")
-    gaps = RankGaps(["y", "dh"] + names, whole, ref)
-    for r in range(MODEL_AXIS):
-        with PL.rank_view(blk, "layers", cfg, r, MODEL_AXIS) as t:
-            reset_counts()
-            got = run([t[n] for n in names])
-            if counts() != want_n:
-                fail(f"{what}: rank {r} launched {counts()}")
-        gaps.add(r, got)
-        del got
-    return gaps, whole
+    ex = PL.Exchange() if exchange else None
+    passes = ex or PL.Exchange()          # no exchange: one pass
+    while passes.another_pass():
+        gaps = RankGaps(["y", *inputs, *names], whole, ref)
+        for r in range(MODEL_AXIS):
+            with PL.rank_view(blk, prefix, cfg, r, MODEL_AXIS,
+                              exchange=ex) as t:
+                reset_counts()
+                got = run([t[n] for n in names])
+                if counts() != want_n:
+                    fail(f"{what}: rank {r} launched {counts()}")
+            gaps.add(r, got)
+            if r == 0:
+                routes = {k: {rt: n for rt, n in v.items() if n}
+                          for k, v in route_counts().items()
+                          if any(v.values())}
+            del got
+    return gaps, whole, passes.passes, routes
 
 
-def rank_ms(blk, cfg, h, dy, tabs, mode, names, ranks) -> tuple:
-    """(device ms of the whole sublayers forward + backward, [the same of
+def rank_ms(blk, prefix, cfg, fwd, inputs, dy, names, ranks) -> tuple:
+    """(device ms of the whole ``fwd()`` forward + backward, [the same of
     each of ``ranks``]): ``device_ms``, the profiler's mean of each kernel
     over 3 calls, which a dropped event does not move (one profiled call
-    lost a third of a call's kernels now and then)."""
+    lost a third of a call's kernels now and then).  A rank runs with an
+    empty exchange: the other ranks' columns and sums are zeros, the
+    kernels' shapes the same."""
     from repro_torch.distributed import parallel as PL
     params = dict(blk.named_parameters())
 
     def run(ps):
-        y = sublayers(blk, cfg, h, tabs, mode)
-        torch.autograd.grad(y, [h] + ps, dy)
+        torch.autograd.grad(fwd(), list(inputs) + ps, dy)
 
     whole = device_ms(lambda: run([params[n] for n in names]), reps=3)[0]
     out = []
     for r in ranks:
-        with PL.rank_view(blk, "layers", cfg, r, MODEL_AXIS) as t:
+        with PL.rank_view(blk, prefix, cfg, r, MODEL_AXIS,
+                          exchange=PL.Exchange()) as t:
             out.append(device_ms(lambda: run([t[n] for n in names]),
                                  reps=3)[0])
     return whole, out
+
+
+def rank_gate(what: str, dt: torch.dtype, gaps: RankGaps, cut_note: str = ""
+              ) -> tuple:
+    """The gates of phase 23 (b)'s comment on one dtype's ranks: in f32
+    the ranks' sum within GRAD_TOL of the whole; in bf16 no farther from
+    the f32 numbers than twice the whole is (or RANK_FLOOR).  Returns
+    (the gaps, the worst one's name, the gate's text, the f32 distances
+    of bf16 or None)."""
+    g = gaps.gaps()
+    worst = max(g, key=g.get)
+    if dt == torch.float32:
+        if g[worst] > GRAD_TOL:
+            fail(f"{what}: the ranks' sum is {g[worst]:.3g} from the whole "
+                 f"at {worst} ({g})")
+        return g, worst, f"f32 within {GRAD_TOL}{cut_note}", None
+    to32 = gaps.to_ref()
+    bad = {n: v for n, v in to32.items() if v[0] > max(2 * v[1], RANK_FLOOR)}
+    if bad:
+        fail(f"{what}: the ranks' sum farther from the f32 numbers than "
+             f"twice the whole (ranks, whole): {bad}")
+    far = max(to32, key=lambda n: to32[n][0])
+    return g, worst, (f"from the f32 numbers at most {to32[far][0]:.3g} "
+                      f"({far}; the whole {to32[far][1]:.3g}){cut_note}"), \
+        to32
 
 
 def layer_shapes(cfg, hinted: bool) -> str:
@@ -5730,36 +5794,26 @@ def model_ranks(smi: str) -> None:
                     names = [n for n, _ in blk.named_parameters()
                              if not n.startswith("norm")]
                     h = h16.to(dt).requires_grad_(True)
-                    gaps, whole = rank_sums(
-                        blk, c, h, dy16.to(dt), tabs, mode, names, want_n,
-                        what, ref=None if dt == torch.float32 else ref32)
-                    g = gaps.gaps()
-                    worst = max(g, key=g.get)
+                    gaps, whole, _, _ = rank_sums(
+                        blk, "layers", c,
+                        lambda: sublayers(blk, c, h, tabs, mode), {"dh": h},
+                        dy16.to(dt), names, want_n, what,
+                        ref=None if dt == torch.float32 else ref32)
                     cut_note = f" (cut to {ccut})" if ccut else ""
-                    if dt == torch.float32:
-                        gate = f"f32 within {GRAD_TOL}{cut_note}"
-                        if g[worst] > GRAD_TOL:
-                            fail(f"{what}: the ranks' sum is {g[worst]:.3g} "
-                                 f"from the whole at {worst} ({g})")
-                        ref32 = whole
-                    elif ref32 is not None:
-                        to32 = gaps.to_ref()
-                        bad = {n: v for n, v in to32.items()
-                               if v[0] > max(2 * v[1], RANK_FLOOR)}
-                        if bad:
-                            fail(f"{what}: the ranks' sum farther from the "
-                                 f"f32 numbers than twice the whole (ranks, "
-                                 f"whole): {bad}")
-                        far = max(to32, key=lambda n: to32[n][0])
-                        gate = (f"from the f32 numbers at most "
-                                f"{to32[far][0]:.3g} ({far}; the whole "
-                                f"{to32[far][1]:.3g}){cut_note}")
-                        # what this gate allows the ranks' distance to
-                        # the whole: the full layer's bound
-                        bound = {n: max(3 * v[1], RANK_FLOOR)
-                                 for n, v in to32.items()}
-                        ref32 = None
+                    if dt == torch.float32 or ref32 is not None:
+                        g, worst, gate, to32 = rank_gate(what, dt, gaps,
+                                                         cut_note)
+                        if to32 is None:
+                            ref32 = whole
+                        else:
+                            # what this gate allows the ranks' distance to
+                            # the whole: the full layer's bound
+                            bound = {n: max(3 * v[1], RANK_FLOOR)
+                                     for n, v in to32.items()}
+                            ref32 = None
                     else:                  # the full layer after its cut
+                        g = gaps.gaps()
+                        worst = max(g, key=g.get)
                         bad = {n: (v, bound[n]) for n, v in g.items()
                                if v > bound[n]}
                         if bad:
@@ -5776,8 +5830,10 @@ def model_ranks(smi: str) -> None:
                     timing = ""
                     if (dt, ccut) == runs[-1]:
                         ranks = (0, MODEL_AXIS - 1) if hinted else (0,)
-                        ms_whole, ms_ranks = rank_ms(blk, c, h, dy16, tabs,
-                                                     mode, names, ranks)
+                        ms_whole, ms_ranks = rank_ms(
+                            blk, "layers", c,
+                            lambda: sublayers(blk, c, h, tabs, mode), [h],
+                            dy16, names, ranks)
                         each = ", ".join(f"rank {r} {ms:.3f}" for r, ms
                                          in zip(ranks, ms_ranks))
                         timing = (
@@ -5796,6 +5852,199 @@ def model_ranks(smi: str) -> None:
         del blk16, h16, dy16
         free()
         say(f"    {arch} took {time.perf_counter() - t_arch:.1f} s")
+
+
+# (b), the families split over 'model' since the SSM projections, each
+# row's 16 ranks in turn as MODEL_RANKS' (f32 within GRAD_TOL, bf16 to
+# its rule), on the row's own sublayers of pre-normed inputs:
+#  * mamba2-780m's SSM mixer at 1·4096: 3 of 48 heads a rank (in_proj's
+#    403 of 6448 fused columns gathered by gather_cols, out_proj's 192 of
+#    3072 rows), ssd_scan and ssd_scan_bwd on the rank's heads; the
+#    gather and the gated norm's sum over 'model' run through an
+#    Exchange, 5 passes of the 16 ranks;
+#  * vilbert-large's co-TRM block at its N = 4096 (both streams, B = 1):
+#    co-attention, self-attention and the MLP of each stream, 1 of 16
+#    heads a stream (in TILE_STREAM the stream kernel generates the
+#    rank's head's K/V from the other modality), d_ff 256 of 4096;
+#  * whisper-base's decoder layer at train_4k's 4096 tokens over its 1500
+#    encoder frames under the attn_q hint, and an encoder layer's
+#    self-attention and MLP on those frames: its 8 heads do not divide
+#    16, so the causal self-attention and the cross-attention run
+#    context-parallel on 256 query rows a rank (the encoder states enter
+#    whole), the encoder's self-attention on 94 of the 1500 frames a rank
+#    (16 does not divide 1500: the last blocks end at frame 1500 and
+#    repeat rows of the block before), d_ff 128 of 2048.
+# (row, arch, tokens, modes)
+FAMILY_RANKS = (
+    ("mamba2-780m SSM mixer", "mamba2-780m", 4096, ("tile_stream",)),
+    ("vilbert-large co-TRM block", "vilbert-large", 4096,
+     ("tile_stream", "layer_stream")),
+    ("whisper-base encoder + decoder layer, attn_q", "whisper-base", 4096,
+     ("tile_stream", "layer_stream")))
+
+
+def family_row(arch: str, S: int, gen):
+    """(module, its JAX path head, what the ranks compute on, a
+    fwd(module, cfg, inputs, mode) of its sublayers summed, {name:
+    input shape}, the parameters the sublayers read, Exchange or not)
+    of a FAMILY_RANKS row, its weights drawn in bf16 from ``gen``."""
+    from repro_torch.models import vilbert as V
+    from repro_torch.models.ssm import ssm_forward
+    cfg = get_config(arch)
+    if arch == "mamba2-780m":
+        blk = SSM(cfg, gen)
+        _, d_inner, H, P = ssm_dims(cfg)
+        m = MODEL_AXIS
+        what = (f"{H // m} of {H} heads, in_proj {blk.in_proj.shape[1] // m}"
+                f" of {blk.in_proj.shape[1]} columns, out_proj "
+                f"{d_inner // m} of {d_inner} rows")
+        return (blk, "layers/ssm", what,
+                lambda b, c, i, mode: ssm_forward(b, c, i["dh"]),
+                {"dh": (1, S, cfg.d_model)},
+                [n for n, _ in blk.named_parameters()], True)
+    if arch == "vilbert-large":
+        c1 = dataclasses.replace(cfg, num_layers=1, num_coattn_layers=1)
+        model = ViLBERT(c1, device="cuda", generator=gen)
+        names = [n for n, _ in model.named_parameters()
+                 if n.startswith(("co_x.0.", "co_y.0."))
+                 and ".ln_" not in n]
+
+        def fwd(b, c, i, mode):
+            px, py = b.co_x[0], b.co_y[0]
+            x, y = i["d_vision"], i["d_text"]
+            yx = (V._attn(px.co_attn, c, x, y, mode)
+                  + V._attn(px.self_attn, c, x, x, mode)
+                  + model_layers.mlp_forward(px.mlp, x))
+            yy = (V._attn(py.co_attn, c, y, x, mode)
+                  + V._attn(py.self_attn, c, y, y, mode)
+                  + model_layers.mlp_forward(py.mlp, y))
+            return torch.cat([yx.reshape(-1), yy.reshape(-1)])
+        what = (f"{cfg.num_heads // MODEL_AXIS} of {cfg.num_heads} heads a "
+                f"stream, d_ff {cfg.d_ff // MODEL_AXIS} of {cfg.d_ff}")
+        return (model, None, what, fwd,
+                {"d_vision": (1, S, cfg.d_model),
+                 "d_text": (1, S, cfg.d_model_y)}, names, False)
+    c1 = dataclasses.replace(cfg, num_layers=1, num_encoder_layers=1)
+    model = EncDec(c1, device="cuda", generator=gen)
+    names = [f"{side}.0.{n}" for side in ("enc_layers", "dec_layers")
+             for n, _ in getattr(model, side)[0].named_parameters()
+             if not n.startswith("ln")]
+
+    def fwd(b, c, i, mode):
+        p, pe = b.dec_layers[0], b.enc_layers[0]
+        h, enc = i["dh"], i["d_enc"]
+        yd = (model_layers.attention_forward(p.self_attn, c, h, causal=True,
+                                             mode=mode)
+              + model_layers.attention_forward(p.cross_attn, c, h,
+                                               x_kv=enc, causal=False,
+                                               mode=mode)
+              + model_layers.mlp_forward(p.mlp, h))
+        ye = (model_layers.attention_forward(pe.attn, c, enc, causal=False,
+                                             mode=mode)
+              + model_layers.mlp_forward(pe.mlp, enc))
+        return torch.cat([yd.reshape(-1), ye.reshape(-1)])
+    fr = cfg.encoder_seq
+    what = (f"all {cfg.num_heads} heads on query rows r·{S // MODEL_AXIS} "
+            f"… against the whole K/V ({S} causal, {fr} encoder frames), the "
+            f"encoder's on {-(-fr // MODEL_AXIS)} of its {fr} frames a rank, "
+            f"d_ff {cfg.d_ff // MODEL_AXIS} of {cfg.d_ff}")
+    return (model, None, what, fwd,
+            {"dh": (1, S, cfg.d_model),
+             "d_enc": (1, cfg.encoder_seq, cfg.d_model)}, names, False)
+
+
+def family_want(arch: str, mode: ExecutionMode) -> dict:
+    """A FAMILY_RANKS row's launches a call (forward + backward), the
+    whole's and each rank's alike: the SSD scan and its backward once;
+    vilbert's four attention sublayers and whisper's three on the mode's
+    kernel and its backward, their GELU MLPs' two projections each."""
+    want = {k: 0 for k in KERNELS}
+    if arch == "mamba2-780m":
+        want.update(ssd_scan=1, ssd_scan_bwd=1)
+        return want
+    attn = ("stream_attention" if mode == ExecutionMode.TILE_STREAM
+            else "flash_attention")
+    n_attn, n_mlp = (4, 2) if arch == "vilbert-large" else (3, 2)
+    want.update({attn: n_attn, f"{attn}_bwd": n_attn, "tile_gemm": 2 * n_mlp})
+    return want
+
+
+def family_ranks(smi: str) -> None:
+    """Phase 23 (b), FAMILY_RANKS: each row in f32 and bf16 on the same
+    (bf16-valued) weights and inputs, each rank's launches exact
+    (``family_want``), the gates of ``rank_gate``, rank 0's kernel
+    routes, and in bf16 rank 0's device ms (and rank 15's for whisper's
+    context parallelism) against the whole's over 16."""
+    from repro_torch.distributed import parallel as PL
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.distributed.hints import hint_shardings
+    table = hint_shardings(["attn_q", "attn_out"], SH._SimulatedMesh(
+        {"data": 16, "model": MODEL_AXIS}))
+    for row, arch, S, modes in FAMILY_RANKS:
+        t_row = time.perf_counter()
+        gen = torch.Generator(device="cuda").manual_seed(30)
+        mod16, prefix, shapes, fwd, ins, names, exchange = family_row(
+            arch, S, gen)
+        mod16.requires_grad_(True)
+        x16 = {k: randn(gen, *v, dtype=torch.bfloat16)
+               for k, v in ins.items()}
+        hinted = arch == "whisper-base"
+        cfg = get_config(arch)
+        if hinted and not PL.context_split(cfg, MODEL_AXIS, table):
+            fail(f"{row}: the attn_q hint does not make its attention "
+                 f"context-parallel")
+        for mname in modes:
+            mode = ExecutionMode(mname)
+            want_n = family_want(arch, mode)
+            hints = runtime.flags(sharding_hints=table if hinted else None)
+            ref32 = None
+            with hints:
+                for dt in (torch.float32, torch.bfloat16):
+                    dname = str(dt).split(".")[-1]
+                    c = dataclasses.replace(cfg, dtype=dname,
+                                            param_dtype=dname)
+                    mod = mod16 if dt == torch.bfloat16 else copy_block(
+                        mod16, dt)
+                    xs = {k: v.to(dt).requires_grad_(True)
+                          for k, v in x16.items()}
+                    y_shape = fwd(mod, c, xs, mode).shape
+                    dy = randn(torch.Generator(device="cuda").manual_seed(31),
+                               *y_shape, dtype=dt)
+                    what = (f"{row} {dname}"
+                            + ("" if arch == "mamba2-780m"
+                               else f" {mode.value}")
+                            + f", {MODEL_AXIS} 'model' ranks")
+                    gaps, whole, passes, routes = rank_sums(
+                        mod, prefix, c, lambda: fwd(mod, c, xs, mode), xs,
+                        dy, names, want_n, what, ref32, exchange)
+                    g, worst, gate, _ = rank_gate(what, dt, gaps)
+                    ref32 = whole if dt == torch.float32 else None
+                    del gaps
+                    timing = ""
+                    if dt == torch.bfloat16:
+                        ranks = (0, MODEL_AXIS - 1) if hinted else (0,)
+                        ms_whole, ms_ranks = rank_ms(
+                            mod, prefix, c, lambda: fwd(mod, c, xs, mode),
+                            list(xs.values()), dy, names, ranks)
+                        each = ", ".join(f"rank {r} {ms:.3f}" for r, ms
+                                         in zip(ranks, ms_ranks))
+                        timing = (
+                            f"; device ms forward + backward (mean of 3 "
+                            f"calls): {each}, the whole {ms_whole:.3f} "
+                            f"(/{MODEL_AXIS} = {ms_whole / MODEL_AXIS:.3f}; "
+                            f"rank 0 / (whole / {MODEL_AXIS}) "
+                            f"{ms_ranks[0] * MODEL_AXIS / ms_whole:.3f})")
+                    launched = {k: n for k, n in want_n.items() if n}
+                    say(f"  {what} ({S} tokens; {shapes}; {passes} "
+                        f"pass{'es' if passes > 1 else ''}): the ranks' sum "
+                        f"{g[worst]:.3g} from the whole ({worst}; y "
+                        f"{g['y']:.3g}), {gate}; each rank {launched}, "
+                        f"rank 0's routes {routes}{timing} [{smi}]")
+                    del whole, xs, mod, dy
+                    free()
+        del mod16, x16
+        free()
+        say(f"    {row} took {time.perf_counter() - t_row:.1f} s")
 
 
 def copy_block(blk, dt: torch.dtype):
@@ -5888,6 +6137,7 @@ def multi_gpu(smi: str, launches: dict) -> None:
     say(f"    training took {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     model_ranks(smi)
+    family_ranks(smi)
     say(f"    the 16 'model' ranks took {time.perf_counter() - t0:.1f} s")
     mesh_primitives(smi)
     cost_cycles(smi)
@@ -6075,9 +6325,10 @@ def main() -> None:
     say(f"phases 1-21 took {time.perf_counter() - start:.1f} s")
     free()
 
-    say("== phase 22: training of vilbert-large, minitron-4b, starcoder2-7b "
-        "(24 of 32 layers) and h2o-danube3-4b (S = 8192, past its window) "
-        "at full width, bf16; then f32 checks at 2 layers")
+    say("== phase 22: training of vilbert-large, minitron-4b (16 of 32 "
+        "layers), starcoder2-7b (24 of 32 layers) and h2o-danube3-4b (12 of "
+        "24 layers, S = 8192, past its window) at full width, bf16; then "
+        "f32 checks at 2 layers")
     t0 = time.perf_counter()
     last_training(smi, launches)
     say(f"  phase 22 took {time.perf_counter() - t0:.1f} s")

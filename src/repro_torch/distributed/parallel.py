@@ -7,31 +7,46 @@ activation hints the dry run installs).
 A ``ModelParallel`` is the 'model' axis as the layers see it: this rank's
 index on it, its size, its process group, and the parameters that the
 active train step handed to the layers as this rank's block (``local``:
-the rule table splits them over 'model' and ``computes_local`` says the
-layers compute on the block).  While one is active (``using``):
+the rule table splits them over 'model', their split dim divides, and
+``computes_local`` says the layers compute on the block).  While one is
+active (``using``):
 
 * ``copy`` (identity forward, sum over 'model' backward) enters a
   column-parallel region: the activations are replicated, each rank's
   input gradient covers only its columns, and the sum makes it whole.
   A replicated weight that feeds only the rank's share of the work (the
   K/V projections a kv group shares, context-parallel attention's
-  weights, the MoE router) enters by ``copy`` too: its gradient is the
-  rank's partial sum.  MLA enters at its latent activations instead, so
-  that its low-rank weights get whole gradients;
+  weights, the MoE router, the SSM's conv and gains) enters by ``copy``
+  too: its gradient is the rank's partial sum.  MLA enters at its latent
+  activations instead, so that its low-rank weights get whole gradients;
 * ``reduce`` (sum over 'model' forward, identity backward) leaves a
   row-parallel one: each rank's product covers its rows of the
   contraction;
 * ``gather_rows`` (all-gather along the sequence forward, the rank's
   rows backward) leaves a context-parallel one: each rank computed its
   block of query rows;
-* between them, the layers run ``ops.projection`` (``tile_gemm``) and
-  the attention kernels on the rank's block: ``layers.mlp_forward``
-  (``w_gate``/``w_up`` by columns, ``w_down`` by rows), dense attention
-  on the rank's query heads (``attention_split``) or, under the
-  ``attn_q`` hint, on its query rows against the whole K/V
-  (``context_split``), MLA on its heads, the MoE on its experts (EP) or
-  on each expert's d_ff block (expert-TP).  No library matmul runs a
-  sharded projection, and no DTensor reaches an aten product;
+* ``gather_cols`` (all-gather along the last dim forward, the sum over
+  'model' of the gradient and then the rank's columns backward: a
+  reduce-scatter) puts a column-parallel product back together where
+  the ranks go on to use *different* columns of it (the SSM's fused
+  in-projection: each rank its heads' x, z and dt);
+* ``sum_over`` (sum over 'model' both ways) joins a quantity that every
+  rank's share feeds and reads (the SSM's gated RMSNorm over d_inner:
+  its sum of squares);
+* between them, the layers run ``ops.projection`` (``tile_gemm``), the
+  attention kernels and the SSD scan on the rank's block:
+  ``layers.mlp_forward`` (``w_gate``/``w_up`` by columns, ``w_down`` by
+  rows), dense attention on the rank's query heads (``attention_split``)
+  or, under the ``attn_q`` hint, on its query rows against the whole K/V
+  (``context_split``), self-attention or with a separate K/V source
+  (whisper's cross-attention), vilbert's co-attention and
+  self-attention on the rank's heads (the stream kernel generating only
+  their K/V from the other modality), MLA on its heads, the MoE on its
+  experts (EP) or on each expert's d_ff block (expert-TP), the SSM on
+  its heads (``ssm.ssm_forward``; where its out-projection's rows are no
+  whole heads, the SSD stays whole and only the rank's rows of y feed
+  the row-parallel out-projection).  No library matmul runs a sharded
+  projection, and no DTensor reaches an aten product;
 * ``vocab_embed`` looks tokens up in the rank's vocabulary rows, zeroes
   the rows outside them and sums over 'model'; ``vocab_nll`` is the
   cross-entropy of the rank's f32 logit columns, its max and its sum of
@@ -53,7 +68,10 @@ axis on its own: ``copy`` and ``reduce`` are the identity, and
 ``gather_rows`` puts the rank's rows in place among zeros, so that the
 caller can sum the ranks' partial outputs and input gradients
 (``rank_view``: the 16 'model' ranks of one layer run in turn on one
-card).
+card).  ``gather_cols`` and ``sum_over`` need the other ranks' values:
+an ``Exchange`` keeps each rank's contributions, forward and backward,
+from the previous pass over the ranks, and the caller repeats the
+passes until they hold (``Exchange.another_pass``).
 
 ``unit`` and ``run_unit`` are where the model code lets the active train
 step gather a unit of parameters over the batch axes (FSDP) for its
@@ -71,11 +89,6 @@ from torch import nn
 from repro_torch.core.types import AttnKind, Family, ModelConfig
 
 _ACTIVE: Optional["ModelParallel"] = None
-
-#: Families whose layers the step computes replicated over 'model' (their
-#: own co-attention and encoder-decoder layers; a later slice).  The SSM
-#: projections of the SSM and hybrid families are replicated too.
-REPLICATED_FAMILIES = (Family.ENCDEC, Family.CROSSMODAL)
 
 
 def active() -> Optional["ModelParallel"]:
@@ -145,18 +158,141 @@ class _GatherRows(torch.autograd.Function):
         return g.narrow(1, ctx.rank * ctx.n, ctx.n), None, None
 
 
+class _GatherCols(torch.autograd.Function):
+    """The ranks' blocks of columns (the last dim) gathered in rank order
+    forward; backward the sum over the group of the gradient, of which
+    the rank keeps its columns (a reduce-scatter): the ranks read
+    different columns of the whole, so each rank's gradient of it is a
+    partial one."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        import torch.distributed._functional_collectives as funcol
+        ctx.group = group
+        gather = (getattr(funcol, "all_gather_single", None)
+                  or funcol.all_gather_tensor)
+        out = gather(x.movedim(-1, 0).contiguous(), 0, group)
+        out = funcol.wait_tensor(out) if isinstance(
+            out, funcol.AsyncCollectiveTensor) else out
+        return out.movedim(0, -1)
+
+    @staticmethod
+    def backward(ctx, g):
+        import torch.distributed._functional_collectives as funcol
+        scatter = (getattr(funcol, "reduce_scatter_single", None)
+                   or funcol.reduce_scatter_tensor)
+        out = scatter(g.movedim(-1, 0).contiguous(), "sum", 0, ctx.group)
+        out = funcol.wait_tensor(out) if isinstance(
+            out, funcol.AsyncCollectiveTensor) else out
+        return out.movedim(0, -1), None
+
+
+class _SumOver(torch.autograd.Function):
+    """The sum over the group forward and backward: every rank's share
+    feeds the sum, and every rank's share reads it."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_reduce(x.contiguous(), "sum", group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_reduce(g.contiguous(), "sum", ctx.group), None
+
+
+class Exchange:
+    """What the group would exchange, for ranks that run in turn on one
+    device (``rank_view``): each rank's contribution to each call of
+    ``gather_cols`` and ``sum_over`` (in call order), forward and
+    backward, kept from the last pass over the ranks.  A rank reads the
+    other ranks' contributions of the previous pass (zeros in the
+    first), so that a chain of k such calls holds after 2k + 1 passes,
+    all ranks run in each: ``while ex.another_pass(): <every rank>``;
+    the last pass's results are the group's."""
+
+    def __init__(self):
+        self.fwd: dict = {}
+        self.bwd: dict = {}
+        self.passes = 0
+        self.calls = 0
+
+    def another_pass(self) -> bool:
+        """Whether to run the ranks again: the first pass, and while
+        fewer than 2k + 1 passes ran (k the calls a rank made)."""
+        if self.passes and self.passes >= 2 * self.calls + 1:
+            return False
+        self.passes += 1
+        return True
+
+    def others(self, table: dict, call: int, rank: int) -> dict:
+        """{rank: contribution} of the other ranks to call ``call``."""
+        return {r: t for (c, r), t in table.items()
+                if c == call and r != rank}
+
+    def plus_others(self, table: dict, call: int, rank: int,
+                    t: torch.Tensor) -> torch.Tensor:
+        """Keep the rank's ``t`` for call ``call``; ``t`` plus the other
+        ranks' of the previous pass."""
+        table[(call, rank)] = t.detach().clone()
+        for o in self.others(table, call, rank).values():
+            t = t + o
+        return t
+
+
+class _ExchangedGatherCols(torch.autograd.Function):
+    """``_GatherCols`` through an ``Exchange``: the other ranks' columns
+    of the previous pass, and their gradients' sum."""
+
+    @staticmethod
+    def forward(ctx, x, tp, call):
+        ex = tp.exchange
+        ctx.tp, ctx.call, ctx.n = tp, call, x.shape[-1]
+        ex.fwd[(call, tp.rank)] = x.detach().clone()
+        got = ex.others(ex.fwd, call, tp.rank)
+        got[tp.rank] = x
+        return torch.cat([got.get(r, torch.zeros_like(x))
+                          for r in range(tp.size)], dim=-1)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        total = tp.exchange.plus_others(tp.exchange.bwd, ctx.call, tp.rank, g)
+        return total.narrow(-1, tp.rank * ctx.n, ctx.n), None, None
+
+
+class _ExchangedSum(torch.autograd.Function):
+    """``_SumOver`` through an ``Exchange``: the rank's value (gradient)
+    plus the other ranks' of the previous pass."""
+
+    @staticmethod
+    def forward(ctx, x, tp, call):
+        ctx.tp, ctx.call = tp, call
+        return tp.exchange.plus_others(tp.exchange.fwd, call, tp.rank, x)
+
+    @staticmethod
+    def backward(ctx, g):
+        tp = ctx.tp
+        return tp.exchange.plus_others(tp.exchange.bwd, ctx.call, tp.rank,
+                                       g), None, None
+
+
 class ModelParallel:
     """The 'model' axis of the active step (module docstring): ``rank``
     and ``size`` on it, its ``group`` (None: one rank on its own), and
     ``local``, the (module, parameter name) pairs the layers take as the
-    rank's block; ``gatherer`` the step whose units ``unit`` gathers."""
+    rank's block; ``gatherer`` the step whose units ``unit`` gathers;
+    ``exchange`` (without a group) the other ranks' values for
+    ``gather_cols`` and ``sum_over``, which raise without either."""
 
     def __init__(self, rank: int, size: int, group=None,
                  local: Iterable[Tuple[nn.Module, str]] = (),
-                 gatherer=None):
+                 gatherer=None, exchange: Optional[Exchange] = None):
         self.rank, self.size, self.group = rank, size, group
         self._local: Set[Tuple[int, str]] = {(id(m), n) for m, n in local}
         self.gatherer = gatherer
+        self.exchange = exchange
+        self._calls = 0
 
     def local(self, module: nn.Module, name: str) -> bool:
         """Whether ``module.<name>`` is this rank's 'model' block."""
@@ -185,6 +321,36 @@ class ModelParallel:
                                    (self.size - 1 - self.rank) * n])
         return _GatherRows.apply(x, self.rank, self.group)
 
+    def _exchanged(self, fn, x: torch.Tensor) -> torch.Tensor:
+        if self.exchange is None:
+            raise RuntimeError("a 'model' rank without a group needs an "
+                               "Exchange for the other ranks' values")
+        call = self._calls
+        self._calls += 1
+        self.exchange.calls = max(self.exchange.calls, self._calls)
+        return fn.apply(x, self, call)
+
+    def gather_cols(self, x: torch.Tensor) -> torch.Tensor:
+        """The whole (..., m·n) from each rank's columns (..., n): an
+        all-gather on the last dim, whose backward reduce-scatters
+        (``_GatherCols``); without a group, through the ``exchange``
+        (zeros for a rank not yet heard from)."""
+        if self.size == 1:
+            return x
+        if self.group is not None:
+            return _GatherCols.apply(x, self.group)
+        return self._exchanged(_ExchangedGatherCols, x)
+
+    def sum_over(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over 'model', forward and backward (``_SumOver``);
+        without a group, through the ``exchange`` (the ranks it has
+        heard from)."""
+        if self.size == 1:
+            return x
+        if self.group is not None:
+            return _SumOver.apply(x, self.group)
+        return self._exchanged(_ExchangedSum, x)
+
     def all_reduce(self, t: torch.Tensor, op: str) -> torch.Tensor:
         """A plain (not differentiated) all-reduce over the group."""
         if self.group is None or self.size == 1:
@@ -197,14 +363,16 @@ class ModelParallel:
 # ---------------------------------------------------------------------------
 
 def attention_split(cfg: ModelConfig, m: int) -> bool:
-    """Whether dense attention runs on the rank's query heads at 'model'
-    size ``m``: the heads divide (the rule table's ``heads_shardable``),
-    and each rank's query heads read a whole kv head group (the kv heads
-    divide too, or a group's query heads fall on a whole number of
-    ranks)."""
+    """Whether dense attention (``layers.attention_forward``) runs on the
+    rank's query heads at 'model' size ``m``: the heads divide (the rule
+    table's ``heads_shardable``), and each rank's query heads read a
+    whole kv head group (the kv heads divide too, or a group's query
+    heads fall on a whole number of ranks).  vilbert's attention is its
+    own (``vilbert._attn``: the rank's heads wherever its weights are
+    the rank's blocks)."""
     if (m <= 1 or not cfg.num_heads or cfg.num_heads % m
             or cfg.attn_kind in (AttnKind.MLA, AttnKind.NONE)
-            or cfg.family in REPLICATED_FAMILIES):
+            or cfg.family == Family.CROSSMODAL):
         return False
     if cfg.num_kv_heads % m == 0:
         return True
@@ -215,27 +383,30 @@ def context_split(cfg: ModelConfig, m: int, hints) -> bool:
     """Whether dense attention runs context-parallel at 'model' size
     ``m`` under the hint table ``hints`` (``runtime.flags(sharding_hints
     =...)``, as ``hints.hint_shardings`` builds it): the table names
-    ``attn_q`` (the query sequence over 'model', hints.py), the heads do
-    not split (``attention_split``), and the family's layers are not
-    computed replicated.  Each rank then takes its block of query rows
-    against the whole K/V (``layers.attention_forward``); a sequence that
-    ``m`` does not divide stays replicated, as JAX's ``constrain`` leaves
-    a shape it cannot split."""
+    ``attn_q`` (the query sequence over 'model', hints.py), and the heads
+    do not split (``attention_split``).  Each rank then takes its block
+    of query rows against the whole K/V (``layers.attention_forward``,
+    self-attention or whisper's cross-attention), an uneven block where
+    ``m`` does not divide the sequence (whisper's 1500 encoder frames
+    over 16), as GSPMD splits a constrained dim unevenly.  vilbert's
+    attention reaches no ``attn_q``
+    constraint in JAX (vilbert.py:103-121), so it splits by heads only."""
     return (m > 1 and bool(hints) and "attn_q" in hints
             and bool(cfg.num_heads)
             and cfg.attn_kind not in (AttnKind.MLA, AttnKind.NONE)
-            and cfg.family not in REPLICATED_FAMILIES
+            and cfg.family != Family.CROSSMODAL
             and not attention_split(cfg, m))
 
 
-def _splits_over_model(path: str, shape: Sequence[int], cfg: ModelConfig,
-                       sizes: Mapping[str, int]) -> bool:
-    """Whether the rule table splits the parameter at JAX path ``path``
-    over 'model'."""
+def _model_dim(path: str, shape: Sequence[int], cfg: ModelConfig,
+               sizes: Mapping[str, int]) -> Optional[int]:
+    """The dim of the parameter at JAX path ``path`` that the rule table
+    splits over 'model', or None."""
     from repro_torch.distributed import sharding as SH
     spec = SH.spec_for_param(path, tuple(shape), cfg,
                              SH._SimulatedMesh(sizes), False)
-    return any("model" in SH._axes(e) for e in spec)
+    return next((d for d, e in enumerate(spec) if "model" in SH._axes(e)),
+                None)
 
 
 def _takes_block(path: str, shape: Sequence[int], cfg: ModelConfig,
@@ -244,19 +415,22 @@ def _takes_block(path: str, shape: Sequence[int], cfg: ModelConfig,
     ``path``, given that the rules split it: the vocabulary (embedding,
     unembed), a dense MLP's (a shared expert's too), the MoE's experts
     (their expert dim where ``experts_shardable`` holds, else each
-    expert's d_ff), MLA's per-head projections, and dense attention's
-    under ``attention_split``."""
-    if cfg.family in REPLICATED_FAMILIES:
-        return False
+    expert's d_ff), MLA's per-head projections, dense attention's under
+    ``attention_split``, vilbert's attention (each stream's heads), and
+    the SSM's out-projection rows and, where those divide, its fused
+    in-projection's columns."""
     leaf, nd = path.split("/")[-1], len(shape)
-    if leaf in ("embedding", "unembed"):
+    if leaf in ("embedding", "unembed", "out_proj"):
         return True
+    if leaf == "in_proj":
+        return (cfg.ssm_expand * cfg.d_model) % m == 0
     if leaf in ("w_gate", "w_up", "w_down"):
         return nd in (2, 3)
     if cfg.attn_kind == AttnKind.MLA and nd == 3:
         return leaf in ("wq_b", "wk_b", "wv_b", "wo")
     if leaf in ("wq", "wk", "wv", "wo") and nd == 3:
-        return attention_split(cfg, m)
+        return (cfg.family == Family.CROSSMODAL
+                or attention_split(cfg, m))
     return False
 
 
@@ -264,13 +438,15 @@ def computes_local(path: str, shape: Sequence[int], cfg: ModelConfig,
                    sizes: Mapping[str, int]) -> bool:
     """Whether the layers compute on this rank's 'model' block of the
     parameter at JAX path ``path``: the rule table splits it over 'model'
-    and ``_takes_block`` holds.  The rest that the rules split (the SSM
-    projections, and every parameter of the encoder-decoder and
-    crossmodal families) is gathered whole over 'model' and computed
-    replicated."""
+    along a dim that the 'model' size divides, and ``_takes_block``
+    holds.  The rest that the rules split is gathered whole over 'model'
+    and computed replicated (``replicated_over_model`` lists it)."""
     m = sizes.get("model", 1)
-    return (m > 1 and _takes_block(path, shape, cfg, m)
-            and _splits_over_model(path, shape, cfg, sizes))
+    if m <= 1:
+        return False
+    d = _model_dim(path, shape, cfg, sizes)
+    return (d is not None and shape[d] % m == 0
+            and _takes_block(path, shape, cfg, m))
 
 
 def local_names(shapes: Mapping[str, Sequence[int]], cfg: ModelConfig,
@@ -286,9 +462,11 @@ def replicated_over_model(shapes: Mapping[str, Sequence[int]],
                           cfg: ModelConfig, sizes: Mapping[str, int]
                           ) -> list:
     """The JAX paths whose rule splits them over 'model' but whose
-    compute the step still repeats on every 'model' rank (gathered
-    whole over 'model'), one entry per path: the SSM ``in_proj`` and
-    ``out_proj``, and the encoder-decoder and crossmodal families'."""
+    compute the step repeats on every 'model' rank (gathered whole over
+    'model'), one entry per path: at the production mesh none; at a
+    'model' size that a split dim does not divide, that parameter (the
+    language stream's 12 heads of vilbert-base at 8, which the rule
+    reads from the vision stream's 8)."""
     from repro_torch.distributed.sharding import jax_path
     m = sizes.get("model", 1)
     if m <= 1:
@@ -296,8 +474,8 @@ def replicated_over_model(shapes: Mapping[str, Sequence[int]],
     out = set()
     for k, s in shapes.items():
         path = jax_path(k)[0]
-        if (not _takes_block(path, s, cfg, m)
-                and _splits_over_model(path, s, cfg, sizes)):
+        if (_model_dim(path, s, cfg, sizes) is not None
+                and not computes_local(path, s, cfg, sizes)):
             out.add(path)
     return sorted(out)
 
@@ -305,15 +483,16 @@ def replicated_over_model(shapes: Mapping[str, Sequence[int]],
 def model_block(t: torch.Tensor, path: str, cfg: ModelConfig, rank: int,
                 size: int) -> torch.Tensor:
     """Rank ``rank``'s block of ``t`` over a 'model' axis of ``size``, by
-    the rule table (a view; ``t`` itself where the rule replicates it)."""
-    from repro_torch.distributed import sharding as SH
-    spec = SH.spec_for_param(path, tuple(t.shape), cfg,
-                             SH._SimulatedMesh({"model": size}), False)
-    for d, e in enumerate(spec):
-        if "model" in SH._axes(e):
-            n = t.shape[d] // size
-            return t.narrow(d, rank * n, n)
-    return t
+    the rule table (a view; ``t`` itself where the rule replicates it).
+    Raises on a split dim that ``size`` does not divide."""
+    d = _model_dim(path, t.shape, cfg, {"model": size})
+    if d is None:
+        return t
+    if t.shape[d] % size:
+        raise ValueError(f"{path}: dim {d} of {tuple(t.shape)} does not "
+                         f"split evenly over 'model' {size}")
+    n = t.shape[d] // size
+    return t.narrow(d, rank * n, n)
 
 
 # ---------------------------------------------------------------------------
@@ -425,25 +604,31 @@ def swapped(module: nn.Module, tensors: Mapping[str, torch.Tensor]):
 
 
 @contextlib.contextmanager
-def rank_view(module: nn.Module, path_prefix: str, cfg: ModelConfig,
-              rank: int, size: int):
+def rank_view(module: nn.Module, path_prefix: Optional[str],
+              cfg: ModelConfig, rank: int, size: int,
+              exchange: Optional[Exchange] = None):
     """One 'model' rank of ``size`` on its own (module docstring): in the
     block, ``module``'s parameters (a ``Block`` or one of its sublayers;
-    ``path_prefix`` their JAX path's head, "layers" or "layers/attn")
-    that ``computes_local`` splits are the rank's blocks, fresh leaves
-    that require grad; the others stay.  Yields {name: the tensor the
-    rank computes on}, the blocks and the replicated parameters, whose
-    gradients after a backward are the rank's blocks and partial sums."""
+    ``path_prefix`` their JAX path's head, "layers" or "layers/attn";
+    None: ``module`` is a whole model, each path ``sharding.jax_path``
+    of its name) that ``computes_local`` splits are the rank's blocks,
+    fresh leaves that require grad; the others stay.  Yields {name: the
+    tensor the rank computes on}, the blocks and the replicated
+    parameters, whose gradients after a backward are the rank's blocks
+    and partial sums.  ``exchange`` carries ``gather_cols`` and
+    ``sum_over`` between the ranks' turns."""
+    from repro_torch.distributed.sharding import jax_path
     sizes = {"model": size}
     blocks, local = {}, []
     for name, p in module.named_parameters():
-        path = f"{path_prefix}/{name.replace('.', '/')}"
+        path = (jax_path(name)[0] if path_prefix is None
+                else f"{path_prefix}/{name.replace('.', '/')}")
         if computes_local(path, p.shape, cfg, sizes):
             blocks[name] = model_block(p.detach(), path, cfg, rank,
                                        size).clone().requires_grad_(True)
             owner, _, leaf = name.rpartition(".")
             local.append((module.get_submodule(owner) if owner else module,
                           leaf))
-    tp = ModelParallel(rank, size, None, local)
+    tp = ModelParallel(rank, size, None, local, exchange=exchange)
     with swapped(module, blocks), using(tp):
         yield {**dict(module.named_parameters()), **blocks}

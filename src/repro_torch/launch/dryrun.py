@@ -32,11 +32,13 @@ What the counts mean for this port (PERF.md): a train cell's FLOPs are
 the rank's share of what ``distributed.parallel`` splits over 'model'
 (dense attention on its heads or, under the ``attn_q`` hint where the
 heads do not split, on its query rows; the MLP; the MoE's experts or
-their d_ff; MLA's heads; the vocabulary) and the whole of the rest,
-which every 'model' rank repeats: the routing, MLA's latent
-projections, the SSM projections (``replicated_over_model`` lists the
-split weights among these), and attention whose heads do not split
-where no hint asks for context parallelism.  Attention FLOPs are those
+their d_ff; MLA's heads; the SSM's heads or out-projection rows;
+vilbert's and whisper's layers; the vocabulary) and the whole of the
+rest, which every 'model' rank repeats: the routing, MLA's latent
+projections, B and C of the SSM, attention whose heads do not split
+where no hint asks for context parallelism, and a split weight whose
+dim the 'model' size does not divide (``replicated_over_model`` lists
+those; none at the production mesh).  Attention FLOPs are those
 of the plain blocked version the CPU runs (every kv block, masked ones
 included); bytes are eager, with nothing fused.  A cell cut in depth
 (``depth``) keeps the whole config's FSDP choice (``fsdp``), so that its

@@ -14,7 +14,11 @@ Entry points, on the card unless the model was built on the CPU:
   every attention layer under the execution mode; ``loss_fn`` the
   teacher-forced cross-entropy, the training path (``train.loop`` builds
   ``EncDec``; the backward of the stream and flash kernels, and autograd
-  through the rest);
+  through the rest).  In the mesh train step every layer computes on
+  the rank's 'model' blocks as ``layers.attention_forward`` and
+  ``mlp_forward`` do (heads, or under the ``attn_q`` hint the query rows
+  of a sequence the 'model' size divides; d_ff), and the loss on the
+  rank's vocabulary;
 * ``EncDec.prefill``: the encoder, then the decoder over the prompt, its
   causal self-attention through ``ops.multi_head_attention`` (the flash
   kernel) while the cache fills, its cross-attention under the mode;
@@ -38,11 +42,13 @@ from torch import nn
 
 from repro_torch.core import runtime
 from repro_torch.core.types import ExecutionMode, ModelConfig
+from repro_torch.distributed import parallel
 from repro_torch.kernels import ops
 from repro_torch.models.layers import (MLP, Attention, Embedding, LayerNorm,
                                        attention_forward, dense_init,
                                        embed_lookup, layer_norm, mlp_forward,
-                                       move_to, param, torch_dtype, unembed)
+                                       move_to, nll_sum, param, torch_dtype,
+                                       unembed, unembed_weight)
 
 Cache = Dict[str, object]
 #: Rows of the learned decoder position table, enlarged beyond whisper's
@@ -142,8 +148,10 @@ class EncDec(nn.Module):
             x = x + mlp_forward(p.mlp, h2)
         return layer_norm(self.enc_ln, x, eps=cfg.norm_eps)
 
-    def _decode_train(self, tokens: torch.Tensor, enc_out: torch.Tensor,
-                      mode: Optional[ExecutionMode] = None) -> torch.Tensor:
+    def _decoder(self, tokens: torch.Tensor, enc_out: torch.Tensor,
+                 mode: Optional[ExecutionMode] = None) -> torch.Tensor:
+        """The teacher-forced decoder's layers: hidden states before
+        ``dec_ln``."""
         cfg, mode = self.cfg, self._mode(mode)
         x = self._embed(tokens, 0)
         for p in self.dec_layers:
@@ -151,7 +159,11 @@ class EncDec(nn.Module):
             x = x + attention_forward(p.self_attn, cfg, h, causal=True,
                                       mode=mode)
             x = _cross_mlp(p, cfg, x, enc_out, mode)
-        return self._head(x)
+        return x
+
+    def _decode_train(self, tokens: torch.Tensor, enc_out: torch.Tensor,
+                      mode: Optional[ExecutionMode] = None) -> torch.Tensor:
+        return self._head(self._decoder(tokens, enc_out, mode))
 
     @torch.no_grad()
     def encode(self, frames: torch.Tensor, *,
@@ -249,12 +261,21 @@ def loss_fn(model: EncDec, batch: Dict[str, torch.Tensor], *,
     """Teacher-forced next-token cross-entropy (encdec.py:117): batch
     {"frames", "tokens", "labels"}; labels == -1 are masked.  The training
     path (``train.steps``) differentiates it; ``remat`` is accepted and
-    not read, as in JAX."""
+    not read, as in JAX.  Where the active mesh step hands the layers the
+    rank's vocabulary rows of the (tied) output matrix, the loss is
+    vocabulary-parallel (``parallel.vocab_nll`` of the rank's logit
+    columns): no rank forms the whole (B, S, vocab) logits."""
     del remat
+    cfg = model.cfg
     enc = model._encode(batch["frames"], mode)
-    logits = model._decode_train(batch["tokens"], enc, mode)
+    h = layer_norm(model.dec_ln, model._decoder(batch["tokens"], enc, mode),
+                   eps=cfg.norm_eps)
     labels = batch["labels"]
-    valid = labels >= 0
-    logp = torch.log_softmax(logits.float(), dim=-1)
-    nll = -torch.gather(logp, -1, labels.clamp(min=0).long()[..., None])[..., 0]
-    return (nll * valid).sum() / valid.sum().clamp(min=1)
+    tp = parallel.active()
+    name = "embedding" if cfg.tie_embeddings else "unembed"
+    if tp is not None and tp.local(model.embed, name):
+        h = tp.copy(h)
+    else:
+        tp = None
+    nll = nll_sum(unembed_weight(model.embed, cfg), h, labels, tp)
+    return nll / (labels >= 0).sum().clamp(min=1)

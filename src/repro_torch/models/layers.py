@@ -163,6 +163,24 @@ def unembed_with(w: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return out
 
 
+def nll_sum(w: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
+            tp: Optional["parallel.ModelParallel"]) -> torch.Tensor:
+    """Summed next-token negative log-likelihood of hidden states ``h``
+    under the output matrix ``w``; labels -1 are masked.  With ``tp``,
+    ``w`` holds the rank's vocabulary columns and the loss is
+    vocabulary-parallel (``parallel.vocab_nll``): no rank forms the whole
+    logits."""
+    logits = unembed_with(w, h)
+    valid = labels >= 0
+    if tp is not None:
+        nll = parallel.vocab_nll(tp, logits.float(), labels)
+    else:
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1,
+                            labels.clamp(min=0).long()[..., None])[..., 0]
+    return (nll * valid).sum()
+
+
 # ---------------------------------------------------------------------------
 # RoPE
 # ---------------------------------------------------------------------------
@@ -237,13 +255,33 @@ class Attention(nn.Module):
             self.k_gamma = param(torch.ones(hd, dtype=dt, device=g.device))
 
 
-def _context_rows(tp, cfg: ModelConfig, x: torch.Tensor) -> bool:
+def _context_rows(tp, cfg: ModelConfig) -> bool:
     """Whether this sublayer runs context-parallel (``parallel.
-    context_split`` under the active hint table, and a sequence that the
-    'model' size divides)."""
-    return (tp is not None and x.shape[1] % tp.size == 0
-            and parallel.context_split(cfg, tp.size,
-                                       runtime.get("sharding_hints")))
+    context_split`` under the active hint table)."""
+    return tp is not None and parallel.context_split(
+        cfg, tp.size, runtime.get("sharding_hints"))
+
+
+def _row_block(tp, S: int) -> Tuple[int, int]:
+    """(first row, rows) of the rank's block of query rows of a sequence
+    of S: n = ceil(S/m) rows from min(r·n, S − n).  Where m does not
+    divide S (whisper's 1500 frames over 16), the last blocks end at S
+    and repeat rows of the block before, which ``_gather_row_blocks``
+    drops (JAX pads the last block instead)."""
+    n = -(-S // tp.size)
+    return min(tp.rank * n, S - n), n
+
+
+def _gather_row_blocks(tp, out: torch.Tensor, S: int) -> torch.Tensor:
+    """The whole (B, S, D) from each rank's block of rows
+    (``_row_block``): rows r·n … min((r+1)·n, S) − 1 are rank r's."""
+    y = tp.gather_rows(out)
+    n = out.shape[1]
+    if n * tp.size == S:
+        return y
+    rank_of = [i // n for i in range(S)]
+    idx = [r * n + i - min(r * n, S - n) for i, r in enumerate(rank_of)]
+    return y.index_select(1, torch.tensor(idx, device=y.device))
 
 
 def _replicated(tp, p: nn.Module, names: Sequence[str]) -> list:
@@ -264,21 +302,24 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     defaults to x.  The mode goes through the planner's per-layer rule
     (at the config's head counts).  Where the active mesh step hands the
     layers the rank's query heads (``p.wq`` (D, Hq/m, hd),
-    ``parallel.attention_split``), self-attention runs on them: the
-    kernels see Hq/m query heads over the kv heads they read
-    (``parallel.head_block``), and ``wo`` is row-parallel.  Where it runs
-    context-parallel (``parallel.context_split``: the ``attn_q`` hint,
-    heads that do not split, a sequence S that the 'model' size m
-    divides), rank r projects Q for rows r·S/m … (r+1)·S/m of x (whole
-    after ``copy``), attends at ``q_offset`` r·S/m with its rope rows
-    against the whole K/V (which the stream kernel generates from the
-    whole x), applies ``wo`` to its rows and gathers them
-    (``gather_rows``); the weights enter by ``copy``."""
+    ``parallel.attention_split``), the sublayer runs on them: the kernels
+    see Hq/m query heads over the kv heads they read
+    (``parallel.head_block``; generated from x_kv, whisper's encoder
+    states in its cross-attention), and ``wo`` is row-parallel.  Where it
+    runs context-parallel (``parallel.context_split``: the ``attn_q``
+    hint, heads that do not split), rank r projects Q for its block of
+    rows of x (whole after ``copy``; r·S/m … (r+1)·S/m where the 'model'
+    size m divides the query sequence S, else ``_row_block``'s) with
+    their rope rows, attends against the whole K/V (which the stream
+    kernel generates from the whole x_kv) at the block's ``q_offset``
+    where the mask reads it (causal or windowed; a non-causal call keeps
+    the caller's), applies ``wo`` to its rows and gathers them
+    (``_gather_row_blocks``); the weights enter by ``copy``.  In both, a
+    separate x_kv enters by ``copy`` too."""
     from repro_torch.plan.heuristics import resolve_layer_mode
     tp = parallel.active()
-    self_attn = x_kv is None and tp is not None
-    split = self_attn and tp.local(p, "wq")
-    rows = self_attn and not split and _context_rows(tp, cfg, x)
+    split = tp is not None and tp.local(p, "wq")
+    rows = tp is not None and not split and _context_rows(tp, cfg)
     wq, wo = p.wq, p.wo
     if split:
         x = tp.copy(x)
@@ -291,25 +332,30 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
         wk, wv = p.wk, p.wv
         q_gamma = getattr(p, "q_gamma", None)
         k_gamma = getattr(p, "k_gamma", None)
-    x_kv = x if x_kv is None else x_kv
-    xq = x
+    if x_kv is None:
+        x_kv = x
+    elif split or rows:
+        x_kv = tp.copy(x_kv)
+    window = cfg.sliding_window if cfg.attn_kind == AttnKind.SLIDING else 0
+    xq, q_pos, S = x, q_offset, x.shape[1]
     if rows:
-        n = x.shape[1] // tp.size
-        q_offset += tp.rank * n
-        xq = x[:, tp.rank * n:(tp.rank + 1) * n]
+        r0, n = _row_block(tp, S)
+        q_pos += r0
+        xq = x[:, r0:r0 + n]
+        if causal or window:
+            q_offset = q_pos
     mode = resolve_layer_mode(
         ExecutionMode(mode or cfg.execution_mode), d_kv=x_kv.shape[-1],
         num_kv_heads=cfg.num_kv_heads, head_dim=cfg.head_dim,
         attn_kind=cfg.attn_kind, fuse_kv_generation=cfg.fuse_kv_generation)
-    window = cfg.sliding_window if cfg.attn_kind == AttnKind.SLIDING else 0
     q = torch.einsum("bsd,dhe->bhse", xq, wq.to(x.dtype))
     if cfg.use_qk_norm:
         q = ref.rms_norm(q, q_gamma, eps=cfg.norm_eps)
     if sin is not None:
         q_sin, q_cos = sin, cos
-        if q_offset or q.shape[2] != x_kv.shape[1]:
-            q_sin = sin[q_offset:q_offset + q.shape[2]]
-            q_cos = cos[q_offset:q_offset + q.shape[2]]
+        if q_pos or q.shape[2] != x_kv.shape[1]:
+            q_sin = sin[q_pos:q_pos + q.shape[2]]
+            q_cos = cos[q_pos:q_pos + q.shape[2]]
         q = apply_rope_bsd(q, q_sin, q_cos)
     q = constrain(q, "attn_q")      # context-parallel hint (hints.py)
     out = ops.attention_by_mode(
@@ -320,7 +366,7 @@ def attention_forward(p: Attention, cfg: ModelConfig, x: torch.Tensor, *,
     out = torch.einsum("bhse,hed->bsd", out, wo.to(x.dtype))
     if split:
         return tp.reduce(out)
-    return tp.gather_rows(out) if rows else out
+    return _gather_row_blocks(tp, out, S) if rows else out
 
 
 def attention_forward_mrope(p: Attention, cfg: ModelConfig, x: torch.Tensor,
@@ -337,7 +383,7 @@ def attention_forward_mrope(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     ``attention_forward``'s."""
     tp = parallel.active()
     split = tp is not None and tp.local(p, "wq")
-    rows = tp is not None and not split and _context_rows(tp, cfg, x)
+    rows = tp is not None and not split and _context_rows(tp, cfg)
     wq, wo, q_offset = p.wq, p.wo, 0
     if split:
         x = tp.copy(x)
@@ -349,8 +395,7 @@ def attention_forward_mrope(p: Attention, cfg: ModelConfig, x: torch.Tensor,
         wk, wv = p.wk, p.wv
     xq, q_sin, q_cos = x, sin_b, cos_b
     if rows:
-        n = x.shape[1] // tp.size
-        q_offset = tp.rank * n
+        q_offset, n = _row_block(tp, x.shape[1])
         xq = x[:, q_offset:q_offset + n]
         q_sin, q_cos = (t[:, q_offset:q_offset + n] for t in (sin_b, cos_b))
     q = torch.einsum("bsd,dhe->bhse", xq, wq.to(x.dtype))
@@ -362,7 +407,7 @@ def attention_forward_mrope(p: Attention, cfg: ModelConfig, x: torch.Tensor,
     out = torch.einsum("bhse,hed->bsd", out, wo.to(x.dtype))
     if split:
         return tp.reduce(out)
-    return tp.gather_rows(out) if rows else out
+    return _gather_row_blocks(tp, out, x.shape[1]) if rows else out
 
 
 def attention_decode(p: Attention, cfg: ModelConfig, x: torch.Tensor,

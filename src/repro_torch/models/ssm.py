@@ -7,7 +7,10 @@ Prefill and training run the SSD scan through ``ops.ssd`` (the
 backward is the ``ssd_scan_bwd`` kernel); the in/out projections are
 ``torch.matmul``, as the
 reference's ``jnp.dot``; the causal conv, the gated RMSNorm and the
-one-token decode recurrence are plain PyTorch.  ``ssm_forward`` also
+one-token decode recurrence are plain PyTorch.  Where the active mesh
+step hands the layer the rank's 'model' block of ``out_proj``
+(``distributed.parallel``), ``ssm_forward`` computes the rank's share
+of the layer.  ``ssm_forward`` also
 serves the reference's ``transformer._ssm_prefill_state``: given a layer
 cache it writes the conv state and the final SSD state into it.  The
 per-layer cache is ``{"conv": (B, K-1, d_inner+2N), "state": (B, H, P, N)
@@ -22,7 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from repro_torch.core.types import ModelConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.distributed import parallel
+from repro_torch.kernels import ops
 from repro_torch.models.layers import dense_init, param, torch_dtype
 
 Cache = Dict[str, torch.Tensor]
@@ -87,44 +91,97 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor,
 
 
 def _conv_and_gates(p: SSM, cfg: ModelConfig, xin: torch.Tensor,
-                    conv_state: Optional[torch.Tensor]):
-    """in_proj, causal conv and SiLU, softplus(dt): (x, z, B, C, dt f32,
-    a, new conv history)."""
-    d_inner = ssm_dims(cfg)[1]
+                    conv_state: Optional[torch.Tensor],
+                    tp: "parallel.ModelParallel"):
+    """in_proj, causal conv and SiLU, softplus(dt) of 'model' rank
+    ``tp.rank`` (a rank of one: the whole layer): (x, z, B, C, dt f32, a,
+    D, the norm's gains, new conv history).  Where the rank's
+    ``out_proj`` rows are whole SSD heads, x, z, dt and the per-channel
+    and per-head parameters are its heads', B and C whole; otherwise all
+    heads'.  ``in_proj`` is column-parallel where it is the rank's block
+    (its fused columns put back together by ``gather_cols``, whose
+    backward reduce-scatters), else replicated; x and the replicated
+    weights enter by ``copy``: the rank's share gives each a partial
+    gradient."""
+    _, d_inner, _, P = ssm_dims(cfg)
     N = cfg.ssm_state
-    proj = torch.matmul(xin, p.in_proj.to(xin.dtype))
-    x, z, b, c, dt = _split_proj(cfg, proj, d_inner)
-    xbc, conv = _causal_conv(torch.cat([x, b, c], dim=-1),
-                             p.conv_w.to(xin.dtype), conv_state)
+    rows = p.out_proj.shape[0]
+    x = tp.copy(xin)
+    if tp.local(p, "in_proj"):
+        proj = tp.gather_cols(torch.matmul(x, p.in_proj.to(x.dtype)))
+    else:
+        proj = torch.matmul(x, tp.copy(p.in_proj).to(x.dtype))
+    xs, z, b, c, dt = _split_proj(cfg, proj, d_inner)
+    conv_w, dt_bias, a_log, d_skip, gamma = (
+        tp.copy(getattr(p, n)) for n in ("conv_w", "dt_bias", "a_log",
+                                         "d_skip", "norm_gamma"))
+    if rows < d_inner and rows % P == 0:   # heads h0 ... h0 + nh - 1
+        r0, nh = tp.rank * rows, rows // P
+        h0 = tp.rank * nh
+        xs, z, dt = (xs[..., r0:r0 + rows], z[..., r0:r0 + rows],
+                     dt[..., h0:h0 + nh])
+        conv_w = torch.cat([conv_w[:, r0:r0 + rows], conv_w[:, d_inner:]],
+                           dim=1)
+        dt_bias, a_log, d_skip = (t[h0:h0 + nh]
+                                  for t in (dt_bias, a_log, d_skip))
+        gamma = gamma[r0:r0 + rows]
+    w = xs.shape[-1]
+    xbc, conv = _causal_conv(torch.cat([xs, b, c], dim=-1),
+                             conv_w.to(x.dtype), conv_state)
     xbc = F.silu(xbc)
-    dt = F.softplus(dt.float() + p.dt_bias)
-    return (xbc[..., :d_inner], z, xbc[..., d_inner:d_inner + N],
-            xbc[..., d_inner + N:], dt, -torch.exp(p.a_log), conv)
+    dt = F.softplus(dt.float() + dt_bias)
+    return (xbc[..., :w], z, xbc[..., w:w + N], xbc[..., w + N:], dt,
+            -torch.exp(a_log), d_skip, gamma, conv)
 
 
 def _out(p: SSM, cfg: ModelConfig, y: torch.Tensor, z: torch.Tensor,
-         dtype: torch.dtype) -> torch.Tensor:
-    """Gated RMSNorm (mamba2's norm before the out-projection), then
-    out_proj."""
-    y = ref.rms_norm(y * F.silu(z), p.norm_gamma, eps=cfg.norm_eps)
-    return torch.matmul(y, p.out_proj.to(dtype))
+         gamma: torch.Tensor, dtype: torch.dtype,
+         tp: "parallel.ModelParallel") -> torch.Tensor:
+    """Gated RMSNorm over d_inner (mamba2's norm before the
+    out-projection), then ``out_proj`` on 'model' rank ``tp.rank``,
+    row-parallel (its product summed by ``reduce``).  y and z are the
+    rank's heads' channels (``_conv_and_gates``), whose mean square,
+    weighted by their share of d_inner, is summed over 'model'
+    (``sum_over``), or all d_inner channels, of which the rank's rows
+    feed its rows of ``out_proj``."""
+    d_inner = ssm_dims(cfg)[1]
+    rows = p.out_proj.shape[0]
+    g = y * F.silu(z)
+    g32 = g.float()
+    ms = (g32 * g32).mean(dim=-1, keepdim=True)
+    if g.shape[-1] < d_inner:
+        ms = tp.sum_over(ms * (g.shape[-1] / d_inner))
+    elif rows < d_inner:
+        r0 = tp.rank * rows
+        g32, gamma = g32[..., r0:r0 + rows], gamma[r0:r0 + rows]
+    g = (g32 * torch.rsqrt(ms + cfg.norm_eps)).to(g.dtype) * gamma.to(g.dtype)
+    return tp.reduce(torch.matmul(g, p.out_proj.to(dtype)))
 
 
 def ssm_forward(p: SSM, cfg: ModelConfig, xin: torch.Tensor,
                 cache: Optional[Cache] = None) -> torch.Tensor:
     """xin (B, S, D) pre-normed -> (B, S, D) (ssm.py:73).  With a layer
     ``cache`` (prefill, transformer.py:312), the conv history and the
-    final SSD state are written into its buffers in place."""
-    _, d_inner, nheads, headdim = ssm_dims(cfg)
+    final SSD state are written into its buffers in place.  Where the
+    active mesh step hands the layer the rank's 'model' block of
+    ``out_proj`` (a training step), the rank computes its share
+    (``_conv_and_gates``, ``_out``): the conv and ``ops.ssd`` on its
+    heads where its rows are whole heads, else the SSD whole and only its
+    rows of y into ``out_proj``."""
+    tp = parallel.active()
+    if cache is not None or tp is None or not tp.local(p, "out_proj"):
+        tp = parallel.ModelParallel(0, 1)
     B, S, _ = xin.shape
-    x, z, b, c, dt, a, conv = _conv_and_gates(p, cfg, xin, None)
-    xh = x.reshape(B, S, nheads, headdim)
+    P = ssm_dims(cfg)[3]
+    x, z, b, c, dt, a, d_skip, gamma, conv = _conv_and_gates(
+        p, cfg, xin, None, tp)
+    xh = x.reshape(B, S, -1, P)
     y, state = ops.ssd(xh, dt, a, b, c, chunk=cfg.ssm_chunk)
-    y = y + xh * p.d_skip[None, None, :, None].to(xh.dtype)
+    y = y + xh * d_skip[None, None, :, None].to(xh.dtype)
     if cache is not None:
         cache["conv"].copy_(conv)
         cache["state"].copy_(state)
-    return _out(p, cfg, y.reshape(B, S, d_inner), z, xin.dtype)
+    return _out(p, cfg, y.reshape(B, S, -1), z, gamma, xin.dtype, tp)
 
 
 def ssm_init_cache(cfg: ModelConfig, num_layers: int, batch: int,
@@ -147,13 +204,16 @@ def ssm_decode(p: SSM, cfg: ModelConfig, xin: torch.Tensor,
     JAX function returns new buffers)."""
     _, d_inner, nheads, headdim = ssm_dims(cfg)
     B = xin.shape[0]
-    x, z, b, c, dt, a, conv = _conv_and_gates(p, cfg, xin, cache["conv"])
+    tp = parallel.ModelParallel(0, 1)
+    x, z, b, c, dt, a, d_skip, gamma, conv = _conv_and_gates(
+        p, cfg, xin, cache["conv"], tp)
     xh = x.reshape(B, nheads, headdim).float()
     decay = torch.exp(dt[:, 0, :, None, None] * a[None, :, None, None])
     state = cache["state"] * decay + torch.einsum(
         "bhp,bn->bhpn", xh * dt[:, 0, :, None], b[:, 0].float())
     y = torch.einsum("bhpn,bn->bhp", state, c[:, 0].float())
-    y = y + xh * p.d_skip[None, :, None]
+    y = y + xh * d_skip[None, :, None]
     cache["conv"].copy_(conv)
     cache["state"].copy_(state)
-    return _out(p, cfg, y.reshape(B, 1, d_inner).to(xin.dtype), z, xin.dtype)
+    return _out(p, cfg, y.reshape(B, 1, d_inner).to(xin.dtype), z, gamma,
+                xin.dtype, tp)

@@ -80,10 +80,9 @@ from repro_torch.models.layers import (MLP, Attention, Embedding, MoE,
                                        attention_forward_mrope, dense_init,
                                        embed_lookup, mlp_forward,
                                        moe_forward, move_to, mrope_tables,
-                                       param,
+                                       nll_sum, param,
                                        rms_norm, rope_tables_for,
-                                       torch_dtype, unembed, unembed_weight,
-                                       unembed_with)
+                                       torch_dtype, unembed, unembed_weight)
 from repro_torch.models.mla import (MLA, _latent, mla_decode, mla_forward,
                                     mla_init_cache)
 from repro_torch.models.ssm import (SSM, ssm_decode, ssm_forward,
@@ -516,22 +515,6 @@ class Transformer(nn.Module):
 # Training: the loss (transformer.py:177-214)
 # ---------------------------------------------------------------------------
 
-def _chunk_nll(w: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
-               tp: Optional[parallel.ModelParallel]) -> torch.Tensor:
-    """Summed negative log-likelihood of one sequence chunk under the
-    output matrix ``w``; labels -1 are masked.  With ``tp``, ``w`` holds
-    the rank's vocabulary columns and the loss is vocabulary-parallel
-    (``parallel.vocab_nll``)."""
-    logits = unembed_with(w, h)
-    valid = labels >= 0
-    if tp is not None:
-        nll = parallel.vocab_nll(tp, logits.float(), labels)
-    else:
-        logp = torch.log_softmax(logits.float(), dim=-1)
-        nll = -torch.gather(logp, -1, labels.clamp(min=0)[..., None])[..., 0]
-    return (nll * valid).sum()
-
-
 def chunked_xent(model: Transformer, hidden: torch.Tensor,
                  labels: torch.Tensor, *, chunk: int = 512) -> torch.Tensor:
     """Cross-entropy with the unembed computed per sequence chunk of
@@ -556,8 +539,8 @@ def chunked_xent(model: Transformer, hidden: torch.Tensor,
     total = hidden.new_zeros((), dtype=torch.float32)
     for i in range(0, S, c):
         args = (w, hidden[:, i:i + c], labels[:, i:i + c], tp)
-        total = total + (checkpoint(_chunk_nll, *args, use_reentrant=False)
-                         if torch.is_grad_enabled() else _chunk_nll(*args))
+        total = total + (checkpoint(nll_sum, *args, use_reentrant=False)
+                         if torch.is_grad_enabled() else nll_sum(*args))
     # the count stays a tensor: no host sync, and a fake tensor (the dry
     # run's) has no value to read
     return total / (labels >= 0).sum().clamp(min=1)

@@ -15,7 +15,10 @@ cross-entropy (vilbert.py:214); the pruning's token choice is not
 differentiated, its gather is.  Each text-only layer and each co-TRM
 block (both streams) is a unit of the mesh train step
 (``distributed.parallel.unit``), gathered for its forward, for its
-recomputation, and for the pruning scores that read it.
+recomputation, and for the pruning scores that read it; over 'model'
+its attention runs on the rank's heads (``_attn``), its MLP on the
+rank's d_ff block (``layers.mlp_forward``), and the text embedding on
+the rank's vocabulary rows (``layers.embed_lookup``).
 """
 from __future__ import annotations
 
@@ -89,11 +92,28 @@ def _resolve(cfg: ModelConfig, mode: ExecutionMode, d_kv: int,
 
 def _attn(p: XAttn, cfg: ModelConfig, x_q: torch.Tensor,
           x_kv: torch.Tensor, mode: ExecutionMode) -> torch.Tensor:
-    """Q from x_q; K/V from x_kv (x_q itself for self-attention)."""
+    """Q from x_q; K/V from x_kv (x_q itself for self-attention).  Where
+    the active mesh step hands the layers the rank's heads (``p.wq`` (d,
+    H/m, hd): ``parallel`` takes vilbert's attention weights wherever the
+    rule splits them evenly), Q comes from the rank's ``wq`` block, the
+    kernels generate only the rank's heads' K/V from x_kv (the stream
+    kernel from the other modality's activations, in TILE_STREAM), and
+    ``wo`` is row-parallel; x_q and x_kv enter by ``copy``.  The mode
+    resolves at the layer's whole head count, as the JAX step's trace
+    does."""
+    tp = parallel.active()
+    split = tp is not None and tp.local(p, "wq")
+    heads = p.wq.shape[1]
+    if split:
+        same = x_kv is x_q
+        x_q = tp.copy(x_q)
+        x_kv = x_q if same else tp.copy(x_kv)
+        heads *= tp.size
     q = torch.einsum("bsd,dhe->bhse", x_q, p.wq.to(x_q.dtype))
-    mode = _resolve(cfg, mode, x_kv.shape[-1], q.shape[1], q.shape[-1])
+    mode = _resolve(cfg, mode, x_kv.shape[-1], heads, q.shape[-1])
     out = ops.attention_by_mode(mode, q, x_kv, p.wk, p.wv, causal=False)
-    return torch.einsum("bhse,hed->bsd", out, p.wo.to(x_q.dtype))
+    out = torch.einsum("bhse,hed->bsd", out, p.wo.to(x_q.dtype))
+    return tp.reduce(out) if split else out
 
 
 def _stream_block(p: StreamBlock, cfg: ModelConfig, x_own: torch.Tensor,
@@ -136,10 +156,17 @@ def _co_unit(model: "ViLBERT", i: int, cfg: ModelConfig, x: torch.Tensor,
 
 def _dtpu_cross_scores(p: StreamBlock, x: torch.Tensor, y: torch.Tensor,
                        stride: int = 8) -> torch.Tensor:
-    """Rank y's tokens by the attention mass x's queries pay them."""
+    """Rank y's tokens by the attention mass x's queries pay them (the
+    mean over heads).  On the rank's heads of a mesh step, each rank's
+    mean over its heads, summed over 'model' and divided by m, so that
+    every rank prunes the same tokens."""
     q = torch.einsum("bsd,dhe->bhse", x, p.co_attn.wq.to(x.dtype))
     k = torch.einsum("bsd,dhe->bhse", y, p.co_attn.wk.to(y.dtype))
-    return P.attention_column_scores(q, k, causal=False, sample_stride=stride)
+    s = P.attention_column_scores(q, k, causal=False, sample_stride=stride)
+    tp = parallel.active()
+    if tp is not None and tp.local(p.co_attn, "wq"):
+        s = tp.all_reduce(s, "sum") / tp.size
+    return s
 
 
 class ViLBERT(nn.Module):

@@ -11,15 +11,21 @@ step computes sharded, as GSPMD partitions the JAX step
 
 * over 'model', the layers compute on the rank's blocks where
   ``distributed.parallel`` splits them (dense attention's heads, the MLP's
-  d_ff, the MoE's experts or each expert's d_ff, MLA's heads, the
-  vocabulary): nothing of them is gathered over 'model'.  Under the
-  caller's hint table (``runtime.flags(sharding_hints=...)``, which the
-  step reads as the layers run, the recomputation included), attention
-  whose heads do not split runs context-parallel on the rank's query
-  rows.  The replicated weights that feed only the rank's share (the
-  router, context-parallel attention's weights, a kv group's K/V), and
-  MLA's latent activations, enter by ``parallel``'s ``copy``, so that
-  their gradients arrive summed over 'model';
+  d_ff, the MoE's experts or each expert's d_ff, MLA's heads, the SSM's
+  heads or its out-projection's rows, vilbert's heads in both streams,
+  whisper's encoder, decoder and cross-attention heads, the vocabulary):
+  nothing of them is gathered over 'model'.  Under the caller's hint
+  table (``runtime.flags(sharding_hints=...)``, which the step reads as
+  the layers run, the recomputation included), dense attention whose
+  heads do not split runs context-parallel on the rank's query rows
+  (whisper's 8 heads at 16; its 1500 encoder frames, which 16 does not
+  divide, on blocks of 94).  The replicated weights that feed only the
+  rank's share (the router, context-parallel attention's weights, a kv
+  group's K/V, the SSM's conv and gains), and MLA's latent activations,
+  enter by ``parallel``'s ``copy``, so that their gradients arrive summed
+  over 'model'.  A parameter whose split dim the 'model' size does not
+  divide is gathered whole over 'model' and computed replicated
+  (``parallel.replicated_over_model``: none at the production mesh);
 * over the batch axes, the parameters are gathered a unit at a time, as
   the model code asks for them (``parallel.unit``): one layer, the
   embedding, or the final norm with the output matrix.  A unit is gathered
@@ -37,10 +43,8 @@ step computes sharded, as GSPMD partitions the JAX step
   Parameters outside every unit (``unit_names`` of the model: the
   encoder-decoder family's, whose layers are no units yet, the
   crossmodal family's embeddings, projections and heads) are gathered
-  for the whole step; what the layers do not compute on their 'model'
-  block is gathered whole over 'model' (the SSM projections, the
-  encoder-decoder and crossmodal families': ``parallel.
-  replicated_over_model``).
+  for the whole step, over the batch axes only where the layers take
+  their 'model' blocks.
 
 The loss is reduced over the batch axes, the global norm taken from the
 blocks, and AdamW updates the rank's blocks.  On a (1, 1) mesh nothing is

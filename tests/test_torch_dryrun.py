@@ -8,8 +8,9 @@ device, the collective traffic formulas (tests/test_hlo_analysis.py:
 104-119) and the cycles of a matmul chain; the hint table
 (``hint_shardings``) against JAX's specs, the CLI's ``--hints``,
 ``--tag``, ``--moe-groups`` and ``--optimized`` with JAX's meaning, and
-smoke train cells of the MoE family (EP, expert-TP, MLA's heads) and of
-context-parallel attention."""
+smoke train cells of the MoE family (EP, expert-TP, MLA's heads), of
+context-parallel attention, and of the SSM, crossmodal and
+encoder-decoder families split over 'model'."""
 import dataclasses
 import json
 import os
@@ -496,3 +497,39 @@ def test_context_parallel_smoke_cell_counts_fewer_flops(no_group):
         assert r["status"] == "ok", r.get("error")
         flops[bool(h)] = r["hlo_flops_per_device"]
     assert flops[True] < flops[False]
+
+
+@pytest.fixture(scope="module")
+def one_device_flops():
+    """{arch: FLOPs of its smoke train cell on (1, 1)}, each traced once."""
+    seen = {}
+
+    def flops(arch):
+        if arch not in seen:
+            seen[arch] = D.run_cell(
+                arch, "train_4k", verbose=False,
+                cfg=registry.get_config(arch, smoke=True), shape=SMOKE_SHAPE,
+                mesh_shape=(1, 1), microbatches=1)["hlo_flops_per_device"]
+        return seen[arch]
+    return flops
+
+
+@pytest.mark.parametrize("arch,m,hinted", [
+    ("mamba2-780m", 4, False), ("hymba-1.5b", 4, False),
+    ("vilbert-base", 4, False), ("whisper-base", 4, False),
+    ("whisper-base", 8, True)])
+def test_the_last_families_smoke_train_cells_split_over_model(
+        no_group, one_device_flops, arch, m, hinted):
+    """The SSM projections (mamba2-780m and hymba-1.5b smoke: a head of 4
+    a rank), vilbert's co-TRM and text-only layers (a head of 4 a
+    stream) and whisper's encoder and decoder (a head of 4; at 8 under
+    the attn_q hint, context-parallel) on a fake (1, m) world: nothing
+    the rules split is computed replicated, and a rank counts under half
+    of one device's FLOPs."""
+    cfg = registry.get_config(arch, smoke=True)
+    r = D.run_cell(arch, "train_4k", verbose=False, cfg=cfg,
+                   shape=SMOKE_SHAPE, mesh_shape=(1, m), microbatches=1,
+                   hints=["attn_q", "attn_out"] if hinted else None)
+    assert r["status"] == "ok", r.get("error")
+    assert r["replicated_over_model"] == []
+    assert r["hlo_flops_per_device"] < one_device_flops(arch) / 2

@@ -22,8 +22,14 @@ process.
 * on the (2, 2) world at fsdp_threshold=0 the step gathers a unit at a
   time (each layer for its forward and its recomputation, the embedding,
   the head) and never holds more than two gathered units at once;
-  vilbert-base (a layer a unit) and whisper-base (its whole model one
-  unit) train there with the single-device losses and gradient norms;
+  vilbert-base (a layer a unit), whisper-base (its whole model one
+  unit), mamba2-780m and hymba-1.5b (their SSM projections split over
+  'model') train there with the single-device losses and gradient norms
+  (vilbert-base's third at the mesh run's own parameters);
+* on the (1, 4) world vilbert-base and whisper-base train on a head a
+  rank with the single-device losses and gradient norms, vilbert's DTPU
+  pruning keeping one device's tokens; ``parallel.gather_cols``'s
+  backward reduce-scatters on the 'model' group;
 * a (1, 4) ("data", "model") world computes tensor-parallel: qwen3-32b
   smoke (8 query heads split, its 2 kv heads replicated and sliced),
   h2o-danube3-4b smoke (a sliding window) and one arch of every other
@@ -64,6 +70,7 @@ from repro_torch.serve.engine import Engine, Request
 from repro_torch.train import loop as L
 from repro_torch.train import optimizer as OPT
 from repro_torch.train.checkpoint import Checkpointer
+from repro_torch.train.steps import make_train_step
 
 ROOT = Path(__file__).resolve().parents[1]
 SERVE_ARCHS = ["starcoder2-7b", "qwen2-vl-2b"]
@@ -80,6 +87,14 @@ TP_ARCHS = ["qwen3-32b", "h2o-danube3-4b", "qwen2-vl-2b", "mamba2-780m",
 # context-parallel (heads that 4 does not divide: minitron-4b's 6,
 # hymba-1.5b's 5 with its 16-key window)
 CP_ARCHS = ["minitron-4b", "hymba-1.5b"]
+# trained on the (1, 4) world beside TP_ARCHS: vilbert-base (a head of 4 a
+# stream, its pruning's token choice summed over 'model') and whisper-base
+# (a head of 4, its cross-attention's K/V from the encoder states, the
+# tied vocabulary's loss over 'model')
+FAMILY_ARCHS = ["vilbert-base", "whisper-base"]
+# trained on the (2, 2) world at fsdp_threshold=0: the families whose
+# layers the step splits over 'model' since the SSM projections
+OTHER_ARCHS = ["vilbert-base", "whisper-base", "mamba2-780m", "hymba-1.5b"]
 REQUESTS = [(8, 4, 0), (12, 3, 1)]           # prompt length, new, arrival
 SHAPE = ShapeConfig("sys", seq_len=64, global_batch=4, kind="train")
 STEPS = 3
@@ -153,11 +168,11 @@ WORLD4 = COMMON + textwrap.dedent("""
     if rank == 0:
         np.savez(f"{out}/params22_mb.npz", **{
             k: p.detach().numpy() for k, p in rmb["model"].named_parameters()})
-    # the families whose layers compute replicated over 'model': vilbert
-    # gathers a layer (a co-TRM block: both streams) at a time, whisper
-    # its whole model for the step
+    # the families whose layers split over 'model' in this slice: the SSM
+    # projections, vilbert (a layer, a co-TRM block of both streams, a
+    # unit) and whisper (its whole model one unit for the step)
     other = {}
-    for arch in ("vilbert-base", "whisper-base"):
+    for arch in %(other_archs)r:
         c = registry.get_config(arch, smoke=True)
         r = L.train(c, SHAPE, SyntheticLM(c, SHAPE, seed=0), tcfg(),
                     device="cpu", mesh=m22, fsdp_threshold=0,
@@ -168,9 +183,22 @@ WORLD4 = COMMON + textwrap.dedent("""
                                    batch_shardings(registry.input_specs(
                                        c, SHAPE), m22), m22), c,
                        torch.device("cpu")))
+        if arch == "vilbert-base":
+            # its parameters after 2 steps, where one device's step-3
+            # gradient norm is read (_match_single)
+            t2 = tcfg()
+            t2.steps = 2
+            r2 = L.train(c, SHAPE, SyntheticLM(c, SHAPE, seed=0), t2,
+                         device="cpu", mesh=m22, fsdp_threshold=0,
+                         gather_model=True)
+            if rank == 0:
+                np.savez(f"{out}/params22_2_{arch}.npz", **{
+                    k: p.detach().numpy()
+                    for k, p in r2["model"].named_parameters()})
         other[arch] = {"metrics": r["metrics"], "max_live":
                        st.max_live_units, "gathered": st.units_gathered,
-                       "resident": len(st.resident)}
+                       "resident": len(st.resident),
+                       "local": sorted(st.local)}
         if rank == 0:
             np.savez(f"{out}/params22_{arch}.npz", **{
                 k: p.detach().numpy() for k, p in r["model"].named_parameters()})
@@ -181,7 +209,7 @@ WORLD4 = COMMON + textwrap.dedent("""
     if rank == 0:
         np.savez(f"{out}/params22.npz", **{
             k: p.detach().numpy() for k, p in res["model"].named_parameters()})
-""")
+""") % {"other_archs": OTHER_ARCHS}
 
 WORLD14 = COMMON + textwrap.dedent("""
     from torch.utils.flop_counter import FlopCounterMode
@@ -191,10 +219,27 @@ WORLD14 = COMMON + textwrap.dedent("""
                                          make_train_step)
     from repro_torch.core import runtime
     from repro_torch.distributed.hints import hint_shardings
+    from repro_torch.core import pruning as PR
+    from repro_torch.distributed import parallel as PL
     mesh = make_mesh((1, 4), ("data", "model"), "cpu")
-    res = {"blocks": {}}
+    res = {"blocks": {}, "metrics": {}, "kept": []}
+    # gather_cols on the 'model' group: rank r's columns x_r, its loss
+    # reading every column with weights w_r
+    x = torch.randn(2, 3, generator=torch.Generator().manual_seed(rank))
+    x.requires_grad_(True)
+    w = torch.randn(2, 12, generator=torch.Generator().manual_seed(10 + rank))
+    y = PL.ModelParallel(rank, 4, mesh.get_group("model")).gather_cols(x)
+    res["gather_cols"] = {"y": y.tolist(), "grad": torch.autograd.grad(
+        (y * w).sum(), x)[0].tolist()}
+    # the tokens vilbert's DTPU pruning keeps, each call
+    prune = PR.prune_stream
+    def kept(*a, **k):
+        out = prune(*a, **k)
+        res["kept"].append(out[1].tolist())
+        return out
+    PR.prune_stream = kept
     table = hint_shardings(["attn_q", "attn_out"], mesh)
-    runs = [(a, a, None) for a in %(tp_archs)r]
+    runs = [(a, a, None) for a in %(tp_archs)r + %(family_archs)r]
     runs += [(a, a + "+cp", table) for a in %(cp_archs)r]
     for arch, key, hints in runs:
         c = registry.get_config(arch, smoke=True)
@@ -202,12 +247,25 @@ WORLD14 = COMMON + textwrap.dedent("""
             r = L.train(c, SHAPE, SyntheticLM(c, SHAPE, seed=0), tcfg(),
                         device="cpu", mesh=mesh, gather_model=True)
         res[key] = [m["loss"] for m in r["metrics"]]
+        res["metrics"][key] = r["metrics"]
         res["blocks"][key] = {k: list(p.to_local().shape)
                               for k, p in r["params"].items()}
         if rank == 0:
             np.savez(f"{out}/params14_{key}.npz", **{
                 k: p.detach().numpy()
                 for k, p in r["model"].named_parameters()})
+    # vilbert-base's parameters after 2 steps (_match_single), its
+    # pruning no longer recorded
+    PR.prune_stream = prune
+    t2 = tcfg()
+    t2.steps = 2
+    c = registry.get_config("vilbert-base", smoke=True)
+    r = L.train(c, SHAPE, SyntheticLM(c, SHAPE, seed=0), t2, device="cpu",
+                mesh=mesh, gather_model=True)
+    if rank == 0:
+        np.savez(f"{out}/params14_2_vilbert-base.npz", **{
+            k: p.detach().numpy()
+            for k, p in r["model"].named_parameters()})
     # the JAX loop's initial weights (its losses are the JAX leg's)
     w = dict(np.load(f"{out}/jax_init.npz"))
     tree = {}
@@ -238,7 +296,8 @@ WORLD14 = COMMON + textwrap.dedent("""
     res["flops_single"] = fc.get_total_flops()
     res["local"] = {k: list(b.shape) for k, b in step.blocks.items()}
     dump("world14", res)
-""") % {"tp_archs": TP_ARCHS, "cp_archs": CP_ARCHS}
+""") % {"tp_archs": TP_ARCHS, "cp_archs": CP_ARCHS,
+        "family_archs": FAMILY_ARCHS}
 
 WORLD2 = COMMON + textwrap.dedent("""
     from repro_torch.convert import transformer_from_jax
@@ -396,9 +455,20 @@ def worlds(tmp_path_factory):
             for m, mm in (("none", None), ("mesh", mesh))}
     local["single"] = _train()
     local["single_mb"] = _train(microbatches=2)
-    local["single_other"] = {arch: _train(arch=arch) for arch in
-                             ("vilbert-base", "whisper-base")}
-    local["single_tp"] = {arch: _train(arch=arch) for arch in TP_ARCHS[1:]}
+    from repro_torch.core import pruning as PR
+    kept, prune = [], PR.prune_stream
+
+    def record(*a, **k):
+        out = prune(*a, **k)
+        kept.append(out[1].tolist())
+        return out
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(PR, "prune_stream", record)
+        local["single_other"] = {arch: _train(arch=arch)
+                                 for arch in OTHER_ARCHS}
+    local["kept"] = kept
+    local["single_tp"] = {arch: local["single_other"].get(arch)
+                          or _train(arch=arch) for arch in TP_ARCHS[1:]}
     local["single_tp"]["qwen3-32b"] = local["single"]
     for arch in CP_ARCHS:
         local["single_tp"][arch + "+cp"] = local["single_tp"].get(
@@ -542,34 +612,134 @@ def test_mesh_step_gathers_a_unit_at_a_time_on_2x2(worlds):
         assert r["live"] == 0
 
 
-@pytest.mark.parametrize("arch", ["vilbert-base", "whisper-base"])
+def _one_device_grad_norm(arch: str, params: Path, step: int) -> float:
+    """The single-device step's gradient norm at the parameters saved in
+    ``params``, on the batch of step ``step`` (from 0) of ``_train``'s
+    source."""
+    cfg = registry.get_config(arch, smoke=True)
+    cpu = torch.device("cpu")
+    model = L.build_model(cfg, cpu, 0)
+    saved = np.load(params)
+    with torch.no_grad():
+        for k, p in model.named_parameters():
+            p.copy_(torch.from_numpy(saved[k]))
+    batch = L.to_device(SyntheticLM(cfg, SHAPE, seed=0).batch(step), cfg,
+                        cpu)
+    step_fn = make_train_step(cfg, OPT.OptimizerConfig(
+        learning_rate=1e-3, warmup_steps=5, decay_steps=200))
+    _, _, metrics = step_fn(model, OPT.init(dict(model.named_parameters())),
+                            batch)
+    return metrics["grad_norm"]
+
+
+def _match_single(arch: str, runs: list, single: list, after2: Path):
+    """Each mesh rank's losses and gradient norms (``runs``, a metrics
+    list a rank) within 2e-5 of the single-device run's, step for step;
+    vilbert-base's step-3 gradient norm within 2e-5 of one device's at
+    the mesh run's own parameters after 2 steps (``after2``).  Its
+    single-device run's reads 6.5e-5 from (2, 2)'s: the two runs'
+    parameters after 2 steps differ by up to 3.0e-5 (text_embed), all
+    in elements whose gradients are 1e-8 to 1e-7 (the tensors' medians
+    1e-3 to 1e-2), where AdamW's eps (1e-8) makes the step follow the
+    summation order's last digits; at the mesh's parameters one device
+    reads its step-3 norm within 1.2e-6."""
+    want = {key: [m[key] for m in single] for key in ("loss", "grad_norm")}
+    if arch == "vilbert-base":
+        want["grad_norm"][2] = _one_device_grad_norm(arch, after2, 2)
+    for metrics in runs:
+        for key, w in want.items():
+            _close([m[key] for m in metrics], w)
+
+
+@pytest.mark.parametrize("arch", OTHER_ARCHS)
 def test_the_other_families_train_on_2x2(worlds, arch):
     """fsdp_threshold=0 on (2, 2), 3 steps: losses and gradient norms
-    within 2e-5 of the single-device run.  whisper-base (its layers not
-    yet units) gathers its whole model for the step, one unit, and its
-    parameters end within 2e-5.  vilbert-base gathers each text-only
-    layer and each co-TRM block, its 6 other parameters for the step
-    (2 units at most at once: the step's and a layer's); its parameters
-    are not compared: at random weights its pooler's tanh saturates, and
-    AdamW turns the summation order's noise in those near-zero gradients
-    into steps of the learning rate's size (ROADMAP, facts about the
-    reference)."""
+    within 2e-5 of the single-device run (vilbert-base's third gradient
+    norm of one device's at the mesh run's parameters, as
+    ``_match_single`` says), each family's layers on the
+    rank's 'model' blocks (two heads of 4 a stream for vilbert-base and
+    whisper-base; mamba2-780m's SSM on 2 of its 4 heads, its in_proj's
+    columns split; hymba-1.5b's too, and its 5 attention heads whole).
+    whisper-base (its layers not units) gathers its whole model for the
+    step, one unit.  vilbert-base gathers each text-only layer and each
+    co-TRM block, its 6 other parameters for the step (2 units at most at
+    once: the step's and a layer's); its parameters are not compared: at
+    random weights its pooler's tanh saturates, and AdamW turns the
+    summation order's noise in those near-zero gradients into steps of
+    the learning rate's size (ROADMAP, facts about the reference).  The
+    others' parameters end within 2e-5."""
     out, _, local = worlds
     single = local["single_other"][arch]["metrics"]
+    _match_single(arch, [r[arch]["metrics"]
+                         for r in _load(out, "other22", 4)], single,
+                  out / f"params22_2_{arch}.npz")
+    want_local = {
+        "vilbert-base": ("co_x.0.co_attn.wk", "co_y.1.self_attn.wo",
+                         "text_pre.0.attn.wq", "text_embed.embedding"),
+        "whisper-base": ("dec_layers.0.cross_attn.wk", "enc_layers.1.attn.wo",
+                         "dec_layers.1.mlp.w_up", "embed.embedding"),
+        "mamba2-780m": ("layers.0.ssm.in_proj", "layers.1.ssm.out_proj"),
+        "hymba-1.5b": ("layers.0.ssm.in_proj", "layers.1.ssm.out_proj",
+                       "layers.0.mlp.w_down")}[arch]
     for r in _load(out, "other22", 4):
         got = r[arch]
-        for key in ("loss", "grad_norm"):
-            _close([m[key] for m in got["metrics"]],
-                   [m[key] for m in single])
+        assert set(want_local) <= set(got["local"])
         if arch == "whisper-base":
             assert got["gathered"] == 1 and got["max_live"] == 1
-        else:
+        elif arch == "vilbert-base":
             assert got["resident"] == 6 and 2 < got["gathered"]
             assert got["max_live"] == 2
-    if arch == "whisper-base":
+        else:
+            assert "layers.0.attn.wq" not in got["local"]
+            assert 1 <= got["max_live"] <= 2
+    if arch != "vilbert-base":
         p = np.load(out / f"params22_{arch}.npz")
         for k, v in local["single_other"][arch]["model"].named_parameters():
             _close(p[k], v.detach().numpy())
+
+
+@pytest.mark.parametrize("arch", FAMILY_ARCHS)
+def test_vilbert_and_whisper_train_on_a_1x4_world(worlds, arch):
+    """On (1, 4), one head of 4 a rank: losses and gradient norms within
+    2e-5 of the single-device run (``_match_single``; whisper-base's
+    parameters too; not vilbert-base's, as on (2, 2)), and every rank
+    keeps the tokens one
+    device's DTPU pruning keeps, call for call."""
+    out, _, local = worlds
+    single = local["single_other"][arch]
+    _match_single(arch, [r["metrics"][arch] for r in _load(out, "world14", 4)],
+                  single["metrics"], out / f"params14_2_{arch}.npz")
+    for r in _load(out, "world14", 4):
+        b = r["blocks"][arch]
+        if arch == "vilbert-base":
+            assert b["co_y.0.co_attn.wk"][1] == 1
+            assert r["kept"] and r["kept"] == local["kept"]
+        else:
+            assert b["dec_layers.0.cross_attn.wk"][1] == 1
+            assert b["embed.embedding"][0] * 4 == 512
+    if arch == "whisper-base":
+        got = np.load(out / f"params14_{arch}.npz")
+        for k, p in single["model"].named_parameters():
+            _close(got[k], p.detach().numpy())
+
+
+def test_gather_cols_on_gloo_reduce_scatters_its_gradient(worlds):
+    """``parallel.gather_cols`` on the (1, 4) world's 'model' group: every
+    rank gets the ranks' columns in rank order, and rank r's input
+    gradient is its columns of the sum of the ranks' gradients (each
+    rank's loss reads all 12 columns with its own weights); the rank's
+    columns of its own gradient alone would differ."""
+    out, _, _ = worlds
+    xs = [torch.randn(2, 3, generator=torch.Generator().manual_seed(r))
+          for r in range(4)]
+    ws = [torch.randn(2, 12, generator=torch.Generator().manual_seed(10 + r))
+          for r in range(4)]
+    total = sum(ws)
+    for r, res in enumerate(_load(out, "world14", 4)):
+        got = res["gather_cols"]
+        _close(got["y"], torch.cat(xs, -1).numpy(), 0)
+        _close(got["grad"], total[:, 3 * r:3 * r + 3].numpy(), 1e-6)
+        assert not np.allclose(got["grad"], ws[r][:, 3 * r:3 * r + 3])
 
 
 @pytest.mark.parametrize("arch", TP_ARCHS + [a + "+cp" for a in CP_ARCHS])

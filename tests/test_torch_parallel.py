@@ -16,12 +16,23 @@ CPU, without a process group:
   expert's d_ff does; its 4 heads stay whole); under the ``attn_q`` hint
   minitron-4b (6 heads) and hymba-1.5b (5 heads, a 16-key window) at 4
   and qwen2-vl-2b (M-RoPE) at 8, context-parallel; a sequence of 30,
-  which 4 does not divide, stays replicated;
+  which 4 does not divide, context-parallel on blocks of 8 rows, the last
+  one ending at row 30;
 * a layer's recomputation under remat runs under the forward's runtime
   flags, also on another thread (autograd's device thread on the card);
 * the vocabulary-parallel loss and lookup at one rank are the plain ones;
+* the SSM mixer (mamba2-780m smoke's heads, hymba-1.5b smoke's heads or
+  its out_proj rows alone), vilbert-base smoke's co-TRM block (both
+  streams, LAYER and TILE at 4) and whisper-base smoke's decoder layer
+  (by heads at 4; context-parallel under the hint at 8) and encoder
+  layer (context-parallel over 45 frames, which 8 does not divide) the
+  same way, the SSM's ``gather_cols`` and ``sum_over`` through an
+  ``Exchange``; ``gather_cols``'s backward sums over the ranks before it
+  takes the rank's columns, and a rank without a group or an
+  ``Exchange`` refuses both;
 * which parameters the layers compute on their block, against the rule
-  table at production axis sizes, for every arch;
+  table at production axis sizes, for every arch (nothing replicated),
+  and vilbert-base's language stream at 8 (12 heads) kept whole;
 * ``train.loop.build_sharded`` keeps exactly ``build_model``'s values in
   each rank's block, on a fake (2, 2) world.
 """
@@ -39,9 +50,10 @@ from repro_torch.distributed.hints import hint_shardings
 from repro_torch.models.layers import (attention_forward,
                                        attention_forward_mrope, embed_lookup,
                                        mlp_forward, moe_forward,
-                                       mrope_tables, rope_tables_for)
+                                       mrope_tables, nll_sum,
+                                       rope_tables_for)
 from repro_torch.models.mla import mla_forward
-from repro_torch.models.transformer import Block, _chunk_nll
+from repro_torch.models.transformer import Block
 from repro_torch.train import loop as L
 
 PROD = {"data": 16, "model": 16}
@@ -104,10 +116,9 @@ def _rel(got, want):
 
 def _case_modes():
     """Every mode where the split attention reads it; one for MLA and
-    M-RoPE (they read no mode), expert-TP (the split is the MoE's; the
-    attention stays whole) and the sequence that stays replicated."""
-    blind = ("deepseek-v3-671b", "grok-1-314b", "qwen2-vl-2b-cp",
-             "minitron-4b-cp-seq30")
+    M-RoPE (they read no mode) and expert-TP (the split is the MoE's; the
+    attention stays whole)."""
+    blind = ("deepseek-v3-671b", "grok-1-314b", "qwen2-vl-2b-cp")
     return [pytest.param(a, m, id=f"{a}-{m.value}") for a in CASES
             for m in ExecutionMode
             if a not in blind or m == ExecutionMode.LAYER_STREAM]
@@ -133,13 +144,12 @@ def test_ranks_sum_to_the_whole_layer(arch, mode):
                                if cfg.attn_kind == AttnKind.MLA else None)
     hints = hint_shardings(["attn_q", "attn_out"], SH._SimulatedMesh(
         {"data": 1, "model": m})) if hinted else None
-    rows = (hinted and S % m == 0
-            and PL.context_split(cfg, m, hints))
+    rows = hinted and PL.context_split(cfg, m, hints)
     # neither the heads nor the rows split: every rank runs the whole
     # attention, of which it contributes 1/m (m a power of two: exact)
     whole_attn = not (rows or PL.attention_split(cfg, m)
                       or cfg.attn_kind == AttnKind.MLA)
-    assert rows == (hinted and S % m == 0)
+    assert rows == hinted
     names = [n for n, _ in blk.named_parameters()]
     with runtime.flags(sharding_hints=hints):
         a, f = _sublayers(blk, cfg, h, tabs, mode)
@@ -147,7 +157,7 @@ def test_ranks_sum_to_the_whole_layer(arch, mode):
                                     allow_unused=True)
         want = {n: g for n, g in zip(names, whole[1:]) if g is not None}
         ys, dh, parts = 0, 0, {}
-        n = S // m
+        n = -(-S // m)     # rank r's rows r·n ... min((r + 1)·n, S) - 1
         for r in range(m):
             with PL.rank_view(blk, "layers", cfg, r, m) as t:
                 for k, shape in _want_shapes(cfg, m).items():
@@ -262,8 +272,8 @@ def test_vocab_parallel_loss_and_lookup_at_one_rank_are_the_plain_ones():
     labels = torch.from_numpy(rng.integers(0, 512, (2, 16)))
     labels[0, :3] = -1
     tp = PL.ModelParallel(0, 1)
-    plain = _chunk_nll(w, h, labels, None)
-    split = _chunk_nll(w, h, labels, tp)
+    plain = nll_sum(w, h, labels, None)
+    split = nll_sum(w, h, labels, tp)
     torch.testing.assert_close(split, plain, rtol=1e-6, atol=1e-5)
     gp, = torch.autograd.grad(plain, w)
     gs, = torch.autograd.grad(split, w)
@@ -278,10 +288,11 @@ def test_what_the_layers_compute_on_their_block(arch):
     """At (16, 16): every parameter computed on its block is one the rule
     table splits over 'model' (its block is what the step stores), and
     everything the rules split is either computed on its block or listed
-    as replicated over 'model'.  The dense decoders, qwen2-vl (whose
-    attention the rules keep whole at 16) and the MoE family (experts and
-    MLA on their blocks) list none; the SSM projections and the families
-    whose layers are a later slice list theirs."""
+    as replicated over 'model'.  No arch lists any: the dense decoders,
+    qwen2-vl (whose attention the rules keep whole at 16), the MoE
+    family (experts and MLA on their blocks), the SSM projections
+    (mamba2's heads; hymba's out_proj rows, its in_proj replicated by the
+    rule), vilbert (its heads where they divide) and whisper."""
     cfg = registry.get_config(arch)
     shapes = {k: v.shape for k, v in registry.param_specs(cfg).items()}
     local = PL.local_names(shapes, cfg, PROD)
@@ -291,17 +302,24 @@ def test_what_the_layers_compute_on_their_block(arch):
         on_model = any("model" in SH._axes(e) for e in s.spec)
         path = SH.jax_path(k)[0]
         assert (k in local) + (path in listed) == on_model, k
-    # every decoder family's layers compute on their blocks but the SSM
-    # projections (item 32); vilbert's and whisper's compute replicated
-    ssm = cfg.family in (Family.SSM, Family.HYBRID)
-    assert (not listed) == (not ssm and cfg.family
-                            not in PL.REPLICATED_FAMILIES)
-    if ssm:
-        assert {p.split("/")[-1] for p in listed} <= {"in_proj", "out_proj"}
-    if cfg.family in PL.REPLICATED_FAMILIES:
-        assert not local
-    else:
-        assert "embed.embedding" in local
+    assert not listed
+    emb = ("text_embed.embedding" if cfg.family == Family.CROSSMODAL
+           else "embed.embedding")
+    assert emb in local
+    if cfg.family == Family.SSM:
+        assert {"layers.0.ssm.in_proj", "layers.0.ssm.out_proj"} <= local
+    if cfg.family == Family.HYBRID:
+        assert "layers.0.ssm.out_proj" in local
+        assert "layers.0.ssm.in_proj" not in local
+    if cfg.family == Family.CROSSMODAL:
+        att = {f"{s}.0.{a}.wq" for s in ("co_x", "co_y")
+               for a in ("co_attn", "self_attn")}
+        # vilbert-large's 16 heads split; vilbert-base's 8 (the rule's
+        # count) do not divide 16, and the rules keep them whole
+        assert (att <= local) == (arch == "vilbert-large")
+        assert "co_x.0.mlp.w_up" in local and "text_pre.0.mlp.w_down" in local
+    if cfg.family == Family.ENCDEC:
+        assert {"enc_layers.0.mlp.w_up", "dec_layers.0.mlp.w_down"} <= local
     assert PL.attention_split(cfg, 16) == (arch in ("qwen3-32b",
                                                     "grok-1-314b",
                                                     "h2o-danube3-4b"))
@@ -312,11 +330,261 @@ def test_what_the_layers_compute_on_their_block(arch):
         assert {"layers.0.attn.wq_b", "dense_layers.0.attn.wo"} <= local
         assert "layers.0.attn.wkv_a" not in local
     # the attn_q hint makes attention context-parallel where the heads do
-    # not split over 'model'
+    # not split over 'model' (vilbert's attention reaches no hint)
     hints = hint_shardings(["attn_q", "attn_out"], SH._SimulatedMesh(PROD))
     assert PL.context_split(cfg, 16, hints) == (arch in (
-        "starcoder2-7b", "minitron-4b", "qwen2-vl-2b", "hymba-1.5b"))
+        "starcoder2-7b", "minitron-4b", "qwen2-vl-2b", "hymba-1.5b",
+        "whisper-base"))
     assert not PL.context_split(cfg, 16, None)
+
+
+def test_vilbert_base_language_stream_at_8_stays_whole():
+    """The rule reads the vision stream's head count (8) for both streams
+    of vilbert-base: at 'model' 8 it splits the language stream's 12
+    heads too, which 8 does not divide.  Those weights stay whole over
+    'model' and are listed as replicated; the vision stream's take their
+    blocks; a block of 12 heads over 8 is refused."""
+    cfg = registry.get_config("vilbert-base")
+    shapes = {k: v.shape for k, v in registry.param_specs(cfg).items()}
+    sizes = {"data": 1, "model": 8}
+    assert SH.spec_for_param("text_pre/attn/wq", (768, 12, 64), cfg,
+                             SH._SimulatedMesh(sizes), False) == (
+        None, "model", None)
+    local = PL.local_names(shapes, cfg, sizes)
+    listed = PL.replicated_over_model(shapes, cfg, sizes)
+    lang = [f"{p}/{n}" for p in ("text_pre/attn", "co_y/co_attn",
+                                 "co_y/self_attn")
+            for n in ("wq", "wk", "wv", "wo")]
+    assert listed == sorted(lang)
+    for side in ("co_attn", "self_attn"):
+        assert f"co_x.0.{side}.wq" in local
+        assert f"co_y.0.{side}.wq" not in local
+    assert "co_y.0.mlp.w_up" in local and "text_pre.0.mlp.w_up" in local
+    with pytest.raises(ValueError, match="evenly"):
+        PL.model_block(torch.zeros(768, 12, 64), "text_pre/attn/wq", cfg, 0, 8)
+    assert PL.model_block(torch.zeros(1024, 8, 128), "co_x/co_attn/wq", cfg,
+                          3, 8).shape == (1024, 1, 128)
+
+
+def _rank_sums(module, prefix, cfg, m, run, inputs, exchange=None):
+    """The whole ``run()`` (a list of outputs) of ``module`` and its m
+    ranks in turn (``rank_view``; with an ``exchange``, every pass until
+    it holds, the last one's): outputs and input gradients summed, each
+    parameter's gradient joined (a block) or summed (replicated), each
+    against the whole's, as max |difference| / max |value|."""
+    params = dict(module.named_parameters())
+    outs = run()
+    rng = np.random.default_rng(9)
+    dys = [torch.from_numpy(rng.standard_normal(o.shape).astype(np.float32))
+           for o in outs]
+    whole = torch.autograd.grad(outs, inputs + list(params.values()), dys,
+                                allow_unused=True)
+    want = {n: g for n, g in zip(params, whole[len(inputs):])
+            if g is not None}
+    passes = exchange or PL.Exchange()
+    while passes.another_pass():
+        ys, dxs, parts = [0] * len(outs), [0] * len(inputs), {}
+        for r in range(m):
+            with PL.rank_view(module, prefix, cfg, r, m,
+                              exchange=exchange) as t:
+                o = run()
+                keys = list(t)
+                got = torch.autograd.grad(o, inputs + [t[k] for k in keys],
+                                          dys, allow_unused=True)
+            ys = [a + b.detach() for a, b in zip(ys, o)]
+            dxs = [a + b for a, b in zip(dxs, got[:len(inputs)])]
+            for k, g in zip(keys, got[len(inputs):]):
+                if g is not None:
+                    parts.setdefault(k, []).append(g)
+        if exchange is None:
+            break
+    gaps = {f"y{i}": _rel(a, b) for i, (a, b) in enumerate(zip(ys, outs))}
+    gaps.update({f"d{i}": _rel(a, b)
+                 for i, (a, b) in enumerate(zip(dxs, whole))})
+    assert set(parts) == set(want)
+    for k, gs in parts.items():
+        if gs[0].shape == want[k].shape:
+            got = sum(gs)
+        else:
+            d = next(i for i, (a, b) in enumerate(zip(gs[0].shape,
+                                                      want[k].shape))
+                     if a != b)
+            got = torch.cat(gs, d)
+        gaps[k] = _rel(got, want[k])
+    return gaps
+
+
+def _inputs(rng, *shapes):
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+            .requires_grad_(True) for s in shapes]
+
+
+# (arch, 'model' size): mamba2-780m smoke's 4 heads of 48 channels, 1 or
+# 2 a rank (its in_proj's 420 columns split); hymba-1.5b smoke at 4 (1 of
+# 4 heads of 50) and at 8, where 25 rows a rank are no whole head and its
+# in_proj (420 over 8) stays replicated: out_proj's rows alone split
+SSM_CASES = [("mamba2-780m", 4), ("mamba2-780m", 2), ("hymba-1.5b", 4),
+             ("hymba-1.5b", 8)]
+
+
+@pytest.mark.parametrize("arch,m", SSM_CASES)
+def test_ssm_ranks_sum_to_the_whole_layer(arch, m):
+    """The SSM mixer of a layer on m 'model' ranks in turn, its
+    ``gather_cols`` and ``sum_over`` carried by an ``Exchange``: outputs,
+    input gradients and every parameter's gradient within 1e-5 of the
+    whole mixer's (f32)."""
+    from repro_torch.models.ssm import ssm_dims, ssm_forward
+    cfg = registry.get_config(arch, smoke=True)
+    blk = Block(cfg, torch.Generator().manual_seed(0)).requires_grad_(True)
+    h, = _inputs(np.random.default_rng(0), (2, 32, cfg.d_model))
+    _, d_inner, _, P = ssm_dims(cfg)
+    heads = (d_inner // m) % P == 0
+    split_in = (d_inner * 2 + 2 * cfg.ssm_state + ssm_dims(cfg)[2]) % m == 0
+    assert (arch, m, heads, split_in) in (
+        ("mamba2-780m", 4, True, True), ("mamba2-780m", 2, True, True),
+        ("hymba-1.5b", 4, True, True), ("hymba-1.5b", 8, False, False))
+    cols = blk.ssm.in_proj.shape[1]
+    with PL.rank_view(blk.ssm, "layers/ssm", cfg, 0, m) as t:
+        assert t["out_proj"].shape[0] == d_inner // m
+        assert t["in_proj"].shape[1] * (m if split_in else 1) == cols
+    ex = PL.Exchange()
+    gaps = _rank_sums(blk.ssm, "layers/ssm", cfg, m,
+                      lambda: [ssm_forward(blk.ssm, cfg, h)], [h], ex)
+    assert ex.passes == (5 if heads else 1)
+    assert max(gaps.values()) < 1e-5, gaps
+
+
+def test_gather_cols_backward_sums_before_it_takes_the_rank_columns():
+    """``gather_cols`` through an ``Exchange``: every rank gets the whole
+    columns, and its input gradient is its columns of the ranks' summed
+    gradients (a reduce-scatter), not its columns of its own gradient
+    alone: ranks that read different columns of the whole each hold a
+    partial gradient of it."""
+    m, n = 4, 3
+    rng = np.random.default_rng(4)
+    xs = [torch.from_numpy(rng.standard_normal((2, n)).astype(np.float32))
+          for _ in range(m)]
+    ws = [torch.from_numpy(rng.standard_normal((2, m * n)).astype(np.float32))
+          for _ in range(m)]
+    ex = PL.Exchange()
+    while ex.another_pass():
+        grads, outs = [], []
+        for r in range(m):
+            tp = PL.ModelParallel(r, m, exchange=ex)
+            x = xs[r].clone().requires_grad_(True)
+            y = tp.gather_cols(x)
+            outs.append(y.detach())
+            grads.append(torch.autograd.grad((y * ws[r]).sum(), x)[0])
+    whole = torch.cat(xs, -1)
+    total = sum(ws)
+    for r in range(m):
+        assert torch.equal(outs[r], whole)
+        torch.testing.assert_close(grads[r], total[:, r * n:(r + 1) * n])
+        assert not torch.allclose(grads[r], ws[r][:, r * n:(r + 1) * n])
+
+
+@pytest.mark.parametrize("mode", [ExecutionMode.LAYER_STREAM,
+                                  ExecutionMode.TILE_STREAM])
+def test_vilbert_co_trm_ranks_sum_to_the_whole(mode):
+    """vilbert-base smoke's co-TRM block, both streams, on 4 'model'
+    ranks (one of 4 heads a stream): co-attention (Q from the own stream,
+    K/V generated from the other modality: in TILE_STREAM the stream
+    kernel's plain version on the rank's heads), self-attention and the
+    MLP of each stream on pre-normed inputs, summed over the ranks,
+    within 1e-5 of the whole, gradients too."""
+    from repro_torch.models import vilbert as V
+    cfg = registry.get_config("vilbert-base", smoke=True)
+    model = V.ViLBERT(cfg, device="cpu").requires_grad_(True)
+    x, y = _inputs(np.random.default_rng(1), (2, 32, cfg.d_model),
+                   (2, 24, cfg.d_model_y))
+    px, py = model.co_x[0], model.co_y[0]
+    assert V._resolve(cfg, mode, cfg.d_model_y, cfg.num_heads,
+                      cfg.d_model // cfg.num_heads) == mode
+
+    def run():
+        return [V._attn(px.co_attn, cfg, x, y, mode),
+                V._attn(px.self_attn, cfg, x, x, mode), mlp_forward(px.mlp, x),
+                V._attn(py.co_attn, cfg, y, x, mode),
+                V._attn(py.self_attn, cfg, y, y, mode), mlp_forward(py.mlp, y)]
+    with PL.rank_view(model, None, cfg, 0, 4) as t:
+        for side, H in (("co_x", cfg.num_heads), ("co_y", cfg.num_heads_y)):
+            assert t[f"{side}.0.co_attn.wk"].shape[1] == H // 4
+            assert t[f"{side}.0.self_attn.wo"].shape[0] == H // 4
+    gaps = _rank_sums(model, None, cfg, 4, run, [x, y])
+    assert max(gaps.values()) < 1e-5, gaps
+
+
+@pytest.mark.parametrize("m,hinted", [(4, False), (8, True)])
+@pytest.mark.parametrize("mode", [ExecutionMode.LAYER_STREAM,
+                                  ExecutionMode.TILE_STREAM])
+def test_whisper_decoder_layer_ranks_sum_to_the_whole(m, hinted, mode):
+    """whisper-base smoke's decoder layer on m 'model' ranks: its causal
+    self-attention, its cross-attention to the encoder states (x_kv by
+    ``copy``) and its MLP on pre-normed inputs, summed over the ranks
+    within 1e-5 of the whole, gradients too: at 4 on one of 4 heads a
+    rank; at 8, which its 4 heads do not divide, under the attn_q hint
+    context-parallel on 4 of 32 query rows a rank."""
+    from repro_torch.models import encdec as E
+    cfg = registry.get_config("whisper-base", smoke=True)
+    model = E.EncDec(cfg, device="cpu").requires_grad_(True)
+    x, enc = _inputs(np.random.default_rng(2), (2, 32, cfg.d_model),
+                     (2, cfg.encoder_seq, cfg.d_model))
+    p = model.dec_layers[0]
+    hints = hint_shardings(["attn_q", "attn_out"], SH._SimulatedMesh(
+        {"data": 1, "model": m})) if hinted else None
+    assert PL.context_split(cfg, m, hints) == hinted
+    assert PL.attention_split(cfg, m) == (not hinted)
+
+    def run():
+        return [attention_forward(p.self_attn, cfg, x, causal=True,
+                                  mode=mode),
+                attention_forward(p.cross_attn, cfg, x, x_kv=enc,
+                                  causal=False, mode=mode),
+                mlp_forward(p.mlp, x)]
+    with runtime.flags(sharding_hints=hints):
+        gaps = _rank_sums(model, None, cfg, m, run, [x, enc])
+    assert max(gaps.values()) < 1e-5, gaps
+
+
+@pytest.mark.parametrize("mode", [ExecutionMode.LAYER_STREAM,
+                                  ExecutionMode.TILE_STREAM])
+def test_whisper_encoder_layer_ranks_sum_over_uneven_rows(mode):
+    """whisper-base smoke's encoder layer over 45 frames on 8 'model'
+    ranks under the attn_q hint (its 4 heads do not divide 8): the
+    non-causal self-attention context-parallel on blocks of 6 query rows,
+    the last two ending at frame 45 (rank 7 owns frames 42-44 of its
+    block 39-44), and the MLP on its d_ff block, summed over the ranks
+    within 1e-5 of the whole, gradients too."""
+    from repro_torch.models import encdec as E
+    cfg = registry.get_config("whisper-base", smoke=True)
+    model = E.EncDec(cfg, device="cpu").requires_grad_(True)
+    x, = _inputs(np.random.default_rng(3), (2, 45, cfg.d_model))
+    p = model.enc_layers[0]
+    hints = hint_shardings(["attn_q", "attn_out"], SH._SimulatedMesh(
+        {"data": 1, "model": 8}))
+    assert PL.context_split(cfg, 8, hints) and 45 % 8
+
+    def run():
+        return [attention_forward(p.attn, cfg, x, causal=False, mode=mode),
+                mlp_forward(p.mlp, x)]
+    with runtime.flags(sharding_hints=hints):
+        with PL.rank_view(model, None, cfg, 7, 8):
+            own = run()[0]
+        assert not own[:, :42].any() and own[:, 42:].abs().min() > 0
+        gaps = _rank_sums(model, None, cfg, 8, run, [x])
+    assert max(gaps.values()) < 1e-5, gaps
+
+
+def test_a_rank_without_group_or_exchange_refuses_to_gather():
+    """Without a group, ``gather_cols`` and ``sum_over`` need the other
+    ranks' values: with no ``Exchange`` they raise instead of returning
+    the rank's share alone."""
+    tp = PL.ModelParallel(1, 4)
+    x = torch.ones(2, 3)
+    for fn in (tp.gather_cols, tp.sum_over):
+        with pytest.raises(RuntimeError, match="Exchange"):
+            fn(x)
+    assert torch.equal(PL.ModelParallel(0, 1).sum_over(x), x)
 
 
 def test_build_sharded_keeps_build_model_values_in_each_block():
